@@ -1,0 +1,21 @@
+"""repro_torch: the PyTorch/CUDA port of the FedAIS system, beside the JAX
+package ``repro`` (the reference it is held against).
+
+The port mirrors ``repro``'s module paths (``repro/serve/engine.py`` has its
+counterpart at ``repro_torch/serve/engine.py``). Host code is numpy, device
+code is PyTorch, and every Pallas kernel of ``repro`` on a ported path is a
+hand-written Hopper kernel under ``repro_torch/kernels/*/csrc``.
+
+It imports neither ``jax`` nor anything of ``repro``. Entry points run on
+``cuda:0`` unless the caller passes ``device="cpu"`` (``resolve_device``);
+nothing falls back to the CPU on its own.
+
+Ported so far: the serving path (``serve``: ``ServedModel`` →
+``QueryEngine`` → ``LoadGenerator``), the GCN forward (``models.gcn``), the
+eval path (``federated.server``), the host graph substrate (``graph``), the
+wire codec (``federated.quant``) and the block-sparse SpMM kernel
+(``kernels.spmm``).
+"""
+from repro_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

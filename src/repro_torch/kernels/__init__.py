@@ -1,0 +1,16 @@
+"""Hand-written Hopper kernels for the port's hot spots.
+
+Each kernel package holds:
+    csrc/<name>.cu — the CUDA C++ kernel (sm_90a) with a plain C entry point
+    ops.py         — the wrapper: checks, launch on the current stream, a
+                     launch counter; the plain version for CPU tensors only
+    ref.py         — the plain PyTorch versions the tests and chip_smoke.py
+                     hold the kernel against
+
+``build.py`` compiles the sources with nvcc at first use and loads them
+with ctypes.
+
+Kernels:
+    spmm    block-sparse Y = A @ X with dead-tile skipping (replaces
+            src/repro/kernels/spmm/spmm.py::spmm_pallas)
+"""
