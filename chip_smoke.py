@@ -1,40 +1,69 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--out FILE.json] [--profile]
 
 Run from the root of a checkout, on a machine with one NVIDIA H100 (sm_90a)
-and the CUDA toolkit (``nvcc``). It builds the port's kernels from the
-sources in the checkout, holds each against its plain PyTorch version on
-the card, then serves the pubmed configuration at the paper's widths
-(19,717 nodes, 500 features, 3 classes, GraphSAGE 256/128, max degree 32,
-25% node headroom: capacity 24,647 rows) through ``ServedModel`` →
-``QueryEngine`` → ``LoadGenerator`` with random weights from a seed.
+and the CUDA toolkit (``nvcc``). It builds the port's three kernels from
+the sources in the checkout (the block-sparse SpMM, the WKV6 recurrence and
+flash attention, one ``nvcc`` each, all at once), holds each against its
+plain PyTorch version on the card, and drives two main paths with random
+weights from a seed:
+
+* GCN serving: the pubmed configuration at the paper's widths (19,717
+  nodes, 500 features, 3 classes, GraphSAGE 256/128, max degree 32, 25%
+  node headroom: capacity 24,647 rows) through ``ServedModel`` →
+  ``QueryEngine`` → ``LoadGenerator`` (the SpMM kernel);
+* LM serving: ``rwkv6-1.6b`` and ``gemma3-12b`` at full width (24 and 48
+  layers, bf16) through ``launch.serve_lm_cli.serve``: a prefill of 4 x
+  2,048 prompt tokens, then 32 greedy tokens (WKV6 and flash attention).
 
 Phases, one or more lines each:
-  1 device   the card (nvidia-smi name and power limit), torch and CUDA
-             versions, the fp32 matmul flags (set to full fp32);
-  2 build    nvcc time and the ptxas register report;
-  3 kernels  each kernel against its plain version at the serving path's
-             shapes (atol = rtol = 1e-5), with its time, the plain
-             version's, the library call's and the bound; for the SpMM
-             also the times at the contraction splits ``block_spmm`` did
-             not pick (held to the same tolerance);
-  4 serve    warm fill + warmup + a few hundred ids under both policies;
-             historical and fresh logits agree at 1e-4;
-  5 traffic  a closed-loop LoadGenerator run (200 queries, 20 updates,
-             90/10 historical/fresh, Zipf ids): p50, p99, queries/s;
-             no fallback, and the SpMM launch count moved;
-  6 check    the served logits against the port's eval path on the card
-             and against the port's plain path on the CPU (1e-4); then,
-             on the graph the traffic mutated, one more edge insert and a
-             refresh, and the refreshed rows' historical logits against
-             their fresh logits and the plain CPU path on that graph.
-The launch counters are set to 0 just before phase 4 and read just after
-phase 5. Before the last line it prints a ``{"kernels": [...]}`` line. The
-last line is ``{"ok": true, "device": {...}}``. Any failure raises and the
-exit code is not 0; without CUDA, or outside a checkout, it prints no
-result and exits 2.
+  1 device      the card (nvidia-smi name and power limit), torch and CUDA
+                versions, the fp32 matmul flags (set to full fp32);
+  2 build       nvcc time and the ptxas register report;
+  3 kernels     the SpMM against its plain version at the serving path's
+                shapes (atol = rtol = 1e-5), with its time, the plain
+                version's, the library call's and the bound; also the times
+                at the contraction splits ``block_spmm`` did not pick;
+  4 serve       warm fill + warmup + a few hundred ids under both policies;
+                historical and fresh logits agree at 1e-4;
+  5 traffic     a closed-loop LoadGenerator run (200 queries, 20 updates,
+                90/10 historical/fresh, Zipf ids): p50, p99, queries/s;
+                no fallback, and the SpMM launch count moved;
+  6 check       the served logits against the port's eval path on the card
+                and against the port's plain path on the CPU (1e-4); then,
+                on the graph the traffic mutated, one more edge insert and a
+                refresh, and the refreshed rows' historical logits against
+                their fresh logits and the plain CPU path on that graph;
+  7 lm-kernels  WKV6 and flash attention against their plain versions at
+                the LM prefill's shapes and at a ragged shape each, in fp32
+                (1e-5 / 2e-5, the reference's tolerances) and in bf16 (rtol
+                2^-7, one bf16 ulp; atol 1e-4, or 1e-2 for WKV6's y), with
+                the kernel's time, the plain version's, SDPA's (attention
+                only) and the bound;
+  8 lm-serve    ``serve`` for each LM: prefill ms, decode tokens/s, peak
+                memory, and the launches over the prefill (24 WKV6 for
+                rwkv6-1.6b, 48 flash attention for gemma3-12b);
+  9 lm-check    at full width, block by block, each block's kernel path
+                against its plain path on the same input on the card (output
+                and decode state, relative L2 ``TOL_BLOCK_REL``), and the
+                whole plain-path prefill against the kernel path's, and
+                beside it the plain path against itself with one bf16 ulp
+                flipped in as many of the first block's outputs as the
+                kernel path changed (both recorded: they measure how far
+                the stack carries a rounding difference); at the smoke
+                configurations (fp32), the
+                card's kernel path against the plain path on the CPU
+                (prefill and 4 decode steps, 1e-4).
+The SpMM's launch counter is set to 0 just before phase 4 and read just
+after phase 5; every counter is set to 0 just before each ``serve`` of
+phase 8 and read just after it. ``--profile`` traces a second traffic run
+after phase 6 and one prefill + 4 decode steps of each LM in phase 9.
+Before the last line it prints a ``{"kernels": [...]}`` line (all three
+kernels). The last line is ``{"ok": true, "device": {...}}``. Any failure
+raises and the exit code is not 0; without CUDA, or outside a checkout, it
+prints no result and exits 2.
 """
 from __future__ import annotations
 
@@ -49,14 +78,37 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM published peaks (NVIDIA data sheet): fp32 on the FMA pipes and
-# HBM3 bandwidth. The bound of a kernel is the larger of its bytes over the
-# one and its operations over the other.
+# H100 SXM published peaks (NVIDIA data sheet, dense): fp32 outside the
+# tensor cores, bf16 on them, and HBM3 bandwidth. The bound of a kernel is
+# the larger of its bytes over the bandwidth and its operations over the
+# peak for their operands' type.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 TOL_KERNEL = 1e-5
 TOL_LOGITS = 1e-4
 N_IDS = 256
+# LM kernels: the reference's own tolerances in fp32 (wkv6 1e-5 on y and S,
+# attention 2e-5); in bf16 see _tol
+TOL_WKV = 1e-5
+TOL_ATTN = 2e-5
+# bf16 outputs: both versions round an fp32 value to bf16, so they land at
+# most one bf16 ulp apart (2^-7 of the value); the atol covers outputs near
+# 0, where the fp32 values differ by their own rounding: about 1e-6 for
+# attention, and up to 1e-2 for WKV6's y, a small sum of cancelling terms
+# of up to |y| = 17
+RTOL_BF16 = 2.0 ** -7
+ATOL_BF16_ATTN = 1e-4
+ATOL_BF16_WKV_Y = 1e-2
+# full-width bf16 prefill, block by block: one block's kernel path vs its
+# plain path on the same input (relative L2 error of the block's output and
+# decode state). Both take fp32 sums in another order and round them to
+# bf16, so an element lands one bf16 ulp (2^-8..2^-7 of it) apart now and
+# then: more often where the recurrence's y is a small sum of large
+# cancelling terms; the block's norms carry that on into its output
+TOL_BLOCK_REL = 1e-2
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
+LM_ARCHS = ("rwkv6-1.6b", "gemma3-12b")
 
 
 def log(*parts) -> None:
@@ -147,34 +199,183 @@ def check_spmm(torch, ops, ref, timer, name, a, x, mask, reps):
     return row
 
 
-def profile_traffic(torch, engine, load_cls, top: int = 8) -> dict:
-    """A second closed-loop run (seed 1) under ``torch.profiler``: wall
-    time, the device's busy time (the sum over the device-side events:
-    kernels, copies, memsets, all on one stream) and its busy share, and
-    the events that take most of the device and of the host."""
+def wkv6_bound(torch, B, T, H, N, dtype):
+    """(bound_ms, bound_by): r, k, v (dtype), w (fp32), u read once, y
+    (dtype) and S (fp32) written once, over HBM bandwidth, against the
+    recurrence's operations, each over the peak for its operands' type.
+    Per step and row: 3N for the bonus and 2N for its product with v, 2N^2
+    for r·S, N^2 for w·S and N^2 for adding k vᵀ into S, all on the fp32
+    state, w or u (fp32 peak); N^2 for the product k vᵀ itself, on two
+    inputs of the given dtype (bf16 peak when they are bf16)."""
+    esz = torch.tensor([], dtype=dtype).element_size()
+    elems = B * T * H * N
+    nbytes = 4 * elems * esz + 4 * elems + 4 * H * N + 4 * B * H * N * N
+    rows = B * H * T
+    kv_peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_ops = (rows * (4.0 * N * N + 5.0 * N) / PEAK_FP32_FLOPS
+             + rows * 1.0 * N * N / kv_peak)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def live_pairs(S, causal, window):
+    """(query, key) pairs the mask keeps, for one (batch, head)."""
+    if not causal:
+        return S * S
+    w = min(window or S, S)            # row i keeps min(i + 1, w) keys
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def flash_bound(torch, B, S, H, Hkv, hd, causal, window, dtype):
+    """(bound_ms, bound_by): q, k, v read once and o written once over HBM
+    bandwidth, against 4·hd operations (q·k and p·v) per live pair over the
+    peak for the inputs' type: bf16 inputs and output leave both products
+    to the tensor cores (989 TFLOP/s), fp32 ones to the FMA pipes (67). The
+    kernel computes on the FMA pipes whatever the type; that is its gap to
+    the bound, not the bound."""
+    esz = torch.tensor([], dtype=dtype).element_size()
+    nbytes = esz * (2 * B * S * H * hd + 2 * B * S * Hkv * hd)
+    flops = 4.0 * hd * B * H * live_pairs(S, causal, window)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _tol(torch, dtype, tol32, atol_bf16):
+    """(atol, rtol): fp32, the reference's tolerance for both; bf16, one
+    bf16 ulp relative and ``atol_bf16`` (see ``RTOL_BF16``)."""
+    return (tol32, tol32) if dtype == torch.float32 else (atol_bf16, RTOL_BF16)
+
+
+def check_wkv6(torch, ops, ref, timer, gen, name, B, T, H, N, dtype, reps, plain_reps):
+    dev = gen.device
+    r, k, v = ((torch.randn((B, T, H, N), generator=gen, device=dev) * 0.5).to(dtype)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((B, T, H, N), generator=gen, device=dev) - 2.0))
+    u = torch.randn((H, N), generator=gen, device=dev) * 0.5
+    y, s = ops.wkv6(r, k, v, w, u)
+    yr, sr = ref.wkv6_ref(r, k, v, w, u)
+    torch.cuda.synchronize()
+    atol, rtol = _tol(torch, dtype, TOL_WKV, ATOL_BF16_WKV_Y)
+    err_y = float((y.float() - yr.float()).abs().max())
+    err_s = float((s - sr).abs().max())
+    if not (torch.isfinite(y.float()).all() and torch.isfinite(s).all()):
+        raise AssertionError(f"wkv6 {name}: non-finite output")
+    if not torch.allclose(y.float(), yr.float(), atol=atol, rtol=rtol):
+        raise AssertionError(f"wkv6 {name}: y max abs err {err_y} beyond atol {atol} "
+                             f"rtol {rtol}")
+    if not torch.allclose(s, sr, atol=TOL_WKV, rtol=TOL_WKV):
+        raise AssertionError(f"wkv6 {name}: S max abs err {err_s} beyond {TOL_WKV}")
+    bound_ms, bound_by = wkv6_bound(torch, B, T, H, N, dtype)
+    row = {"shape": name, "B": B, "T": T, "H": H, "N": N, "dtype": str(dtype),
+           "atol_y": atol, "rtol_y": rtol, "tol_s": TOL_WKV, "max_abs_err": max(err_y, err_s),
+           "ms": timer(lambda: ops.wkv6(r, k, v, w, u), reps),
+           "plain_ms": timer(lambda: ref.wkv6_ref(r, k, v, w, u), plain_reps),
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"phase 7 lm-kernels: wkv6 {name} B={B} T={T} H={H} N={N} {dtype}: max abs err "
+        f"y {err_y} S {err_s} (y atol {atol} rtol {rtol}, S {TOL_WKV}); kernel {row['ms']} "
+        f"ms plain {row['plain_ms']} ms library none bound {bound_ms} ms ({bound_by})")
+    return row
+
+
+def check_flash(torch, ops, ref, timer, gen, name, B, S, H, Hkv, hd, causal, window, dtype,
+                reps):
+    import torch.nn.functional as F
+
+    dev = gen.device
+    q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    atol, rtol = _tol(torch, dtype, TOL_ATTN, ATOL_BF16_ATTN)
+    err = float((o.float() - want.float()).abs().max())
+    if o.shape != want.shape or not torch.isfinite(o.float()).all():
+        raise AssertionError(f"flash {name}: shape {tuple(o.shape)} or non-finite output")
+    if not torch.allclose(o.float(), want.float(), atol=atol, rtol=rtol):
+        raise AssertionError(f"flash {name}: max abs err {err} beyond atol {atol} "
+                             f"rtol {rtol}")
+    # the library yardstick: one SDPA call on the same inputs in its own
+    # (B, H, S, hd) layout, with the same mask; never called by the port
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    kw = {"enable_gqa": Hkv != H}
+    if causal and window:
+        i = torch.arange(S, device=dev)
+        diff = i[:, None] - i[None, :]
+        kw["attn_mask"] = (diff >= 0) & (diff < window)
+    else:
+        kw["is_causal"] = causal
+    bound_ms, bound_by = flash_bound(torch, B, S, H, Hkv, hd, causal, window, dtype)
+    row = {"shape": name, "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd, "causal": causal,
+           "window": window, "dtype": str(dtype), "atol": atol, "rtol": rtol,
+           "max_abs_err": err,
+           "ms": timer(lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
+                       reps),
+           "plain_ms": timer(lambda: ref.attention_ref(q, k, v, causal=causal,
+                                                       window=window), reps),
+           "library_ms": timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
+                               reps),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"phase 7 lm-kernels: flash {name} B={B} S={S} H={H} Hkv={Hkv} hd={hd} causal "
+        f"{causal} window {window} {dtype}: max abs err {err} (atol {atol} rtol {rtol}); "
+        f"kernel "
+        f"{row['ms']} ms plain {row['plain_ms']} ms sdpa {row['library_ms']} ms bound "
+        f"{bound_ms} ms ({bound_by})")
+    return row
+
+
+def rel_err(torch, got, want) -> float:
+    """||got - want|| / ||want|| in fp64 (0 when both are 0)."""
+    d = (got.double() - want.double()).norm()
+    n = want.double().norm()
+    return float(d / n) if n > 0 else float(d)
+
+
+def flip_ulps(torch, x, frac, gen):
+    """x with a random ``frac`` of its elements moved one ulp away from 0
+    (one added to their bit pattern)."""
+    itype = {2: torch.int16, 4: torch.int32}[x.element_size()]
+    pick = torch.rand(x.shape, generator=gen, device=x.device) < frac
+    return (x.contiguous().view(itype) + pick.to(itype)).view(x.dtype)
+
+
+def _state_leaves(state):
+    """(name, tensor) for every leaf of a decode state, in a fixed order."""
+    out = []
+    for u, unit in enumerate(state["units"]):
+        for b, st in unit.items():
+            out += [(f"unit{u}.{b}.{k}", t) for k, t in st.items()]
+    for b, st in state.get("rem", {}).items():
+        out += [(f"rem.{b}.{k}", t) for k, t in st.items()]
+    return out
+
+
+def _trace(torch, fn, top: int):
+    """Run ``fn`` under ``torch.profiler``: wall time, the device's busy
+    time (the sum over the device-side events: kernels, copies, memsets,
+    all on one stream) and its busy share, and the events that take most of
+    the device and of the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    gen = load_cls(engine, seed=1, n_queries=200, n_updates=20, mode="closed",
-                   concurrency=8, policy_mix={"historical": 0.9, "fresh": 0.1})
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        gen.run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
 
     def dev_us(e):
         t = getattr(e, "device_time_total", None)
         return getattr(e, "cuda_time_total", 0) if t is None else t
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
     on_dev = [e for e in events if e.device_type == DeviceType.CUDA]
     on_host = [e for e in events if e.device_type == DeviceType.CPU]
     busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
     by_dev = sorted(on_dev, key=dev_us, reverse=True)[:top]
     by_cpu = sorted(on_host, key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
-    return {
+    return out, {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
         "top_device": [{"name": e.key, "count": e.count, "device_ms": dev_us(e) / 1e3}
                        for e in by_dev],
@@ -183,12 +384,215 @@ def profile_traffic(torch, engine, load_cls, top: int = 8) -> dict:
     }
 
 
+def profile_lm(torch, lm, params, cfg, prompts, max_len, top: int = 8) -> dict:
+    """One prefill, then 4 decode steps, each traced on its own."""
+    n = prompts.shape[1]
+
+    def decode(state, tok):
+        for i in range(4):
+            logits, state = lm.decode_step(params, cfg, state, tok, n + i)
+            tok = logits[:, -1].argmax(-1)[:, None]
+        return tok
+
+    with torch.inference_mode():
+        (last, state), pre = _trace(torch, lambda: lm.lm_prefill(params, cfg, prompts,
+                                                                 max_len), top)
+        _, dec = _trace(torch, lambda: decode(state, last.argmax(-1)[:, None]), top)
+    return {"prefill": pre, "decode_4_steps": dec}
+
+
+def lm_serve(torch, serve, counters, cfg, dev, tag, batch, prompt, gen) -> dict:
+    """Phase 8 for one model: ``serve`` at full width with every launch
+    counter set to 0 just before and read just after; the prefill must
+    launch the WKV6 kernel once per ``rwkv`` block and flash attention once
+    per ``attn``/``local`` block, and nothing else."""
+    kinds = list(cfg.block_pattern) * cfg.n_units + list(cfg.remainder_pattern)
+    want = {n: 0 for n in counters}
+    want["wkv6"] = kinds.count("rwkv")
+    want["flash_attention"] = len(kinds) - kinds.count("rwkv")
+    args = argparse.Namespace(arch=cfg.arch_id, batch=batch, prompt_len=prompt, gen=gen,
+                              seed=0, device=str(dev))
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    out = serve(args, cfg=cfg)
+    torch.cuda.synchronize()
+    got = {n: c.launches for n, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    toks = out["tokens"]
+    if (tuple(toks.shape) != (batch, gen) or int(toks.min()) < 0
+            or int(toks.max()) >= cfg.vocab_size):
+        raise AssertionError(f"lm-serve {cfg.arch_id}: tokens {tuple(toks.shape)} or out "
+                             "of the vocabulary")
+    log(f"phase 8 lm-serve: {tag}: {cfg.arch_id} ({cfg.param_count():,} params, "
+        f"{cfg.dtype}) batch {batch} prompt {prompt} gen {gen}: prefill "
+        f"{out['prefill_s'] * 1e3} ms, decode {out['decode_tok_s']} tokens/s, peak memory "
+        f"{peak_gb} GB; launches over the prefill {json.dumps(got)}")
+    if got != want:
+        raise AssertionError(f"lm-serve {cfg.arch_id}: launches {got}, want {want}")
+    return {"params": cfg.param_count(), "batch": batch, "prompt": prompt, "gen": gen,
+            "prefill_ms": out["prefill_s"] * 1e3, "decode_tok_s": out["decode_tok_s"],
+            "peak_gb": peak_gb, "launches": got}
+
+
+def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile) -> dict:
+    """Phase 9 at full width, on the weights and prompts ``serve`` drew
+    (seed 0).
+
+    Gated, block by block: the prefill runs along the kernel path, and at
+    every block the same input also goes through the block's plain path;
+    the block's output and its decode state (S, ``x_tm``, ``x_cm`` or the
+    K/V) must agree within ``TOL_BLOCK_REL`` (relative L2). Then the last
+    logits of that walk must equal those of ``lm_prefill``.
+
+    Recorded, no gate: the whole prefill along the plain path against the
+    kernel path's; and, as its witness, the plain path against itself with
+    one bf16 ulp flipped in a random share of the first block's output, the
+    share of that output in which the kernel path differs from the plain
+    path. If the witness diverges as far as the kernel path does, the stack
+    (random bf16 weights) amplifies any one-ulp difference, and the
+    end-to-end number measures the model, not a kernel.
+
+    With ``profile``, a traced prefill + 4 decode steps."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init_lm(g, cfg, dev)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g, device=dev)
+    max_len = prompt + gen
+    blocks = [(f"unit{u}.b{i}", up[f"b{i}"], kind) for u, up in enumerate(params["units"])
+              for i, kind in enumerate(cfg.block_pattern)]
+    blocks += [(f"rem.b{i}", params["rem"][f"b{i}"], kind)
+               for i, kind in enumerate(cfg.remainder_pattern)]
+    errs = {}
+    first_plain = flip_frac = None
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last_k, st_k = lm.lm_prefill(params, cfg, prompts, max_len)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        h = params["embed"][prompts]
+        for name, bp, kind in blocks:
+            out_k, _, sk = lm.apply_block_full(bp, cfg, kind, h, collect_state=True)
+            out_p, _, sp = lm.apply_block_full(bp, cfg, kind, h, collect_state=True,
+                                               use_kernel=False)
+            if not torch.isfinite(out_k.float()).all():
+                raise AssertionError(f"lm-check {cfg.arch_id}: {name} output not finite")
+            errs[f"{name}.out"] = rel_err(torch, out_k, out_p)
+            for key in sk:
+                errs[f"{name}.{key}"] = rel_err(torch, sk[key], sp[key])
+            if first_plain is None:
+                first_plain = out_p
+                flip_frac = float((out_k != out_p).double().mean())
+            h = out_k
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        walk_last = rmsnorm(params["final_norm"], h, cfg.norm_eps)[:, -1] @ head
+        errs["last_logits_vs_lm_prefill"] = rel_err(torch, walk_last, last_k)
+        del h, out_k, out_p, sk, sp
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        last_p, st_p = lm.lm_prefill(params, cfg, prompts, max_len, use_kernel=False)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        # the witness: the plain path from the first block's plain output
+        # with one ulp flipped in ``flip_frac`` of it
+        h = flip_ulps(torch, first_plain, flip_frac, torch.Generator(device=dev).manual_seed(1))
+        witness = {"flip_frac": flip_frac,
+                   "first_block_rel_err": rel_err(torch, h, first_plain),
+                   "kernel_first_block_rel_err": errs[f"{blocks[0][0]}.out"]}
+        for _, bp, kind in blocks[1:]:
+            h, _, _ = lm.apply_block_full(bp, cfg, kind, h, use_kernel=False)
+        last_w = rmsnorm(params["final_norm"], h, cfg.norm_eps)[:, -1] @ head
+        witness["last_logits_rel_err"] = rel_err(torch, last_w, last_p)
+        del h, first_plain, last_w
+    free = {"last_logits": rel_err(torch, last_k, last_p)}
+    for (name, a), (_, b) in zip(_state_leaves(st_k), _state_leaves(st_p)):
+        free[name] = rel_err(torch, a, b)
+    worst = max(errs, key=errs.get)
+    free_worst = max(free, key=free.get)
+    row = {"block_rel_err": errs, "free_running_rel_err": free, "ulp_witness": witness,
+           "warm_prefill_ms": (t1 - t0) * 1e3, "plain_prefill_ms": (t3 - t2) * 1e3,
+           "block_walk_s": t2 - t1}
+    log(f"phase 9 lm-check: {cfg.arch_id} full width {cfg.dtype}, block by block on the "
+        f"card ({len(blocks)} blocks, kernel path vs plain path on the same input): worst "
+        f"of {len(errs)} relative L2 errors {worst} {errs[worst]} (tol {TOL_BLOCK_REL}); "
+        f"walk's last logits vs lm_prefill {errs['last_logits_vs_lm_prefill']}")
+    log(f"phase 9 lm-check: {cfg.arch_id} free-running (recorded, no gate): plain-path "
+        f"prefill vs kernel-path prefill relative L2 error last logits "
+        f"{free['last_logits']}, worst {free_worst} {free[free_worst]}; first block's "
+        f"state {list(free.items())[1]}; warm prefill kernel path {row['warm_prefill_ms']} "
+        f"ms, plain path {row['plain_prefill_ms']} ms")
+    log(f"phase 9 lm-check: {cfg.arch_id} witness (recorded, no gate): plain path with one "
+        f"bf16 ulp flipped in {witness['flip_frac']} of the first block's output (relative "
+        f"L2 {witness['first_block_rel_err']}; the kernel path's there "
+        f"{witness['kernel_first_block_rel_err']}) vs the plain path, last logits relative "
+        f"L2 {witness['last_logits_rel_err']} (kernel path vs plain path "
+        f"{free['last_logits']})")
+    if errs[worst] > TOL_BLOCK_REL or not torch.isfinite(last_k.float()).all():
+        raise AssertionError(f"lm-check {cfg.arch_id}: {worst} relative error "
+                             f"{errs[worst]} beyond {TOL_BLOCK_REL}")
+    del last_k, st_k, last_p, st_p
+    if profile:
+        row["profile"] = profile_lm(torch, lm, params, cfg, prompts, max_len)
+        for what, prof in row["profile"].items():
+            log(f"profile: {tag}: {cfg.arch_id} {what} wall {prof['wall_ms']} ms, device "
+                f"busy {prof['device_busy_ms']} ms (share {prof['device_busy_share']})")
+            for e in prof["top_device"]:
+                log(f"profile: {cfg.arch_id} {what} device {e['device_ms']} ms "
+                    f"x{e['count']} {e['name']}")
+            for e in prof["top_host"]:
+                log(f"profile: {cfg.arch_id} {what} host {e['self_cpu_ms']} ms "
+                    f"x{e['count']} {e['name']}")
+    return row
+
+
+def lm_check_smoke(torch, lm, cfg, dev, from_numpy, to_numpy) -> float:
+    """Phase 9 at a smoke configuration (fp32): the same params on the card
+    (kernel path) and on the CPU (plain path); the prefill's last logits and
+    decode state, then 4 decode steps fed the same tokens, at 1e-4."""
+    cpu_params = lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+    params = from_numpy(to_numpy(cpu_params), cfg, dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    steps = torch.randint(0, cfg.vocab_size, (4, 2, 1),
+                          generator=torch.Generator().manual_seed(2))
+    errs = []
+
+    def hold(a, b, what):
+        errs.append(float((a.cpu() - b).abs().max()))
+        if not torch.allclose(a.cpu(), b, atol=TOL_LOGITS, rtol=TOL_LOGITS):
+            raise AssertionError(f"lm-check {cfg.arch_id} smoke fp32: {what}: card vs CPU "
+                                 f"max abs diff {errs[-1]}")
+
+    with torch.inference_mode():
+        got, st = lm.lm_prefill(params, cfg, toks.to(dev), 44)
+        want, st_c = lm.lm_prefill(cpu_params, cfg, toks, 44)
+        hold(got, want, "prefill logits")
+        leaves = list(zip(_state_leaves(st), _state_leaves(st_c)))
+        for (name, a), (_, b) in leaves:
+            hold(a, b, name)
+        for i in range(4):
+            o, st = lm.decode_step(params, cfg, st, steps[i].to(dev), 40 + i)
+            o_c, st_c = lm.decode_step(cpu_params, cfg, st_c, steps[i], 40 + i)
+            hold(o, o_c, f"decode step {i}")
+    log(f"phase 9 lm-check: {cfg.arch_id} smoke fp32, kernel path on the card vs plain "
+        f"path on the CPU: prefill logits, {len(leaves)} state leaves and 4 decode steps "
+        f"max abs diff {max(errs)} (tol {TOL_LOGITS})")
+    return max(errs)
+
+
+def profile_traffic(torch, engine, load_cls, top: int = 8) -> dict:
+    """A second closed-loop run (seed 1) under ``torch.profiler``."""
+    gen = load_cls(engine, seed=1, n_queries=200, n_updates=20, mode="closed",
+                   concurrency=8, policy_mix={"historical": 0.9, "fresh": 0.1})
+    return _trace(torch, gen.run, top)[1]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the record as JSON here")
     ap.add_argument("--profile", action="store_true",
-                    help="after phase 6, trace a second traffic run with "
-                         "torch.profiler and print where its time goes")
+                    help="trace a second traffic run after phase 6 and one LM "
+                         "prefill + 4 decode steps per model in phase 9 with "
+                         "torch.profiler, and print where their time goes")
     args = ap.parse_args(argv)
 
     import torch
@@ -204,12 +608,26 @@ def main(argv=None) -> int:
 
     import numpy as np
 
-    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.convert import (
+        lm_params_from_numpy,
+        lm_params_to_numpy,
+        params_from_numpy,
+        params_to_numpy,
+    )
     from repro_torch.federated.server import build_eval_graph, eval_logits, evaluate_global
     from repro_torch.graph.csr import build_padded_neighbors
     from repro_torch.graph.data import make_dataset
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.spmm import ops, ref
+    from repro_torch.kernels.wkv6 import ops as wops
+    from repro_torch.kernels.wkv6 import ref as wref
+    from repro_torch.launch.serve_lm_cli import serve
+    from repro_torch.launch.train import mini_config
+    from repro_torch.models import lm
+    from repro_torch.models.layers import rmsnorm
     from repro_torch.models.gcn import HIDDEN, gcn_init
     from repro_torch.serve import GraphStore, LoadGenerator, QueryEngine, ServedModel
 
@@ -405,6 +823,59 @@ def main(argv=None) -> int:
         for e in prof["top_host"]:
             log(f"profile: host {e['self_cpu_ms']} ms x{e['count']} {e['name']}")
 
+    del engine, model, cpu_engine, cpu_model, store, cpu_store
+    torch.cuda.empty_cache()
+
+    # -- phase 7: lm-kernels against their plain versions ----------------------
+    bf16, f32 = torch.bfloat16, torch.float32
+    wkv_rows = [
+        check_wkv6(torch, wops, wref, timer, gen, "prefill_bf16", 4, 2048, 32, 64, bf16,
+                   20, 2),
+        check_wkv6(torch, wops, wref, timer, gen, "prefill_fp32", 4, 2048, 32, 64, f32,
+                   10, 2),
+        check_wkv6(torch, wops, wref, timer, gen, "ragged_fp32", 2, 77, 4, 64, f32, 20, 3),
+        check_wkv6(torch, wops, wref, timer, gen, "ragged_bf16", 2, 77, 4, 64, bf16, 20, 3),
+    ]
+    flash_rows = [
+        check_flash(torch, fops, fref, timer, gen, "local_bf16", 4, 2048, 16, 8, 240, True,
+                    1024, bf16, 10),
+        check_flash(torch, fops, fref, timer, gen, "attn_bf16", 4, 2048, 16, 8, 240, True,
+                    None, bf16, 10),
+        check_flash(torch, fops, fref, timer, gen, "local_fp32", 4, 2048, 16, 8, 240, True,
+                    1024, f32, 5),
+        check_flash(torch, fops, fref, timer, gen, "attn_fp32", 4, 2048, 16, 8, 240, True,
+                    None, f32, 5),
+        check_flash(torch, fops, fref, timer, gen, "ragged_fp32", 2, 1000, 6, 2, 64, True,
+                    None, f32, 10),
+        check_flash(torch, fops, fref, timer, gen, "ragged_local_bf16", 2, 1000, 6, 2, 64,
+                    True, 256, bf16, 10),
+    ]
+    record["wkv6_shapes"], record["flash_shapes"] = wkv_rows, flash_rows
+    del timer
+    torch.cuda.empty_cache()
+
+    # -- phase 8: lm-serve (the LM main paths; counts from 0 before each) ------
+    counters = {"spmm": ops.block_spmm, "wkv6": wops.wkv6,
+                "flash_attention": fops.flash_attention}
+    tag = f"{kind}, {smi}"
+    lm_counts = {}
+    for arch in LM_ARCHS:
+        row = lm_serve(torch, serve, counters, get_config(arch), dev, tag, LM_BATCH,
+                       LM_PROMPT, LM_GEN)
+        record.setdefault("lm_serve", {})[arch] = row
+        lm_counts[arch] = row["launches"]
+        torch.cuda.empty_cache()
+
+    # -- phase 9: lm-check ------------------------------------------------------
+    for arch in LM_ARCHS:
+        record.setdefault("lm_check", {})[arch] = lm_check_full(
+            torch, lm, rmsnorm, get_config(arch), dev, tag, LM_BATCH, LM_PROMPT, LM_GEN,
+            args.profile)
+        torch.cuda.empty_cache()
+    for arch in (*LM_ARCHS, "mini"):
+        cfg = mini_config() if arch == "mini" else get_smoke_config(arch)
+        lm_check_smoke(torch, lm, cfg, dev, lm_params_from_numpy, lm_params_to_numpy)
+
     # -- the kernels line --------------------------------------------------------
     warm = shapes[0]
     kernels = [{
@@ -417,6 +888,21 @@ def main(argv=None) -> int:
         "bound_by": warm["bound_by"], "library_ms": warm["library_ms"],
         "timed_shape": "warm_fill", "shapes": shapes,
     }]
+    for name, src, replaces, rows, count in (
+            ("wkv6_fwd", "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+             "src/repro/kernels/wkv6/wkv6.py:54", wkv_rows, lm_counts["rwkv6-1.6b"]["wkv6"]),
+            ("flash_attention_fwd",
+             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/flash_attention.py:89", flash_rows,
+             lm_counts["gemma3-12b"]["flash_attention"])):
+        main_row = rows[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": count, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"], "timed_shape": main_row["shape"],
+            "shapes": rows})
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     if args.out:

@@ -10,11 +10,19 @@ It imports neither ``jax`` nor anything of ``repro``. Entry points run on
 ``cuda:0`` unless the caller passes ``device="cpu"`` (``resolve_device``);
 nothing falls back to the CPU on its own.
 
-Ported so far: the serving path (``serve``: ``ServedModel`` →
-``QueryEngine`` → ``LoadGenerator``), the GCN forward (``models.gcn``), the
-eval path (``federated.server``), the host graph substrate (``graph``), the
-wire codec (``federated.quant``) and the block-sparse SpMM kernel
-(``kernels.spmm``).
+Ported so far:
+
+* GCN serving (``serve``: ``ServedModel`` → ``QueryEngine`` →
+  ``LoadGenerator``), the GCN forward (``models.gcn``), the eval path
+  (``federated.server``), the host graph substrate (``graph``), the wire
+  codec (``federated.quant``) and the block-sparse SpMM kernel
+  (``kernels.spmm``);
+* LM serving (``launch.serve_lm_cli``: prefill, then greedy decode) for
+  ``rwkv6-1.6b``, ``gemma3-12b`` and ``mini`` (``configs``,
+  ``models.layers``/``rwkv``/``attention``/``lm``, ``launch.train``'s
+  configurations), with the WKV6 recurrence (``kernels.wkv6``) and flash
+  attention (``kernels.flash_attention``) kernels. Every TPU kernel of
+  ``repro`` now has its Hopper counterpart.
 """
 from repro_torch.device import resolve_device
 

@@ -1,8 +1,15 @@
-"""Carry GCN weights between numpy and the port's tensors.
+"""Carry weights between numpy and the port's tensors.
 
-The keys are the reference's (``w_self{l}``, ``w_nbr{l}``, ``b{l}``,
+GCN: the keys are the reference's (``w_self{l}``, ``w_nbr{l}``, ``b{l}``,
 ``w_cls``, ``b_cls``), so the reference's params, passed through
 ``np.asarray``, load into the port unchanged, and back.
+
+LM: the reference stacks each repeated unit on a leading axis
+(``units``, of length ``cfg.n_units``); the port keeps a list of per-unit
+dicts. ``lm_params_from_numpy`` unstacks, ``lm_params_to_numpy`` stacks
+back. The same two carry a decode state, which has the same layout. The
+other keys (``embed``, ``rem``, ``final_norm``, ``lm_head``; a tied head
+has no key of its own) map one to one.
 """
 from __future__ import annotations
 
@@ -23,3 +30,56 @@ def params_from_numpy(tree: dict, device=None) -> dict[str, torch.Tensor]:
 def params_to_numpy(params: dict) -> dict[str, np.ndarray]:
     """The inverse of ``params_from_numpy``."""
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def _tensor(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":   # numpy has no bf16 of its own: carry the bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_numpy(tree: dict, cfg, device=None) -> dict:
+    """The reference's ``init_lm`` params (or decode state), leaves passed
+    through ``np.asarray``, -> the port's layout on ``device`` (copies;
+    ``None`` is ``cuda:0``). bf16 leaves keep their bits."""
+    dev = resolve_device(device)
+    out = {}
+    for key, sub in tree.items():
+        if key == "units":
+            out[key] = [_map(sub, lambda a, u=u: _tensor(np.asarray(a)[u], dev))
+                        for u in range(cfg.n_units)]
+        else:
+            out[key] = _map(sub, lambda a: _tensor(a, dev))
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """The port's LM params (or decode state) -> the reference's layout as
+    numpy, the units stacked on a leading axis again. bf16 leaves come back
+    as fp32 (numpy has no bf16)."""
+    out = {}
+    for key, sub in params.items():
+        if key == "units":
+            per_unit = [_map(u, _numpy) for u in sub]
+            out[key] = _stack(per_unit)
+        else:
+            out[key] = _map(sub, _numpy)
+    return out
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)

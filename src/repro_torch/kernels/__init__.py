@@ -10,7 +10,13 @@ Each kernel package holds:
 ``build.py`` compiles the sources with nvcc at first use and loads them
 with ctypes.
 
-Kernels:
-    spmm    block-sparse Y = A @ X with dead-tile skipping (replaces
-            src/repro/kernels/spmm/spmm.py::spmm_pallas)
+Kernels (every TPU kernel of ``repro`` has its counterpart here):
+    spmm             block-sparse Y = A @ X with dead-tile skipping (replaces
+                     src/repro/kernels/spmm/spmm.py::spmm_pallas)
+    wkv6             RWKV6 recurrence, the N x N state resident in registers
+                     (replaces src/repro/kernels/wkv6/wkv6.py::wkv6_pallas)
+    flash_attention  causal / sliding-window GQA attention, online softmax in
+                     fp32, dead KV tiles skipped (replaces
+                     src/repro/kernels/flash_attention/flash_attention.py::
+                     flash_attention_pallas)
 """

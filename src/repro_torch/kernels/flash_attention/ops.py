@@ -1,0 +1,100 @@
+"""Public wrapper for the flash attention kernel.
+
+``flash_attention(q, k, v, causal, window)`` in the (B, S, H, hd) layout of
+``models/attention.py``. On CUDA tensors it launches the hand-written
+Hopper kernel (``csrc/flash_attention.cu``, built by ``kernels/build.py``),
+which replaces the TPU kernel
+``src/repro/kernels/flash_attention/flash_attention.py::flash_attention_pallas``;
+on CPU tensors it runs the plain version (``ref.attention_ref``). There is
+no other fallback: a CUDA tensor of the wrong type, shape or layout, or a
+failed build or launch, raises.
+
+GQA maps query head h to KV head ``h // (H // Hkv)`` inside the kernel,
+which also masks the ragged S and hd edges: nothing is repeated, transposed
+or padded. The window applies only when ``causal``.
+
+``flash_attention.launches`` counts kernel launches (a plain integer; the
+CPU path never moves it), so a run can show that it went through the
+kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+MAX_HEAD_DIM = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        from repro_torch.kernels import build
+
+        lib = build.load("flash_attention")
+        fn = lib.flash_attention_fwd
+        # q, k, v, o; B, S, H, Hkv, hd, causal, window; scale; dtype; stream
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _fn = (fn, lib.flash_attention_error_string)
+    return _fn
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None) -> torch.Tensor:
+    """q (B, S, H, hd); k, v (B, S, Hkv, hd), one dtype (fp32 or bf16 on
+    CUDA). Returns (B, S, H, hd) in q's dtype.
+
+    On CUDA the output is allocated with ``torch.empty`` and the kernel
+    runs on the current stream, without a synchronise.
+    """
+    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    dev = q.device
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
+        raise ValueError(f"flash_attention: q on {q.device}, k on {k.device}, v on "
+                         f"{v.device}; all must be on one CUDA device (or the CPU)")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel takes one of fp32/bf16 for q, k, v, "
+                        f"got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd or H % Hkv:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)} (same B, S, hd; H a multiple of Hkv)")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention kernel takes head_dim 1..{MAX_HEAD_DIM}, "
+                         f"got {hd}")
+    if B * H > 65535:
+        raise ValueError(f"flash_attention kernel takes B*H <= 65535, got {B * H}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k, v must be contiguous")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got {window}")
+    o = torch.empty_like(q)
+    if B * S == 0:
+        return o
+    fn, err_str = _kernel()
+    win = window if (causal and window is not None) else 0
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H, Hkv, hd,
+            int(causal), win, hd ** -0.5, _DTYPES[q.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_fwd launch failed: {err_str(rc).decode()} "
+                           f"(cudaError {rc})")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

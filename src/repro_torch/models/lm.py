@@ -1,0 +1,262 @@
+"""Language model for serving: embedding + blocks + final norm + LM head
+(port of ``repro/models/lm.py`` for the block kinds ``rwkv``, ``attn`` and
+``local`` with a dense FFN).
+
+Parameters are plain dicts with the reference's keys. Where the reference
+stacks the repeated unit on a leading axis and scans over it, the port
+keeps ``params["units"]`` (and the decode state's ``"units"``) as a Python
+list of per-unit dicts and loops over it; ``convert.lm_params_from_numpy``
+unstacks the reference's tree and ``lm_params_to_numpy`` stacks it back.
+
+The full-sequence blocks run the Hopper kernels (``wkv6`` in ``rwkv``
+blocks, ``flash_attention`` in ``attn``/``local`` blocks); ``use_kernel=
+False`` takes the plain paths instead, so a run on the card can be held
+against them. The decode step is plain PyTorch and updates the KV caches
+of the state it is given in place.
+
+``lm_prefill`` applies the LM head to the last position only (the
+reference builds the full (B, S, V) logits and keeps the last row: the
+same numbers, without gemma3-12b's 4 GB of logits at B=4, S=2048).
+
+Entry points:
+    init_lm(generator, cfg, device)             -> params
+    lm_forward(params, cfg, tokens)             -> (logits, aux_loss)
+    lm_prefill(params, cfg, tokens, max_len)    -> (last_logits, decode_state)
+    init_decode_state(params, cfg, B, max_len)  -> state
+    decode_step(params, cfg, state, token, pos) -> (logits, state)
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import rwkv
+from repro_torch.models.attention import attn_init, decode_attn, init_kv_cache, multihead_attn
+from repro_torch.models.layers import (
+    dense_init,
+    embed_init,
+    mlp_apply,
+    mlp_init,
+    rmsnorm,
+    rmsnorm_init,
+)
+
+_ATTN_KINDS = {"attn": "causal", "local": "local"}
+_KINDS = ("rwkv", *_ATTN_KINDS)
+
+
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    kinds = set(cfg.block_pattern) | set(cfg.remainder_pattern)
+    if not kinds <= set(_KINDS):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: block kinds {sorted(kinds - set(_KINDS))} wait "
+            f"(rec: ROADMAP A8 griffin; enc/dec: A8 whisper); the port runs {_KINDS}")
+    if cfg.n_experts:
+        raise NotImplementedError(f"{cfg.arch_id}: MoE FFNs wait (ROADMAP A8 moe)")
+    if cfg.n_encoder_layers or cfg.n_image_tokens:
+        raise NotImplementedError(f"{cfg.arch_id}: encoder frames and image tokens "
+                                  "wait (ROADMAP A8 whisper, internvl2)")
+    if cfg.pos_embedding not in ("rope", "none"):
+        raise NotImplementedError(f"{cfg.arch_id}: {cfg.pos_embedding!r} position "
+                                  "embeddings wait (ROADMAP A8)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _ffn_init(generator, cfg):
+    return {"ln": rmsnorm_init(cfg.d_model, cfg.torch_dtype, generator.device),
+            "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                            cfg.torch_dtype)}
+
+
+def init_block(generator, cfg, kind: str) -> dict:
+    if kind == "rwkv":
+        return rwkv.rwkv_block_init(generator, cfg)
+    return {"attn": attn_init(generator, cfg), "ffn": _ffn_init(generator, cfg)}
+
+
+def _init_unit(generator, cfg, pattern) -> dict:
+    return {f"b{i}": init_block(generator, cfg, kind) for i, kind in enumerate(pattern)}
+
+
+def init_lm(generator: torch.Generator, cfg, device=None) -> dict:
+    """Fresh params drawn from ``generator`` on ``device`` (``None`` is
+    ``cuda:0``). The generator must live on that device: a CUDA generator
+    draws a full-width model on the card. Same shapes and scales as the
+    reference's ``init_lm``, not the same values."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"init_lm: generator on {generator.device}, params on {dev}; "
+                         "give a generator on the params' device")
+    dt = cfg.torch_dtype
+    params: dict = {"embed": embed_init(generator, cfg.vocab_size, cfg.d_model, dt)}
+    params["units"] = [_init_unit(generator, cfg, cfg.block_pattern)
+                       for _ in range(cfg.n_units)]
+    if cfg.remainder_pattern:
+        params["rem"] = _init_unit(generator, cfg, cfg.remainder_pattern)
+    params["final_norm"] = rmsnorm_init(cfg.d_model, dt, dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size, dt)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# full-sequence application (prefill)
+# ---------------------------------------------------------------------------
+
+def _apply_ffn(p, cfg, x):
+    h = rmsnorm(p["ln"], x, cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h, cfg.activation)
+
+
+def apply_block_full(bp, cfg, kind, x, *, collect_state=False, use_kernel=True):
+    """Returns (x, aux_loss, state_or_None)."""
+    if kind == "rwkv":
+        out = rwkv.rwkv_block_apply(bp, cfg, x, use_kernel=use_kernel,
+                                    collect_state=collect_state)
+        x, state = out if collect_state else (out, None)
+        return x, 0.0, state
+    akind = _ATTN_KINDS[kind]
+    state = None
+    if collect_state:
+        out, (k, v) = multihead_attn(bp["attn"], cfg, x, kind=akind, return_kv=True,
+                                     use_kernel=use_kernel)
+        state = {"k": k, "v": v}
+    else:
+        out = multihead_attn(bp["attn"], cfg, x, kind=akind, use_kernel=use_kernel)
+    return _apply_ffn(bp["ffn"], cfg, x + out), 0.0, state
+
+
+def _lm_head(params, cfg):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _forward_hidden(params, cfg, tokens, *, collect_state, use_kernel):
+    """tokens (B, S) -> (final-normed hidden (B, S, d), aux, unit states,
+    remainder states)."""
+    check_supported(cfg)
+    h = params["embed"][tokens]
+    aux = 0.0
+    unit_states = []
+    for up in params["units"]:
+        states = {}
+        for i, kind in enumerate(cfg.block_pattern):
+            h, a, states[f"b{i}"] = apply_block_full(up[f"b{i}"], cfg, kind, h,
+                                                     collect_state=collect_state,
+                                                     use_kernel=use_kernel)
+            aux = aux + a
+        unit_states.append(states)
+    rem_states = {}
+    for i, kind in enumerate(cfg.remainder_pattern):
+        h, a, rem_states[f"b{i}"] = apply_block_full(params["rem"][f"b{i}"], cfg, kind, h,
+                                                     collect_state=collect_state,
+                                                     use_kernel=use_kernel)
+        aux = aux + a
+    return rmsnorm(params["final_norm"], h, cfg.norm_eps), aux, unit_states, rem_states
+
+
+def lm_forward(params, cfg, tokens, *, use_kernel=True):
+    """tokens (B, S) -> (logits (B, S, V), aux_loss)."""
+    h, aux, _, _ = _forward_hidden(params, cfg, tokens, collect_state=False,
+                                   use_kernel=use_kernel)
+    return h @ _lm_head(params, cfg), aux
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def _init_block_state(cfg, kind, batch, max_len, device):
+    if kind == "rwkv":
+        return rwkv.rwkv_init_state(cfg, batch, device)
+    return init_kv_cache(cfg, batch, max_len, device)
+
+
+def init_decode_state(params, cfg, batch: int, max_len: int) -> dict:
+    """Zero-initialised decode state (pre-prefill), on the params' device."""
+    check_supported(cfg)
+    dev = params["embed"].device
+
+    def one_unit(pattern):
+        return {f"b{i}": _init_block_state(cfg, kind, batch, max_len, dev)
+                for i, kind in enumerate(pattern)}
+
+    state = {"units": [one_unit(cfg.block_pattern) for _ in range(cfg.n_units)]}
+    if cfg.remainder_pattern:
+        state["rem"] = one_unit(cfg.remainder_pattern)
+    return state
+
+
+def apply_block_decode(bp, cfg, kind, x, st, pos):
+    if kind == "rwkv":
+        return rwkv.rwkv_block_decode(bp, cfg, x, st)
+    out, new = decode_attn(bp["attn"], cfg, x, st, pos, kind=_ATTN_KINDS[kind])
+    return _apply_ffn(bp["ffn"], cfg, x + out), new
+
+
+def decode_step(params, cfg, state, tokens, pos: int):
+    """One decode step. tokens (B, 1) int; pos the position of the token.
+
+    Returns (logits (B, 1, V), new_state); the KV caches of ``state`` are
+    updated in place and shared with the new state."""
+    h = params["embed"][tokens]
+    new_units = []
+    for up, uc in zip(params["units"], state["units"]):
+        new_uc = {}
+        for i, kind in enumerate(cfg.block_pattern):
+            h, new_uc[f"b{i}"] = apply_block_decode(up[f"b{i}"], cfg, kind, h,
+                                                    uc[f"b{i}"], pos)
+        new_units.append(new_uc)
+    new_state = dict(state, units=new_units)
+    if cfg.remainder_pattern:
+        new_rem = {}
+        for i, kind in enumerate(cfg.remainder_pattern):
+            h, new_rem[f"b{i}"] = apply_block_decode(
+                params["rem"][f"b{i}"], cfg, kind, h, state["rem"][f"b{i}"], pos)
+        new_state["rem"] = new_rem
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return h @ _lm_head(params, cfg), new_state
+
+
+def lm_prefill(params, cfg, tokens, max_len: int, *, use_kernel=True):
+    """Run the full prompt, returning (last-token logits (B, V), decode
+    state with the prompt's K/V written into ``max_len`` caches)."""
+    h, _aux, unit_states, rem_states = _forward_hidden(
+        params, cfg, tokens, collect_state=True, use_kernel=use_kernel)
+    last_logits = h[:, -1] @ _lm_head(params, cfg)
+    B, S = tokens.shape
+    state = init_decode_state(params, cfg, B, max_len)
+
+    def write_unit(init_st, got_st):
+        out = {}
+        for bkey, st in got_st.items():
+            ini = init_st[bkey]
+            if "k" in st:   # KV cache: the prompt's (B, S, Hkv, hd) into (B, max_len, ...)
+                ini["k"][:, :S] = st["k"]
+                ini["v"][:, :S] = st["v"]
+                out[bkey] = ini
+            else:
+                out[bkey] = st
+        return out
+
+    state["units"] = [write_unit(i, g) for i, g in zip(state["units"], unit_states)]
+    if cfg.remainder_pattern:
+        state["rem"] = write_unit(state["rem"], rem_states)
+    return last_logits, state
+
+
+# ---------------------------------------------------------------------------
+# serve step
+# ---------------------------------------------------------------------------
+
+def make_serve_step(cfg):
+    """One-token decode step against a KV cache."""
+
+    def serve_step(params, state, tokens, pos):
+        return decode_step(params, cfg, state, tokens, pos)
+
+    return serve_step

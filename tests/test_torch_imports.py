@@ -48,7 +48,7 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 39
 
 
 def test_resolve_device_never_falls_back(monkeypatch):
@@ -71,6 +71,27 @@ def test_resolve_device_never_falls_back(monkeypatch):
                        np.zeros((3, 2), np.float32))
     with pytest.raises(RuntimeError):
         ServedModel(params, store, backend="gather")
+
+
+def test_lm_entry_points_never_fall_back(monkeypatch):
+    """The LM slice's entry points default to ``cuda:0`` and raise without
+    CUDA, like the serving slice's."""
+    import argparse
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch.serve_lm_cli import serve
+    from repro_torch.models.lm import init_lm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("gemma3-12b")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_lm(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve(argparse.Namespace(arch="gemma3-12b", batch=1, prompt_len=4, gen=2, seed=0,
+                                 device=None))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm_params_from_numpy({"embed": np.zeros((4, 2), np.float32)}, cfg)
 
 
 def test_chip_smoke_refuses_without_a_checkout_or_card(tmp_path):
