@@ -21,7 +21,10 @@ weights from a seed:
 Phases, one or more lines each:
   1 device      the card (nvidia-smi name and power limit), torch and CUDA
                 versions, the fp32 matmul flags (set to full fp32);
-  2 build       nvcc time and the ptxas register report;
+  2 build       nvcc time and the ptxas register report; from the built
+                flash library (cuobjdump, so a cached build is read too),
+                the bf16 kernel's three instances spill nothing, and its
+                SASS holds HGMMA (wgmma) instructions, counted;
   3 kernels     the SpMM against its plain version at the serving path's
                 shapes (atol = rtol = 1e-5), with its time, the plain
                 version's, the library call's and the bound; also the times
@@ -41,7 +44,11 @@ Phases, one or more lines each:
                 (1e-5 / 2e-5, the reference's tolerances) and in bf16 (rtol
                 2^-7, one bf16 ulp; atol 1e-4, or 1e-2 for WKV6's y), with
                 the kernel's time, the plain version's, SDPA's (attention
-                only) and the bound;
+                only), the bound and (attention) the kernel's own floor;
+                bf16 attention also at hd 128 (ragged S), non-causal hd 240
+                and an hd that is not a multiple of 8, so each width of
+                the tensor-core kernel and the FMA kernel's bf16 instance
+                (the layouts TMA cannot take) are held;
   8 lm-serve    ``serve`` for each LM: prefill ms, decode tokens/s, peak
                 memory, and the launches over the prefill (24 WKV6 for
                 rwkv6-1.6b, 48 flash attention for gemma3-12b);
@@ -70,6 +77,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -230,9 +238,7 @@ def flash_bound(torch, B, S, H, Hkv, hd, causal, window, dtype):
     """(bound_ms, bound_by): q, k, v read once and o written once over HBM
     bandwidth, against 4·hd operations (q·k and p·v) per live pair over the
     peak for the inputs' type: bf16 inputs and output leave both products
-    to the tensor cores (989 TFLOP/s), fp32 ones to the FMA pipes (67). The
-    kernel computes on the FMA pipes whatever the type; that is its gap to
-    the bound, not the bound."""
+    to the tensor cores (989 TFLOP/s), fp32 ones to the FMA pipes (67)."""
     esz = torch.tensor([], dtype=dtype).element_size()
     nbytes = esz * (2 * B * S * H * hd + 2 * B * S * Hkv * hd)
     flops = 4.0 * hd * B * H * live_pairs(S, causal, window)
@@ -241,10 +247,78 @@ def flash_bound(torch, B, S, H, Hkv, hd, causal, window, dtype):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def flash_floor(torch, B, S, H, Hkv, hd, causal, window, dtype):
+    """The kernel's own floor (ms): the operations it executes, over the peak
+    of the units that execute them, or the bound's bytes if more. It counts
+    the (query, key) tile pairs the kernel computes, masked parts of the
+    diagonal and edge tiles included, with hd at the kernel's padded width
+    (64, 128 or 256). bf16 (flash_fwd_tc_kernel): 64-row halves of
+    128-row query tiles against 64-key tiles, a tile skipped when no pair
+    of the half is live; 2·hd for Q·Kᵀ and 4·hd for P·V (P as hi + lo) per
+    pair, on the tensor cores. fp32 (flash_fwd_kernel): 64-row tiles
+    against 32-key tiles, 4·hd per pair, on the FMA pipes."""
+    hdp = 64 if hd <= 64 else 128 if hd <= 128 else 256
+    tc = dtype == torch.bfloat16
+    rows, bk = (64, 64) if tc else (64, 32)
+    block = 128 if tc else 64
+    win = window if (causal and window) else 0
+    pairs = 0
+    for q0 in range(0, S, block):
+        q_last = min(q0 + block, S) - 1
+        kt_lo, kt_hi = 0, (S - 1) // bk
+        if causal:
+            kt_hi = q_last // bk
+            if win:
+                kt_lo = max(0, q0 - win + 1) // bk
+        for first in range(q0, q0 + block, rows):
+            last = min(first + rows - 1, S - 1)
+            if last < first:
+                continue
+            for kt in range(kt_lo, kt_hi + 1):
+                k0 = kt * bk
+                if tc and causal and (k0 > last or (win and k0 + bk - 1 <= first - win)):
+                    continue
+                pairs += rows * bk
+    flops = (6.0 if tc else 4.0) * hdp * B * H * pairs
+    t_ops = flops / (PEAK_BF16_FLOPS if tc else PEAK_FP32_FLOPS)
+    esz = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = esz * (2 * B * S * H * hd + 2 * B * S * Hkv * hd) / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3
+
+
 def _tol(torch, dtype, tol32, atol_bf16):
     """(atol, rtol): fp32, the reference's tolerance for both; bf16, one
     bf16 ulp relative and ``atol_bf16`` (see ``RTOL_BF16``)."""
     return (tol32, tol32) if dtype == torch.float32 else (atol_bf16, RTOL_BF16)
+
+
+def cuobjdump(build, name: str, flag: str) -> str:
+    """``cuobjdump <flag>`` of the built library (the tool sits beside nvcc),
+    so a cached library answers as a fresh build does."""
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(tool), flag, str(build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def sass_count(build, name: str, opcode: str) -> int:
+    """Instructions of ``opcode`` in the built library's SASS."""
+    return sum(1 for line in cuobjdump(build, name, "-sass").splitlines()
+               if opcode in line)
+
+
+def res_usage(build, name: str) -> dict:
+    """{mangled function: {"REG": n, "STACK": bytes, "LOCAL": bytes, ...}} from
+    ``cuobjdump -res-usage``. A spill goes to the stack frame, so STACK and
+    LOCAL both 0 means nothing spills."""
+    out, fn = {}, None
+    for line in cuobjdump(build, name, "-res-usage").splitlines():
+        m = re.match(r"\s*Function (\S+):", line)
+        if m:
+            fn = m.group(1)
+        elif fn and "REG:" in line:
+            out[fn] = {k: int(v) for k, v in re.findall(r"(\w+):(\d+)", line)}
+            fn = None
+    return out
 
 
 def check_wkv6(torch, ops, ref, timer, gen, name, B, T, H, N, dtype, reps, plain_reps):
@@ -307,6 +381,7 @@ def check_flash(torch, ops, ref, timer, gen, name, B, S, H, Hkv, hd, causal, win
     else:
         kw["is_causal"] = causal
     bound_ms, bound_by = flash_bound(torch, B, S, H, Hkv, hd, causal, window, dtype)
+    floor_ms = flash_floor(torch, B, S, H, Hkv, hd, causal, window, dtype)
     row = {"shape": name, "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd, "causal": causal,
            "window": window, "dtype": str(dtype), "atol": atol, "rtol": rtol,
            "max_abs_err": err,
@@ -316,12 +391,12 @@ def check_flash(torch, ops, ref, timer, gen, name, B, S, H, Hkv, hd, causal, win
                                                        window=window), reps),
            "library_ms": timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
                                reps),
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "bound_ms": bound_ms, "bound_by": bound_by, "floor_ms": floor_ms}
     log(f"phase 7 lm-kernels: flash {name} B={B} S={S} H={H} Hkv={Hkv} hd={hd} causal "
         f"{causal} window {window} {dtype}: max abs err {err} (atol {atol} rtol {rtol}); "
         f"kernel "
         f"{row['ms']} ms plain {row['plain_ms']} ms sdpa {row['library_ms']} ms bound "
-        f"{bound_ms} ms ({bound_by})")
+        f"{bound_ms} ms ({bound_by}) floor {floor_ms} ms")
     return row
 
 
@@ -662,6 +737,31 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"phase 2 build: {name}: {line.strip()}")
     record["build_s"] = dict(build.build_seconds)
+    # the bf16 flash kernel runs on the tensor cores (HGMMA is wgmma in
+    # SASS) and spills nothing
+    hgmma = sass_count(build, "flash_attention", "HGMMA")
+    tc_fns = {}
+    for n, r in res_usage(build, "flash_attention").items():
+        m = re.search(r"flash_fwd_tc_kernelILi(\d+)E", n)
+        if m:
+            tc_fns[f"flash_fwd_tc_kernel<{m.group(1)}>"] = {
+                "registers": r.get("REG"), "stack_bytes": r.get("STACK"),
+                "local_bytes": r.get("LOCAL")}
+    for n, r in sorted(tc_fns.items()):
+        log(f"phase 2 build: flash_attention: {n}: {r['registers']} registers at launch "
+            f"(setmaxnreg then gives the consumers 240), stack {r['stack_bytes']} B, "
+            f"local {r['local_bytes']} B: nothing spilled")
+    log(f"phase 2 build: flash_attention: {hgmma} HGMMA instructions in the library's "
+        f"SASS; {len(tc_fns)} tensor-core kernel instances")
+    if hgmma == 0:
+        raise AssertionError("build: no HGMMA in the flash attention library: the bf16 "
+                             "kernel does not run on the tensor cores")
+    # three widths (64, 128, 256), none with a stack frame or local memory
+    if len(tc_fns) != 3 or any(r["stack_bytes"] != 0 or r["local_bytes"] != 0
+                               for r in tc_fns.values()):
+        raise AssertionError(f"build: the bf16 flash kernel's instances spill or are "
+                             f"missing: {tc_fns}")
+    record["flash_build"] = {"hgmma": hgmma, "tc_kernels": tc_fns}
 
     # -- the configuration ------------------------------------------------------
     g = make_dataset("pubmed", scale=1, max_features=500, seed=0)
@@ -849,6 +949,13 @@ def main(argv=None) -> int:
                     None, f32, 10),
         check_flash(torch, fops, fref, timer, gen, "ragged_local_bf16", 2, 1000, 6, 2, 64,
                     True, 256, bf16, 10),
+        check_flash(torch, fops, fref, timer, gen, "ragged_bf16_hd128", 2, 1000, 8, 4, 128,
+                    True, None, bf16, 10),
+        check_flash(torch, fops, fref, timer, gen, "noncausal_bf16", 1, 512, 4, 4, 240,
+                    False, None, bf16, 10),
+        # hd not a multiple of 8: TMA cannot take it, bf16 runs the FMA kernel
+        check_flash(torch, fops, fref, timer, gen, "odd_hd_bf16", 1, 300, 4, 2, 36, True,
+                    None, bf16, 10),
     ]
     record["wkv6_shapes"], record["flash_shapes"] = wkv_rows, flash_rows
     del timer
@@ -902,7 +1009,9 @@ def main(argv=None) -> int:
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"], "timed_shape": main_row["shape"],
-            "shapes": rows})
+            # floor_ms is a model of the kernel's work, not a measurement:
+            # it stays in the phase-7 rows of the record, not in this line
+            "shapes": [{k: v for k, v in r.items() if k != "floor_ms"} for r in rows]})
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     if args.out:

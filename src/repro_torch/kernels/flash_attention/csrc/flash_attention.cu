@@ -11,41 +11,73 @@
 // fp32. It is not a block-by-block copy of the Pallas version:
 //
 // * The TPU grid carries (m, l, acc) in VMEM scratch across a sequential
-//   KV grid axis. Here one thread block owns a 64-row query tile of one
-//   (b, h) and loops over the KV tiles itself, in ascending order, visiting
-//   only the tiles that some (query, key) pair of the tile leaves live:
-//   a windowed tile far below the diagonal and every tile above it are
-//   never loaded.
+//   KV grid axis. Here one thread block owns a query tile of one (b, h)
+//   and loops over the KV tiles itself, in ascending order, visiting only
+//   the tiles that some (query, key) pair of the tile leaves live: a
+//   windowed tile far below the diagonal and every tile above it are never
+//   loaded.
 // * A masked score contributes exactly 0 to the sum and the accumulator
 //   (it is never exponentiated), so a row with no live key in a live tile
 //   stays at l = 0, acc = 0 and costs nothing when its first live key comes.
 //   The result does not rest on -1e30 underflowing in exp, as the TPU
 //   kernel's does.
 // * GQA: query head h reads KV head h / (H / Hkv) by index; K and V are
-//   never repeated in memory. The kernel reads the (B, S, heads, hd) layout
-//   in place and masks the ragged S and hd edges itself (zero-filled in
-//   shared memory), so nothing is transposed or padded. hd is any value up
-//   to 256 (gemma3's 240 included); it runs at the next of 64, 128, 256.
+//   never repeated in memory. The kernels read the (B, S, heads, hd) layout
+//   in place and the ragged S and hd edges arrive zero-filled in shared
+//   memory, so nothing is transposed or padded in device memory. hd is any
+//   value up to 256 (gemma3's 240 included); it runs at the next of 64,
+//   128, 256.
 //
-// Arithmetic: fp32 FMA on the CUDA cores for both input types (bf16 inputs
-// are widened as they are staged). 256 threads as 16 x 16: thread (ty, tx)
-// owns 4 query rows, keys tx and tx + 16 of each 32-key tile, and columns
-// tx + 16 i of the accumulator. The 16 threads of a row group share a
-// half-warp, so the row max and row sum are 4 shuffles each.
+// Two kernels, chosen by the input type (flash_attention_fwd):
 //
-// What bounds it on an H100: at the gemma3-12b prefill shape (B=4, S=2048,
-// H=16, Hkv=8, hd=240, bf16) each live (query, key) pair costs 4 hd
-// operations (q.k and p.v), about 0.13 TFLOP for a causal layer, against
-// 0.19 GB of q, k, v and o: the operations bound it by far, at the fp32
-// FMA peak of 67 TFLOP/s that this kernel's type of arithmetic can reach
-// (the bf16 tensor cores would be 989 TFLOP/s: a later version's work).
-// The design answers with register accumulators, float4 shared loads laid
-// out so a half-warp's K rows fall on distinct banks, and dead-tile skipping.
+// fp32: flash_fwd_kernel, fp32 FMA on the CUDA cores, which holds the
+//   reference's fp32 tolerance (TF32 tensor cores would not). 256 threads
+//   as 16 x 16: thread (ty, tx) owns 4 query rows, keys tx and tx + 16 of
+//   each 32-key tile, and columns tx + 16 i of the accumulator. The 16
+//   threads of a row group share a half-warp, so the row max and row sum
+//   are 4 shuffles each. Bound: 4 hd operations per live (query, key)
+//   pair at the fp32 FMA peak (67 TFLOP/s).
+//
+// bf16: flash_fwd_tc_kernel, both products on the tensor cores (wgmma,
+//   bf16 in, fp32 accumulate; 989 TFLOP/s). What bounds it at the
+//   gemma3-12b prefill shape (B=4, S=2048, H=16, Hkv=8, hd=240) is the
+//   same count of operations, about 0.13 TFLOP a causal layer against
+//   0.19 GB of q, k, v and o, so the design keeps the tensor cores fed:
+//   - 384 threads: warpgroups 0 and 1 consume, 64 query rows each (a
+//     128-row query tile); warpgroup 2 produces. setmaxnreg moves registers
+//     to the consumers (240 each, the producer keeps 24), which hold O
+//     (64 x 256 fp32: 128 a thread), S, and P.
+//   - The producer's one thread loads the Q tile once and the 64-key K and
+//     V tiles into a 2-stage ring in shared memory with TMA (descriptors
+//     encoded on the host per call, passed as __grid_constant__), each
+//     stage guarded by a full and an empty mbarrier. The descriptors give
+//     the true S and hd extents, so TMA zero-fills the ragged edges. Tiles
+//     are 128-byte swizzled panels of 64 columns, the layout the wgmma
+//     descriptors read; hd 240 runs at 256 with the tail zero (6.7% more
+//     work). Where TMA cannot take the layout (hd not a multiple of 8, or
+//     a base address not 16-byte aligned; no configuration of the repo
+//     has such an hd) bf16 runs flash_fwd_kernel's bf16 instance instead.
+//   - S = Q K^T: wgmma m64n64k16 from shared memory, K-major both.
+//     O += P V: P from registers (the S accumulator's fragment is the A
+//     fragment), V from shared memory as the MN-major (transposed) B
+//     operand, N = 64, 128 or 256.
+//   - P is fp32; it goes in as two bf16 terms, hi = bf16(p) and
+//     lo = bf16(p - hi), two wgmma into the same fp32 O: one rounding of P
+//     to bf16 (as FlashAttention and SDPA do) would break the one-ulp bf16
+//     tolerance at thousands of outputs at this shape; hi + lo holds it.
+//     That makes 6 hd tensor-core operations a live pair, not 4. The row
+//     sum l adds the fp32 p.
+//   - Dead tiles are skipped per warpgroup, the mask is applied only in
+//     tiles that cross the diagonal, the window's edge or S, and the grid
+//     runs the heaviest query tiles (the last) first.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (repro_torch/kernels/build.py). Entry points have
-//        a plain C interface, loaded with ctypes.
+//        a plain C interface, loaded with ctypes. cuTensorMapEncodeTiled is
+//        reached through the runtime's driver entry point, so nothing links
+//        against libcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -262,12 +294,479 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B
   return launch<T, 256>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, st);
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kBQ = 128;        // query rows per block: two consumer warpgroups
+constexpr int kBK = 64;         // keys per KV tile
+constexpr int kStages = 2;      // K/V ring depth
+constexpr int kThreads = 384;   // warpgroups 0, 1 consume; 2 produces
+constexpr int kSpinLimit = 1 << 24;  // mbarrier polls before a trap (a hang becomes an error)
+
+// Shared memory, in bytes from a 1024-aligned base: Q (NP panels of 128 rows),
+// then K[kStages], then V[kStages] (NP panels of 64 rows each), then the
+// barriers. A panel holds 64 columns: rows of 128 bytes, 128-byte swizzled.
+template <int HDP>
+struct Layout {
+  static constexpr int NP = HDP / 64;
+  static constexpr int kQPanel = kBQ * 128;
+  static constexpr int kKVPanel = kBK * 128;
+  static constexpr int kQ = NP * kQPanel;
+  static constexpr int kKV = NP * kKVPanel;   // one K or V tile
+  static constexpr int kBar = kQ + 2 * kStages * kKV;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  int tries = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (++tries == kSpinLimit) __trap();
+  } while (!done);
+}
+
+// one box of a 4-D tensor map (hd, heads, S, B) into shared memory,
+// completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int d, int head, int pos, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(d), "r"(head), "r"(pos), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin registers that an asynchronous wgmma reads or writes: before
+// wgmma.fence, so every write to them is done when the fence orders them;
+// after wgmma.wait_group, so no use moves above the wait.
+template <int N>
+__device__ __forceinline__ void pin(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x 64, fp32) = A.B (+ d when acc != 0); A and B from shared memory
+// through descriptors, both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 64, fp32) += A.B; A (64 x 16, bf16) from registers in the
+// accumulator's fragment order, B from shared memory, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, fp32) += A.B; A (64 x 16, bf16) from registers in the
+// accumulator's fragment order, B from shared memory, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 256, fp32) += A.B; A (64 x 16, bf16) from registers in the
+// accumulator's fragment order, B from shared memory, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+      "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+      "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+      "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HDP>
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t db) {
+  if constexpr (HDP == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (HDP == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_tc_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S, int H, int Hkv, int hd, int causal, int window,
+    float scale_log2) {
+  using L = Layout<HDP>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sq = base;
+  auto sk = [&](int s) { return base + L::kQ + s * L::kKV; };
+  auto sv = [&](int s) { return base + L::kQ + (kStages + s) * L::kKV; };
+  const uint32_t q_full = base + L::kBar;
+  auto full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + kStages + s); };
+
+  const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest (last) tiles first
+  const int q_last = min(q0 + kBQ, S) - 1;
+  int kt_lo = 0, kt_hi = (S - 1) / kBK;
+  if (causal) {
+    kt_hi = q_last / kBK;
+    if (window > 0) kt_lo = max(0, q0 - window + 1) / kBK;
+  }
+  const int n_tiles = kt_hi - kt_lo + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: Q once, then the K/V ring -------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tw == 0) {
+      mbar_expect_tx(q_full, L::kQ);
+      for (int p = 0; p < L::NP; ++p)
+        tma_load(sq + p * L::kQPanel, &tq, q_full, p * 64, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        const int k0 = (kt_lo + it) * kBK;
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * L::kKV);
+        for (int p = 0; p < L::NP; ++p) {
+          tma_load(sk(s) + p * L::kKVPanel, &tk, full(s), p * 64, hk, k0, b);
+          tma_load(sv(s) + p * L::kKVPanel, &tv, full(s), p * 64, hk, k0, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ---------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int lane = tw % 32;
+    // this thread's accumulator rows: qp0 and qp0 + 8 (wgmma's fragment)
+    const int qp0 = q0 + wg * 64 + (tw / 32) * 16 + lane / 4, qp1 = qp0 + 8;
+    const int w_first = q0 + wg * 64, w_last = min(w_first + 63, S - 1);
+    float acc[HDP / 2];
+#pragma unroll
+    for (int j = 0; j < HDP / 2; ++j) acc[j] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    mbar_wait(q_full, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      const int k0 = (kt_lo + it) * kBK;
+      mbar_wait(full(s), (it / kStages) & 1);
+      bool dead = w_last < w_first;  // every row of this warpgroup lies beyond S
+      if (causal) {
+        dead = dead || k0 > w_last;
+        if (window > 0) dead = dead || k0 + kBK - 1 <= w_first - window;
+      }
+      if (!dead) {
+        // S = Q K^T over HDP / 16 steps of 16 columns
+        float sc[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+        pin<32>(sc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HDP / 16; ++kk) {
+          const uint32_t col = (kk / 4), off = (kk % 4) * 32;
+          wgmma_ss_n64(sc,
+                       sw128_desc(sq + col * L::kQPanel + wg * 64 * 128 + off, 16, 1024),
+                       sw128_desc(sk(s) + col * L::kKVPanel + off, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        pin<32>(sc);
+
+        // mask, only in tiles that cross S, the diagonal or the window's edge
+        const bool edge =
+            k0 + kBK > S ||
+            (causal && (k0 + kBK - 1 > w_first || (window > 0 && k0 <= w_last - window)));
+        if (edge) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int key = k0 + (i / 4) * 8 + (lane % 4) * 2 + (i % 2);
+            const int qp = (i & 2) ? qp1 : qp0;
+            bool live = key < S;
+            if (causal) live = live && key <= qp && (window <= 0 || key > qp - window);
+            if (!live) sc[i] = -INFINITY;
+          }
+        }
+        // online softmax: rows qp0 (elements with i & 2 == 0) and qp1
+        float mx0 = m0, mx1 = m1;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          if (i & 2) mx1 = fmaxf(mx1, sc[i]);
+          else mx0 = fmaxf(mx0, sc[i]);
+        }
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        const float b0 = mx0 == -INFINITY ? 0.f : mx0 * scale_log2;
+        const float b1 = mx1 == -INFINITY ? 0.f : mx1 * scale_log2;
+        const float c0 = exp2f(m0 * scale_log2 - b0), c1 = exp2f(m1 * scale_log2 - b1);
+        m0 = mx0;
+        m1 = mx1;
+        l0 *= c0;
+        l1 *= c1;
+#pragma unroll
+        for (int j = 0; j < HDP / 2; ++j) acc[j] *= (j & 2) ? c1 : c0;
+        // P = hi + lo, two bf16 terms of the fp32 p, in the A fragment order
+        uint32_t phi[16], plo[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const float bb = (i & 1) ? b1 : b0;
+          const float e0 = sc[2 * i], e1 = sc[2 * i + 1];
+          const float p0 = (edge && e0 == -INFINITY) ? 0.f : exp2f(fmaf(e0, scale_log2, -bb));
+          const float p1 = (edge && e1 == -INFINITY) ? 0.f : exp2f(fmaf(e1, scale_log2, -bb));
+          if (i & 1) l1 += p0 + p1;
+          else l0 += p0 + p1;
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+          const float2 hf = __bfloat1622float2(hi);
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
+          phi[i] = *reinterpret_cast<const uint32_t*>(&hi);
+          plo[i] = *reinterpret_cast<const uint32_t*>(&lo);
+        }
+        // O += P_hi V + P_lo V over 4 steps of 16 keys
+        pin<HDP / 2>(acc);
+        pin<16>(phi);
+        pin<16>(plo);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_pv<HDP>(acc, phi + 4 * kk, sw128_desc(sv(s) + kk * 2048, L::kKVPanel, 1024));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_pv<HDP>(acc, plo + 4 * kk, sw128_desc(sv(s) + kk * 2048, L::kKVPanel, 1024));
+        wgmma_commit();
+        wgmma_wait0();
+        pin<HDP / 2>(acc);
+        pin<16>(phi);
+        pin<16>(plo);
+      }
+      mbar_arrive(empty(s));
+    }
+
+    // epilogue: the row sums over the quad, then o = acc / l in bf16
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+    const long long q_stride = (long long)H * hd;
+    __nv_bfloat16* ob = o + (long long)b * S * q_stride + (long long)h * hd;
+    const bool pairs = (hd % 2 == 0) && (reinterpret_cast<uintptr_t>(o) % 4 == 0);
+#pragma unroll
+    for (int j = 0; j < HDP / 2; j += 2) {
+      const int d = (j / 4) * 8 + (lane % 4) * 2;
+      const int qp = (j & 2) ? qp1 : qp0;
+      const float den = (j & 2) ? den1 : den0;
+      if (qp < S && d < hd) {
+        __nv_bfloat16* dst = ob + qp * q_stride + d;
+        const float x0 = acc[j] / den, x1 = acc[j + 1] / den;
+        if (pairs) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+        } else {
+          dst[0] = __float2bfloat16(x0);
+          if (d + 1 < hd) dst[1] = __float2bfloat16(x1);
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// (B, S, heads, hd) bf16 as a 4-D map (hd, heads, S, B), boxes of 64 columns
+// x 1 head x `rows` positions, 128-byte swizzle, zero fill out of bounds
+cudaError_t encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, int hd,
+                   int rows) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)S * heads * hd * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int HDP>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+                   int Hkv, int hd, int causal, int window, float scale, cudaStream_t st) {
+  constexpr int bytes = Layout<HDP>::kBytes;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<HDP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  CUtensorMap tq, tk, tv;
+  cudaError_t e = encode(&tq, q, B, S, H, hd, kBQ);
+  if (e == cudaSuccess) e = encode(&tk, k, B, S, Hkv, hd, kBK);
+  if (e == cudaSuccess) e = encode(&tv, v, B, S, Hkv, hd, kBK);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  flash_fwd_tc_kernel<HDP><<<grid, kThreads, bytes, st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, Hkv, hd, causal, window,
+      scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// TMA takes the layout: rows of hd bf16 a multiple of 16 bytes, and 16-byte
+// aligned bases
+bool tma_layout(const void* q, const void* k, const void* v, int hd) {
+  return hd % 8 == 0 && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v)) % 16) == 0;
+}
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+                     int Hkv, int hd, int causal, int window, float scale, cudaStream_t st) {
+  if ((long long)S > 65535LL * kBQ) return cudaErrorInvalidValue;
+  if (hd <= 64) return launch<64>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, st);
+  if (hd <= 128) return launch<128>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, st);
+  return launch<256>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, st);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
 
 // o (B, S, H, hd) = attention of q (B, S, H, hd) over k, v (B, S, Hkv, hd),
-// all contiguous, fp32 when dtype == 0 and bf16 when dtype == 1. causal != 0
+// all contiguous, fp32 when dtype == 0 (flash_fwd_kernel, FMA) and bf16 when
+// dtype == 1 (tc::flash_fwd_tc_kernel, tensor cores; a layout TMA cannot
+// take, hd not a multiple of 8 or a base not 16-byte aligned, runs
+// flash_fwd_kernel's bf16 instance). causal != 0
 // masks keys after the query; window > 0 (only with causal) also masks keys
 // window or more positions before it. H must be a multiple of Hkv, and
 // 1 <= hd <= 256. Launches on `stream`, does not synchronise, and returns
@@ -282,9 +781,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)dispatch<float>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, st);
+  if (dtype == 1 && tc::tma_layout(q, k, v, hd))
+    return (int)tc::dispatch(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, st);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, Hkv, hd, causal, window,
-                                        scale, st);
+    return (int)dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale,
+                                        st);
   return (int)cudaErrorInvalidValue;
 }
 

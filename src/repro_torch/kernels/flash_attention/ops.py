@@ -1,20 +1,27 @@
-"""Public wrapper for the flash attention kernel.
+"""Public wrapper for the flash attention kernels.
 
 ``flash_attention(q, k, v, causal, window)`` in the (B, S, H, hd) layout of
-``models/attention.py``. On CUDA tensors it launches the hand-written
-Hopper kernel (``csrc/flash_attention.cu``, built by ``kernels/build.py``),
+``models/attention.py``. On CUDA tensors it launches a hand-written Hopper
+kernel from ``csrc/flash_attention.cu`` (built by ``kernels/build.py``),
 which replaces the TPU kernel
-``src/repro/kernels/flash_attention/flash_attention.py::flash_attention_pallas``;
-on CPU tensors it runs the plain version (``ref.attention_ref``). There is
-no other fallback: a CUDA tensor of the wrong type, shape or layout, or a
+``src/repro/kernels/flash_attention/flash_attention.py::flash_attention_pallas``.
+The input type picks the kernel: bf16 runs ``flash_fwd_tc_kernel`` (both
+products on the tensor cores with ``wgmma``, K/V fed by TMA, P as two bf16
+terms so the output stays within one bf16 ulp of fp32 probabilities), or,
+for a layout TMA cannot take (hd not a multiple of 8, a base not 16-byte
+aligned), ``flash_fwd_kernel``'s bf16 instance; fp32 runs
+``flash_fwd_kernel`` (fp32 FMA, which holds the reference's 2e-5). On
+CPU tensors it runs the plain version (``ref.attention_ref``). There is no
+other fallback: a CUDA tensor of the wrong type, shape or layout, or a
 failed build or launch, raises.
 
-GQA maps query head h to KV head ``h // (H // Hkv)`` inside the kernel,
-which also masks the ragged S and hd edges: nothing is repeated, transposed
-or padded. The window applies only when ``causal``.
+GQA maps query head h to KV head ``h // (H // Hkv)`` inside the kernels,
+where the ragged S and hd edges arrive zero-filled: nothing is repeated,
+transposed or padded in device memory. The window applies only when
+``causal``.
 
 ``flash_attention.launches`` counts kernel launches (a plain integer; the
-CPU path never moves it), so a run can show that it went through the
+CPU path never moves it), so a run can show that it went through a
 kernel.
 """
 from __future__ import annotations
