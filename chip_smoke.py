@@ -24,7 +24,8 @@ Phases, one or more lines each:
   2 build       nvcc time and the ptxas register report; from the built
                 flash library (cuobjdump, so a cached build is read too),
                 the bf16 kernel's three instances spill nothing, and its
-                SASS holds HGMMA (wgmma) instructions, counted;
+                SASS holds HGMMA (wgmma) instructions, counted; each of
+                the 18 wkv6 instances' registers, and none spills;
   3 kernels     the SpMM against its plain version at the serving path's
                 shapes (atol = rtol = 1e-5), with its time, the plain
                 version's, the library call's and the bound; also the times
@@ -44,7 +45,12 @@ Phases, one or more lines each:
                 (1e-5 / 2e-5, the reference's tolerances) and in bf16 (rtol
                 2^-7, one bf16 ulp; atol 1e-4, or 1e-2 for WKV6's y), with
                 the kernel's time, the plain version's, SDPA's (attention
-                only), the bound and (attention) the kernel's own floor;
+                only), the bound and the kernel's own floor; wkv6 also at
+                N = 32 and 128 at the prefill's width, T = 1, one step
+                past a stage of its input ring and on misaligned bases,
+                and at the prefill shapes every launch (columns per
+                thread, blocks per row) ``ops.CONFIG`` did not pick, each
+                bit for bit equal to the chosen one;
                 bf16 attention also at hd 128 (ragged S), non-causal hd 240
                 and an hd that is not a multiple of 8, so each width of
                 the tensor-core kernel and the FMA kernel's bf16 instance
@@ -321,34 +327,94 @@ def res_usage(build, name: str) -> dict:
     return out
 
 
-def check_wkv6(torch, ops, ref, timer, gen, name, B, T, H, N, dtype, reps, plain_reps):
+def wkv6_floor(torch, B, T, H, N, dtype, cols, splits):
+    """The kernel's own floor (ms): the fp32 instructions it executes over
+    the card's fp32 issue rate (one instruction per lane and cycle, half
+    the fp32 FLOP peak), or the bound's bytes if more. Per step and state
+    element an FMA (r·S), a multiply (k·v) and an FMA (w·S + kv); per step,
+    row and block, 2 per key row for coef (r·u, then the FMA with k) and
+    log2(KT) adds on each of its KT = N/8 lanes; per output, KT - 1 adds of
+    the partial sums and the FMA with coef·v. ``cols`` does not change the
+    count; ``splits`` repeats coef in every block of a row."""
+    kt = N // 8
+    rows = B * H * T
+    instr = (3.0 * rows * N * N
+             + rows * splits * (2.0 * N + kt * (kt.bit_length() - 1))
+             + rows * N * float(kt))
+    esz = torch.tensor([], dtype=dtype).element_size()
+    elems = B * T * H * N
+    nbytes = 4 * elems * esz + 4 * elems + 4 * H * N + 4 * B * H * N * N
+    return max(instr / (PEAK_FP32_FLOPS / 2), nbytes / PEAK_BYTES_PER_S) * 1e3
+
+
+def check_wkv6(torch, ops, ref, timer, gen, name, B, T, H, N, dtype, reps, plain_reps,
+               others=False, misalign=False):
+    """One WKV6 shape: kernel vs plain version on the card, then times.
+    ``others`` also checks and times every launch ``ops.configs`` lists
+    beside ``ops.CONFIG``'s, each bit for bit equal to it; ``misalign``
+    hands the kernel r, k, v, w as views one element past a 16-byte
+    boundary (TMA cannot take them; the wrapper copies them first)."""
     dev = gen.device
-    r, k, v = ((torch.randn((B, T, H, N), generator=gen, device=dev) * 0.5).to(dtype)
+
+    def make(x):
+        if not misalign:
+            return x
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        view = flat[1:].view(x.shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    r, k, v = (make((torch.randn((B, T, H, N), generator=gen, device=dev) * 0.5).to(dtype))
                for _ in range(3))
-    w = torch.exp(-torch.exp(torch.randn((B, T, H, N), generator=gen, device=dev) - 2.0))
+    w = make(torch.exp(-torch.exp(torch.randn((B, T, H, N), generator=gen, device=dev)
+                                  - 2.0)))
     u = torch.randn((H, N), generator=gen, device=dev) * 0.5
     y, s = ops.wkv6(r, k, v, w, u)
     yr, sr = ref.wkv6_ref(r, k, v, w, u)
     torch.cuda.synchronize()
     atol, rtol = _tol(torch, dtype, TOL_WKV, ATOL_BF16_WKV_Y)
-    err_y = float((y.float() - yr.float()).abs().max())
-    err_s = float((s - sr).abs().max())
-    if not (torch.isfinite(y.float()).all() and torch.isfinite(s).all()):
-        raise AssertionError(f"wkv6 {name}: non-finite output")
-    if not torch.allclose(y.float(), yr.float(), atol=atol, rtol=rtol):
-        raise AssertionError(f"wkv6 {name}: y max abs err {err_y} beyond atol {atol} "
-                             f"rtol {rtol}")
-    if not torch.allclose(s, sr, atol=TOL_WKV, rtol=TOL_WKV):
-        raise AssertionError(f"wkv6 {name}: S max abs err {err_s} beyond {TOL_WKV}")
+
+    def hold(y, s, what):
+        err_y = float((y.float() - yr.float()).abs().max()) if y.numel() else 0.0
+        err_s = float((s - sr).abs().max())
+        if not (torch.isfinite(y.float()).all() and torch.isfinite(s).all()):
+            raise AssertionError(f"wkv6 {what}: non-finite output")
+        if not torch.allclose(y.float(), yr.float(), atol=atol, rtol=rtol):
+            raise AssertionError(f"wkv6 {what}: y max abs err {err_y} beyond atol {atol} "
+                                 f"rtol {rtol}")
+        if not torch.allclose(s, sr, atol=TOL_WKV, rtol=TOL_WKV):
+            raise AssertionError(f"wkv6 {what}: S max abs err {err_s} beyond {TOL_WKV}")
+        return err_y, err_s
+
+    err_y, err_s = hold(y, s, name)
+    cols, splits = ops.CONFIG[N]
     bound_ms, bound_by = wkv6_bound(torch, B, T, H, N, dtype)
     row = {"shape": name, "B": B, "T": T, "H": H, "N": N, "dtype": str(dtype),
+           "misaligned": misalign, "cols": cols, "splits": splits,
            "atol_y": atol, "rtol_y": rtol, "tol_s": TOL_WKV, "max_abs_err": max(err_y, err_s),
            "ms": timer(lambda: ops.wkv6(r, k, v, w, u), reps),
            "plain_ms": timer(lambda: ref.wkv6_ref(r, k, v, w, u), plain_reps),
-           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
-    log(f"phase 7 lm-kernels: wkv6 {name} B={B} T={T} H={H} N={N} {dtype}: max abs err "
-        f"y {err_y} S {err_s} (y atol {atol} rtol {rtol}, S {TOL_WKV}); kernel {row['ms']} "
-        f"ms plain {row['plain_ms']} ms library none bound {bound_ms} ms ({bound_by})")
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+           "floor_ms": wkv6_floor(torch, B, T, H, N, dtype, cols, splits),
+           "other_splits": {}}
+    for c, sp in (ops.configs(N, dtype) if others else ()):
+        if (c, sp) == (cols, splits):
+            continue
+        y2, s2 = ops.launch(r, k, v, w, u, c, sp)
+        hold(y2, s2, f"{name} at cols {c} splits {sp}")
+        # no step of the kernel's order depends on the launch
+        if not (torch.equal(y2, y) and torch.equal(s2, s)):
+            raise AssertionError(f"wkv6 {name}: cols {c} splits {sp} differs in its bits "
+                                 f"from cols {cols} splits {splits}")
+        row["other_splits"][f"cols{c}_splits{sp}"] = timer(
+            lambda: ops.launch(r, k, v, w, u, c, sp), reps)
+    log(f"phase 7 lm-kernels: wkv6 {name} B={B} T={T} H={H} N={N} {dtype}"
+        f"{' misaligned' if misalign else ''}: max abs err y {err_y} S {err_s} (y atol "
+        f"{atol} rtol {rtol}, S {TOL_WKV}); cols {cols} splits {splits}: kernel "
+        f"{row['ms']} ms plain {row['plain_ms']} ms library none bound {bound_ms} ms "
+        f"({bound_by}) floor {row['floor_ms']} ms"
+        + (f"; at other launches {json.dumps(row['other_splits'])}" if others else ""))
     return row
 
 
@@ -520,11 +586,12 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
     K/V) must agree within ``TOL_BLOCK_REL`` (relative L2). Then the last
     logits of that walk must equal those of ``lm_prefill``.
 
-    Recorded, no gate: the whole prefill along the plain path against the
-    kernel path's; and, as its witness, the plain path against itself with
-    one bf16 ulp flipped in a random share of the first block's output, the
-    share of that output in which the kernel path differs from the plain
-    path. If the witness diverges as far as the kernel path does, the stack
+    Recorded, no gate: the first prefill after the init (allocations
+    included) and the steady state (the median of three more); the whole
+    prefill along the plain path against the kernel path's; and, as its
+    witness, the plain path against itself with one bf16 ulp flipped in a
+    random share of the first block's output, the share of that output in
+    which the kernel path differs from the plain path. If the witness diverges as far as the kernel path does, the stack
     (random bf16 weights) amplifies any one-ulp difference, and the
     end-to-end number measures the model, not a kernel.
 
@@ -545,6 +612,15 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
         last_k, st_k = lm.lm_prefill(params, cfg, prompts, max_len)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        # the first call after a fresh init allocates its activations anew;
+        # three more give the steady state
+        steady = []
+        for _ in range(3):
+            ts = time.perf_counter()
+            lm.lm_prefill(params, cfg, prompts, max_len)
+            torch.cuda.synchronize()
+            steady.append((time.perf_counter() - ts) * 1e3)
+        t_walk = time.perf_counter()
         h = params["embed"][prompts]
         for name, bp, kind in blocks:
             out_k, _, sk = lm.apply_block_full(bp, cfg, kind, h, collect_state=True)
@@ -585,8 +661,9 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
     worst = max(errs, key=errs.get)
     free_worst = max(free, key=free.get)
     row = {"block_rel_err": errs, "free_running_rel_err": free, "ulp_witness": witness,
-           "warm_prefill_ms": (t1 - t0) * 1e3, "plain_prefill_ms": (t3 - t2) * 1e3,
-           "block_walk_s": t2 - t1}
+           "warm_prefill_ms": (t1 - t0) * 1e3,
+           "steady_prefill_ms": sorted(steady)[1], "plain_prefill_ms": (t3 - t2) * 1e3,
+           "block_walk_s": t2 - t_walk}
     log(f"phase 9 lm-check: {cfg.arch_id} full width {cfg.dtype}, block by block on the "
         f"card ({len(blocks)} blocks, kernel path vs plain path on the same input): worst "
         f"of {len(errs)} relative L2 errors {worst} {errs[worst]} (tol {TOL_BLOCK_REL}); "
@@ -595,7 +672,8 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
         f"prefill vs kernel-path prefill relative L2 error last logits "
         f"{free['last_logits']}, worst {free_worst} {free[free_worst]}; first block's "
         f"state {list(free.items())[1]}; warm prefill kernel path {row['warm_prefill_ms']} "
-        f"ms, plain path {row['plain_prefill_ms']} ms")
+        f"ms (steady, median of 3 more: {row['steady_prefill_ms']} ms), plain path "
+        f"{row['plain_prefill_ms']} ms")
     log(f"phase 9 lm-check: {cfg.arch_id} witness (recorded, no gate): plain path with one "
         f"bf16 ulp flipped in {witness['flip_frac']} of the first block's output (relative "
         f"L2 {witness['first_block_rel_err']}; the kernel path's there "
@@ -762,6 +840,18 @@ def main(argv=None) -> int:
         raise AssertionError(f"build: the bf16 flash kernel's instances spill or are "
                              f"missing: {tc_fns}")
     record["flash_build"] = {"hgmma": hgmma, "tc_kernels": tc_fns}
+    # every instance of the wkv6 kernel (3 head sizes x 3 column tiles x 2
+    # types) keeps its state tile in registers: no stack, no local memory
+    wkv_fns = {n: {"registers": r.get("REG"), "stack_bytes": r.get("STACK"),
+                   "local_bytes": r.get("LOCAL")}
+               for n, r in res_usage(build, "wkv6").items() if "wkv6_kernel" in n}
+    for n, r in sorted(wkv_fns.items()):
+        log(f"phase 2 build: wkv6: {n}: {r['registers']} registers, stack "
+            f"{r['stack_bytes']} B, local {r['local_bytes']} B")
+    if len(wkv_fns) != 18 or any(r["stack_bytes"] != 0 or r["local_bytes"] != 0
+                                 for r in wkv_fns.values()):
+        raise AssertionError(f"build: wkv6 kernel instances spill or are missing: {wkv_fns}")
+    record["wkv6_build"] = wkv_fns
 
     # -- the configuration ------------------------------------------------------
     g = make_dataset("pubmed", scale=1, max_features=500, seed=0)
@@ -930,11 +1020,22 @@ def main(argv=None) -> int:
     bf16, f32 = torch.bfloat16, torch.float32
     wkv_rows = [
         check_wkv6(torch, wops, wref, timer, gen, "prefill_bf16", 4, 2048, 32, 64, bf16,
-                   20, 2),
+                   20, 2, others=True),
         check_wkv6(torch, wops, wref, timer, gen, "prefill_fp32", 4, 2048, 32, 64, f32,
-                   10, 2),
+                   10, 2, others=True),
         check_wkv6(torch, wops, wref, timer, gen, "ragged_fp32", 2, 77, 4, 64, f32, 20, 3),
         check_wkv6(torch, wops, wref, timer, gen, "ragged_bf16", 2, 77, 4, 64, bf16, 20, 3),
+        # the other head sizes at the prefill's width (d 2,048)
+        check_wkv6(torch, wops, wref, timer, gen, "n32_bf16", 4, 2048, 64, 32, bf16, 10, 1),
+        check_wkv6(torch, wops, wref, timer, gen, "n128_bf16", 4, 2048, 16, 128, bf16, 10,
+                   1),
+        # one step; one step past a stage of the input ring
+        check_wkv6(torch, wops, wref, timer, gen, "t1_bf16", 4, 1, 32, 64, bf16, 20, 3),
+        check_wkv6(torch, wops, wref, timer, gen, "stage_plus_1_fp32", 2,
+                   wops.STAGE_STEPS + 1, 4, 64, f32, 20, 3),
+        # bases the copy engine cannot take
+        check_wkv6(torch, wops, wref, timer, gen, "misaligned_bf16", 2, 77, 4, 64, bf16, 20,
+                   3, misalign=True),
     ]
     flash_rows = [
         check_flash(torch, fops, fref, timer, gen, "local_bf16", 4, 2048, 16, 8, 240, True,

@@ -3,171 +3,565 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/wkv6/wkv6.py::wkv6_pallas
 // (body _wkv6_kernel). It computes the same function: for each (batch, head)
 // row, from S = 0,
-//     y_t = (sum_n r_t[n] u[n] k_t[n]) v_t + r_t^T S
-//     S   = diag(w_t) S + k_t v_t^T
+//     coef_t = sum_n r_t[n] u[n] k_t[n]
+//     y_t    = coef_t v_t + r_t^T S
+//     S      = diag(w_t) S + k_t v_t^T
 // with r, k, v (B, T, H, N) in fp32 or bf16, w (B, T, H, N) fp32 (decays
 // near 1 would not survive a 2048-step product in bf16), u (H, N) fp32; it
 // writes y (B, T, H, N) in r's type and the final S (B, H, N, N) fp32
-// (S[n][m]: key n, value m). It is not a block-by-block copy of the Pallas
-// version:
+// (S[n][m]: key n, value m). The arithmetic is elementwise fp32, step by
+// step in the reference's order, as the TPU kernel's is; no step of its
+// order depends on the launch's CV or splits, so all launches agree to the
+// bit. tests/test_torch_wkv6_order.py emulates the order on the CPU.
 //
-// * The TPU grid walks time as a sequential grid axis and keeps S in VMEM
-//   scratch between grid steps. Here one thread block owns one (b, h) row
-//   and walks all of T itself; S never leaves the registers. Thread (j, q)
-//   holds rows q*N/4 .. q*N/4 + N/4 - 1 of value column j of S, so the
-//   N x N state is spread over 4N threads with N/4 floats each.
-// * The bonus term folds into the same pass: each thread sums
-//   r[n] (u[n] k[n] v[j] + S[n][j]) over its rows, and two shuffles add the
-//   four partial sums of a column. No separate reduction for coef.
-// * r, k, w (which every column needs) and v are staged in shared memory a
-//   chunk of 16 steps at a time, converted to fp32, with each quarter of the
-//   key rows padded so the four quarters a warp reads fall on distinct
-//   banks. The kernel reads the (B, T, H, N) layout in place: no transposes
-//   to per-head rows, no padding of T (the ragged last chunk is masked).
+// What bounds it on an H100: per step and row it does about 4 N^2 fp32
+// operations on the state against 3 N input elements in r/k/v's type, N in
+// fp32 (w) and N written (y). At B=4, T=2048, H=32, N=64 with bf16 r/k/v
+// that is the operations (0.066 ms at the fp32 and bf16 peaks), not the
+// 0.10 GB of traffic (0.031 ms). This kernel executes 3 fp32 instructions
+// per state element and step (an FMA for r.S, a multiply for k.v, an FMA
+// for w.S + kv): 3.2e9 lane instructions, about 0.10 ms at the card's fp32
+// issue rate. The recurrence is sequential in T, so the design keeps the
+// threads that hold the state doing those three instructions and little
+// else, with enough of them in flight on every SM:
 //
-// What bounds it on an H100: per step and row it does about 5 N^2 fp32
-// operations against 3 N input elements in r/k/v's type, N in fp32 (w) and
-// N written (y). At B=4, T=2048, H=32, N=64 with bf16 r/k/v that is
-// 5.4 GFLOP against 0.10 GB, so the 67 TFLOP/s fp32 FMA rate bounds it,
-// not memory. But the recurrence is sequential in T: one block per (b, h)
-// (128 blocks for 132 SMs) walks 2048 dependent steps, so the latency of
-// one step, not either peak, sets its time. The design keeps that step
-// short: state in registers, 4-way split of the key rows per column with
-// four independent FMA chains per thread, and only broadcast shared loads.
+// * The state tile. S[:, j] and y[j] depend only on v[j] and on r, k, w,
+//   so a (b, h) row's value columns are independent: they go to `splits`
+//   blocks of CG = N / splits columns (blocks of one row adjacent in the
+//   grid, so r/k/w come from HBM once), and in a block to state threads
+//   that each hold a register tile of kRK = 8 key rows by CV value columns,
+//   so each r/k/w value they load serves CV columns. CV and `splits` are
+//   launch arguments the wrapper fixes per N (kernels/wkv6/ops.py::CONFIG,
+//   the fastest measured); chip_smoke.py times the others.
+// * The bonus once per step: coef_t is summed once per step and block
+//   (KT = N / 8 lanes of 8 rows each, r.u then an FMA with k, then a fixed
+//   xor tree over the lanes), not folded into every element.
+// * No reduction inside the step: each state thread writes its CV partial
+//   sums of r.S to shared memory and goes on to the next step.
+// * Warp specialisation. kHelpers threads (a warpgroup) beside the state
+//   threads feed and drain them, one stage of kTS = 32 steps at a time:
+//   helper 0 issues the stage's TMA boxes (one per array: kTS rows of r,
+//   k, w and of the block's slice of v) into a 2-slot ring completed on
+//   mbarriers; all helpers widen bf16 r/k/v to fp32 once (not per use and
+//   column tile: 2/CV instructions per element and step) and sum coef for
+//   stage s + 1 while the state threads run stage s; then they add stage
+//   s's KT partial sums of every output in a fixed order (q = 0, 1, ...),
+//   add coef_t v_t with one FMA, and write y with 16-byte stores. The two
+//   roles meet at named barriers, two per stage; widened rows, coef and
+//   partial sums are double-buffered, so neither waits for the other's
+//   latency.
+//
+// The kernel reads the (B, T, H, N) layout in place through 4-D tensor
+// maps: no transposes to per-head rows, no padding of T (rows past T
+// arrive as zeros and are never written back). TMA needs 16-byte aligned
+// bases; the wrapper hands it fresh copies of tensors that are not (an
+// offset view).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (repro_torch/kernels/build.py). Entry points have
-//        a plain C interface, loaded with ctypes.
+//        a plain C interface, loaded with ctypes. cuTensorMapEncodeTiled is
+//        reached through the runtime's driver entry point, so nothing links
+//        against libcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kKS = 4;      // threads per value column; each owns N/kKS key rows
-constexpr int kChunk = 16;  // time steps staged in shared memory at once
+constexpr int kRK = 8;              // key rows per thread
+constexpr int kTS = 32;             // steps per stage
+constexpr int kStages = 2;          // depth of the input ring
+constexpr int kMaxThreads = 256;    // state threads per block
+constexpr int kHelpers = 128;       // helper threads per block (4 warps)
+constexpr int kMaxSmem = 232448;    // dynamic shared memory a block may use
+constexpr int kSpinLimit = 1 << 24; // mbarrier polls before a trap (a hang becomes an error)
+constexpr int kMaxDevices = 16;     // devices whose shared-memory limit is remembered
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// Shared memory, in bytes: 2 mbarriers (in the first 128 bytes); the ring
+// (per stage: r, k rows [kTS][N] in r's type, w rows [kTS][N] fp32, v rows
+// [kTS][CG] in r's type: one TMA box each); for bf16, two buffers of the
+// widened r, k [kTS][N] and v [kTS][CG] in fp32; two of coef [kTS]; two of
+// the partial sums [kTS][KT][CG] fp32. Every offset is a multiple of 128.
+struct Layout {
+  int r, k, w, v, stage, ring;
+  int cr, ck, cv, wide, coef, part, part_bytes, total;
+};
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+__host__ __device__ inline Layout layout(int N, int CG, int esz) {
+  Layout L;
+  L.r = 0;
+  L.k = kTS * N * esz;
+  L.w = 2 * kTS * N * esz;
+  L.v = L.w + kTS * N * 4;
+  L.stage = L.v + kTS * CG * esz;
+  L.ring = 128;
+  // one widened buffer: r, k, v at these offsets from its start
+  L.cr = 0;
+  L.ck = kTS * N * 4;
+  L.cv = 2 * kTS * N * 4;
+  const int wide_bytes = esz == 2 ? L.cv + kTS * CG * 4 : 0;
+  L.wide = L.ring + kStages * L.stage;
+  L.coef = L.wide + 2 * wide_bytes;
+  L.part = L.coef + 2 * 128;
+  L.part_bytes = kTS * (N / kRK) * CG * 4;
+  L.total = L.part + 2 * L.part_bytes;
+  return L;
+}
+
+// whether wkv6_fwd takes (N, esz, cv, splits): whole 16-byte rows of v per
+// block, a multiple of 32 state threads up to kMaxThreads, the shared
+// memory of one block (kernels/wkv6/ops.py::configs applies the same rules)
+__host__ inline bool config_ok(int N, int esz, int cv, int splits) {
+  if (N != 32 && N != 64 && N != 128) return false;
+  if (cv != 1 && cv != 2 && cv != 4) return false;
+  if (splits < 1 || N % splits) return false;
+  const int CG = N / splits;
+  if (CG % cv || (CG * esz) % 16) return false;
+  const int nt = (N / kRK) * (CG / cv);
+  return nt % 32 == 0 && nt <= kMaxThreads && layout(N, CG, esz).total <= kMaxSmem;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  int tries = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (++tries == kSpinLimit) __trap();
+  } while (!done);
+}
+
+// named barriers 1..: bar.sync waits for `count` threads, bar.arrive
+// counts this thread and goes on
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// one box of a 4-D tensor map (columns, heads, T, B) into shared memory,
+// completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int head, int t, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(t), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// 8 bf16 (16 bytes) to fp32
+__device__ __forceinline__ void widen8(const __nv_bfloat16* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const uint32_t wd[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(wd[i] << 16);
+    out[2 * i + 1] = __uint_as_float(wd[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, float* out) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+template <int CV>
+__device__ __forceinline__ void load_cols(const float* p, float* out) {
+  if constexpr (CV == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  } else if constexpr (CV == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    out[0] = a.x; out[1] = a.y;
+  } else {
+    out[0] = p[0];
+  }
+}
+
+template <int CV>
+__device__ __forceinline__ void store_cols(float* p, const float* in) {
+  if constexpr (CV == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+  } else if constexpr (CV == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(in[0], in[1]);
+  } else {
+    p[0] = in[0];
+  }
+}
+
+// 16 bytes of y: 4 fp32 or 8 bf16
+__device__ __forceinline__ void store_y(float* p, const float* x) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store_y(__nv_bfloat16* p, const float* x) {
+  uint32_t wd[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 pr = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    wd[i] = *reinterpret_cast<const uint32_t*>(&pr);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+}
+
+// One step of a thread's tile: acc = r.S over its kRK rows (in order) for
+// each of its CV columns, then S = w.S + k.v
+template <int N, int CV>
+__device__ __forceinline__ void step(float (&S)[kRK][CV], const float* rs, const float* ks,
+                                     const float* ws, const float* vs, float* part, int t,
+                                     int q, int ct, int CG) {
+  constexpr int KT = N / kRK;
+  float rv[kRK], kv[kRK], wv[kRK], vc[CV];
+  load8(rs + t * N + q * kRK, rv);
+  load8(ks + t * N + q * kRK, kv);
+  load8(ws + t * N + q * kRK, wv);
+  load_cols<CV>(vs + t * CG + ct * CV, vc);
+  float acc[CV];
+#pragma unroll
+  for (int c = 0; c < CV; ++c) acc[c] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kRK; ++i) {
+#pragma unroll
+    for (int c = 0; c < CV; ++c) {
+      acc[c] = fmaf(rv[i], S[i][c], acc[c]);
+      S[i][c] = fmaf(wv[i], S[i][c], kv[i] * vc[c]);
+    }
+  }
+  store_cols<CV>(part + (t * KT + q) * CG + ct * CV, acc);
+}
+
+// Named barriers between the two roles, one pair per buffer b = s & 1:
+// kReady + b (helpers -> state threads: stage s is widened, coef written)
+// and kDone + b (state threads -> helpers: stage s's partial sums are
+// written, its rows read); kHelp among the helpers alone.
+constexpr int kReady = 1, kDone = 3, kHelp = 5;
+
+// One block: columns [col0, col0 + CG) of one (b, h) row, over all of T.
+// State thread tid = ct + CT * q (tid < NT) owns key rows q*kRK .. + kRK - 1
+// and value columns col0 + ct*CV .. + CV - 1 of S, and runs the steps.
+// The kHelpers threads after them feed and drain it: helper 0 issues the
+// TMA boxes (r, k, w, v through 4-D tensor maps (columns, heads, T, B);
+// rows past T arrive as zeros); all of them widen stage s + 1 and sum its
+// coef while the state threads run stage s, then sum stage s's partials
+// into y.
+// (minBlocks 1: ptxas may then give a thread all the registers its tile
+// needs; left to itself it capped some instances at 56 and spilled)
+template <typename T, int N, int CV>
+__global__ void __launch_bounds__(kMaxThreads + kHelpers, 1) wkv6_kernel(
+    const __grid_constant__ CUtensorMap tr, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUtensorMap tv,
+    const float* __restrict__ u, T* __restrict__ y, float* __restrict__ s_out, int T_len,
+    int H, int splits) {
+  constexpr int KT = N / kRK;                 // threads per value column
+  constexpr int esz = sizeof(T);
+  constexpr bool kWiden = esz == 2;
+  constexpr int VEC = 16 / esz;               // y elements per 16-byte store
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int CG = N / splits;
+  const int CT = CG / CV;
+  const int NT = KT * CT;
+  const int ALL = NT + kHelpers;
+  const Layout L = layout(N, CG, esz);
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x / splits;
+  const int col0 = (blockIdx.x % splits) * CG;
+  const int b = bh / H, h = bh % H;
+  const int n_stages = (T_len + kTS - 1) / kTS;
+  const uint32_t bar0 = smem_u32(smem);
+  const int wide_bytes = kWiden ? L.cv + kTS * CG * 4 : 0;
+
+  // the fp32 rows of stage s: widened (bf16) or the ring slot itself
+  auto rows = [&](int s, const float*& rs, const float*& ks, const float*& ws,
+                  const float*& vs) {
+    unsigned char* st = smem + L.ring + (s % kStages) * L.stage;
+    unsigned char* wd = kWiden ? smem + L.wide + (s & 1) * wide_bytes : st;
+    rs = reinterpret_cast<const float*>(wd + (kWiden ? L.cr : L.r));
+    ks = reinterpret_cast<const float*>(wd + (kWiden ? L.ck : L.k));
+    vs = reinterpret_cast<const float*>(wd + (kWiden ? L.cv : L.v));
+    ws = reinterpret_cast<const float*>(st + L.w);
+  };
+
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < NT) {
+    // ---- state threads: the steps, 3 fp32 instructions per element ----
+    const int ct = tid % CT, q = tid / CT;
+    float S[kRK][CV];
+#pragma unroll
+    for (int i = 0; i < kRK; ++i)
+#pragma unroll
+      for (int c = 0; c < CV; ++c) S[i][c] = 0.f;
+    for (int s = 0; s < n_stages; ++s) {
+      const int steps = min(kTS, T_len - s * kTS);
+      const float *rs, *ks, *ws, *vs;
+      rows(s, rs, ks, ws, vs);
+      float* part = reinterpret_cast<float*>(smem + L.part + (s & 1) * L.part_bytes);
+      bar_sync(kReady + (s & 1), ALL);
+      mbar_wait(bar0 + 8 * (s % kStages), (s / kStages) & 1);  // w, observed landed
+      // a whole stage unrolled, so every shared address is an immediate
+      if (steps == kTS) {
+#pragma unroll
+        for (int t = 0; t < kTS; ++t) step<N, CV>(S, rs, ks, ws, vs, part, t, q, ct, CG);
+      } else {
+        for (int t = 0; t < steps; ++t) step<N, CV>(S, rs, ks, ws, vs, part, t, q, ct, CG);
+      }
+      bar_arrive(kDone + (s & 1), ALL);
+    }
+    float* so = s_out + (long long)bh * N * N + col0 + ct * CV;
+#pragma unroll
+    for (int i = 0; i < kRK; ++i) store_cols<CV>(so + (q * kRK + i) * N, S[i]);
+    return;
+  }
+
+  // ---- helpers: feed, widen, coef, and the partial sums into y ----
+  const int hid = tid - NT;
+  const long long t_stride = (long long)H * N;
+  const long long base = (long long)b * T_len * t_stride + (long long)h * N;
+  // helper 0: stage s (4 boxes) into its ring slot
+  auto issue = [&](int s) {
+    const int slot = s % kStages;
+    const uint32_t st = smem_u32(smem + L.ring + slot * L.stage);
+    const uint32_t bar = bar0 + 8 * slot;
+    mbar_expect_tx(bar, L.stage);
+    tma_load(st + L.r, &tr, bar, 0, h, s * kTS, b);
+    tma_load(st + L.k, &tk, bar, 0, h, s * kTS, b);
+    tma_load(st + L.w, &tw, bar, 0, h, s * kTS, b);
+    tma_load(st + L.v, &tv, bar, col0, h, s * kTS, b);
+  };
+  // u for coef: rows g*kRK .. of every step this helper sums (kHelpers is
+  // a multiple of KT, so g is the same in every item it takes)
+  const int g = hid % KT;
+  float uu[kRK];
+#pragma unroll
+  for (int i = 0; i < kRK; ++i) uu[i] = u[h * N + g * kRK + i];
+
+  // stage s landed -> coef[s & 1], and (bf16) its rows widened to fp32;
+  // a loop uniform per warp (kTS * KT and kHelpers are multiples of 32)
+  auto prepare = [&](int s) {
+    mbar_wait(bar0 + 8 * (s % kStages), (s / kStages) & 1);
+    unsigned char* st = smem + L.ring + (s % kStages) * L.stage;
+    unsigned char* wd = smem + L.wide + (s & 1) * wide_bytes;
+    float* coef = reinterpret_cast<float*>(smem + L.coef + (s & 1) * 128);
+    for (int i = hid; i < kTS * KT; i += kHelpers) {
+      const int t = i / KT;
+      float rf[kRK], kf[kRK];
+      if constexpr (kWiden) {
+        const auto* rr = reinterpret_cast<const __nv_bfloat16*>(st + L.r);
+        const auto* kk = reinterpret_cast<const __nv_bfloat16*>(st + L.k);
+        widen8(rr + t * N + g * kRK, rf);
+        widen8(kk + t * N + g * kRK, kf);
+        float* cr = reinterpret_cast<float*>(wd + L.cr) + t * N + g * kRK;
+        float* ck = reinterpret_cast<float*>(wd + L.ck) + t * N + g * kRK;
+        *reinterpret_cast<float4*>(cr) = make_float4(rf[0], rf[1], rf[2], rf[3]);
+        *reinterpret_cast<float4*>(cr + 4) = make_float4(rf[4], rf[5], rf[6], rf[7]);
+        *reinterpret_cast<float4*>(ck) = make_float4(kf[0], kf[1], kf[2], kf[3]);
+        *reinterpret_cast<float4*>(ck + 4) = make_float4(kf[4], kf[5], kf[6], kf[7]);
+      } else {
+        load8(reinterpret_cast<const float*>(st + L.r) + t * N + g * kRK, rf);
+        load8(reinterpret_cast<const float*>(st + L.k) + t * N + g * kRK, kf);
+      }
+      float cp = 0.f;
+#pragma unroll
+      for (int j = 0; j < kRK; ++j) cp = fmaf(rf[j] * uu[j], kf[j], cp);
+#pragma unroll
+      for (int off = KT / 2; off > 0; off >>= 1) cp += __shfl_xor_sync(0xffffffffu, cp, off);
+      if (g == 0) coef[t] = cp;
+    }
+    if constexpr (kWiden) {
+      const auto* vv = reinterpret_cast<const __nv_bfloat16*>(st + L.v);
+      float* cv = reinterpret_cast<float*>(wd + L.cv);
+      for (int i = hid; i < kTS * CG / 8; i += kHelpers) {
+        const int t = i / (CG / 8), c = (i % (CG / 8)) * 8;
+        float f[8];
+        widen8(vv + t * CG + c, f);
+        *reinterpret_cast<float4*>(cv + t * CG + c) = make_float4(f[0], f[1], f[2], f[3]);
+        *reinterpret_cast<float4*>(cv + t * CG + c + 4) = make_float4(f[4], f[5], f[6], f[7]);
+      }
+    }
+    bar_arrive(kReady + (s & 1), ALL);
+  };
+
+  if (hid == 0) {
+    for (int s = 0; s < kStages && s < n_stages; ++s) issue(s);
+  }
+  if (n_stages > 0) prepare(0);
+  for (int s = 0; s < n_stages; ++s) {
+    if (s + 1 < n_stages) prepare(s + 1);
+    bar_sync(kDone + (s & 1), ALL);
+    // y = coef v + the KT partial sums in order, 16 bytes a thread
+    const int t0 = s * kTS;
+    const int steps = min(kTS, T_len - t0);
+    const float *rs, *ks, *ws, *vs;
+    rows(s, rs, ks, ws, vs);
+    const float* part = reinterpret_cast<const float*>(smem + L.part + (s & 1) * L.part_bytes);
+    const float* coef = reinterpret_cast<const float*>(smem + L.coef + (s & 1) * 128);
+    const int CQ = CG / VEC;
+    for (int i = hid; i < steps * CQ; i += kHelpers) {
+      const int t = i / CQ, c = (i % CQ) * VEC;
+      float acc[VEC], vx[VEC];
+      const float* p = part + t * KT * CG + c;
+#pragma unroll
+      for (int e = 0; e < VEC; e += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(p + e);
+        acc[e] = a.x; acc[e + 1] = a.y; acc[e + 2] = a.z; acc[e + 3] = a.w;
+      }
+#pragma unroll
+      for (int qq = 1; qq < KT; ++qq) {
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(p + qq * CG + e);
+          acc[e] += a.x; acc[e + 1] += a.y; acc[e + 2] += a.z; acc[e + 3] += a.w;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; e += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(vs + t * CG + c + e);
+        vx[e] = a.x; vx[e + 1] = a.y; vx[e + 2] = a.z; vx[e + 3] = a.w;
+      }
+      const float cf = coef[t];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = fmaf(cf, vx[e], acc[e]);
+      store_y(y + base + (long long)(t0 + t) * t_stride + col0 + c, acc);
+    }
+    // the slot of stage s is free once every helper is past its sums
+    bar_sync(kHelp, kHelpers);
+    if (hid == 0 && s + kStages < n_stages) issue(s + kStages);
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// (B, T, H, N) of `esz`-byte elements as a 4-D map (N, H, T, B), boxes of
+// `cols` columns x 1 head x kTS steps x 1, no swizzle, zero fill past T
+cudaError_t encode(CUtensorMap* map, const void* ptr, int esz, int B, int T_len, int H, int N,
+                   int cols) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)N, (cuuint64_t)H, (cuuint64_t)T_len, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)N * esz, (cuuint64_t)H * N * esz,
+                                 (cuuint64_t)T_len * H * N * esz};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)kTS, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, esz == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                        4, const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, int N, int CV>
+cudaError_t launch_cfg(const void* r, const void* k, const void* v, const float* w,
+                       const float* u, void* y, float* s, int B, int T_len, int H, int splits,
+                       cudaStream_t st) {
+  const int CG = N / splits;
+  const int esz = sizeof(T);
+  const Layout L = layout(N, CG, esz);
+  const int nt = (N / kRK) * (CG / CV) + kHelpers;
+  CUtensorMap tr{}, tk{}, tw{}, tv{};  // T = 0: no stage, never read
+  cudaError_t e = cudaSuccess;
+  if (T_len > 0) {
+    e = encode(&tr, r, esz, B, T_len, H, N, N);
+    if (e == cudaSuccess) e = encode(&tk, k, esz, B, T_len, H, N, N);
+    if (e == cudaSuccess) e = encode(&tw, w, 4, B, T_len, H, N, N);
+    if (e == cudaSuccess) e = encode(&tv, v, esz, B, T_len, H, N, CG);
+    if (e != cudaSuccess) return e;
+  }
+  // the shared-memory limit, once per instance and device (a call costs
+  // tens of microseconds of host time, as much as a short launch)
+  auto kern = wkv6_kernel<T, N, CV>;
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices || !attr_set[dev]) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return e;
+    if (dev < kMaxDevices) attr_set[dev] = true;
+  }
+  kern<<<B * H * splits, nt, L.total, st>>>(tr, tk, tw, tv, u, static_cast<T*>(y), s, T_len,
+                                            H, splits);
+  return cudaGetLastError();
 }
 
 template <typename T, int N>
-__global__ void __launch_bounds__(N * kKS) wkv6_kernel(
-    const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ w, const float* __restrict__ u, T* __restrict__ y,
-    float* __restrict__ s_out, int T_len, int H) {
-  constexpr int R = N / kKS;       // key rows per thread
-  constexpr int RP = R + 4;        // padded quarter in shared memory
-  constexpr int NP = kKS * RP;     // padded row of r/k/w in shared memory
-  constexpr int NT = N * kKS;      // threads per block
-  static_assert(R % 4 == 0, "rows per thread must be a multiple of 4");
-  __shared__ __align__(16) float rs[kChunk][NP];
-  __shared__ __align__(16) float ks[kChunk][NP];
-  __shared__ __align__(16) float ws[kChunk][NP];
-  __shared__ float vs[kChunk][N];
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int tid = threadIdx.x;
-  const int j = tid / kKS;  // value column
-  const int q = tid % kKS;  // key rows q*R .. q*R + R - 1
-  const long long t_stride = (long long)H * N;
-  const long long base = (long long)b * T_len * t_stride + (long long)h * N;
-
-  float S[R];
-  float uu[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    S[i] = 0.f;
-    uu[i] = u[h * N + q * R + i];
+cudaError_t launch_n(const void* r, const void* k, const void* v, const float* w,
+                     const float* u, void* y, float* s, int B, int T_len, int H, int cv,
+                     int splits, cudaStream_t st) {
+  switch (cv) {
+    case 1: return launch_cfg<T, N, 1>(r, k, v, w, u, y, s, B, T_len, H, splits, st);
+    case 2: return launch_cfg<T, N, 2>(r, k, v, w, u, y, s, B, T_len, H, splits, st);
+    case 4: return launch_cfg<T, N, 4>(r, k, v, w, u, y, s, B, T_len, H, splits, st);
+    default: return cudaErrorInvalidValue;
   }
-
-  for (int t0 = 0; t0 < T_len; t0 += kChunk) {
-    const int steps = min(kChunk, T_len - t0);
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = tid; i < kChunk * N; i += NT) {
-      const int tt = i / N, n = i % N;
-      const int ns = (n / R) * RP + n % R;
-      float rv = 0.f, kv = 0.f, vv = 0.f, wv = 1.f;
-      if (tt < steps) {
-        const long long off = base + (long long)(t0 + tt) * t_stride + n;
-        rv = to_f32(r[off]);
-        kv = to_f32(k[off]);
-        vv = to_f32(v[off]);
-        wv = w[off];
-      }
-      rs[tt][ns] = rv;
-      ks[tt][ns] = kv;
-      ws[tt][ns] = wv;
-      vs[tt][n] = vv;
-    }
-    __syncthreads();
-    for (int tt = 0; tt < steps; ++tt) {
-      const float vj = vs[tt][j];
-      const float* rr = &rs[tt][q * RP];
-      const float* kk = &ks[tt][q * RP];
-      const float* wr = &ws[tt][q * RP];
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < R; i += 4) {
-        const float4 r4 = *reinterpret_cast<const float4*>(rr + i);
-        const float4 k4 = *reinterpret_cast<const float4*>(kk + i);
-        const float4 w4 = *reinterpret_cast<const float4*>(wr + i);
-        const float rn[4] = {r4.x, r4.y, r4.z, r4.w};
-        const float kn[4] = {k4.x, k4.y, k4.z, k4.w};
-        const float wn[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float kv = kn[c] * vj;
-          acc[c] = fmaf(rn[c], fmaf(uu[i + c], kv, S[i + c]), acc[c]);
-          S[i + c] = fmaf(wn[c], S[i + c], kv);
-        }
-      }
-      float yj = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-      yj += __shfl_xor_sync(0xffffffffu, yj, 1);
-      yj += __shfl_xor_sync(0xffffffffu, yj, 2);
-      if (q == 0) y[base + (long long)(t0 + tt) * t_stride + j] = from_f32<T>(yj);
-    }
-  }
-
-  float* so = s_out + (long long)bh * N * N;
-#pragma unroll
-  for (int i = 0; i < R; ++i) so[(q * R + i) * N + j] = S[i];
 }
 
 template <typename T>
 cudaError_t launch(const void* r, const void* k, const void* v, const float* w,
-                   const float* u, void* y, float* s, int B, int T_len, int H, int N,
-                   cudaStream_t st) {
-  const dim3 grid(B * H);
-  const T* rt = static_cast<const T*>(r);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* yt = static_cast<T*>(y);
+                   const float* u, void* y, float* s, int B, int T_len, int H, int N, int cv,
+                   int splits, cudaStream_t st) {
   switch (N) {
-    case 32:
-      wkv6_kernel<T, 32><<<grid, 32 * kKS, 0, st>>>(rt, kt, vt, w, u, yt, s, T_len, H);
-      break;
-    case 64:
-      wkv6_kernel<T, 64><<<grid, 64 * kKS, 0, st>>>(rt, kt, vt, w, u, yt, s, T_len, H);
-      break;
-    case 128:
-      wkv6_kernel<T, 128><<<grid, 128 * kKS, 0, st>>>(rt, kt, vt, w, u, yt, s, T_len, H);
-      break;
-    default:
-      return cudaErrorInvalidValue;
+    case 32: return launch_n<T, 32>(r, k, v, w, u, y, s, B, T_len, H, cv, splits, st);
+    case 64: return launch_n<T, 64>(r, k, v, w, u, y, s, B, T_len, H, cv, splits, st);
+    case 128: return launch_n<T, 128>(r, k, v, w, u, y, s, B, T_len, H, cv, splits, st);
+    default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
@@ -175,19 +569,27 @@ extern "C" {
 
 // y (B, T, H, N; r's type), s (B, H, N, N; fp32) from r, k, v (B, T, H, N;
 // fp32 when dtype == 0, bf16 when dtype == 1), w (B, T, H, N; fp32) and
-// u (H, N; fp32), all contiguous. N must be 32, 64 or 128. Launches on
-// `stream`, does not synchronise, and returns cudaGetLastError().
+// u (H, N; fp32), all contiguous, r/k/v/w/y on 16-byte aligned bases.
+// `cols` value columns per thread (1, 2 or 4) and `splits` blocks per
+// (b, h) row pick the launch (kernels/wkv6/ops.py::configs lists those
+// taken).
+// Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() (cudaErrorInvalidValue for a launch it does not take).
 int wkv6_fwd(const void* r, const void* k, const void* v, const float* w,
              const float* u, void* y, float* s, int B, int T_len, int H, int N,
-             int dtype, void* stream) {
-  if (B < 0 || T_len < 0 || H < 0 || (long long)B * H > 0x7fffffffLL)
+             int dtype, int cols, int splits, void* stream) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (B < 0 || T_len < 0 || H < 0 || splits < 1 ||
+      (long long)B * H * splits > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  if (!config_ok(N, dtype == 1 ? 2 : 4, cols, splits)) return (int)cudaErrorInvalidValue;
+  if (!aligned16(r) || !aligned16(k) || !aligned16(v) || !aligned16(w) || !aligned16(y))
+    return (int)cudaErrorMisalignedAddress;
   if (B == 0 || H == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(r, k, v, w, u, y, s, B, T_len, H, N, st);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(r, k, v, w, u, y, s, B, T_len, H, N, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch<float>(r, k, v, w, u, y, s, B, T_len, H, N, cols, splits, st);
+  return (int)launch<__nv_bfloat16>(r, k, v, w, u, y, s, B, T_len, H, N, cols, splits, st);
 }
 
 const char* wkv6_error_string(int code) {
