@@ -25,11 +25,17 @@ Phases, one or more lines each:
                 flash library (cuobjdump, so a cached build is read too),
                 the bf16 kernel's three instances spill nothing, and its
                 SASS holds HGMMA (wgmma) instructions, counted; each of
-                the 18 wkv6 instances' registers, and none spills;
+                the 18 wkv6 instances' and the 8 SpMM instances' registers,
+                and none spills;
   3 kernels     the SpMM against its plain version at the serving path's
-                shapes (atol = rtol = 1e-5), with its time, the plain
-                version's, the library call's and the bound; also the times
-                at the contraction splits ``block_spmm`` did not pick;
+                shapes, a ragged one, one with two windows of mask columns
+                and two column slabs, a dense one and an all-dead one
+                (atol = rtol = 1e-5, finite inputs), a second launch bit for
+                bit equal to the first, with its time, the plain version's,
+                the library call's and the bound (2·D operations per
+                nonzero of A); every split ``block_spmm`` did not pick is
+                checked the same way and timed; a NaN row of X reaches
+                exactly the rows of A that name it;
   4 serve       warm fill + warmup + a few hundred ids under both policies;
                 historical and fresh logits agree at 1e-4;
   5 traffic     a closed-loop LoadGenerator run (200 queries, 20 updates,
@@ -155,11 +161,11 @@ class Timer:
         return times[len(times) // 2]
 
 
-def spmm_bound(torch, n, m, d, mask, bm, bk):
-    """(bound_ms, bound_by, live_fraction): the bytes the
-    block-sparse product must move over HBM bandwidth, against its fp32 FMA
-    operations (2·D per live element of A) over the fp32 peak, for this
-    run's mask. The bytes are the live A tiles, the rows of X under a
+def spmm_bound(torch, n, m, d, mask, nnz, bm, bk):
+    """(bound_ms, bound_by, live_fraction): the bytes the block-sparse
+    product must move over HBM bandwidth, against the fp32 FMA operations
+    these inputs need (2·D per nonzero of A, ``nnz``) over the fp32 peak, for
+    this run's mask. The bytes are the live A tiles, the rows of X under a
     column tile that some row tile has live (no other row of X is needed),
     Y and the mask, each once."""
     rows = torch.clamp(n - torch.arange(mask.shape[0], device=mask.device) * bm, max=bm)
@@ -168,49 +174,83 @@ def spmm_bound(torch, n, m, d, mask, bm, bk):
     x_rows = float((mask.any(0).double() * cols.double()).sum())
     frac = float(mask.double().mean()) if mask.numel() else 0.0
     nbytes = 4 * (live + x_rows * d + n * d + mask.numel())
-    flops = 2.0 * live * d
+    flops = 2.0 * nnz * d
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             frac)
 
 
 def check_spmm(torch, ops, ref, timer, name, a, x, mask, reps):
-    """One SpMM shape: kernel vs plain version on the card, then times.
-    The contraction splits ``block_spmm`` did not pick (none, half and
-    twice its own) are checked and timed too."""
+    """One SpMM shape: kernel vs plain version on the card (finite inputs),
+    the same bits from a second launch, then times. Every split
+    ``block_spmm`` did not pick is checked (1e-5, and twice the same bits)
+    and timed too."""
     y = ops.block_spmm(a, x, mask)
+    y_again = ops.block_spmm(a, x, mask)
     want = ref.spmm_ref(a, x)
+    nnz = int((a != 0).sum())
     torch.cuda.synchronize()
     if y.shape != want.shape or not torch.isfinite(y).all():
         raise AssertionError(f"spmm {name}: shape {tuple(y.shape)} or non-finite output")
     err = float((y - want).abs().max()) if y.numel() else 0.0
     if not torch.allclose(y, want, atol=TOL_KERNEL, rtol=TOL_KERNEL):
         raise AssertionError(f"spmm {name}: max abs err {err} beyond {TOL_KERNEL}")
+    if not torch.equal(y, y_again):
+        raise AssertionError(f"spmm {name}: a second launch gave other bits")
     n, m = a.shape
     d = x.shape[1]
-    bound_ms, bound_by, frac = spmm_bound(torch, n, m, d, mask, ops.TILE_M, ops.TILE_K)
+    bound_ms, bound_by, frac = spmm_bound(torch, n, m, d, mask, nnz, ops.TILE_M, ops.TILE_K)
+    live_tiles = int(mask.sum())
     splits = ops.split_count(n, m, d, torch.cuda.get_device_properties(
         a.device).multi_processor_count)
     row = {
         "shape": name, "n": n, "m": m, "d": d, "tile": [ops.TILE_M, ops.TILE_K],
-        "splits": splits, "live_fraction": frac, "max_abs_err": err,
+        "splits": splits, "live_fraction": frac, "nnz": nnz,
+        "nnz_per_live_tile": nnz / live_tiles if live_tiles else 0.0, "max_abs_err": err,
         "ms": timer(lambda: ops.block_spmm(a, x, mask), reps),
         "plain_ms": timer(lambda: ref.spmm_ref(a, x), reps),
         "library_ms": timer(lambda: torch.matmul(a, x), reps),
         "bound_ms": bound_ms, "bound_by": bound_by, "other_splits": {},
     }
-    others = {1, max(1, splits // 2), min(2 * splits, -(-m // ops.TILE_K))} - {splits}
-    for s in sorted(others):
-        y2 = ops.launch(a, x, mask, s)
+    for s in ops.SPLITS:
+        if s == splits:
+            continue
+        y2, y3 = ops.launch(a, x, mask, s), ops.launch(a, x, mask, s)
         if not torch.allclose(y2, want, atol=TOL_KERNEL, rtol=TOL_KERNEL):
             raise AssertionError(f"spmm {name} at {s} splits: max abs err "
                                  f"{float((y2 - want).abs().max())}")
+        if not torch.equal(y2, y3):
+            raise AssertionError(f"spmm {name} at {s} splits: a second launch gave "
+                                 "other bits")
         row["other_splits"][s] = timer(lambda: ops.launch(a, x, mask, s), reps)
     log(f"phase 3 kernels: spmm {name} ({n} x {m}) @ ({m} x {d}) splits {splits} live "
-        f"{frac:.4f} max_abs_err {err} kernel {row['ms']} ms plain {row['plain_ms']} ms "
-        f"torch.matmul {row['library_ms']} ms bound {bound_ms} ms ({bound_by}); at "
-        f"other splits {json.dumps(row['other_splits'])}")
+        f"{frac:.4f} nnz {nnz} ({row['nnz_per_live_tile']:.3f} per live tile) max_abs_err "
+        f"{err} kernel {row['ms']} ms plain {row['plain_ms']} ms torch.matmul "
+        f"{row['library_ms']} ms bound {bound_ms} ms ({bound_by}); at other splits "
+        f"{json.dumps(row['other_splits'])}")
     return row
+
+
+def check_spmm_nonfinite(torch, ops, name, a, x, mask):
+    """One NaN row k of X, at every split: exactly the rows of A with a
+    nonzero in column k come out NaN (all of their columns), and every
+    other row has the bits the finite X gives it."""
+    k = int((a != 0).sum(0).argmax())
+    reach = a[:, k] != 0
+    xb = x.clone()
+    xb[k] = float("nan")
+    for s in ops.SPLITS:
+        y, yb = ops.launch(a, x, mask, s), ops.launch(a, xb, mask, s)
+        nan_rows = torch.isnan(yb).any(1)
+        if not (torch.equal(nan_rows, reach) and torch.isnan(yb[reach]).all()
+                and torch.equal(yb[~reach], y[~reach])):
+            raise AssertionError(f"spmm nonfinite {name} at {s} splits: NaN rows "
+                                 f"{int(nan_rows.sum())}, rows naming column {k} "
+                                 f"{int(reach.sum())}")
+    log(f"phase 3 kernels: spmm nonfinite {name}: a NaN row {k} of X reaches exactly "
+        f"the {int(reach.sum())} rows of A that name it, at splits {list(ops.SPLITS)}; "
+        "the other rows keep their bits")
+    return {"shape": name, "row": k, "rows_reached": int(reach.sum())}
 
 
 def wkv6_bound(torch, B, T, H, N, dtype):
@@ -852,6 +892,19 @@ def main(argv=None) -> int:
                                  for r in wkv_fns.values()):
         raise AssertionError(f"build: wkv6 kernel instances spill or are missing: {wkv_fns}")
     record["wkv6_build"] = wkv_fns
+    # every instance of the SpMM kernel (4 column widths x 16-byte or 4-byte
+    # loads of X) keeps its sums and its batch of A in registers
+    spmm_fns = {n: {"registers": r.get("REG"), "stack_bytes": r.get("STACK"),
+                    "local_bytes": r.get("LOCAL")}
+                for n, r in res_usage(build, "spmm").items() if "spmm_nnz_kernel" in n}
+    for n, r in sorted(spmm_fns.items()):
+        log(f"phase 2 build: spmm: {n}: {r['registers']} registers, stack "
+            f"{r['stack_bytes']} B, local {r['local_bytes']} B")
+    if len(spmm_fns) != 8 or any(r["stack_bytes"] != 0 or r["local_bytes"] != 0
+                                 for r in spmm_fns.values()):
+        raise AssertionError(f"build: spmm kernel instances spill or are missing: "
+                             f"{spmm_fns}")
+    record["spmm_build"] = spmm_fns
 
     # -- the configuration ------------------------------------------------------
     g = make_dataset("pubmed", scale=1, max_features=500, seed=0)
@@ -892,21 +945,51 @@ def main(argv=None) -> int:
         rows[: len(r)] = r
         a, mk = adj_case(rows)
         shapes.append(check_spmm(torch, ops, ref, timer, f"fresh_b{b}", a, feat, mk, 10))
+    nonfinite = [check_spmm_nonfinite(torch, ops, "fresh_b128", a, feat, mk)]
     del a, mk
     a = torch.rand((1000, 3001), generator=gen, device=dev)
     a = torch.where(torch.rand(a.shape, generator=gen, device=dev) < 0.01, a, 0.0)
     x = torch.randn((3001, 77), generator=gen, device=dev)
-    shapes.append(check_spmm(torch, ops, ref, timer, "ragged", a, x,
-                             ops.block_mask_from_dense(a, ops.TILE_M, ops.TILE_K), 20))
+    mk = ops.block_mask_from_dense(a, ops.TILE_M, ops.TILE_K)
+    shapes.append(check_spmm(torch, ops, ref, timer, "ragged", a, x, mk, 20))
+    nonfinite.append(check_spmm_nonfinite(torch, ops, "ragged", a, x, mk))
+    # the shapes below draw from their own generator, so that the later
+    # phases draw what they drew before these were added. More than 1,024
+    # mask columns (two windows of the kernel's live-tile list) and D over
+    # 512 (two column slabs, the second ragged)
+    gen_new = torch.Generator(device=dev).manual_seed(1)
+    a = torch.rand((100, 40000), generator=gen_new, device=dev)
+    a = torch.where(torch.rand(a.shape, generator=gen_new, device=dev) < 0.002, a, 0.0)
+    x = torch.randn((40000, 600), generator=gen_new, device=dev)
+    shapes.append(check_spmm(torch, ops, ref, timer, "windows_slabs", a, x,
+                             ops.block_mask_from_dense(a, ops.TILE_M, ops.TILE_K), 10))
+    # every element nonzero: 32 FMAs per row of every tile, each row summing
+    # to 1 as the mean aggregation's adjacency does
+    a_raw = torch.rand((512, 2048), generator=gen_new, device=dev) + 0.1
+    x = torch.randn((2048, 128), generator=gen_new, device=dev)
+    mk = ops.block_mask_from_dense(a_raw, ops.TILE_M, ops.TILE_K)
+    a = a_raw / a_raw.sum(1, keepdim=True)
+    shapes.append(check_spmm(torch, ops, ref, timer, "dense", a, x, mk, 5))
+    # recorded, no gate: the rows before they are normalised (entries in
+    # [0.1, 1.1), |y| above 100), where a chain of 2,048 / splits fp32
+    # FMAs per output drifts from the library's blocked sums
+    want = ref.spmm_ref(a_raw, x)
+    raw = {s: float((ops.launch(a_raw, x, mk, s) - want).abs().max()) for s in ops.SPLITS}
+    log(f"phase 3 kernels: spmm dense_unnormalised (recorded, no gate): max abs err by "
+        f"split {json.dumps(raw)}, max |y| {float(want.abs().max())}")
+    record["spmm_dense_unnormalised"] = {"max_abs_err": raw,
+                                         "max_abs_y": float(want.abs().max())}
+    del a_raw, want
     a = torch.zeros((300, 500), device=dev)
     x = torch.randn((500, 64), generator=gen, device=dev)
     dead = torch.zeros((10, 16), dtype=torch.int32, device=dev)
     row = check_spmm(torch, ops, ref, timer, "all_dead", a, x, dead, 20)
-    if ops.block_spmm(a, x, dead).abs().max() != 0:
+    if any(ops.launch(a, x, dead, s).abs().max() != 0 for s in ops.SPLITS):
         raise AssertionError("spmm all_dead: output is not exactly zero")
     shapes.append(row)
-    del a, x, dead, table1
+    del a, x, dead, table1, mk
     record["spmm_shapes"] = shapes
+    record["spmm_nonfinite"] = nonfinite
 
     # -- phase 4: serve (the main path; counts from 0) --------------------------
     params = gcn_init(torch.Generator().manual_seed(0), g.n_features, g.n_classes,
@@ -928,7 +1011,7 @@ def main(argv=None) -> int:
     if not np.allclose(hist, fresh, atol=TOL_LOGITS, rtol=TOL_LOGITS):
         raise AssertionError(f"serve: historical vs fresh max abs diff "
                              f"{np.abs(hist - fresh).max()}")
-    log(f"phase 4 serve: warm fill + warmup {t_setup:.3f} s ({warm_launches} warmup "
+    log(f"phase 4 serve: warm fill + warmup {t_setup} s ({warm_launches} warmup "
         f"launches); {N_IDS} ids: historical vs fresh max abs diff "
         f"{float(np.abs(hist - fresh).max())}")
 

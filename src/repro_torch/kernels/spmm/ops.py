@@ -8,10 +8,13 @@ plain version (``ref.spmm_ref``), which ignores the mask — exact, because
 a skipped tile is all zero. There is no other fallback: a CUDA tensor of
 the wrong type, shape or layout, or a failed build or launch, raises.
 
-The block mask is at the kernel's own tile shape, ``TILE_M`` x ``TILE_K``
-= 32 x 32 of A. The TPU version's ``AUTOTUNE_TABLE`` was measured for the
-Pallas interpreter and does not carry over. The kernel masks the ragged
-edges itself, so nothing is padded.
+The kernel reads each live tile of A once and multiplies only its
+nonzeros: a warp owns two rows of Y for all of D, and ``splits`` warps may
+share a row group's live tiles, their partial sums added in a fixed order
+(``csrc/spmm.cu`` has the design). The block mask is at the kernel's own
+tile shape, ``TILE_M`` x ``TILE_K`` = 32 x 32 of A. The TPU version's
+``AUTOTUNE_TABLE`` was measured for the Pallas interpreter and does not
+carry over. The kernel masks the ragged edges itself, so nothing is padded.
 
 ``neighbor_spmm`` expresses the padded neighbor-list mean aggregation as
 an SpMM against the row-normalised adjacency of ``adjacency_from_neighbors``,
@@ -29,14 +32,16 @@ import torch
 
 from repro_torch.kernels.spmm.ref import spmm_ref
 
-TILE_M = 32     # rows of A per thread block (and per mask tile)
-TILE_K = 32     # columns of A per kernel step (and per mask tile)
-TILE_D = 128    # columns of Y per thread block
-MAX_SPLITS = 64
-# Two 128-thread blocks of the kernel fit on an SM (195 registers each
-# thread); aiming at four waves of them evens out blocks whose live steps
-# differ (measured against half and twice the split, PERF.md).
-BLOCKS_PER_SM = 8
+TILE_M = 32     # rows of A per mask tile
+TILE_K = 32     # columns of A per mask tile
+ROWS_PER_WARP = 2   # rows of Y a warp owns (the kernel's kRows)
+SLAB = 512          # columns of Y a block owns; wider outputs take more slabs
+SPLITS = (1, 2, 4, 8)
+# Warps of the grid the split aims at per SM: four waves of the 16 that
+# are resident (two blocks of eight; the kernel's registers allow two).
+# Against one wave, the query buckets ran faster with more splits, the warm
+# fill (six waves unsplit) did not (measured on an H100, PERF.md).
+WARPS_PER_SM = 64
 
 _fn = None
 _sm_count: dict[int, int] = {}
@@ -47,14 +52,15 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def split_count(n: int, m: int, d: int, n_sm: int) -> int:
-    """How many blocks share one output tile's contraction: 1 when the
-    output tiles alone put ``BLOCKS_PER_SM`` blocks on every SM, else
-    enough to do so (at most ``MAX_SPLITS``, at most one per k step)."""
-    blocks = _cdiv(d, TILE_D) * _cdiv(n, TILE_M)
-    want = BLOCKS_PER_SM * n_sm
-    if blocks >= want:
-        return 1
-    return max(1, min(MAX_SPLITS, _cdiv(m, TILE_K), _cdiv(want, blocks)))
+    """How many warps share one row group's live tiles: 1 when the row
+    groups alone give ``WARPS_PER_SM`` warps for every SM, else the least
+    power of two that does (at most 8, and at most one per mask column)."""
+    row_warps = _cdiv(n, ROWS_PER_WARP) * _cdiv(d, SLAB)
+    nbm = _cdiv(m, TILE_K)
+    s = 1
+    while s < SPLITS[-1] and row_warps * s < WARPS_PER_SM * n_sm and 2 * s <= nbm:
+        s *= 2
+    return s
 
 
 def _kernel():
@@ -64,9 +70,8 @@ def _kernel():
 
         lib = build.load("spmm")
         fn = lib.spmm_block_f32
-        # a, x, mask, y, workspace; N, M, D, lda, ldx, ldy, bm, bk, splits;
-        # stream
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+        # a, x, mask, y; N, M, D, lda, ldx, ldy, bm, bk, splits; stream
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.spmm_error_string.argtypes = [ctypes.c_int]
@@ -93,6 +98,13 @@ def block_spmm(a: torch.Tensor, x: torch.Tensor,
     grid; None derives it from A. On CUDA the output is allocated with
     ``torch.empty`` and the kernel runs on the current stream, without a
     synchronise.
+
+    Non-finite values: the kernel skips the zeros of A, so 0·inf and 0·NaN
+    never happen on CUDA, and a non-finite row k of X reaches exactly the
+    rows of A with a nonzero in column k (as the gather and segment
+    backends and ``ref.neighbor_mean_ref`` give). The plain ``spmm_ref``,
+    which CPU tensors take, multiplies the zeros too and makes every row
+    non-finite. On finite inputs the two agree to fp32 rounding.
     """
     if a.device.type == "cpu" and x.device.type == "cpu":
         return spmm_ref(a, x)
@@ -127,21 +139,20 @@ block_spmm.launches = 0
 
 def launch(a: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
            splits: int) -> torch.Tensor:
-    """Launch the kernel with an explicit contraction split on checked
+    """Launch the kernel with an explicit split (``SPLITS``) on checked
     contiguous fp32 CUDA operands. ``block_spmm`` picks the split;
     ``chip_smoke.py`` calls this directly to time the splits it did not
     pick."""
+    if splits not in SPLITS:
+        raise ValueError(f"block_spmm: splits {splits} not in {SPLITS}")
     n, m = a.shape
     d = x.shape[1]
     y = torch.empty((n, d), dtype=torch.float32, device=a.device)
     if n == 0 or d == 0:
         return y
-    ws = (torch.empty((splits, n, d), dtype=torch.float32, device=a.device)
-          if splits > 1 else None)
     fn, err_str = _kernel()
-    rc = fn(a.data_ptr(), x.data_ptr(), mask.data_ptr(), y.data_ptr(),
-            0 if ws is None else ws.data_ptr(), n, m, d, m, d, d, TILE_M, TILE_K,
-            splits, torch.cuda.current_stream(a.device).cuda_stream)
+    rc = fn(a.data_ptr(), x.data_ptr(), mask.data_ptr(), y.data_ptr(), n, m, d, m, d, d,
+            TILE_M, TILE_K, splits, torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"spmm_block_f32 launch failed: "
                            f"{err_str(rc).decode()} (cudaError {rc})")

@@ -137,15 +137,21 @@ def test_non_cpu_tensors_never_take_the_plain_path():
 
 
 def test_kernel_tiles_and_splits():
-    assert (tops.TILE_M, tops.TILE_K, tops.TILE_D) == (32, 32, 128)
-    # output tiles alone put eight blocks on each of 132 SMs: no split
+    assert (tops.TILE_M, tops.TILE_K, tops.ROWS_PER_WARP, tops.SLAB) == (32, 32, 2, 512)
+    assert tops.SPLITS == (1, 2, 4, 8)
+    # the row groups alone give 64 warps for each of 132 SMs: no split
     assert tops.split_count(24647, 24647, 500, 132) == 1        # warm fill
-    # a query bucket splits its contraction over up to 64 blocks
-    assert tops.split_count(4224, 24647, 500, 132) == 2         # 528 output tiles
-    assert tops.split_count(1056, 24647, 500, 132) == 8         # 132 output tiles
-    assert tops.split_count(8, 24647, 256, 132) == 64
-    assert tops.split_count(128, 24647, 500, 132) == 64
-    assert tops.split_count(300, 500, 64, 132) == 16            # one split per k step
+    # a query bucket shares each row group's live tiles among 2..8 warps
+    assert tops.split_count(4224, 24647, 500, 132) == 4         # 2,112 row warps
+    assert tops.split_count(1056, 24647, 500, 132) == 8         # 528 row warps
+    assert tops.split_count(264, 24647, 500, 132) == 8
+    assert tops.split_count(8, 24647, 256, 132) == 8
+    assert tops.split_count(128, 24647, 500, 132) == 8
+    assert tops.split_count(300, 500, 64, 132) == 8             # 16 mask columns
+    assert tops.split_count(8448, 24647, 500, 132) == 2
+    # at most one split per mask column; wider outputs count their slabs
+    assert tops.split_count(300, 64, 64, 132) == 2
+    assert tops.split_count(4224, 24647, 1024, 132) == 2
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
