@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths on one CUDA card and check them.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--out FILE.json] [--profile]
 
@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit (``nvcc``). It builds the port's three kernels from
 the sources in the checkout (the block-sparse SpMM, the WKV6 recurrence and
 flash attention, one ``nvcc`` each, all at once), holds each against its
-plain PyTorch version on the card, and drives two main paths with random
+plain PyTorch version on the card, and drives three main paths with random
 weights from a seed:
 
 * GCN serving: the pubmed configuration at the paper's widths (19,717
@@ -16,7 +16,13 @@ weights from a seed:
   ``QueryEngine`` → ``LoadGenerator`` (the SpMM kernel);
 * LM serving: ``rwkv6-1.6b`` and ``gemma3-12b`` at full width (24 and 48
   layers, bf16) through ``launch.serve_lm_cli.serve``: a prefill of 4 x
-  2,048 prompt tokens, then 32 greedy tokens (WKV6 and flash attention).
+  2,048 prompt tokens, then 32 greedy tokens (WKV6 and flash attention);
+* FedAIS training: the same pubmed graph over 10 clients (Dirichlet alpha
+  0.5: n_max 4,370, g_max 12,374), 5 a round, J = 4 local epochs, batch
+  256, fanout 10, GraphSAGE 256/128, 3 rounds through
+  ``api.FedEngine(g, fed, "fedais", ...).run()`` with the ``spmm``
+  training and eval backends (the SpMM kernel forward and, transposed,
+  backward).
 
 Phases, one or more lines each:
   1 device      the card (nvidia-smi name and power limit), torch and CUDA
@@ -35,7 +41,11 @@ Phases, one or more lines each:
                 the library call's and the bound (2·D operations per
                 nonzero of A); every split ``block_spmm`` did not pick is
                 checked the same way and timed; a NaN row of X reaches
-                exactly the rows of A that name it;
+                exactly the rows of A that name it; then the training
+                path's shapes (a client's loss pass, a batch step at 500 and
+                256 columns, and the backward's transposed launch Aᵀ @ dy),
+                and the backward through autograd against autograd of the
+                plain version (1e-5);
   4 serve       warm fill + warmup + a few hundred ids under both policies;
                 historical and fresh logits agree at 1e-4;
   5 traffic     a closed-loop LoadGenerator run (200 queries, 20 updates,
@@ -46,6 +56,9 @@ Phases, one or more lines each:
                 on the graph the traffic mutated, one more edge insert and a
                 refresh, and the refreshed rows' historical logits against
                 their fresh logits and the plain CPU path on that graph;
+                with one feature row poisoned (NaN), the fresh fallbacks
+                count the same chunks under gather, segment and spmm on the
+                card and spmm on the CPU;
   7 lm-kernels  WKV6 and flash attention against their plain versions at
                 the LM prefill's shapes and at a ragged shape each, in fp32
                 (1e-5 / 2e-5, the reference's tolerances) and in bf16 (rtol
@@ -74,11 +87,21 @@ Phases, one or more lines each:
                 the stack carries a rounding difference); at the smoke
                 configurations (fp32), the
                 card's kernel path against the plain path on the CPU
-                (prefill and 4 decode steps, 1e-4).
+                (prefill and 4 decode steps, 1e-4);
+  10 train      ``FedEngine.run()`` twice from one seed: the SpMM launched
+                exactly rounds x (m·(2 + 3J) + 2) times (a loss pass, then
+                J steps of 2 forward and 1 transposed launch per client,
+                plus the eval's 2 layers a round) and nothing else; the same
+                cohorts, batches, tau and test_acc bits in both runs; the
+                first LocalUpdate of one client under spmm against gather
+                on the card with the same draws (discrete outputs exact,
+                ``loss_all`` and the first step's grads 1e-4); ms per round,
+                peak memory, test_acc per round.
 The SpMM's launch counter is set to 0 just before phase 4 and read just
 after phase 5; every counter is set to 0 just before each ``serve`` of
-phase 8 and read just after it. ``--profile`` traces a second traffic run
-after phase 6 and one prefill + 4 decode steps of each LM in phase 9.
+phase 8 and each ``run`` of phase 10 and read just after it. ``--profile``
+traces a second traffic run after phase 6, one prefill + 4 decode steps of
+each LM in phase 9 and one steady training round in phase 10.
 Before the last line it prints a ``{"kernels": [...]}`` line (all three
 kernels). The last line is ``{"ok": true, "device": {...}}``. Any failure
 raises and the exit code is not 0; without CUDA, or outside a checkout, it
@@ -89,6 +112,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import math
 import re
 import subprocess
 import sys
@@ -129,6 +153,8 @@ ATOL_BF16_WKV_Y = 1e-2
 TOL_BLOCK_REL = 1e-2
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 LM_ARCHS = ("rwkv6-1.6b", "gemma3-12b")
+# FedAIS training: the paper's Pubmed over 10 clients, 5 a round, J = 4
+TRAIN_CLIENTS, TRAIN_M, TRAIN_ROUNDS = 10, 5, 3
 
 
 def log(*parts) -> None:
@@ -772,6 +798,214 @@ def lm_check_smoke(torch, lm, cfg, dev, from_numpy, to_numpy) -> float:
     return max(errs)
 
 
+def spmm_training_shapes(torch, ops, ref, timer, fed, dev, gen, rng) -> tuple[list, dict]:
+    """Phase 3 at the training path's shapes, from client 0 of the train
+    phase's partition: the loss pass's adjacency (all n_max rows over the
+    n_tot = n_max + g_max columns of [own | ghost]) @ the 500 features and @
+    the 256 of layer 1; a batch step's (256 sampled rows, neighbors kept by
+    the fanout of 10) @ 500 and @ 256; and the backward's transposed launch,
+    Aᵀ (n_tot x 256) @ dy (256 x 256), whose rows do not sum to 1. The
+    backward is also held through autograd: ``block_spmm``'s against
+    autograd of the plain version, at 1e-5, launching the kernel twice."""
+    from repro_torch.core.importance import stable_rank
+
+    n_tot = fed.n_max + fed.g_max
+    idx = torch.tensor(fed.nbr_idx[0], device=dev)
+    nm = torch.tensor(fed.nbr_mask[0], device=dev)
+    table0 = torch.cat([torch.tensor(fed.features[0], device=dev),
+                        torch.randn((fed.g_max, fed.n_features), generator=gen, device=dev)])
+    table1 = torch.randn((n_tot, 256), generator=gen, device=dev)
+    rows = []
+    a = ops.adjacency_from_neighbors(idx, nm, n_tot)
+    mk = ops.adjacency_block_mask(idx, nm, n_tot, ops.TILE_M, ops.TILE_K)
+    rows.append(check_spmm(torch, ops, ref, timer, "train_loss_pass_f500", a, table0, mk, 5))
+    rows.append(check_spmm(torch, ops, ref, timer, "train_loss_pass_h256", a, table1, mk, 5))
+    del a, mk
+    batch = torch.tensor(rng.choice(int(fed.client_sizes[0]), 256, replace=False), device=dev)
+    b_idx, b_mask = idx[batch], nm[batch]
+    ranks = torch.where(b_mask > 0, torch.rand(b_mask.shape, generator=gen, device=dev), 2.0)
+    b_mask = b_mask * (stable_rank(ranks) < 10)
+    a = ops.adjacency_from_neighbors(b_idx, b_mask, n_tot)
+    mk = ops.adjacency_block_mask(b_idx, b_mask, n_tot, ops.TILE_M, ops.TILE_K)
+    rows.append(check_spmm(torch, ops, ref, timer, "train_batch_f500", a, table0, mk, 20))
+    rows.append(check_spmm(torch, ops, ref, timer, "train_batch_h256", a, table1, mk, 20))
+    dy = torch.randn((a.shape[0], 256), generator=gen, device=dev)
+    rows.append(check_spmm(torch, ops, ref, timer, "train_transposed_h256",
+                           a.t().contiguous(), dy, mk.t().contiguous(), 20))
+    x = table1.clone().requires_grad_(True)
+    before = ops.block_spmm.launches
+    ops.block_spmm(a, x, mk).backward(dy)
+    torch.cuda.synchronize()
+    launched = ops.block_spmm.launches - before
+    xp = table1.clone().requires_grad_(True)
+    ref.spmm_ref(a, xp).backward(dy)
+    err = float((x.grad - xp.grad).abs().max())
+    log(f"phase 3 kernels: spmm backward through autograd (train_batch_h256): dx = Aᵀ·dy by "
+        f"the kernel ({launched} launches: forward + transposed) vs autograd of the plain "
+        f"version, max abs err {err}")
+    if launched != 2 or not torch.allclose(x.grad, xp.grad, atol=TOL_KERNEL, rtol=TOL_KERNEL):
+        raise AssertionError(f"spmm backward: {launched} launches, max abs err {err}")
+    return rows, {"shape": "train_batch_h256", "launches": launched, "max_abs_err": err}
+
+
+def poisoned_fallbacks(torch, g, idx, mask, params, dev, ids, GraphStore, ServedModel,
+                       QueryEngine) -> dict:
+    """Phase 6: one NaN feature row (a neighbor of the first query, not row
+    0, which padding slots name), fresh queries in chunks of 8 with the
+    fallback on: ``n_fallbacks`` under gather, segment and spmm on the
+    card, and spmm on the CPU. Each backend lets the NaN reach only the
+    rows that name it, so all four count the same chunks, some but not
+    all of them."""
+    nbrs = idx[ids[0]][mask[ids[0]] > 0]
+    bad = int(nbrs[nbrs != 0][0])
+    feats = g.features.copy()
+    feats[bad] = float("nan")
+    cases = [(be, dev) for be in ("gather", "segment", "spmm")] + [("spmm", "cpu")]
+    counts = {}
+    for be, d in cases:
+        model = ServedModel({k: v.to(d) for k, v in params.items()},
+                            GraphStore(feats, idx, mask), backend=be, warm="cold", device=d)
+        engine = QueryEngine(model, buckets=(8,), fallback=True)
+        for i in range(0, len(ids), 8):
+            engine.query(ids[i: i + 8], policy="fresh")
+        counts[f"{be}_{torch.device(d).type}"] = engine.n_fallbacks
+    n_chunks = -(-len(ids) // 8)
+    log(f"phase 6 check: feature row {bad} poisoned, {n_chunks} fresh chunks of 8: "
+        f"fallbacks {json.dumps(counts)}")
+    if len(set(counts.values())) != 1 or not 0 < counts[f"spmm_{dev.type}"] < n_chunks:
+        raise AssertionError(f"check: fallbacks differ by backend or reach no/every chunk: "
+                             f"{counts}")
+    return {"row": bad, "chunks": n_chunks, "fallbacks": counts}
+
+
+class RoundTimer:
+    """A round callback: the host clock at the end of each round, after a
+    synchronise (the round's work is done), and the cohorts."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.stamps = []
+
+    def on_run_start(self, engine, state):
+        self.torch.cuda.synchronize()
+        self.stamps = [time.perf_counter()]
+
+    def on_round_end(self, ctx):
+        self.torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+
+    def on_run_end(self, engine, state):
+        pass
+
+
+def train_run(torch, api, fed_args, fedais, counters) -> dict:
+    """One seeded ``FedEngine(...).run()`` with every launch counter set to 0
+    just before and read just after, keeping every sampled batch (a wrapper
+    around ``core.fedais.sample_batch``)."""
+    g, fed, kw = fed_args
+    timer = RoundTimer(torch)
+    eng = api.FedEngine(g, fed, "fedais", callbacks=[api.EvalCallback(), api.HistoryCallback(),
+                                                     timer], **kw)
+    state = eng.init_state()
+    batches = []
+    real = fedais.sample_batch
+
+    def sample_batch(*a, **k):
+        out = real(*a, **k)
+        batches.append(out[0].clone())
+        return out
+
+    fedais.sample_batch = sample_batch
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        res = eng.run(state)
+        torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items()}
+    finally:
+        fedais.sample_batch = real
+    ms = [(b - a) * 1e3 for a, b in zip(timer.stamps, timer.stamps[1:])]
+    return {"engine": eng, "state": state, "result": res, "launches": launches,
+            "round_ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "batches": batches}
+
+
+def train_first_update(torch, fedais, ops, ref, eng, state, k, dev) -> dict:
+    """The first LocalUpdate of client ``k`` (round 0's first) under ``spmm``
+    against ``gather`` on the card, from the same round-start tables and
+    the same draws (a ``TorchDraws`` seeded alike): the sampled batches,
+    fanout ranks, ghost ``need`` masks, ``n_sync`` and ``n_ghost_pulled``
+    exact; ``loss_all`` and the first step's grads at 1e-4. The first
+    backward's A and dy (a real step's) are kept to hold the transposed
+    launch on them."""
+    client = {n: v[k] for n, v in state.arrays.items()}
+    names = ("sample_batch", "stable_rank", "ghost_need", "adamw_update")
+    out, logs = {}, {}
+    real = {n: getattr(fedais, n) for n in names}
+    real_bwd = ops._BlockSpmm.backward
+    seen = []
+
+    def bwd(ctx, dy):
+        if not seen:
+            seen.append((ctx.saved_tensors[0].detach().clone(), dy.detach().clone()))
+        return real_bwd(ctx, dy)
+
+    for be in ("spmm", "gather"):
+        log_be = logs[be] = {n: [] for n in names}
+        for n in names:
+            def wrapped(*a, _r=real[n], _n=n, _l=log_be, **kw):
+                o = _r(*a, **kw)
+                _l[_n].append((a, o))
+                return o
+            setattr(fedais, n, wrapped)
+        ops._BlockSpmm.backward = staticmethod(bwd)
+        try:
+            one = fedais.make_local_update(eng.mcfg, eng.fed.n_max, train_backend=be)
+            out[be] = one(state.params, client, state.arrays["features"],
+                          state.hist.hist1, state.hist.hist1[k], state.hist.age[k],
+                          state.hist.ghost_feat[k], state.prev_loss[k], state.tau,
+                          eng.mcfg.neighbor_fanout, 0,
+                          fedais.TorchDraws(eng.seed, dev))
+            torch.cuda.synchronize()
+        finally:
+            for n in names:
+                setattr(fedais, n, real[n])
+            ops._BlockSpmm.backward = real_bwd
+    s, gth = logs["spmm"], logs["gather"]
+    exact = {}
+    for n in ("sample_batch", "stable_rank", "ghost_need"):
+        exact[n] = len(s[n]) == len(gth[n]) and all(
+            all(torch.equal(x, y) for x, y in zip(
+                o1 if isinstance(o1, tuple) else (o1,), o2 if isinstance(o2, tuple) else (o2,)))
+            for (_, o1), (_, o2) in zip(s[n], gth[n]))
+    st_s, st_g = out["spmm"][4], out["gather"][4]
+    exact["n_sync"] = st_s["n_sync"] == st_g["n_sync"]
+    exact["n_ghost_pulled"] = float(st_s["n_ghost_pulled"]) == float(st_g["n_ghost_pulled"])
+    loss_err = float((st_s["loss_all"] - st_g["loss_all"]).abs().max())
+    grads_s, grads_g = s["adamw_update"][0][0][0], gth["adamw_update"][0][0][0]
+    grad_err = max(float((grads_s[n] - grads_g[n]).abs().max()) for n in grads_s)
+    close = (torch.allclose(st_s["loss_all"], st_g["loss_all"], atol=TOL_LOGITS,
+                            rtol=TOL_LOGITS)
+             and all(torch.allclose(grads_s[n], grads_g[n], atol=TOL_LOGITS, rtol=TOL_LOGITS)
+                     for n in grads_s))
+    a, dy = seen[0]
+    want = ref.spmm_ref(a.t(), dy)
+    got = ops.block_spmm(a.t().contiguous(), dy)
+    real_dy_err = float((got - want).abs().max())
+    log(f"phase 10 train: first LocalUpdate of client {k}, spmm vs gather on the card, same "
+        f"draws: exact {json.dumps(exact)}; loss_all max abs diff {loss_err}, first step's "
+        f"grads {grad_err} (gate 1e-4); the transposed launch on that step's real dy "
+        f"({tuple(dy.shape)}, max |dy| {float(dy.abs().max())}) vs the plain version, max abs "
+        f"err {real_dy_err} (recorded)")
+    if not all(exact.values()) or not close:
+        raise AssertionError(f"train: spmm vs gather first LocalUpdate: exact {exact}, loss "
+                             f"{loss_err}, grads {grad_err}")
+    return {"client": k, "exact": exact, "loss_all_err": loss_err, "grad_err": grad_err,
+            "real_dy_max_abs_err": real_dy_err}
+
+
 def profile_traffic(torch, engine, load_cls, top: int = 8) -> dict:
     """A second closed-loop run (seed 1) under ``torch.profiler``."""
     gen = load_cls(engine, seed=1, n_queries=200, n_updates=20, mode="closed",
@@ -779,13 +1013,98 @@ def profile_traffic(torch, engine, load_cls, top: int = 8) -> dict:
     return _trace(torch, gen.run, top)[1]
 
 
+class RecordingSelector:
+    """The default selector, keeping the cohorts it drew."""
+
+    def __init__(self, base):
+        self.base, self.cohorts = base, []
+
+    def select(self, engine, state):
+        sel = self.base.select(engine, state)
+        self.cohorts.append([int(c) for c in sel])
+        return sel
+
+
+def train_phase(torch, api, fedais, ops, ref, counters, g, fed, dev, tag,
+                profile) -> tuple[dict, int]:
+    """Phase 10: ``FedEngine(g, fed, "fedais", ...).run()`` on the card with
+    ``train_backend = eval_backend = "spmm"``, twice from the same seed.
+    Gates: the SpMM launched exactly rounds x (m·(2 + 3J) + 2) times and
+    nothing else launched (a loss pass and J steps of 2 forward + 1
+    transposed launch per client, the eval's 2 layers per round); finite
+    history; the two runs draw the same cohorts and batches and give the
+    same tau and test_acc bits; the first LocalUpdate under spmm against
+    gather (``train_first_update``). Recorded: ms per round (the first,
+    then the steady rounds), peak memory, test_acc per round; under
+    ``profile`` a traced steady round."""
+    runs = []
+    for _ in range(2):
+        sel = RecordingSelector(api.UniformSelector())
+        kw = dict(rounds=TRAIN_ROUNDS, clients_per_round=TRAIN_M, seed=0, selector=sel,
+                  train_backend="spmm", eval_backend="spmm", device=dev)
+        run = train_run(torch, api, (g, fed, kw), fedais, counters)
+        run["cohorts"] = sel.cohorts
+        runs.append(run)
+    r1, r2 = runs
+    eng, res = r1["engine"], r1["result"]
+    J = eng.mcfg.local_epochs
+    want = {n: 0 for n in counters}
+    want["spmm"] = TRAIN_ROUNDS * (TRAIN_M * (2 + 3 * J) + 2)
+    hist = res.history
+    steady = sorted(r1["round_ms"][1:] + r2["round_ms"][1:])
+    log(f"phase 10 train: {tag}: fedais on pubmed ({fed.n_clients} clients, {TRAIN_M} a "
+        f"round, J {J}, batch {eng.bsz}, fanout {eng.mcfg.neighbor_fanout}, GraphSAGE "
+        f"{eng.H1}/128, spmm) {TRAIN_ROUNDS} rounds: ms per round {r1['round_ms']} (second "
+        f"run {r2['round_ms']}); first {r1['round_ms'][0]}, steady median "
+        f"{steady[len(steady) // 2]}; peak memory {r1['peak_gb']} GB; launches "
+        f"{json.dumps(r1['launches'])} (want {json.dumps(want)}); cohorts {r1['cohorts']}; "
+        f"tau {hist['tau']}; test_acc {hist['test_acc']}; test_loss {hist['test_loss']}")
+    if r1["launches"] != want or r2["launches"] != want:
+        raise AssertionError(f"train: launches {r1['launches']} / {r2['launches']}, want {want}")
+    if (len(hist["test_acc"]) != TRAIN_ROUNDS or not all(0.0 <= a <= 1.0 for a in hist["test_acc"])
+            or not all(math.isfinite(x) for x in hist["test_loss"])):
+        raise AssertionError(f"train: history {hist}")
+    same = {"cohorts": r1["cohorts"] == r2["cohorts"],
+            "batches": len(r1["batches"]) == len(r2["batches"]) == TRAIN_ROUNDS * TRAIN_M * J
+            and all(torch.equal(a, b) for a, b in zip(r1["batches"], r2["batches"])),
+            "tau": hist["tau"] == r2["result"].history["tau"],
+            "test_acc": hist["test_acc"] == r2["result"].history["test_acc"]}
+    log(f"phase 10 train: a second seeded run: the same {json.dumps(same)}")
+    if not all(same.values()):
+        raise AssertionError(f"train: two seeded runs differ: {same}")
+    first = train_first_update(torch, fedais, ops, ref, eng, eng.init_state(),
+                               r1["cohorts"][0][0], dev)
+    rec = {"rounds": TRAIN_ROUNDS, "clients_per_round": TRAIN_M, "local_epochs": J,
+           "batch": eng.bsz, "round_ms": [r1["round_ms"], r2["round_ms"]],
+           "first_round_ms": r1["round_ms"][0], "steady_round_ms": steady[len(steady) // 2],
+           "peak_gb": r1["peak_gb"], "launches": r1["launches"], "history": hist,
+           "final": res.final, "cohorts": r1["cohorts"], "first_update": first}
+    if profile:
+        sel = RecordingSelector(api.UniformSelector())
+        peng = api.FedEngine(g, fed, "fedais", rounds=2, clients_per_round=TRAIN_M, seed=0,
+                             selector=sel, train_backend="spmm", eval_backend="spmm",
+                             device=dev)
+        pstate = peng.init_state()
+        peng.run_round(pstate, 0)
+        _, prof = _trace(torch, lambda: peng.run_round(pstate, 1), 10)
+        rec["profile"] = prof
+        log(f"profile: {tag}: train round 1 wall {prof['wall_ms']} ms, device busy "
+            f"{prof['device_busy_ms']} ms (share {prof['device_busy_share']})")
+        for e in prof["top_device"]:
+            log(f"profile: train device {e['device_ms']} ms x{e['count']} {e['name']}")
+        for e in prof["top_host"]:
+            log(f"profile: train host {e['self_cpu_ms']} ms x{e['count']} {e['name']}")
+    return rec, r1["launches"]["spmm"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the record as JSON here")
     ap.add_argument("--profile", action="store_true",
-                    help="trace a second traffic run after phase 6 and one LM "
-                         "prefill + 4 decode steps per model in phase 9 with "
-                         "torch.profiler, and print where their time goes")
+                    help="trace a second traffic run after phase 6, one LM "
+                         "prefill + 4 decode steps per model in phase 9 and one "
+                         "training round in phase 10 with torch.profiler, and "
+                         "print where their time goes")
     args = ap.parse_args(argv)
 
     import torch
@@ -801,6 +1120,8 @@ def main(argv=None) -> int:
 
     import numpy as np
 
+    import repro_torch.api as api
+    import repro_torch.core.fedais as fedais
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.convert import (
         lm_params_from_numpy,
@@ -808,6 +1129,7 @@ def main(argv=None) -> int:
         params_from_numpy,
         params_to_numpy,
     )
+    from repro_torch.federated.partition import partition_graph
     from repro_torch.federated.server import build_eval_graph, eval_logits, evaluate_global
     from repro_torch.graph.csr import build_padded_neighbors
     from repro_torch.graph.data import make_dataset
@@ -914,6 +1236,12 @@ def main(argv=None) -> int:
     log(f"config: pubmed scale 1: {n_nodes} nodes, {len(g.edges)} edges, "
         f"{g.n_features} features, {g.n_classes} classes, hidden {HIDDEN}, "
         f"max_deg 32, capacity {cap}")
+    t0 = time.perf_counter()
+    fed = partition_graph(g, TRAIN_CLIENTS, alpha=0.5, seed=0)
+    log(f"config: train: {TRAIN_CLIENTS} clients (Dirichlet alpha 0.5), n_max {fed.n_max}, "
+        f"g_max {fed.g_max}, n_tot {fed.n_max + fed.g_max}, client sizes "
+        f"{fed.client_sizes.tolist()}, {fed.n_cross_edges} cross edges; partitioned in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # -- phase 3: kernels against their plain versions --------------------------
     timer = Timer(torch)
@@ -988,6 +1316,11 @@ def main(argv=None) -> int:
         raise AssertionError("spmm all_dead: output is not exactly zero")
     shapes.append(row)
     del a, x, dead, table1, mk
+    # the training path's shapes, from their own generators too
+    train_shapes, record["spmm_backward"] = spmm_training_shapes(
+        torch, ops, ref, timer, fed, dev, torch.Generator(device=dev).manual_seed(2),
+        np.random.default_rng(2))
+    shapes += train_shapes
     record["spmm_shapes"] = shapes
     record["spmm_nonfinite"] = nonfinite
 
@@ -1085,6 +1418,8 @@ def main(argv=None) -> int:
     log(f"phase 6 check: mutated graph ({store.n_active} nodes), {n_ref} rows "
         f"refreshed; {len(ids2)} ids ({min(len(stale), 192)} refreshed): historical vs "
         f"fresh max abs diff {err_fresh2}, vs plain path on the CPU {err_cpu2}")
+    record["poisoned"] = poisoned_fallbacks(torch, g, idx, mask, params, dev, ids[:128],
+                                            GraphStore, ServedModel, QueryEngine)
 
     if args.profile:
         prof = profile_traffic(torch, engine, LoadGenerator)
@@ -1167,13 +1502,18 @@ def main(argv=None) -> int:
         cfg = mini_config() if arch == "mini" else get_smoke_config(arch)
         lm_check_smoke(torch, lm, cfg, dev, lm_params_from_numpy, lm_params_to_numpy)
 
+    # -- phase 10: train (the FedAIS main path; counts from 0) -------------------
+    record["train"], train_launches = train_phase(torch, api, fedais, ops, ref, counters, g,
+                                                  fed, dev, tag, args.profile)
+
     # -- the kernels line --------------------------------------------------------
     warm = shapes[0]
     kernels = [{
         "name": "spmm_block_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/spmm/csrc/spmm.cu",
         "replaces": "src/repro/kernels/spmm/spmm.py:45",
-        "launches": launches,
+        "launches": launches + train_launches,
+        "launches_by_path": {"gcn_serving": launches, "fedais_training": train_launches},
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": warm["ms"], "plain_ms": warm["plain_ms"], "bound_ms": warm["bound_ms"],
         "bound_by": warm["bound_by"], "library_ms": warm["library_ms"],

@@ -1,16 +1,32 @@
-"""Server-side global evaluation — the eval path served logits are held to.
+"""FL server: client selection, FedAvg aggregation, global evaluation, and
+the adaptive-tau update (Algorithm 1 lines 1-8).
 
-Port of ``repro/federated/server.py:38-124`` (``build_eval_graph``,
-``evaluate_global``, ``macro_f1``, ``macro_ovr_auc``). FedAvg and the
-adaptive-tau update come with the training slice.
+Port of ``repro/federated/server.py``. The evaluation is also the eval path
+served logits are held to.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.sync import adaptive_tau
 from repro_torch.device import resolve_device
 from repro_torch.models.gcn import AGG_BACKENDS, gcn_full_forward, per_node_loss
+
+
+def select_clients(rng: np.random.Generator, n_clients: int, m: int) -> np.ndarray:
+    return rng.choice(n_clients, size=min(m, n_clients), replace=False)
+
+
+def fedavg(stacked_params: dict) -> dict:
+    """Mean over the leading (selected-client) axis — Algorithm 1 line 7."""
+    return {k: v.mean(dim=0) for k, v in stacked_params.items()}
+
+
+def fedavg_weighted(stacked_params: dict, weights: torch.Tensor) -> dict:
+    w = weights / torch.clamp(weights.sum(), min=1e-12)
+    return {k: (v * w.reshape((len(w),) + (1,) * (v.ndim - 1))).sum(dim=0)
+            for k, v in stacked_params.items()}
 
 
 def build_eval_graph(graph, max_deg: int = 32, seed: int = 0,
@@ -99,3 +115,10 @@ def macro_ovr_auc(labels: np.ndarray, logits: np.ndarray) -> float:
         auc = (r_pos - len(pos) * (len(pos) + 1) / 2) / (len(pos) * len(neg))
         aucs.append(auc)
     return float(np.mean(aucs)) if aucs else 0.5
+
+
+def update_tau(mcfg, test_loss: float, initial_loss: float, tau0: int) -> int:
+    """Algorithm 1 line 8: adaptive (Eq. 11) or fixed interval."""
+    if mcfg.adaptive_sync:
+        return adaptive_tau(test_loss, initial_loss, tau0)
+    return tau0

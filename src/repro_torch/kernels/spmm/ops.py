@@ -4,9 +4,17 @@
 launches the hand-written Hopper kernel (``csrc/spmm.cu``, built by
 ``kernels/build.py``), which replaces the TPU kernel
 ``src/repro/kernels/spmm/spmm.py::spmm_pallas``; on CPU tensors it runs the
-plain version (``ref.spmm_ref``), which ignores the mask — exact, because
-a skipped tile is all zero. There is no other fallback: a CUDA tensor of
-the wrong type, shape or layout, or a failed build or launch, raises.
+plain version ``ref.spmm_nonzeros_ref``, which multiplies only the nonzeros
+of A, as the kernel does. There is no other fallback: a CUDA tensor of the
+wrong type, shape or layout, or a failed build or launch, raises.
+
+``block_spmm`` is differentiable in ``x`` (a ``torch.autograd.Function``,
+the reference's custom VJP, ``src/repro/kernels/spmm/ops.py:84-119``): the
+backward is ``dx = Aᵀ @ dy`` through the same kernel, launched only when
+``x`` needs a grad. The kernel reads A row by row, so Aᵀ is copied into a
+contiguous (M, N) operand; at the square 32 x 32 tile its block mask is the
+transpose of A's. A is an index-derived constant (the adjacency of a
+neighbor list): it gets no grad.
 
 The kernel reads each live tile of A once and multiplies only its
 nonzeros: a warp owns two rows of Y for all of D, and ``splits`` warps may
@@ -30,10 +38,10 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.spmm.ref import spmm_ref
+from repro_torch.kernels.spmm.ref import spmm_nonzeros_ref
 
 TILE_M = 32     # rows of A per mask tile
-TILE_K = 32     # columns of A per mask tile
+TILE_K = 32     # columns of A per mask tile (equal to TILE_M: Aᵀ's mask is A's transposed)
 ROWS_PER_WARP = 2   # rows of Y a warp owns (the kernel's kRows)
 SLAB = 512          # columns of Y a block owns; wider outputs take more slabs
 SPLITS = (1, 2, 4, 8)
@@ -97,17 +105,39 @@ def block_spmm(a: torch.Tensor, x: torch.Tensor,
     ``mask`` is the (ceil(N/TILE_M), ceil(M/TILE_K)) int32 block-liveness
     grid; None derives it from A. On CUDA the output is allocated with
     ``torch.empty`` and the kernel runs on the current stream, without a
-    synchronise.
+    synchronise. Differentiable in ``x`` (module docstring).
 
-    Non-finite values: the kernel skips the zeros of A, so 0·inf and 0·NaN
-    never happen on CUDA, and a non-finite row k of X reaches exactly the
+    Non-finite values: both versions skip the zeros of A, so 0·inf and
+    0·NaN never happen, and a non-finite row k of X reaches exactly the
     rows of A with a nonzero in column k (as the gather and segment
-    backends and ``ref.neighbor_mean_ref`` give). The plain ``spmm_ref``,
-    which CPU tensors take, multiplies the zeros too and makes every row
-    non-finite. On finite inputs the two agree to fp32 rounding.
+    backends and ``ref.neighbor_mean_ref`` give). The reference's spmm
+    backend multiplies whole live tiles, so there the row reaches every
+    row of a live tile that covers column k: the port keeps the gather
+    backends' rule instead.
     """
+    return _BlockSpmm.apply(a, x, mask)
+
+
+class _BlockSpmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, x, mask):
+        ctx.save_for_backward(a, mask)
+        return _product(a, x, mask)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if not ctx.needs_input_grad[1]:
+            return None, None, None
+        a, mask = ctx.saved_tensors
+        mask_t = None if mask is None else mask.t().contiguous()
+        return None, _product(a.t().contiguous(), dy.contiguous(), mask_t), None
+
+
+def _product(a: torch.Tensor, x: torch.Tensor,
+             mask: torch.Tensor | None) -> torch.Tensor:
+    """The plain version on CPU tensors, else the checked kernel launch."""
     if a.device.type == "cpu" and x.device.type == "cpu":
-        return spmm_ref(a, x)
+        return spmm_nonzeros_ref(a, x)
     if a.device.type != "cuda" or x.device != a.device:
         raise ValueError(f"block_spmm: a on {a.device}, x on {x.device}; "
                          "both must be on one CUDA device (or both on the CPU)")

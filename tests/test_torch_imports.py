@@ -48,7 +48,7 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 39
+    assert int(out.stdout.strip()) >= 54
 
 
 def test_resolve_device_never_falls_back(monkeypatch):
@@ -92,6 +92,24 @@ def test_lm_entry_points_never_fall_back(monkeypatch):
                                  device=None))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         lm_params_from_numpy({"embed": np.zeros((4, 2), np.float32)}, cfg)
+
+
+def test_training_entry_points_never_fall_back(monkeypatch):
+    """The training slice's entry point, ``FedEngine``, defaults to
+    ``cuda:0`` and raises without CUDA; on ``device="cpu"`` it runs."""
+    from repro_torch.api import FedEngine
+    from repro_torch.federated.partition import partition_graph
+    from repro_torch.graph.data import make_dataset
+
+    g = make_dataset("pubmed", scale=64, seed=0)
+    fed = partition_graph(g, 3, alpha=0.5, seed=0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FedEngine(g, fed, "fedais", rounds=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FedEngine(g, fed, "fedais", rounds=1, device="cuda:0")
+    eng = FedEngine(g, fed, "fedais", rounds=1, clients_per_round=2, device="cpu")
+    assert eng.device == torch.device("cpu") and eng.run().history["round"] == [0]
 
 
 def test_chip_smoke_refuses_without_a_checkout_or_card(tmp_path):
