@@ -22,7 +22,12 @@ weights from a seed:
   256, fanout 10, GraphSAGE 256/128, 3 rounds through
   ``api.FedEngine(g, fed, "fedais", ...).run()`` with the ``spmm``
   training and eval backends (the SpMM kernel forward and, transposed,
-  backward).
+  backward);
+* the method space: each of the paper's nine methods (FedAIS, its
+  ablations and the five baselines, FedSage+'s generator and FedGraph's
+  fanout bandit included), FedAIS under the async scheduler (full quorum
+  and heterogeneous) and under the bf16 and int8 sync wire, on the same
+  partition and the same entry point.
 
 Phases, one or more lines each:
   1 device      the card (nvidia-smi name and power limit), torch and CUDA
@@ -45,7 +50,10 @@ Phases, one or more lines each:
                 path's shapes (a client's loss pass, a batch step at 500 and
                 256 columns, and the backward's transposed launch Aᵀ @ dy),
                 and the backward through autograd against autograd of the
-                plain version (1e-5);
+                plain version (1e-5); then the batch step at all n_max rows
+                (the methods that train on every local node) @ 500 and @
+                256, its transposed launch, and the time of the
+                ``a.t().contiguous()`` copy in front of it (recorded);
   4 serve       warm fill + warmup + a few hundred ids under both policies;
                 historical and fresh logits agree at 1e-4;
   5 traffic     a closed-loop LoadGenerator run (200 queries, 20 updates,
@@ -96,12 +104,27 @@ Phases, one or more lines each:
                 first LocalUpdate of one client under spmm against gather
                 on the card with the same draws (discrete outputs exact,
                 ``loss_all`` and the first step's grads 1e-4); ms per round,
-                peak memory, test_acc per round.
+                peak memory, test_acc per round;
+  11 methods    on phase 10's partition, each of the nine registered
+                methods for 2 rounds, ``fedais`` under ``AsyncScheduler()``
+                (3 rounds, bit-identical to the sync run of the same seed,
+                virtual_time = wall_clock, staleness 0), under a
+                heterogeneous ``AsyncScheduler`` (quorum 3 of 5, one client
+                4x slower, 4 merges: some merge stale, no fault counted)
+                and with the bf16 and int8 sync wire (2 rounds each: the
+                fp32 run's cohorts and tau); every run launches the SpMM
+                exactly (clients dispatched) x (2 + 3J) + 2 x (merges)
+                times and nothing else; per method what defines it
+                (FedSage+ syncs nothing and its generator rides the model
+                link, FedLocal pulls no ghost, FedPNS keeps tau 2,
+                FedGraph's fanouts come from its bandit's actions); ms per
+                round, peak memory, test_acc per round.
 The SpMM's launch counter is set to 0 just before phase 4 and read just
 after phase 5; every counter is set to 0 just before each ``serve`` of
-phase 8 and each ``run`` of phase 10 and read just after it. ``--profile``
-traces a second traffic run after phase 6, one prefill + 4 decode steps of
-each LM in phase 9 and one steady training round in phase 10.
+phase 8 and each ``run`` of phases 10 and 11 and read just after it.
+``--profile`` traces a second traffic run after phase 6, one prefill + 4
+decode steps of each LM in phase 9, one steady training round in phase 10
+and one steady round of fedall and of fedsage+ in phase 11.
 Before the last line it prints a ``{"kernels": [...]}`` line (all three
 kernels). The last line is ``{"ok": true, "device": {...}}``. Any failure
 raises and the exit code is not 0; without CUDA, or outside a checkout, it
@@ -111,6 +134,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import math
 import re
@@ -155,6 +179,12 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 LM_ARCHS = ("rwkv6-1.6b", "gemma3-12b")
 # FedAIS training: the paper's Pubmed over 10 clients, 5 a round, J = 4
 TRAIN_CLIENTS, TRAIN_M, TRAIN_ROUNDS = 10, 5, 3
+# the method space (phase 11): rounds per method and per quantized run, the
+# full-quorum async run's rounds, the heterogeneous async run's merges and
+# its slow client's factor
+METHOD_ROUNDS, ASYNC_ROUNDS, HET_MERGES, HET_SLOW = 2, 3, 4, 4.0
+ASYNC_PARITY_KEYS = ("test_acc", "test_loss", "tau", "comm_total", "comm_embed", "flops",
+                     "wall_clock")
 
 
 def log(*parts) -> None:
@@ -798,7 +828,7 @@ def lm_check_smoke(torch, lm, cfg, dev, from_numpy, to_numpy) -> float:
     return max(errs)
 
 
-def spmm_training_shapes(torch, ops, ref, timer, fed, dev, gen, rng) -> tuple[list, dict]:
+def spmm_training_shapes(torch, ops, ref, timer, fed, dev, gen, rng) -> tuple[list, dict, dict]:
     """Phase 3 at the training path's shapes, from client 0 of the train
     phase's partition: the loss pass's adjacency (all n_max rows over the
     n_tot = n_max + g_max columns of [own | ghost]) @ the 500 features and @
@@ -806,7 +836,15 @@ def spmm_training_shapes(torch, ops, ref, timer, fed, dev, gen, rng) -> tuple[li
     the fanout of 10) @ 500 and @ 256; and the backward's transposed launch,
     Aᵀ (n_tot x 256) @ dy (256 x 256), whose rows do not sum to 1. The
     backward is also held through autograd: ``block_spmm``'s against
-    autograd of the plain version, at 1e-5, launching the kernel twice."""
+    autograd of the plain version, at 1e-5, launching the kernel twice.
+    Then the shapes of the methods that train on every local node (fedall,
+    fedsage+, fedpns, fedgraph, fedlocal, fedais2: batch = n_max): the
+    batch step's forward at all n_max rows (neighbours kept by the fanout
+    of 10) @ 500 and @ 256, its transposed launch Aᵀ (n_tot x n_max) @ dy
+    (n_max x 256), and the ``a.t().contiguous()`` copy ``_BlockSpmm``'s
+    backward makes in front of that launch, timed against its bytes bound
+    (read and written once). Returns the rows, the autograd check and the
+    copy's record."""
     from repro_torch.core.importance import stable_rank
 
     n_tot = fed.n_max + fed.g_max
@@ -845,7 +883,28 @@ def spmm_training_shapes(torch, ops, ref, timer, fed, dev, gen, rng) -> tuple[li
         f"version, max abs err {err}")
     if launched != 2 or not torch.allclose(x.grad, xp.grad, atol=TOL_KERNEL, rtol=TOL_KERNEL):
         raise AssertionError(f"spmm backward: {launched} launches, max abs err {err}")
-    return rows, {"shape": "train_batch_h256", "launches": launched, "max_abs_err": err}
+    backward = {"shape": "train_batch_h256", "launches": launched, "max_abs_err": err}
+    del a, mk, x, xp
+    # every local node a batch (their own generator, so the rows above draw
+    # what they drew before)
+    gen_all = torch.Generator(device=dev).manual_seed(3)
+    ranks = torch.where(nm > 0, torch.rand(nm.shape, generator=gen_all, device=dev), 2.0)
+    keep = nm * (stable_rank(ranks) < 10)
+    a = ops.adjacency_from_neighbors(idx, keep, n_tot)
+    mk = ops.adjacency_block_mask(idx, keep, n_tot, ops.TILE_M, ops.TILE_K)
+    rows.append(check_spmm(torch, ops, ref, timer, "train_allrows_f500", a, table0, mk, 5))
+    rows.append(check_spmm(torch, ops, ref, timer, "train_allrows_h256", a, table1, mk, 5))
+    dy = torch.randn((a.shape[0], 256), generator=gen_all, device=dev)
+    rows.append(check_spmm(torch, ops, ref, timer, "train_transposed_allrows_h256",
+                           a.t().contiguous(), dy, mk.t().contiguous(), 5))
+    nbytes = 2 * 4 * a.numel()
+    copy = {"shape": "train_allrows", "n": a.shape[0], "m": a.shape[1], "bytes": nbytes,
+            "ms": timer(lambda: a.t().contiguous(), 5),
+            "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    log(f"phase 3 kernels: the backward's a.t().contiguous() at train_allrows "
+        f"({a.shape[0]} x {a.shape[1]} fp32, {nbytes} bytes read + written): {copy['ms']} ms, "
+        f"bound {copy['bound_ms']} ms (recorded)")
+    return rows, backward, copy
 
 
 def poisoned_fallbacks(torch, g, idx, mask, params, dev, ids, GraphStore, ServedModel,
@@ -898,15 +957,10 @@ class RoundTimer:
         pass
 
 
-def train_run(torch, api, fed_args, fedais, counters) -> dict:
-    """One seeded ``FedEngine(...).run()`` with every launch counter set to 0
-    just before and read just after, keeping every sampled batch (a wrapper
-    around ``core.fedais.sample_batch``)."""
-    g, fed, kw = fed_args
-    timer = RoundTimer(torch)
-    eng = api.FedEngine(g, fed, "fedais", callbacks=[api.EvalCallback(), api.HistoryCallback(),
-                                                     timer], **kw)
-    state = eng.init_state()
+def train_run(torch, api, counters, g, fed, dev, fedais) -> dict:
+    """One seeded ``FedEngine(g, fed, "fedais", ...).run()`` (``method_run``),
+    keeping every sampled batch (a wrapper around
+    ``core.fedais.sample_batch``)."""
     batches = []
     real = fedais.sample_batch
 
@@ -917,19 +971,11 @@ def train_run(torch, api, fed_args, fedais, counters) -> dict:
 
     fedais.sample_batch = sample_batch
     try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for c in counters.values():
-            c.launches = 0
-        res = eng.run(state)
-        torch.cuda.synchronize()
-        launches = {n: c.launches for n, c in counters.items()}
+        run = method_run(torch, api, counters, g, fed, dev, "fedais", TRAIN_ROUNDS)
     finally:
         fedais.sample_batch = real
-    ms = [(b - a) * 1e3 for a, b in zip(timer.stamps, timer.stamps[1:])]
-    return {"engine": eng, "state": state, "result": res, "launches": launches,
-            "round_ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "batches": batches}
+    run["batches"] = batches
+    return run
 
 
 def train_first_update(torch, fedais, ops, ref, eng, state, k, dev) -> dict:
@@ -1037,15 +1083,7 @@ def train_phase(torch, api, fedais, ops, ref, counters, g, fed, dev, tag,
     gather (``train_first_update``). Recorded: ms per round (the first,
     then the steady rounds), peak memory, test_acc per round; under
     ``profile`` a traced steady round."""
-    runs = []
-    for _ in range(2):
-        sel = RecordingSelector(api.UniformSelector())
-        kw = dict(rounds=TRAIN_ROUNDS, clients_per_round=TRAIN_M, seed=0, selector=sel,
-                  train_backend="spmm", eval_backend="spmm", device=dev)
-        run = train_run(torch, api, (g, fed, kw), fedais, counters)
-        run["cohorts"] = sel.cohorts
-        runs.append(run)
-    r1, r2 = runs
+    r1, r2 = (train_run(torch, api, counters, g, fed, dev, fedais) for _ in range(2))
     eng, res = r1["engine"], r1["result"]
     J = eng.mcfg.local_epochs
     want = {n: 0 for n in counters}
@@ -1095,6 +1133,212 @@ def train_phase(torch, api, fedais, ops, ref, counters, g, fed, dev, tag,
         for e in prof["top_host"]:
             log(f"profile: train host {e['self_cpu_ms']} ms x{e['count']} {e['name']}")
     return rec, r1["launches"]["spmm"]
+
+
+def method_run(torch, api, counters, g, fed, dev, method, rounds, **kw) -> dict:
+    """One seeded ``FedEngine(g, fed, method, ...).run()`` on the card with
+    the ``spmm`` backends, every launch counter set to 0 just before and
+    read just after; keeps the cohorts, the size of every dispatch, the
+    fanouts the strategy chose, ms per round (or merge) and peak memory
+    (the runs before it collected first, so it is this run's alone)."""
+    gc.collect()
+    timer = RoundTimer(torch)
+    sel = RecordingSelector(api.UniformSelector())
+    eng = api.FedEngine(g, fed, method, rounds=rounds, clients_per_round=TRAIN_M, seed=0,
+                        selector=sel, callbacks=[api.EvalCallback(), api.HistoryCallback(),
+                                                 timer],
+                        train_backend="spmm", eval_backend="spmm", device=dev, **kw)
+    dispatched, fanouts = [], []
+    real_dispatch, real_fanouts = eng.dispatch, eng.strategy.choose_fanouts
+
+    def dispatch(state, s, t):
+        dispatched.append(len(s))
+        return real_dispatch(state, s, t)
+
+    def choose_fanouts(engine, s):
+        out = real_fanouts(engine, s)
+        fanouts.append([int(f) for f in out])
+        return out
+
+    eng.dispatch, eng.strategy.choose_fanouts = dispatch, choose_fanouts
+    state = eng.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    res = eng.run(state)
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    ms = [(b - a) * 1e3 for a, b in zip(timer.stamps, timer.stamps[1:])]
+    return {"engine": eng, "state": state, "result": res, "launches": launches,
+            "round_ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "cohorts": sel.cohorts, "dispatched": dispatched, "fanouts": fanouts}
+
+
+def _method_gate(counters, run, name, merges) -> dict:
+    """The launch gate of one phase-11 run: the SpMM exactly (clients
+    dispatched) x (2 + 3J) + 2 x (merges) times (a loss pass and J steps of
+    2 forward + 1 transposed launch per client, the eval's 2 layers per
+    merge), nothing else; a finite history of ``merges`` rows with test_acc
+    in [0, 1]."""
+    J = run["engine"].mcfg.local_epochs
+    want = {n: 0 for n in counters}
+    want["spmm"] = sum(run["dispatched"]) * (2 + 3 * J) + 2 * merges
+    hist = run["result"].history
+    if run["launches"] != want:
+        raise AssertionError(f"methods: {name}: launches {run['launches']}, want {want}")
+    if (len(hist["test_acc"]) != merges or not all(0.0 <= a <= 1.0 for a in hist["test_acc"])
+            or not all(math.isfinite(x) for x in hist["test_loss"])):
+        raise AssertionError(f"methods: {name}: history {hist}")
+    return want
+
+
+def _method_record(run) -> dict:
+    hist = run["result"].history
+    return {"round_ms": run["round_ms"], "peak_gb": run["peak_gb"],
+            "launches": run["launches"], "cohorts": run["cohorts"],
+            **{k: list(hist[k]) for k in ("test_acc", "test_loss", "tau", "comm_total",
+                                          "comm_embed")},
+            "final": dict(run["result"].final)}
+
+
+def methods_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict, int]:
+    """Phase 11: the paper's method space on the card, on phase 10's
+    partition, with the spmm backends; every launch counter set to 0 just
+    before each run and read just after it.
+
+    * each of the nine registered methods for ``METHOD_ROUNDS`` rounds: the
+      launch gate (``_method_gate``) and, per method, what defines it:
+      fedsage+ syncs nothing (no sync events, no embedding bytes) and its
+      generator's bytes ride the model link; fedlocal pulls no ghost;
+      fedpns keeps tau 2; fedgraph draws every fanout from the bandit's
+      actions, and its counts add up to m x rounds;
+    * ``fedais`` under ``AsyncScheduler()`` (full quorum) for
+      ``ASYNC_ROUNDS`` rounds: the history bit-identical to the sync run of
+      the same seed, ``virtual_time`` equal to ``wall_clock``, staleness 0;
+    * a heterogeneous async run (quorum 3 of 5 in flight, the largest
+      client ``HET_SLOW`` x slower) for ``HET_MERGES`` merges: some merge
+      stale, the launch gate over the clients dispatched, no fault counted;
+    * ``fedais`` with the bf16 and int8 sync wire: the cohorts and tau of
+      the fp32 run of the same seed, a finite history.
+
+    Recorded: ms per round, peak memory, test_acc per round; under
+    ``profile`` a traced steady round of fedall and of fedsage+."""
+    import numpy as np
+
+    from repro_torch.federated.baselines import FANOUT_ACTIONS, generator_param_count
+    from repro_torch.federated.costs import model_bytes
+
+    rec: dict = {"methods": {}}
+    total = 0
+    for method in api.available_methods():
+        run = method_run(torch, api, counters, g, fed, dev, method, METHOD_ROUNDS)
+        want = _method_gate(counters, run, method, METHOD_ROUNDS)
+        eng, res = run["engine"], run["result"]
+        hist, final = res.history, res.final
+        if sum(run["dispatched"]) != METHOD_ROUNDS * TRAIN_M:
+            raise AssertionError(f"methods: {method}: dispatched {run['dispatched']}")
+        checks = {}
+        if method == "fedsage+":
+            per_client = 2 * model_bytes(eng.n_params) + 2 * model_bytes(
+                generator_param_count(eng.F))
+            checks = {"sync_events": final["sync_events"] == 0,
+                      "comm_embed": hist["comm_embed"] == [0.0] * METHOD_ROUNDS,
+                      "comm_model": final["comm_model_bytes"]
+                      == METHOD_ROUNDS * TRAIN_M * per_client}
+        elif method == "fedlocal":
+            checks = {"comm_embed": hist["comm_embed"] == [0.0] * METHOD_ROUNDS}
+        elif method == "fedpns":
+            checks = {"tau": hist["tau"] == [2] * METHOD_ROUNDS}
+        elif method == "fedgraph":
+            checks = {"fanouts": all(f in FANOUT_ACTIONS for row in run["fanouts"] for f in row),
+                      "bandit_counts": int(eng.strategy.bandit.n.sum())
+                      == TRAIN_M * METHOD_ROUNDS}
+        steady = run["round_ms"][1:] or run["round_ms"]
+        log(f"phase 11 methods: {tag}: {method} {METHOD_ROUNDS} rounds: ms per round "
+            f"{run['round_ms']} (steady {min(steady)}); peak memory {run['peak_gb']} GB; "
+            f"launches {json.dumps(run['launches'])} (want {json.dumps(want)}); tau "
+            f"{hist['tau']}; test_acc {hist['test_acc']}; comm_embed {hist['comm_embed']}; "
+            f"checks {json.dumps(checks)}"
+            + (f"; fanouts {run['fanouts']}" if method == "fedgraph" else ""))
+        if not all(checks.values()):
+            raise AssertionError(f"methods: {method}: {checks}")
+        rec["methods"][method] = dict(_method_record(run), checks=checks)
+        total += run["launches"]["spmm"]
+        if profile and method in ("fedall", "fedsage+"):
+            _, prof = _trace(torch, lambda: eng.run_round(run["state"], METHOD_ROUNDS), 10)
+            rec["methods"][method]["profile"] = prof
+            log(f"profile: {tag}: {method} round {METHOD_ROUNDS} wall {prof['wall_ms']} ms, "
+                f"device busy {prof['device_busy_ms']} ms (share {prof['device_busy_share']})")
+            for e in prof["top_device"]:
+                log(f"profile: {method} device {e['device_ms']} ms x{e['count']} {e['name']}")
+            for e in prof["top_host"]:
+                log(f"profile: {method} host {e['self_cpu_ms']} ms x{e['count']} {e['name']}")
+        del run, eng, res
+
+    # full-quorum async against the sync run of the same seed
+    sync = method_run(torch, api, counters, g, fed, dev, "fedais", ASYNC_ROUNDS)
+    _method_gate(counters, sync, "fedais sync", ASYNC_ROUNDS)
+    sync_ms, sync_launches, sh = sync["round_ms"], sync["launches"], sync["result"].history
+    del sync
+    asy = method_run(torch, api, counters, g, fed, dev, "fedais", ASYNC_ROUNDS,
+                     scheduler=api.AsyncScheduler())
+    _method_gate(counters, asy, "fedais async", ASYNC_ROUNDS)
+    ah = asy["result"].history
+    same = {k: sh[k] == ah[k] for k in ASYNC_PARITY_KEYS}
+    same["virtual_time"] = ah["virtual_time"] == sh["wall_clock"]
+    same["staleness"] = ah["staleness_max"] == [0] * ASYNC_ROUNDS
+    log(f"phase 11 methods: {tag}: fedais async full quorum vs sync, {ASYNC_ROUNDS} rounds: "
+        f"the same {json.dumps(same)}; ms per merge {asy['round_ms']} (sync {sync_ms}); peak "
+        f"memory {asy['peak_gb']} GB")
+    if not all(same.values()):
+        raise AssertionError(f"methods: async full quorum differs from sync: {same}")
+    rec["async_full_quorum"] = dict(_method_record(asy), same=same, sync_round_ms=sync_ms)
+    total += sync_launches["spmm"] + asy["launches"]["spmm"]
+    del asy
+
+    # heterogeneous async: one client HET_SLOW x slower
+    factors = np.ones(fed.n_clients)
+    slow = int(np.argmax(fed.client_sizes))
+    factors[slow] = HET_SLOW
+    het = method_run(torch, api, counters, g, fed, dev, "fedais", HET_MERGES,
+                     scheduler=api.AsyncScheduler(quorum=3, concurrency=TRAIN_M,
+                                                  speed_factors=factors))
+    want = _method_gate(counters, het, "fedais async heterogeneous", HET_MERGES)
+    hh, events = het["result"].history, het["state"].fault_events
+    log(f"phase 11 methods: {tag}: fedais async quorum 3 of {TRAIN_M}, client {slow} "
+        f"{HET_SLOW}x slower, {HET_MERGES} merges: dispatched {het['dispatched']}, staleness "
+        f"max {hh['staleness_max']}, merged {hh['merged']}, virtual_time {hh['virtual_time']}; "
+        f"launches {json.dumps(het['launches'])} (want {json.dumps(want)}); fault events "
+        f"{json.dumps(events.snapshot())}; ms per merge {het['round_ms']}; peak memory "
+        f"{het['peak_gb']} GB")
+    if max(hh["staleness_max"]) < 1 or events.any():
+        raise AssertionError(f"methods: heterogeneous async: staleness {hh['staleness_max']}, "
+                             f"faults {events.snapshot()}")
+    rec["async_heterogeneous"] = dict(_method_record(het), dispatched=het["dispatched"],
+                                      staleness_max=hh["staleness_max"], merged=hh["merged"],
+                                      slow_client=slow, fault_events=events.snapshot())
+    total += het["launches"]["spmm"]
+    del het
+    # the quantized sync wire against the fp32 run of the same seed
+    base = rec["methods"]["fedais"]
+    for dtype in ("bf16", "int8"):
+        q = method_run(torch, api, counters, g, fed, dev, "fedais", METHOD_ROUNDS,
+                       sync_dtype=dtype)
+        _method_gate(counters, q, f"fedais {dtype}", METHOD_ROUNDS)
+        qh = q["result"].history
+        same = {"cohorts": q["cohorts"] == base["cohorts"], "tau": qh["tau"] == base["tau"]}
+        log(f"phase 11 methods: {tag}: fedais sync_dtype {dtype}, {METHOD_ROUNDS} rounds: "
+            f"the fp32 run's {json.dumps(same)}; test_acc {qh['test_acc']} (fp32 "
+            f"{base['test_acc']}); comm_embed {qh['comm_embed']}; peak memory {q['peak_gb']} "
+            f"GB; ms per round {q['round_ms']}")
+        if not all(same.values()):
+            raise AssertionError(f"methods: sync_dtype {dtype}: {same}")
+        rec[f"sync_{dtype}"] = dict(_method_record(q), same_as_fp32=same)
+        total += q["launches"]["spmm"]
+        del q
+    rec["spmm_launches"] = total
+    return rec, total
 
 
 def main(argv=None) -> int:
@@ -1317,9 +1561,9 @@ def main(argv=None) -> int:
     shapes.append(row)
     del a, x, dead, table1, mk
     # the training path's shapes, from their own generators too
-    train_shapes, record["spmm_backward"] = spmm_training_shapes(
-        torch, ops, ref, timer, fed, dev, torch.Generator(device=dev).manual_seed(2),
-        np.random.default_rng(2))
+    train_shapes, record["spmm_backward"], record["spmm_transpose_copy"] = \
+        spmm_training_shapes(torch, ops, ref, timer, fed, dev,
+                             torch.Generator(device=dev).manual_seed(2), np.random.default_rng(2))
     shapes += train_shapes
     record["spmm_shapes"] = shapes
     record["spmm_nonfinite"] = nonfinite
@@ -1506,14 +1750,23 @@ def main(argv=None) -> int:
     record["train"], train_launches = train_phase(torch, api, fedais, ops, ref, counters, g,
                                                   fed, dev, tag, args.profile)
 
+    # -- phase 11: methods (the method space; counts from 0 before each run) ---
+    t11 = time.perf_counter()
+    record["methods"], methods_launches = methods_phase(torch, api, counters, g, fed, dev,
+                                                        tag, args.profile)
+    record["methods"]["seconds"] = time.perf_counter() - t11
+    log(f"phase 11 methods: {tag}: {methods_launches} SpMM launches in "
+        f"{record['methods']['seconds']:.1f} s")
+
     # -- the kernels line --------------------------------------------------------
     warm = shapes[0]
     kernels = [{
         "name": "spmm_block_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/spmm/csrc/spmm.cu",
         "replaces": "src/repro/kernels/spmm/spmm.py:45",
-        "launches": launches + train_launches,
-        "launches_by_path": {"gcn_serving": launches, "fedais_training": train_launches},
+        "launches": launches + train_launches + methods_launches,
+        "launches_by_path": {"gcn_serving": launches, "fedais_training": train_launches,
+                             "fedais_methods": methods_launches},
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": warm["ms"], "plain_ms": warm["plain_ms"], "bound_ms": warm["bound_ms"],
         "bound_by": warm["bound_by"], "library_ms": warm["library_ms"],

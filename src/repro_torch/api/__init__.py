@@ -8,7 +8,10 @@ the stepwise executor on one device::
     res = FedEngine(graph, fed, "fedais", rounds=10, clients_per_round=5,
                     train_backend="spmm", eval_backend="spmm").run()
 
-``device=None`` is ``cuda:0``; the CPU tests pass ``device="cpu"``.
+``device=None`` is ``cuda:0``; the CPU tests pass ``device="cpu"``. Every
+registered method runs (``available_methods()``), under either scheduler
+(``scheduler="async"`` or ``AsyncScheduler(...)``), any aggregator, and any
+wire dtype (``sync_dtype="fp32" | "bf16" | "int8"``).
 """
 from repro_torch.api.callbacks import (
     BaseCallback,
@@ -22,12 +25,17 @@ from repro_torch.api.callbacks import (
 from repro_torch.api.engine import EngineState, FedEngine, RunResult
 from repro_torch.api.protocols import (
     AdaptiveSyncController,
+    AsyncScheduler,
     FedAvg,
     FixedSyncController,
+    LossBiasedSelector,
     PaperCostModel,
+    SizeBiasedSelector,
+    StalenessWeightedAggregator,
     SyncScheduler,
     UniformSelector,
     WeightedFedAvg,
+    staleness_discount,
 )
 from repro_torch.api.registry import (
     available_aggregators,
@@ -43,18 +51,22 @@ from repro_torch.api.registry import (
     unregister_method,
 )
 from repro_torch.api.strategies import (
+    BanditStrategy,
+    GeneratorStrategy,
     MethodStrategy,
     register_strategy_kind,
     strategy_kind_for,
 )
 
 __all__ = [
-    "AdaptiveSyncController", "BaseCallback", "EarlyStopCallback", "EngineState",
-    "EvalCallback", "FedAvg", "FedEngine", "FixedSyncController", "HistoryCallback",
-    "MethodStrategy", "PaperCostModel", "RoundContext", "RunResult", "SyncScheduler",
-    "UniformSelector", "VerboseCallback", "WeightedFedAvg", "available_aggregators",
-    "available_methods", "available_schedulers", "build_aggregator", "build_scheduler",
-    "build_strategy", "default_callbacks", "method_config", "register_aggregator",
-    "register_method", "register_scheduler", "register_strategy_kind",
-    "strategy_kind_for", "unregister_method",
+    "AdaptiveSyncController", "AsyncScheduler", "BanditStrategy", "BaseCallback",
+    "EarlyStopCallback", "EngineState", "EvalCallback", "FedAvg", "FedEngine",
+    "FixedSyncController", "GeneratorStrategy", "HistoryCallback", "LossBiasedSelector",
+    "MethodStrategy", "PaperCostModel", "RoundContext", "RunResult", "SizeBiasedSelector",
+    "StalenessWeightedAggregator", "SyncScheduler", "UniformSelector", "VerboseCallback",
+    "WeightedFedAvg", "available_aggregators", "available_methods", "available_schedulers",
+    "build_aggregator", "build_scheduler", "build_strategy", "default_callbacks",
+    "method_config", "register_aggregator", "register_method", "register_scheduler",
+    "register_strategy_kind", "staleness_discount", "strategy_kind_for",
+    "unregister_method",
 ]

@@ -8,16 +8,19 @@ Port of ``repro/api/engine.py`` (``RunResult``, ``EngineState``,
     -> historical write-back -> cost accounting -> callbacks
 
 ``dispatch`` runs the cohort's LocalUpdate (``core.fedais``) client by
-client on the device; ``merge`` is the server half. The tables live on the
-engine's device (``device=None`` is ``cuda:0``) and the merge writes the
-cohort's rows into them in place: by then no client reads the round-start
-snapshot any more. The merge takes the reference's unguarded path, which
-its default all-pass guard also takes on a healthy run.
+client on the device; ``merge`` is the server half. The schedulers
+(``api.protocols``) sequence the two: lockstep, or buffered-async with
+staleness-discounted merges. The tables live on the engine's device
+(``device=None`` is ``cuda:0``) and the merge writes the cohort's rows
+into them in place: by then no client reads the round-start snapshot any
+more, and the outputs an async scheduler still holds are tensors of their
+own. The merge takes the reference's unguarded path, which its default
+all-pass guard also takes on a healthy run. ``sync_dtype`` is the wire
+format of the ghost pull and of the write-back (``federated.quant``).
 
 Not ported yet, and refused when asked for: the fused executor
 (``SyncScheduler(fused=True)``, ROADMAP A4), the update guard and fault
-injection (``guard``, ``faults``: A6), a device mesh (``mesh``: A7) and a
-quantized wire (``sync_dtype`` other than ``"fp32"``: A3).
+injection (``guard``, ``faults``: A6) and a device mesh (``mesh``: A7).
 """
 from __future__ import annotations
 
@@ -28,7 +31,12 @@ import numpy as np
 import torch
 
 from repro_torch.api.callbacks import RoundContext, default_callbacks
-from repro_torch.api.protocols import AdaptiveSyncController, PaperCostModel, UniformSelector
+from repro_torch.api.protocols import (
+    AdaptiveSyncController,
+    PaperCostModel,
+    UniformSelector,
+    to_host,
+)
 from repro_torch.api.registry import (
     build_aggregator,
     build_scheduler,
@@ -43,8 +51,10 @@ from repro_torch.core.fedais import (
 )
 from repro_torch.core.historical import HistoricalState, init_historical
 from repro_torch.device import resolve_device
+from repro_torch.faults import FaultCounters
 from repro_torch.federated.costs import CostMeter, DelayModel
 from repro_torch.federated.partition import FederatedGraph
+from repro_torch.federated.quant import check_sync_dtype, quant_roundtrip
 from repro_torch.federated.server import build_eval_graph, evaluate_global
 from repro_torch.graph.data import GraphData
 from repro_torch.models.gcn import (
@@ -105,6 +115,11 @@ class EngineState:
     initial_loss: Optional[float] = None
     round: int = 0
     last_eval: Optional[tuple] = None  # (round, metrics) from EvalCallback
+    # per-update staleness of the merge being post-processed (None on the
+    # sync path); strategies read it to attribute async rewards
+    last_staleness: Optional[np.ndarray] = None
+    # what the engine/scheduler did about faults (async timeouts, ...)
+    fault_events: FaultCounters = field(default_factory=FaultCounters)
 
 
 class FedEngine:
@@ -148,9 +163,7 @@ class FedEngine:
             if value is not None and value is not False:
                 raise NotImplementedError(f"FedEngine({name}=...) is not ported yet "
                                           f"(ROADMAP {item})")
-        if sync_dtype != "fp32":
-            raise NotImplementedError(f"sync_dtype {sync_dtype!r} is not ported yet "
-                                      "(ROADMAP A3); the port syncs fp32")
+        self.sync_dtype = check_sync_dtype(sync_dtype)
         if train_backend not in AGG_BACKENDS:
             raise ValueError(f"unknown train_backend {train_backend!r}; "
                              f"known: {AGG_BACKENDS}")
@@ -201,7 +214,8 @@ class FedEngine:
         avg_deg = float(fed.nbr_mask.sum() / np.maximum(fed.node_mask.sum(), 1))
         self.fwd_flops_node = gcn_flops_per_node(self.F, fed.n_classes, avg_deg)
         self.bsz = batch_size_for(self.mcfg, fed.n_max)
-        self._cohort = make_cohort_update(self.mcfg, fed.n_max, train_backend=train_backend)
+        self._cohort = make_cohort_update(self.mcfg, fed.n_max, train_backend=train_backend,
+                                          sync_dtype=self.sync_dtype)
         self.eval_graph = build_eval_graph(graph, max_deg=fed.max_deg, seed=seed,
                                            backend=eval_backend, device=self.device)
 
@@ -250,30 +264,69 @@ class FedEngine:
             hist.ghost_feat[rows], state.prev_loss[rows], state.tau, fanouts,
             t * self.mcfg.local_epochs, streams)
 
-    def merge(self, state: EngineState, t: int, sel: np.ndarray, out) -> bool:
+    def merge(self, state: EngineState, t: int, sel: np.ndarray, out, *,
+              staleness: np.ndarray | None = None, aggregator=None,
+              wall_clock_s: float | None = None,
+              virtual_time: float | None = None) -> bool:
         """Server half of round ``t``: aggregation, the historical write-back
         (in place), cost accounting, strategy and callback hooks. The light
-        stats reach the host here, once per round. Returns True if a
+        stats reach the host here, once per merge. An async scheduler passes
+        the per-update ``staleness``, its staleness-aware ``aggregator``, the
+        virtual-clock ``wall_clock_s`` it waited (replacing the lockstep
+        billing) and the clock's ``virtual_time``. Returns True if a
         callback requested stop."""
         state.round = t
         new_params_stack, new_hist1, new_age, new_ghost_feat, stats = out
         sel = np.asarray(sel)
-        if len(sel):
+        if len(sel) == 0:
+            state.fault_events.n_empty_merges += 1
+        else:
+            agg = self.aggregator if aggregator is None else aggregator
             weights = torch.as_tensor(self.fed.client_sizes[sel], dtype=torch.float32,
                                       device=self.device)
-            state.params = self.aggregator.aggregate(new_params_stack, weights)
-            rows = torch.as_tensor(sel, dtype=torch.long, device=self.device)
+            if staleness is None:
+                state.params = agg.aggregate(new_params_stack, weights)
+            else:
+                state.params = agg.aggregate(new_params_stack, weights, staleness)
+            # Only an async buffer can hold the same client twice: every
+            # update aggregates, but only the last occurrence (the freshest:
+            # ``sel`` arrives sorted by dispatch version) writes the client's
+            # rows. The dedup comes before the write, since a scatter with
+            # repeated rows leaves the winner undefined on CUDA; a cohort
+            # without repeats keeps its rows as they are.
+            loss_all = stats["loss_all"]
+            wsel = sel
+            if len(np.unique(sel)) != len(sel):
+                _, last_rev = np.unique(sel[::-1], return_index=True)
+                keep = np.sort(len(sel) - 1 - last_rev)
+                wsel = sel[keep]
+                k = torch.as_tensor(keep, dtype=torch.long, device=self.device)
+                new_hist1, new_age = new_hist1[k], new_age[k]
+                new_ghost_feat, loss_all = new_ghost_feat[k], loss_all[k]
+            if self.sync_dtype != "fp32":
+                # the write-back is a wire: float rows round-trip through
+                # the codec; age stays exact
+                new_hist1 = quant_roundtrip(new_hist1, self.sync_dtype)
+                new_ghost_feat = quant_roundtrip(new_ghost_feat, self.sync_dtype)
+                loss_all = quant_roundtrip(loss_all, self.sync_dtype)
+            rows = torch.as_tensor(wsel, dtype=torch.long, device=self.device)
             state.hist.hist1[rows] = new_hist1
             state.hist.age[rows] = new_age
             state.hist.ghost_feat[rows] = new_ghost_feat
-            state.prev_loss[rows] = stats["loss_all"]
-        host = {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
-                for k, v in stats.items() if k != "loss_all"}
+            state.prev_loss[rows] = loss_all
+        host = {k: to_host(v) for k, v in stats.items() if k != "loss_all"}
         cost = self.cost_model.round_cost(self, state, sel, host) if len(sel) else CostMeter()
+        if wall_clock_s is not None:
+            cost.wall_clock_s = wall_clock_s    # overlapped (virtual-clock) billing
         state.result.costs.add(cost)
-        if len(sel):
-            self.strategy.post_round(self, state, sel, host)
-        ctx = RoundContext(engine=self, state=state, t=t, rounds=self.rounds)
+        state.last_staleness = staleness
+        try:
+            if len(sel):
+                self.strategy.post_round(self, state, sel, host)
+        finally:
+            state.last_staleness = None
+        ctx = RoundContext(engine=self, state=state, t=t, rounds=self.rounds,
+                           virtual_time=virtual_time, staleness=staleness)
         for cb in self.callbacks:
             cb.on_round_end(ctx)
         return ctx.stop

@@ -2,19 +2,24 @@
 aggregator name -> Aggregator factory, scheduler name -> RoundScheduler.
 
 Port of ``repro/api/registry.py``, with the paper's method-space registered
-as the reference registers it. These methods run: ``fedais``, ``fedais1``,
-``fedais2``, ``fedall``, ``fedrandom``, ``fedpns``, ``fedlocal``.
-``fedsage+`` and ``fedgraph`` resolve to strategy kinds still to port, and
-the ``staleness`` aggregator and ``async`` scheduler belong to the async
-path (ROADMAP A2); ``sync_fused`` is the fused executor (A4). Each raises
-``NotImplementedError`` naming its queue item.
+as the reference registers it: all nine methods, the ``fedavg``,
+``weighted`` and ``staleness`` aggregators and the ``sync``,
+``sync_stepwise`` and ``async`` schedulers run. ``sync_fused`` is the fused
+executor, still to port: it raises ``NotImplementedError`` naming ROADMAP
+A4.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable, Mapping
 
-from repro_torch.api.protocols import FedAvg, SyncScheduler, WeightedFedAvg
+from repro_torch.api.protocols import (
+    AsyncScheduler,
+    FedAvg,
+    StalenessWeightedAggregator,
+    SyncScheduler,
+    WeightedFedAvg,
+)
 from repro_torch.api.strategies import build_strategy  # re-exported  # noqa: F401
 from repro_torch.core.fedais import MethodConfig
 
@@ -67,7 +72,6 @@ def _build(table: dict, not_ported: dict, what: str, name: str, **kwargs):
 
 
 _AGGREGATORS: dict[str, Callable] = {}
-_AGGREGATORS_NOT_PORTED = {"staleness": "ROADMAP A2"}
 
 
 def register_aggregator(name: str, factory: Callable, *, overwrite: bool = False) -> None:
@@ -81,15 +85,16 @@ def available_aggregators() -> tuple[str, ...]:
 
 
 def build_aggregator(name: str):
-    return _build(_AGGREGATORS, _AGGREGATORS_NOT_PORTED, "aggregator", name)
+    return _build(_AGGREGATORS, {}, "aggregator", name)
 
 
 register_aggregator("fedavg", FedAvg)
 register_aggregator("weighted", WeightedFedAvg)
+register_aggregator("staleness", StalenessWeightedAggregator)
 
 
 _SCHEDULERS: dict[str, Callable] = {}
-_SCHEDULERS_NOT_PORTED = {"sync_fused": "ROADMAP A4", "async": "ROADMAP A2"}
+_SCHEDULERS_NOT_PORTED = {"sync_fused": "ROADMAP A4"}
 
 
 def register_scheduler(name: str, factory: Callable, *, overwrite: bool = False) -> None:
@@ -109,6 +114,7 @@ def build_scheduler(name: str, **kwargs):
 
 register_scheduler("sync", SyncScheduler)
 register_scheduler("sync_stepwise", lambda **kw: SyncScheduler(fused=False, **kw))
+register_scheduler("async", AsyncScheduler)
 
 
 # ---------------------------------------------------------------------------

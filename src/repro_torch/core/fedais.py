@@ -23,8 +23,10 @@ in production; the tests pass one that replays the reference's key chain),
 so the discrete decisions are exact against the reference given the same
 uniforms.
 
-Still to port: ``ghost_source="prefetched"`` (the pod-sharded executor,
-ROADMAP A7) and a quantized ghost pull (``sync_dtype``, A3).
+``sync_dtype`` is the ghost pull's wire format
+(``repro_torch.federated.quant``): the pulled rows round-trip through the
+codec, ``"fp32"`` takes no codec at all. Still to port:
+``ghost_source="prefetched"`` (the pod-sharded executor, ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from repro_torch.core.importance import (
     stable_rank,
     uniform_probs,
 )
+from repro_torch.federated.quant import check_sync_dtype, quant_roundtrip
 from repro_torch.models.gcn import AGG_BACKENDS, gcn_batch_forward, per_node_loss
 from repro_torch.optim import adamw_init, adamw_update
 
@@ -115,18 +118,20 @@ def ghost_need(nbr_rows: torch.Tensor, nbr_mask: torch.Tensor, keep: torch.Tenso
     return need * ghost_mask
 
 
-def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "gather"):
+def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "gather",
+                      sync_dtype: str = "fp32"):
     """The LocalUpdate for one client (Algorithm 1 lines 10-19). The
     reference's ``g_max`` and ``h1_dim`` come from the tensors here.
 
     ``train_backend`` is the batch neighbor aggregation of both
     ``gcn_batch_forward`` calls (the loss pass and the training step):
     ``gather``, ``segment`` or ``spmm`` (the SpMM kernel, whose backward is
-    its transposed launch).
+    its transposed launch). ``sync_dtype`` is the ghost pull's wire format.
     """
     if train_backend not in AGG_BACKENDS:
         raise ValueError(f"unknown train_backend {train_backend!r}; "
                          f"known: {AGG_BACKENDS}")
+    check_sync_dtype(sync_dtype)
     bsz = batch_size_for(mcfg, n_max)
     syncs = mcfg.use_ghosts and not mcfg.use_generator
 
@@ -190,6 +195,9 @@ def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "g
                                   client["ghost_mask"], n_max)
                 gf, gh = pull_ghosts(hist1_all, feats_all, client["ghost_owner"],
                                      client["ghost_row"], client["ghost_mask"])
+                if sync_dtype != "fp32":
+                    gf = quant_roundtrip(gf, sync_dtype)
+                    gh = quant_roundtrip(gh, sync_dtype)
                 pulled = need[:, None] > 0
                 ghost_feat = torch.where(pulled, gf, ghost_feat)
                 hist1 = torch.cat([hist1[:n_max], torch.where(pulled, gh, hist1[n_max:])])
@@ -228,14 +236,15 @@ def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "g
     return local_update
 
 
-def make_cohort_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "gather"):
+def make_cohort_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "gather",
+                       sync_dtype: str = "fp32"):
     """The cohort-stacked LocalUpdate (the reference's ``make_vmapped_update``
     with ``ghost_source="tables"``): per-client arguments carry a leading
     cohort axis, ``params``, ``feats_all``, ``hist1_all``, ``tau`` and
     ``epoch_offset`` are shared, ``fanouts`` and ``streams`` have one entry
     per client. Returns ``(params, hist1, age, ghost_feat, stats)``, each
     stacked over the cohort (``stats["n_sync"]`` a host int32 array)."""
-    one = make_local_update(mcfg, n_max, train_backend=train_backend)
+    one = make_local_update(mcfg, n_max, train_backend=train_backend, sync_dtype=sync_dtype)
 
     def cohort_update(params, clients, feats_all, hist1_all, hist1, age, ghost_feat,
                       prev_loss, tau, fanouts, epoch_offset, streams):

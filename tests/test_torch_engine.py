@@ -53,6 +53,23 @@ class TRecording(_Recording, UniformSelector):
     pass
 
 
+def assert_whole_run_tier(got, ref, cohorts, ref_cohorts):
+    """The whole-run tier (module docstring): identical cohorts and history
+    keys; round, tau and flops exact; the comm columns exact in round 0 and
+    within 1% after; test_acc within ACC_ROUND every round and ACC_FINAL at
+    the end."""
+    assert cohorts == ref_cohorts
+    assert set(got.history) == set(ref.history) and set(got.final) == set(ref.final)
+    for k in ("round", "tau", "flops"):
+        assert got.history[k] == ref.history[k], k
+    for k in COMM_KEYS:
+        assert got.history[k][0] == ref.history[k][0], k
+        np.testing.assert_allclose(got.history[k], ref.history[k], rtol=1e-2, err_msg=k)
+    acc, ref_acc = np.asarray(got.history["test_acc"]), np.asarray(ref.history["test_acc"])
+    assert np.abs(acc - ref_acc).max() <= ACC_ROUND
+    assert abs(got.final["acc"] - ref.final["acc"]) <= ACC_FINAL
+
+
 @pytest.fixture(scope="module")
 def reference(small_fed):
     g, fed = small_fed
@@ -75,16 +92,7 @@ def test_whole_run_matches(reference, backend):
                            draws=JaxDraws(0))
     got = eng.run(state)
     assert eng.last_executor == "stepwise"
-    assert sel.cohorts == ref_cohorts[:ROUNDS]
-    assert set(got.history) == set(ref.history) and set(got.final) == set(ref.final)
-    for k in ("round", "tau", "flops"):
-        assert got.history[k] == ref.history[k], k
-    for k in COMM_KEYS:
-        assert got.history[k][0] == ref.history[k][0], k
-        np.testing.assert_allclose(got.history[k], ref.history[k], rtol=1e-2, err_msg=k)
-    acc, ref_acc = np.asarray(got.history["test_acc"]), np.asarray(ref.history["test_acc"])
-    assert np.abs(acc - ref_acc).max() <= ACC_ROUND
-    assert abs(got.final["acc"] - ref.final["acc"]) <= ACC_FINAL
+    assert_whole_run_tier(got, ref, sel.cohorts, ref_cohorts[:ROUNDS])
     assert np.isfinite(got.history["test_loss"]).all()
     assert got.final["comm_total_bytes"] == got.history["comm_total"][-1]
     # the tables the merges wrote: every client that trained has fresh rows

@@ -48,7 +48,31 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 54
+    assert int(out.stdout.strip()) >= 58
+
+
+@pytest.mark.parametrize("name", ["faults", "faults.plan", "federated.baselines",
+                                  "federated.simulator"])
+def test_method_space_modules_stand_alone(name):
+    """The method space's modules are among those checked above, and each
+    imports without jax and without the reference."""
+    path = PORT.joinpath(*name.split(".")).with_suffix(".py")
+    if not path.exists():
+        path = PORT.joinpath(*name.split("."), "__init__.py")
+    assert path.is_file(), name
+    assert not (_imported_roots(path) & set(FORBIDDEN)), name
+    code = f"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+import importlib
+importlib.import_module("repro_torch.{name}")
+assert not [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_resolve_device_never_falls_back(monkeypatch):

@@ -80,6 +80,14 @@ def test_adaptive_tau_is_exact():
 
 
 def test_registry_matches_the_reference():
+    from repro_torch.api import (
+        AsyncScheduler,
+        BanditStrategy,
+        GeneratorStrategy,
+        MethodStrategy,
+        StalenessWeightedAggregator,
+    )
+
     assert treg.available_methods() == jreg.available_methods()
     for name in jreg.available_methods():
         assert treg.method_config(name) == type(treg.method_config(name))(
@@ -87,13 +95,17 @@ def test_registry_matches_the_reference():
     assert treg.method_config("fedais", tau0=7).tau0 == 7
     with pytest.raises(KeyError):
         treg.method_config("nope")
-    for name in ("fedsage+", "fedgraph"):
-        with pytest.raises(NotImplementedError, match="A2"):
-            treg.build_strategy(treg.method_config(name))
-    with pytest.raises(NotImplementedError, match="A2"):
-        treg.build_aggregator("staleness")
-    with pytest.raises(NotImplementedError, match="A2"):
-        treg.build_scheduler("async")
+    # all nine methods build the strategy of their kind
+    kinds = {"fedsage+": GeneratorStrategy, "fedgraph": BanditStrategy}
+    for name in treg.available_methods():
+        strategy = treg.build_strategy(treg.method_config(name))
+        assert type(strategy) is kinds.get(name, MethodStrategy), name
+    assert treg.available_aggregators() == jreg.available_aggregators()
+    assert set(treg.available_schedulers()) | {"sync_fused"} == set(jreg.available_schedulers())
+    assert isinstance(treg.build_aggregator("staleness"), StalenessWeightedAggregator)
+    sched = treg.build_scheduler("async", quorum=4)
+    assert isinstance(sched, AsyncScheduler) and sched.quorum == 4
+    # only the fused executor is still to port
     with pytest.raises(NotImplementedError, match="A4"):
         treg.build_scheduler("sync_fused")
     assert treg.build_scheduler("sync_stepwise").fused is False
@@ -103,17 +115,20 @@ def test_engine_refuses_what_is_not_ported(small_fed):
     g = make_dataset("pubmed", scale=32, seed=0)
     fed = partition_graph(g, 8, alpha=0.5, seed=0)
     for kw, item in (({"guard": True}, "A6"), ({"faults": object()}, "A6"),
-                     ({"mesh": object()}, "A7"), ({"sync_dtype": "bf16"}, "A3")):
+                     ({"mesh": object()}, "A7")):
         with pytest.raises(NotImplementedError, match=item):
             FedEngine(g, fed, "fedais", device="cpu", **kw)
     with pytest.raises(ValueError, match="train_backend"):
         FedEngine(g, fed, "fedais", device="cpu", train_backend="dense")
+    with pytest.raises(ValueError, match="sync dtype"):
+        FedEngine(g, fed, "fedais", device="cpu", sync_dtype="fp16")
+    for dtype in ("fp32", "bf16", "int8"):
+        assert FedEngine(g, fed, "fedais", device="cpu", sync_dtype=dtype).sync_dtype == dtype
     from repro_torch.api import SyncScheduler
 
-    eng = FedEngine(g, fed, "fedais", rounds=1, device="cpu",
-                    scheduler=SyncScheduler(fused=True))
-    with pytest.raises(NotImplementedError, match="A4"):
-        eng.run()
+    for scheduler in (SyncScheduler(fused=True), "sync_fused"):
+        with pytest.raises(NotImplementedError, match="A4"):
+            FedEngine(g, fed, "fedais", rounds=1, device="cpu", scheduler=scheduler).run()
 
 
 def test_server_merge_helpers_match():
