@@ -27,7 +27,11 @@ weights from a seed:
   ablations and the five baselines, FedSage+'s generator and FedGraph's
   fanout bandit included), FedAIS under the async scheduler (full quorum
   and heterogeneous) and under the bf16 and int8 sync wire, on the same
-  partition and the same entry point.
+  partition and the same entry point;
+* the fused executor (the default wherever every component is fusable,
+  as for ``fedais``): one round captured as a CUDA graph per graph key and
+  replayed each round, the SpMM inside the graph; against the stepwise
+  executor, and under a fault plan (``fused_faulty``, and async).
 
 Phases, one or more lines each:
   1 device      the card (nvidia-smi name and power limit), torch and CUDA
@@ -96,15 +100,18 @@ Phases, one or more lines each:
                 configurations (fp32), the
                 card's kernel path against the plain path on the CPU
                 (prefill and 4 decode steps, 1e-4);
-  10 train      ``FedEngine.run()`` twice from one seed: the SpMM launched
-                exactly rounds x (m·(2 + 3J) + 2) times (a loss pass, then
-                J steps of 2 forward and 1 transposed launch per client,
-                plus the eval's 2 layers a round) and nothing else; the same
-                cohorts, batches, tau and test_acc bits in both runs; the
-                first LocalUpdate of one client under spmm against gather
-                on the card with the same draws (discrete outputs exact,
-                ``loss_all`` and the first step's grads 1e-4); ms per round,
-                peak memory, test_acc per round;
+  10 train      ``FedEngine.run()`` twice from one seed, through the fused
+                executor (rounds after a graph key's first replayed): the
+                SpMM launched exactly rounds x (m·(2 + 3J) + 2) times (a
+                loss pass, then J steps of 2 forward and 1 transposed
+                launch per client, plus the eval's 2 layers a round),
+                counted through the replays, and nothing else; the same
+                cohorts, tables (params, hist1, age, ghost_feat,
+                prev_loss: the batches' witness), tau and test_acc bits in
+                both runs; the first LocalUpdate of one client under spmm
+                against gather on the card with the same draws (discrete
+                outputs exact, ``loss_all`` and the first step's grads
+                1e-4); ms per round, peak memory, test_acc per round;
   11 methods    on phase 10's partition, each of the nine registered
                 methods for 2 rounds, ``fedais`` under ``AsyncScheduler()``
                 (3 rounds, bit-identical to the sync run of the same seed,
@@ -118,13 +125,32 @@ Phases, one or more lines each:
                 (FedSage+ syncs nothing and its generator rides the model
                 link, FedLocal pulls no ghost, FedPNS keeps tau 2,
                 FedGraph's fanouts come from its bandit's actions); ms per
-                round, peak memory, test_acc per round.
+                round, peak memory, test_acc per round (the fusable
+                methods run fused);
+  12 fused      on phase 10's partition, ``fedais`` for 6 rounds with an
+                eval every 2 (chunks [0], [1, 2], [3, 4], [5]) fused by
+                default against ``SyncScheduler(fused=False)``: every
+                history column, the final row, the params and the tables
+                bit-identical; the SpMM launched exactly rounds x m x
+                (2 + 3J) + evals x 2 times through the replays, nothing
+                else; the graph keys and their capture time; the device
+                memory allocated after each chunk, no growth; each other
+                fusable method's phase-11 fused run against its stepwise
+                run (bit-identical); ``fedais`` under a ``FaultPlan``
+                (drops, NaN corruption, stragglers) for 4 rounds:
+                ``fused_faulty`` against faulty stepwise (history, tables,
+                fault counters equal; a quarantine and drops counted); an
+                async run under the same plan that completes, its
+                counters recorded.
 The SpMM's launch counter is set to 0 just before phase 4 and read just
 after phase 5; every counter is set to 0 just before each ``serve`` of
-phase 8 and each ``run`` of phases 10 and 11 and read just after it.
+phase 8 and each ``run`` of phases 10, 11 and 12 and read just after it.
 ``--profile`` traces a second traffic run after phase 6, one prefill + 4
-decode steps of each LM in phase 9, one steady training round in phase 10
-and one steady round of fedall and of fedsage+ in phase 11.
+decode steps of each LM in phase 9, one steady training round replayed
+from its CUDA graph in phase 10 and one stepwise in phase 12 (the host's
+kernel and graph launches, the device's busy share, the SpMM's kernels
+under the replay), and one steady stepwise round of fedall and of
+fedsage+ in phase 11.
 Before the last line it prints a ``{"kernels": [...]}`` line (all three
 kernels). The last line is ``{"ok": true, "device": {...}}``. Any failure
 raises and the exit code is not 0; without CUDA, or outside a checkout, it
@@ -185,6 +211,19 @@ TRAIN_CLIENTS, TRAIN_M, TRAIN_ROUNDS = 10, 5, 3
 METHOD_ROUNDS, ASYNC_ROUNDS, HET_MERGES, HET_SLOW = 2, 3, 4, 4.0
 ASYNC_PARITY_KEYS = ("test_acc", "test_loss", "tau", "comm_total", "comm_embed", "flops",
                      "wall_clock")
+# the fused executor (phase 12): fedais rounds and eval cadence (chunks of
+# up to 2 rounds), the fault-plan runs' rounds, and the plan: drops and
+# stragglers every round, NaN corruption only at version 0 (one member of
+# the first cohort), so no async merge of 3 is emptied by the guard (an
+# emptied merge on an eval round stops the reference's HistoryCallback,
+# ROADMAP C5)
+FUSED_ROUNDS, FUSED_EVAL_EVERY, FAULT_ROUNDS = 6, 2, 4
+FAULT_PLAN = dict(seed=78, dropout=0.2, corrupt=0.05, corrupt_mode="nan", straggler_frac=0.3)
+FAULT_ASYNC = dict(quorum=3, concurrency=TRAIN_M, timeout_s=1.0, max_retries=1)
+FUSABLE = ("fedall", "fedrandom", "fedpns", "fedlocal", "fedais1", "fedais2")
+# host API calls counted in a traced round
+API_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cudaGraphLaunch",
+             "cudaMemcpyAsync", "cudaStreamSynchronize")
 
 
 def log(*parts) -> None:
@@ -612,8 +651,12 @@ def _trace(torch, fn, top: int):
     busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
     by_dev = sorted(on_dev, key=dev_us, reverse=True)[:top]
     by_cpu = sorted(on_host, key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
+    spmm = [e for e in on_dev if "spmm" in e.key]
     return out, {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
+        "api_calls": {n: sum(e.count for e in on_host if e.key == n) for n in API_CALLS},
+        "spmm_kernels": {"count": sum(e.count for e in spmm),
+                         "device_ms": sum(dev_us(e) for e in spmm) / 1e3},
         "top_device": [{"name": e.key, "count": e.count, "device_ms": dev_us(e) / 1e3}
                        for e in by_dev],
         "top_host": [{"name": e.key, "count": e.count,
@@ -939,7 +982,12 @@ def poisoned_fallbacks(torch, g, idx, mask, params, dev, ids, GraphStore, Served
 
 class RoundTimer:
     """A round callback: the host clock at the end of each round, after a
-    synchronise (the round's work is done), and the cohorts."""
+    synchronise (the round's work is done). It observes nothing of a
+    round's state, so the fused executor may take it: there its stamps come
+    from the host tail, which replays a chunk's rounds after the chunk ran
+    (per round when a chunk is one round, as with an eval every round)."""
+
+    fused_safe = True
 
     def __init__(self, torch):
         self.torch = torch
@@ -957,25 +1005,10 @@ class RoundTimer:
         pass
 
 
-def train_run(torch, api, counters, g, fed, dev, fedais) -> dict:
-    """One seeded ``FedEngine(g, fed, "fedais", ...).run()`` (``method_run``),
-    keeping every sampled batch (a wrapper around
-    ``core.fedais.sample_batch``)."""
-    batches = []
-    real = fedais.sample_batch
-
-    def sample_batch(*a, **k):
-        out = real(*a, **k)
-        batches.append(out[0].clone())
-        return out
-
-    fedais.sample_batch = sample_batch
-    try:
-        run = method_run(torch, api, counters, g, fed, dev, "fedais", TRAIN_ROUNDS)
-    finally:
-        fedais.sample_batch = real
-    run["batches"] = batches
-    return run
+def train_tables(state) -> list:
+    """The params and every table of a run's state, in a fixed order."""
+    return [*(state.params[k] for k in sorted(state.params)), state.hist.hist1,
+            state.hist.age, state.hist.ghost_feat, state.prev_loss]
 
 
 def train_first_update(torch, fedais, ops, ref, eng, state, k, dev) -> dict:
@@ -1064,6 +1097,7 @@ class RecordingSelector:
 
     def __init__(self, base):
         self.base, self.cohorts = base, []
+        self.precomputable = getattr(base, "precomputable", False)
 
     def select(self, engine, state):
         sel = self.base.select(engine, state)
@@ -1077,13 +1111,16 @@ def train_phase(torch, api, fedais, ops, ref, counters, g, fed, dev, tag,
     ``train_backend = eval_backend = "spmm"``, twice from the same seed.
     Gates: the SpMM launched exactly rounds x (m·(2 + 3J) + 2) times and
     nothing else launched (a loss pass and J steps of 2 forward + 1
-    transposed launch per client, the eval's 2 layers per round); finite
-    history; the two runs draw the same cohorts and batches and give the
-    same tau and test_acc bits; the first LocalUpdate under spmm against
-    gather (``train_first_update``). Recorded: ms per round (the first,
-    then the steady rounds), peak memory, test_acc per round; under
-    ``profile`` a traced steady round."""
-    r1, r2 = (train_run(torch, api, counters, g, fed, dev, fedais) for _ in range(2))
+    transposed launch per client, the eval's 2 layers per round), counted
+    through the CUDA graph replays of the fused executor both runs take;
+    finite history; the two runs draw the same cohorts, write the same
+    tables and give the same tau and test_acc bits; the first LocalUpdate
+    under spmm against gather (``train_first_update``). Recorded: ms per
+    round (the first, then the steady rounds), peak memory, test_acc per
+    round; under ``profile`` a traced steady round replayed from its
+    graph."""
+    r1, r2 = (method_run(torch, api, counters, g, fed, dev, "fedais", TRAIN_ROUNDS)
+              for _ in range(2))
     eng, res = r1["engine"], r1["result"]
     J = eng.mcfg.local_epochs
     want = {n: 0 for n in counters}
@@ -1102,9 +1139,12 @@ def train_phase(torch, api, fedais, ops, ref, counters, g, fed, dev, tag,
     if (len(hist["test_acc"]) != TRAIN_ROUNDS or not all(0.0 <= a <= 1.0 for a in hist["test_acc"])
             or not all(math.isfinite(x) for x in hist["test_loss"])):
         raise AssertionError(f"train: history {hist}")
-    same = {"cohorts": r1["cohorts"] == r2["cohorts"],
-            "batches": len(r1["batches"]) == len(r2["batches"]) == TRAIN_ROUNDS * TRAIN_M * J
-            and all(torch.equal(a, b) for a, b in zip(r1["batches"], r2["batches"])),
+    # a replayed round's batches never reach the host: the tables they
+    # wrote (age restarts at 0 on every row a batch pushed) stand witness
+    same = {"executor": r1["executor"] == r2["executor"] == "fused",
+            "cohorts": r1["cohorts"] == r2["cohorts"],
+            "tables": all(torch.equal(a, b) for a, b in zip(train_tables(r1["state"]),
+                                                            train_tables(r2["state"]))),
             "tau": hist["tau"] == r2["result"].history["tau"],
             "test_acc": hist["test_acc"] == r2["result"].history["test_acc"]}
     log(f"phase 10 train: a second seeded run: the same {json.dumps(same)}")
@@ -1117,39 +1157,78 @@ def train_phase(torch, api, fedais, ops, ref, counters, g, fed, dev, tag,
            "first_round_ms": r1["round_ms"][0], "steady_round_ms": steady[len(steady) // 2],
            "peak_gb": r1["peak_gb"], "launches": r1["launches"], "history": hist,
            "final": res.final, "cohorts": r1["cohorts"], "first_update": first}
+    del r2
     if profile:
-        sel = RecordingSelector(api.UniformSelector())
-        peng = api.FedEngine(g, fed, "fedais", rounds=2, clients_per_round=TRAIN_M, seed=0,
-                             selector=sel, train_backend="spmm", eval_backend="spmm",
-                             device=dev)
-        pstate = peng.init_state()
-        peng.run_round(pstate, 0)
-        _, prof = _trace(torch, lambda: peng.run_round(pstate, 1), 10)
-        rec["profile"] = prof
-        log(f"profile: {tag}: train round 1 wall {prof['wall_ms']} ms, device busy "
-            f"{prof['device_busy_ms']} ms (share {prof['device_busy_share']})")
-        for e in prof["top_device"]:
-            log(f"profile: train device {e['device_ms']} ms x{e['count']} {e['name']}")
-        for e in prof["top_host"]:
-            log(f"profile: train host {e['self_cpu_ms']} ms x{e['count']} {e['name']}")
+        rec["profile"] = profile_round(torch, api, g, fed, dev, tag, fused=True)
     return rec, r1["launches"]["spmm"]
 
 
-def method_run(torch, api, counters, g, fed, dev, method, rounds, **kw) -> dict:
+def profile_round(torch, api, g, fed, dev, tag, *, fused: bool) -> dict:
+    """One steady ``fedais`` round of phase 10's configuration (its eval
+    included) under ``torch.profiler``: round 1 after round 0, replayed
+    from its CUDA graph (``fused``) or stepwise. Logs the wall time, the
+    device's busy share, the host's kernel and graph launches and the
+    SpMM's kernels on the device."""
+    peng = api.FedEngine(g, fed, "fedais", rounds=2, clients_per_round=TRAIN_M, seed=0,
+                         train_backend="spmm", eval_backend="spmm", device=dev)
+    pstate = peng.init_state()
+    if fused:
+        peng._run_chunk(pstate, 0, 1)
+        _, prof = _trace(torch, lambda: peng._run_chunk(pstate, 1, 1), 10)
+    else:
+        peng.run_round(pstate, 0)
+        _, prof = _trace(torch, lambda: peng.run_round(pstate, 1), 10)
+    what = f"train round 1 ({peng.last_executor})"
+    log(f"profile: {tag}: {what} wall {prof['wall_ms']} ms, device busy "
+        f"{prof['device_busy_ms']} ms (share {prof['device_busy_share']}); host API calls "
+        f"{json.dumps(prof['api_calls'])}; SpMM kernels on the device {prof['spmm_kernels']}")
+    for e in prof["top_device"]:
+        log(f"profile: {peng.last_executor} device {e['device_ms']} ms x{e['count']} "
+            f"{e['name']}")
+    for e in prof["top_host"]:
+        log(f"profile: {peng.last_executor} host {e['self_cpu_ms']} ms x{e['count']} "
+            f"{e['name']}")
+    if fused and (prof["api_calls"].get("cudaGraphLaunch", 0) < 1
+                  or prof["spmm_kernels"]["count"] < 1):
+        raise AssertionError(f"profile: the replayed round shows no graph launch or no "
+                             f"SpMM kernel: {prof['api_calls']}, {prof['spmm_kernels']}")
+    prof["executor"] = peng.last_executor
+    del peng, pstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    return prof
+
+
+def method_run(torch, api, counters, g, fed, dev, method, rounds, eval_every=1,
+               **kw) -> dict:
     """One seeded ``FedEngine(g, fed, method, ...).run()`` on the card with
     the ``spmm`` backends, every launch counter set to 0 just before and
     read just after; keeps the cohorts, the size of every dispatch, the
     fanouts the strategy chose, ms per round (or merge) and peak memory
     (the runs before it collected first, so it is this run's alone)."""
     gc.collect()
+    torch.cuda.empty_cache()
     timer = RoundTimer(torch)
     sel = RecordingSelector(api.UniformSelector())
     eng = api.FedEngine(g, fed, method, rounds=rounds, clients_per_round=TRAIN_M, seed=0,
-                        selector=sel, callbacks=[api.EvalCallback(), api.HistoryCallback(),
-                                                 timer],
+                        selector=sel, callbacks=[api.EvalCallback(eval_every),
+                                                 api.HistoryCallback(), timer],
                         train_backend="spmm", eval_backend="spmm", device=dev, **kw)
-    dispatched, fanouts = [], []
+    dispatched, fanouts, chunks = [], [], []
     real_dispatch, real_fanouts = eng.dispatch, eng.strategy.choose_fanouts
+    real_chunk = eng._run_chunk
+
+    def run_chunk(state, t0, n):
+        # a fused chunk: its host clock (after a synchronise), the device
+        # memory still allocated after it, the graph keys captured so far
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        stop = real_chunk(state, t0, n)
+        torch.cuda.synchronize()
+        chunks.append({"rounds": [t0, n], "ms": (time.perf_counter() - c0) * 1e3,
+                       "allocated": torch.cuda.memory_allocated(),
+                       "graphs": len(eng._fused.captures)})
+        return stop
 
     def dispatch(state, s, t):
         dispatched.append(len(s))
@@ -1161,6 +1240,7 @@ def method_run(torch, api, counters, g, fed, dev, method, rounds, **kw) -> dict:
         return out
 
     eng.dispatch, eng.strategy.choose_fanouts = dispatch, choose_fanouts
+    eng._run_chunk = run_chunk
     state = eng.init_state()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1170,9 +1250,15 @@ def method_run(torch, api, counters, g, fed, dev, method, rounds, **kw) -> dict:
     torch.cuda.synchronize()
     launches = {n: c.launches for n, c in counters.items()}
     ms = [(b - a) * 1e3 for a, b in zip(timer.stamps, timer.stamps[1:])]
+    if eng.last_executor in ("fused", "fused_faulty"):
+        # the fused executor trains every cohort it selects; it never calls
+        # dispatch
+        dispatched = [len(c) for c in sel.cohorts]
     return {"engine": eng, "state": state, "result": res, "launches": launches,
             "round_ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "cohorts": sel.cohorts, "dispatched": dispatched, "fanouts": fanouts}
+            "cohorts": sel.cohorts, "dispatched": dispatched, "fanouts": fanouts,
+            "executor": eng.last_executor, "chunks": chunks,
+            "captures": [] if eng._fused is None else eng._fused.captures}
 
 
 def _method_gate(counters, run, name, merges) -> dict:
@@ -1202,7 +1288,7 @@ def _method_record(run) -> dict:
             "final": dict(run["result"].final)}
 
 
-def methods_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict, int]:
+def methods_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict, int, dict]:
     """Phase 11: the paper's method space on the card, on phase 10's
     partition, with the spmm backends; every launch counter set to 0 just
     before each run and read just after it.
@@ -1223,13 +1309,16 @@ def methods_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict
       the fp32 run of the same seed, a finite history.
 
     Recorded: ms per round, peak memory, test_acc per round; under
-    ``profile`` a traced steady round of fedall and of fedsage+."""
+    ``profile`` a traced steady round of fedall and of fedsage+ (stepwise).
+    The fusable methods take the fused executor; each method's history and
+    final row are returned for phase 12 to hold against its stepwise run."""
     import numpy as np
 
     from repro_torch.federated.baselines import FANOUT_ACTIONS, generator_param_count
     from repro_torch.federated.costs import model_bytes
 
     rec: dict = {"methods": {}}
+    runs: dict = {}
     total = 0
     for method in api.available_methods():
         run = method_run(torch, api, counters, g, fed, dev, method, METHOD_ROUNDS)
@@ -1255,15 +1344,20 @@ def methods_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict
                       "bandit_counts": int(eng.strategy.bandit.n.sum())
                       == TRAIN_M * METHOD_ROUNDS}
         steady = run["round_ms"][1:] or run["round_ms"]
-        log(f"phase 11 methods: {tag}: {method} {METHOD_ROUNDS} rounds: ms per round "
-            f"{run['round_ms']} (steady {min(steady)}); peak memory {run['peak_gb']} GB; "
+        # copies: the traced round below appends to this run's history
+        runs[method] = argparse.Namespace(history=copy.deepcopy(hist), final=dict(final),
+                                          executor=run["executor"])
+        log(f"phase 11 methods: {tag}: {method} {METHOD_ROUNDS} rounds ({run['executor']}): "
+            f"ms per round {run['round_ms']} (steady {min(steady)}); peak memory "
+            f"{run['peak_gb']} GB; "
             f"launches {json.dumps(run['launches'])} (want {json.dumps(want)}); tau "
             f"{hist['tau']}; test_acc {hist['test_acc']}; comm_embed {hist['comm_embed']}; "
             f"checks {json.dumps(checks)}"
             + (f"; fanouts {run['fanouts']}" if method == "fedgraph" else ""))
         if not all(checks.values()):
             raise AssertionError(f"methods: {method}: {checks}")
-        rec["methods"][method] = dict(_method_record(run), checks=checks)
+        rec["methods"][method] = dict(_method_record(run), checks=checks,
+                                      executor=run["executor"])
         total += run["launches"]["spmm"]
         if profile and method in ("fedall", "fedsage+"):
             _, prof = _trace(torch, lambda: eng.run_round(run["state"], METHOD_ROUNDS), 10)
@@ -1337,6 +1431,171 @@ def methods_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict
         rec[f"sync_{dtype}"] = dict(_method_record(q), same_as_fp32=same)
         total += q["launches"]["spmm"]
         del q
+    rec["spmm_launches"] = total
+    return rec, total, runs
+
+
+def _same_history(a, b) -> dict:
+    """Which history columns (and the final row) two runs share, bit for bit."""
+    same = {k: a.history.get(k) == b.history.get(k) for k in sorted(set(a.history)
+                                                                     | set(b.history))}
+    same["final"] = a.final == b.final
+    return same
+
+
+def fused_phase(torch, api, counters, g, fed, dev, tag, method_runs,
+                profile) -> tuple[dict, int]:
+    """Phase 12: the fused executor on the card, on phase 10's partition,
+    GraphSAGE 256/128, spmm backends; every launch counter set to 0 just
+    before each run and read just after it.
+
+    * ``fedais`` for ``FUSED_ROUNDS`` rounds, an eval every
+      ``FUSED_EVAL_EVERY``: the default ``SyncScheduler`` takes the fused
+      executor (chunks [0], [1, 2], [3, 4], [5]); every history column and
+      the final row bit-identical to ``SyncScheduler(fused=False)``, and
+      the params and tables too; the SpMM launched exactly rounds x m x
+      (2 + 3J) + evals x 2 times, counted through the replays, nothing
+      else; the graph keys and their capture time; the device memory
+      allocated the same after the second chunk as after the last (no
+      growth per chunk; a chunk that captured a new key is named);
+    * each other fusable method (phase 11 ran it fused, 2 rounds): its
+      stepwise run of the same seed, every history column and the final
+      row bit-identical;
+    * ``fedais`` under ``FaultPlan(**FAULT_PLAN)`` for ``FAULT_ROUNDS``
+      rounds: ``fused_faulty`` against faulty stepwise, every history
+      column, the final row, the params, the tables and ``FaultCounters``
+      equal, ``n_quarantined`` > 0, drops counted; the launch gate;
+    * an async run under the same plan (``AsyncScheduler(**FAULT_ASYNC)``)
+      that completes: its counters recorded, the launch gate over the
+      clients dispatched.
+
+    Under ``profile`` one stepwise round traced beside phase 10's replayed
+    round."""
+    rec: dict = {}
+    total = 0
+
+    def gate(run, name, merges, evals=None):
+        J = run["engine"].mcfg.local_epochs
+        want = {n: 0 for n in counters}
+        want["spmm"] = (sum(run["dispatched"]) * (2 + 3 * J)
+                        + 2 * (merges if evals is None else evals))
+        if run["launches"] != want:
+            raise AssertionError(f"fused: {name}: launches {run['launches']}, want {want}")
+        hist = run["result"].history
+        if not all(math.isfinite(x) for x in hist["test_loss"]):
+            raise AssertionError(f"fused: {name}: history {hist}")
+        return want
+
+    # fedais, fused by default, against stepwise
+    evals = len([t for t in range(FUSED_ROUNDS)
+                 if t % FUSED_EVAL_EVERY == 0 or t == FUSED_ROUNDS - 1])
+    fz = method_run(torch, api, counters, g, fed, dev, "fedais", FUSED_ROUNDS,
+                    eval_every=FUSED_EVAL_EVERY)
+    want = gate(fz, "fedais fused", FUSED_ROUNDS, evals)
+    fz_tables = [t.clone() for t in train_tables(fz["state"])]
+    fz_res, fz_exec, chunks, captures = fz["result"], fz["executor"], fz["chunks"], fz["captures"]
+    fz_peak, fz_launches = fz["peak_gb"], fz["launches"]
+    del fz
+    st = method_run(torch, api, counters, g, fed, dev, "fedais", FUSED_ROUNDS,
+                    eval_every=FUSED_EVAL_EVERY, scheduler=api.SyncScheduler(fused=False))
+    gate(st, "fedais stepwise", FUSED_ROUNDS, evals)
+    same = _same_history(fz_res, st["result"])
+    same["tables"] = all(torch.equal(a, b) for a, b in zip(fz_tables,
+                                                           train_tables(st["state"])))
+    same["executors"] = (fz_exec, st["executor"]) == ("fused", "stepwise")
+    mem = [c["allocated"] for c in chunks]
+    graphs = [c["graphs"] for c in chunks]
+    growth = {f"chunk {i}": mem[i] - mem[i - 1] for i in range(2, len(mem))
+              if graphs[i] == graphs[i - 1] and mem[i] != mem[i - 1]}
+    chunk_ms = [c["ms"] for c in chunks]
+    per_round = [c["ms"] / c["rounds"][1] for c in chunks]
+    log(f"phase 12 fused: {tag}: fedais {FUSED_ROUNDS} rounds, eval every "
+        f"{FUSED_EVAL_EVERY}: fused vs stepwise the same {json.dumps(same)}; chunks "
+        f"{[c['rounds'] for c in chunks]} ms {chunk_ms} (per round {per_round}); stepwise ms "
+        f"per round {st['round_ms']}; launches {json.dumps(fz_launches)} (want "
+        f"{json.dumps(want)}); graph keys {len(captures)}: "
+        f"{json.dumps(captures)}; memory allocated after each chunk {mem} (graph keys "
+        f"{graphs}); peak memory fused {fz_peak} GB, stepwise {st['peak_gb']} GB; tau "
+        f"{fz_res.history['tau']}; test_acc {fz_res.history['test_acc']}")
+    if not all(same.values()):
+        raise AssertionError(f"fused: fedais fused differs from stepwise: {same}")
+    if growth or not captures:
+        raise AssertionError(f"fused: memory grew per chunk {growth}, captures {captures}")
+    rec["fedais"] = {"same": same, "chunks": chunks, "captures": captures,
+                     "launches": fz_launches, "peak_gb": fz_peak,
+                     "stepwise_peak_gb": st["peak_gb"], "stepwise_round_ms": st["round_ms"],
+                     "history": fz_res.history, "final": fz_res.final}
+    total += fz_launches["spmm"] + st["launches"]["spmm"]
+    del st
+
+    # every other fusable method: phase 11's fused run against stepwise
+    rec["methods"] = {}
+    for method in FUSABLE:
+        fused_run = method_runs[method]
+        st = method_run(torch, api, counters, g, fed, dev, method, METHOD_ROUNDS,
+                        scheduler=api.SyncScheduler(fused=False))
+        gate(st, f"{method} stepwise", METHOD_ROUNDS)
+        same = _same_history(fused_run, st["result"])
+        same["executors"] = (fused_run.executor, st["executor"]) == ("fused", "stepwise")
+        log(f"phase 12 fused: {tag}: {method} {METHOD_ROUNDS} rounds, phase 11's fused run "
+            f"vs stepwise: the same {json.dumps(same)}; stepwise ms per round "
+            f"{st['round_ms']}")
+        if not all(same.values()):
+            raise AssertionError(f"fused: {method} fused differs from stepwise: {same}")
+        rec["methods"][method] = {"same": same, "stepwise_round_ms": st["round_ms"]}
+        total += st["launches"]["spmm"]
+        del st
+
+    # the fault plan: fused_faulty against faulty stepwise, then async
+    from repro_torch.faults import FaultPlan
+
+    plan = FaultPlan(**FAULT_PLAN)
+    fr = method_run(torch, api, counters, g, fed, dev, "fedais", FAULT_ROUNDS,
+                    eval_every=FUSED_EVAL_EVERY, faults=plan)
+    f_evals = len([t for t in range(FAULT_ROUNDS)
+                   if t % FUSED_EVAL_EVERY == 0 or t == FAULT_ROUNDS - 1])
+    gate(fr, "fedais fused_faulty", FAULT_ROUNDS, f_evals)
+    fr_tables = [t.clone() for t in train_tables(fr["state"])]
+    fr_res, fr_exec = fr["result"], fr["executor"]
+    fr_events, fr_launches = fr["state"].fault_events.snapshot(), fr["launches"]
+    del fr
+    sf = method_run(torch, api, counters, g, fed, dev, "fedais", FAULT_ROUNDS,
+                    eval_every=FUSED_EVAL_EVERY, faults=plan,
+                    scheduler=api.SyncScheduler(fused=False))
+    gate(sf, "fedais faulty stepwise", FAULT_ROUNDS, f_evals)
+    same = _same_history(fr_res, sf["result"])
+    same["tables"] = all(torch.equal(a, b) for a, b in zip(fr_tables,
+                                                           train_tables(sf["state"])))
+    same["fault_events"] = fr_events == sf["state"].fault_events.snapshot()
+    same["executors"] = (fr_exec, sf["executor"]) == ("fused_faulty", "stepwise")
+    log(f"phase 12 fused: {tag}: fedais under FaultPlan({FAULT_PLAN}) {FAULT_ROUNDS} rounds: "
+        f"fused_faulty vs faulty stepwise the same {json.dumps(same)}; fault events "
+        f"{json.dumps(fr_events)}; launches {json.dumps(fr_launches)}; test_acc "
+        f"{fr_res.history['test_acc']}; wall_clock {fr_res.history['wall_clock']}")
+    if not all(same.values()) or fr_events["n_quarantined"] < 1 or fr_events["n_dropped"] < 1:
+        raise AssertionError(f"fused: fused_faulty vs faulty stepwise {same}, events "
+                             f"{fr_events}")
+    rec["faulty"] = {"plan": FAULT_PLAN, "same": same, "fault_events": fr_events,
+                     "launches": fr_launches, "history": fr_res.history}
+    total += fr_launches["spmm"] + sf["launches"]["spmm"]
+    del sf
+    ar = method_run(torch, api, counters, g, fed, dev, "fedais", FAULT_ROUNDS, faults=plan,
+                    scheduler=api.AsyncScheduler(**FAULT_ASYNC))
+    gate(ar, "fedais async under the plan", FAULT_ROUNDS)
+    ah, a_events = ar["result"].history, ar["state"].fault_events.snapshot()
+    log(f"phase 12 fused: {tag}: fedais async {json.dumps(FAULT_ASYNC)} under the plan, "
+        f"{FAULT_ROUNDS} merges: dispatched {ar['dispatched']}, merged {ah['merged']}, "
+        f"staleness max {ah['staleness_max']}; fault events {json.dumps(a_events)}; launches "
+        f"{json.dumps(ar['launches'])}; test_acc {ah['test_acc']}")
+    if len(ah["test_acc"]) != FAULT_ROUNDS or not any(a_events.values()):
+        raise AssertionError(f"fused: async under the plan: history {ah}, events {a_events}")
+    rec["async_faults"] = {"scheduler": FAULT_ASYNC, "fault_events": a_events,
+                           "dispatched": ar["dispatched"], "merged": ah["merged"],
+                           "launches": ar["launches"]}
+    total += ar["launches"]["spmm"]
+    del ar
+    if profile:
+        rec["profile_stepwise"] = profile_round(torch, api, g, fed, dev, tag, fused=False)
     rec["spmm_launches"] = total
     return rec, total
 
@@ -1752,11 +2011,19 @@ def main(argv=None) -> int:
 
     # -- phase 11: methods (the method space; counts from 0 before each run) ---
     t11 = time.perf_counter()
-    record["methods"], methods_launches = methods_phase(torch, api, counters, g, fed, dev,
-                                                        tag, args.profile)
+    record["methods"], methods_launches, method_runs = methods_phase(
+        torch, api, counters, g, fed, dev, tag, args.profile)
     record["methods"]["seconds"] = time.perf_counter() - t11
     log(f"phase 11 methods: {tag}: {methods_launches} SpMM launches in "
         f"{record['methods']['seconds']:.1f} s")
+
+    # -- phase 12: fused (the fused executor; counts from 0 before each run) ---
+    t12 = time.perf_counter()
+    record["fused"], fused_launches = fused_phase(torch, api, counters, g, fed, dev, tag,
+                                                  method_runs, args.profile)
+    record["fused"]["seconds"] = time.perf_counter() - t12
+    log(f"phase 12 fused: {tag}: {fused_launches} SpMM launches in "
+        f"{record['fused']['seconds']:.1f} s")
 
     # -- the kernels line --------------------------------------------------------
     warm = shapes[0]
@@ -1764,9 +2031,10 @@ def main(argv=None) -> int:
         "name": "spmm_block_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/spmm/csrc/spmm.cu",
         "replaces": "src/repro/kernels/spmm/spmm.py:45",
-        "launches": launches + train_launches + methods_launches,
+        "launches": launches + train_launches + methods_launches + fused_launches,
         "launches_by_path": {"gcn_serving": launches, "fedais_training": train_launches,
-                             "fedais_methods": methods_launches},
+                             "fedais_methods": methods_launches,
+                             "fedais_fused": fused_launches},
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": warm["ms"], "plain_ms": warm["plain_ms"], "bound_ms": warm["bound_ms"],
         "bound_by": warm["bound_by"], "library_ms": warm["library_ms"],

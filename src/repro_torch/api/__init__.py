@@ -1,7 +1,8 @@
 """repro_torch.api — the federated training surface of the port.
 
-Port of ``repro/api``: ``FedEngine(graph, fed, "fedais", ...).run()`` with
-the stepwise executor on one device::
+Port of ``repro/api``: ``FedEngine(graph, fed, "fedais", ...).run()`` on one
+device, through the fused executor (a CUDA graph per round key on the
+card) where every component is fusable, else the stepwise one::
 
     from repro_torch.api import FedEngine
 
@@ -11,7 +12,8 @@ the stepwise executor on one device::
 ``device=None`` is ``cuda:0``; the CPU tests pass ``device="cpu"``. Every
 registered method runs (``available_methods()``), under either scheduler
 (``scheduler="async"`` or ``AsyncScheduler(...)``), any aggregator, and any
-wire dtype (``sync_dtype="fp32" | "bf16" | "int8"``).
+wire dtype (``sync_dtype="fp32" | "bf16" | "int8"``), with or without a
+``faults=FaultPlan(...)`` and its ``guard`` (``repro_torch.faults``).
 """
 from repro_torch.api.callbacks import (
     BaseCallback,

@@ -1,26 +1,41 @@
-"""FedEngine: the federated training engine (Algorithm 1), stepwise.
+"""FedEngine: the federated training engine (Algorithm 1).
 
 Port of ``repro/api/engine.py`` (``RunResult``, ``EngineState``,
-``FedEngine.__init__``, ``init_state``, ``dispatch``, ``merge``,
-``run_round``, ``run``). A round is
+``FedEngine``: ``init_state``, ``dispatch``, ``merge``, ``run_round``,
+``_inject_faults``, ``fused_eligibility``, ``_run_chunk``, ``run_fused``,
+``run``). A round is
 
     select clients -> strategy hooks -> cohort LocalUpdate -> aggregate
     -> historical write-back -> cost accounting -> callbacks
 
-``dispatch`` runs the cohort's LocalUpdate (``core.fedais``) client by
-client on the device; ``merge`` is the server half. The schedulers
-(``api.protocols``) sequence the two: lockstep, or buffered-async with
-staleness-discounted merges. The tables live on the engine's device
-(``device=None`` is ``cuda:0``) and the merge writes the cohort's rows
-into them in place: by then no client reads the round-start snapshot any
-more, and the outputs an async scheduler still holds are tensors of their
-own. The merge takes the reference's unguarded path, which its default
-all-pass guard also takes on a healthy run. ``sync_dtype`` is the wire
-format of the ghost pull and of the write-back (``federated.quant``).
+Two executors run it on one device:
 
-Not ported yet, and refused when asked for: the fused executor
-(``SyncScheduler(fused=True)``, ROADMAP A4), the update guard and fault
-injection (``guard``, ``faults``: A6) and a device mesh (``mesh``: A7).
+* the **stepwise** executor (``run_round`` = ``dispatch`` + ``merge``):
+  ``dispatch`` runs the cohort's LocalUpdate (``core.fedais``) client by
+  client, ``merge`` is the server half. The async scheduler always uses it.
+* the **fused** executor (``run_fused``, ``api.fused``): a round is one
+  body over static buffers, captured once per graph key as a CUDA graph
+  and replayed each round on the card (run eagerly on the CPU). Chunks end
+  at eval rounds; the rounds' light stats reach the host once per chunk,
+  and the host tail (cost accounting, ``post_round``, callbacks) replays
+  per round from them: the stepwise history, bit for bit.
+  ``SyncScheduler`` picks it when every component is fusable
+  (``fused_eligibility``).
+
+The tables live on the engine's device (``device=None`` is ``cuda:0``) and
+every executor writes the cohort's rows into them in place. ``sync_dtype``
+is the wire format of the ghost pull and of the write-back
+(``federated.quant``).
+
+Faults (``faults``): a seeded ``FaultPlan`` drops, corrupts and delays
+uploads between dispatch and merge (``_inject_faults``), and the merge's
+``UpdateGuard`` (``guard=True``, the default: finite only) quarantines the
+updates it refuses. An empty plan and an all-pass guard change nothing.
+Under a live plan the fused executor runs the fault-aware round
+(``fused_faulty``, ``faults.fused``).
+
+Not ported yet, and refused when asked for: a device mesh (``mesh``,
+ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -30,7 +45,15 @@ from typing import Any, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.api.callbacks import RoundContext, default_callbacks
+from repro_torch.api.callbacks import (
+    EarlyStopCallback,
+    EvalCallback,
+    HistoryCallback,
+    RoundContext,
+    VerboseCallback,
+    default_callbacks,
+)
+from repro_torch.api.fused import FusedRounds
 from repro_torch.api.protocols import (
     AdaptiveSyncController,
     PaperCostModel,
@@ -51,7 +74,13 @@ from repro_torch.core.fedais import (
 )
 from repro_torch.core.historical import HistoricalState, init_historical
 from repro_torch.device import resolve_device
-from repro_torch.faults import FaultCounters
+from repro_torch.faults import (
+    FaultCounters,
+    FaultPlan,
+    UpdateGuard,
+    corrupt_params_stack,
+    guard_mask,
+)
 from repro_torch.federated.costs import CostMeter, DelayModel
 from repro_torch.federated.partition import FederatedGraph
 from repro_torch.federated.quant import check_sync_dtype, quant_roundtrip
@@ -69,6 +98,25 @@ _CLIENT_ARRAY_KEYS = (
     "features", "labels", "node_mask", "train_mask",
     "nbr_idx", "nbr_mask", "ghost_owner", "ghost_row", "ghost_mask",
 )
+
+# Default-stack callbacks that act only at eval rounds, which are chunk
+# boundaries — the exact types, not subclasses: an override could observe
+# mid-chunk state the fused executor no longer materialises per round.
+_FUSED_SAFE_CALLBACKS = (EvalCallback, HistoryCallback, VerboseCallback,
+                         EarlyStopCallback)
+
+
+def _take(tree, keep: np.ndarray):
+    """Rows ``keep`` of every leaf of a stacked cohort output (dicts and
+    tuples recursed; tensors indexed on their device, host arrays on the
+    host)."""
+    if isinstance(tree, dict):
+        return {k: _take(v, keep) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_take(v, keep) for v in tree)
+    if torch.is_tensor(tree):
+        return tree[torch.as_tensor(keep, dtype=torch.long, device=tree.device)]
+    return np.asarray(tree)[keep]
 
 
 @dataclass
@@ -118,7 +166,8 @@ class EngineState:
     # per-update staleness of the merge being post-processed (None on the
     # sync path); strategies read it to attribute async rewards
     last_staleness: Optional[np.ndarray] = None
-    # what the engine/scheduler did about faults (async timeouts, ...)
+    # what the engine/scheduler did about faults (dropped uploads,
+    # quarantined updates, async timeouts/retries/evictions, ...)
     fault_events: FaultCounters = field(default_factory=FaultCounters)
 
 
@@ -153,16 +202,13 @@ class FedEngine:
         eval_backend: str = "gather",
         train_backend: str = "gather",
         sync_dtype: str = "fp32",
-        guard=None,
-        faults=None,
+        faults: Optional[FaultPlan] = None,
+        guard: Union[UpdateGuard, bool, None] = True,
         mesh=None,
         device=None,
     ):
-        for name, value, item in (("guard", guard, "A6"), ("faults", faults, "A6"),
-                                  ("mesh", mesh, "A7")):
-            if value is not None and value is not False:
-                raise NotImplementedError(f"FedEngine({name}=...) is not ported yet "
-                                          f"(ROADMAP {item})")
+        if mesh is not None:
+            raise NotImplementedError("FedEngine(mesh=...) is not ported yet (ROADMAP A7)")
         self.sync_dtype = check_sync_dtype(sync_dtype)
         if train_backend not in AGG_BACKENDS:
             raise ValueError(f"unknown train_backend {train_backend!r}; "
@@ -206,7 +252,27 @@ class FedEngine:
                     "them and add EvalCallback/VerboseCallback/"
                     "EarlyStopCallback to your list instead")
             self.callbacks = list(callbacks)
+        # "stepwise" | "fused" | "fused_faulty"
         self.last_executor: Optional[str] = None
+
+        # ---- fault injection + merge guard (repro_torch.faults) ----
+        # an empty plan (or None) is inert: every fault branch gates on the
+        # plan firing. guard=True checks finiteness, an UpdateGuard adds a
+        # delta-norm ceiling, False/None lets every update through.
+        if faults is not None and not isinstance(faults, FaultPlan):
+            raise ValueError(f"faults must be a FaultPlan or None, got "
+                             f"{type(faults).__name__}")
+        self.faults = faults
+        self._faults_active = faults is not None and not faults.empty
+        if guard is True:
+            self._guard: Optional[UpdateGuard] = UpdateGuard()
+        elif guard is False or guard is None:
+            self._guard = None
+        elif isinstance(guard, UpdateGuard):
+            self._guard = guard
+        else:
+            raise ValueError("guard must be an UpdateGuard, True (finite "
+                             f"check only) or False/None, got {guard!r}")
 
         # ---- static geometry + the cohort LocalUpdate ----
         self.F, self.H1 = fed.n_features, HIDDEN[0]
@@ -218,6 +284,7 @@ class FedEngine:
                                           sync_dtype=self.sync_dtype)
         self.eval_graph = build_eval_graph(graph, max_deg=fed.max_deg, seed=seed,
                                            backend=eval_backend, device=self.device)
+        self._fused: Optional[FusedRounds] = None     # built by the first chunk
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -273,12 +340,31 @@ class FedEngine:
         stats reach the host here, once per merge. An async scheduler passes
         the per-update ``staleness``, its staleness-aware ``aggregator``, the
         virtual-clock ``wall_clock_s`` it waited (replacing the lockstep
-        billing) and the clock's ``virtual_time``. Returns True if a
-        callback requested stop."""
+        billing) and the clock's ``virtual_time``.
+
+        Under an ``UpdateGuard`` (the default) every arriving update must be
+        finite (and inside the guard's norm ceiling) to aggregate or write
+        its rows; the others are quarantined, counted in
+        ``state.fault_events.n_quarantined``. An all-pass guard takes the
+        unfiltered path. A merge with no survivor is a server no-op round.
+        Cost and ``post_round`` observe the whole cohort that arrived.
+        Returns True if a callback requested stop."""
         state.round = t
         new_params_stack, new_hist1, new_age, new_ghost_feat, stats = out
-        sel = np.asarray(sel)
+        full_sel, full_stats, full_staleness = np.asarray(sel), stats, staleness
+        sel = full_sel
+        if self._guard is not None and len(full_sel):
+            ok = guard_mask(new_params_stack, state.params, self._guard.max_norm)
+            if not ok.all():
+                state.fault_events.n_quarantined += int((~ok).sum())
+                keep = np.flatnonzero(ok)
+                sel = full_sel[keep]
+                if staleness is not None:
+                    staleness = np.asarray(staleness)[keep]
+                (new_params_stack, new_hist1, new_age, new_ghost_feat,
+                 stats) = _take(out, keep)
         if len(sel) == 0:
+            # every update dropped out or was quarantined: server no-op
             state.fault_events.n_empty_merges += 1
         else:
             agg = self.aggregator if aggregator is None else aggregator
@@ -314,15 +400,16 @@ class FedEngine:
             state.hist.age[rows] = new_age
             state.hist.ghost_feat[rows] = new_ghost_feat
             state.prev_loss[rows] = loss_all
-        host = {k: to_host(v) for k, v in stats.items() if k != "loss_all"}
-        cost = self.cost_model.round_cost(self, state, sel, host) if len(sel) else CostMeter()
+        host = {k: to_host(v) for k, v in full_stats.items() if k != "loss_all"}
+        cost = (self.cost_model.round_cost(self, state, full_sel, host) if len(full_sel)
+                else CostMeter())       # nothing arrived, nothing billed
         if wall_clock_s is not None:
             cost.wall_clock_s = wall_clock_s    # overlapped (virtual-clock) billing
         state.result.costs.add(cost)
-        state.last_staleness = staleness
+        state.last_staleness = full_staleness   # aligned with full_sel
         try:
-            if len(sel):
-                self.strategy.post_round(self, state, sel, host)
+            if len(full_sel):
+                self.strategy.post_round(self, state, full_sel, host)
         finally:
             state.last_staleness = None
         ctx = RoundContext(engine=self, state=state, t=t, rounds=self.rounds,
@@ -336,7 +423,193 @@ class FedEngine:
         self.last_executor = "stepwise"
         state.round = t
         sel = self.selector.select(self, state)
-        return self.merge(state, t, sel, self.dispatch(state, sel, t))
+        out = self.dispatch(state, sel, t)
+        wall = None
+        if self._faults_active:
+            sel, out, wall = self._inject_faults(state, t, sel, out)
+        return self.merge(state, t, sel, out, wall_clock_s=wall)
+
+    def _inject_faults(self, state: EngineState, t: int, sel, out):
+        """Apply the FaultPlan between dispatch and merge (the stepwise sync
+        path): corrupt the marked members' uploaded params (the merge guard
+        quarantines them), drop the lost members' uploads, and re-bill the
+        round's wall clock with the stragglers' delay factors (the lockstep
+        server waits for every dispatched member, stragglers included, but
+        the merge overhead ``o`` is priced from the uploads that arrived).
+        Returns (surviving sel, filtered out, wall override)."""
+        plan = self.faults
+        sel = np.asarray(sel)
+        full_sel, full_stats = sel, out[-1]
+        cmask = plan.corruptions(t, sel)
+        if cmask.any():
+            out = (corrupt_params_stack(out[0], cmask, plan.corrupt_value()),) + tuple(out[1:])
+        drop = plan.drops(t, sel)
+        if drop.any():
+            state.fault_events.n_dropped += int(drop.sum())
+            keep = np.flatnonzero(~drop)
+            sel = sel[keep]
+            out = _take(out, keep)
+        wall = None
+        if plan.straggler_frac > 0.0:
+            times = np.asarray(self.cost_model.client_compute_times(
+                self, state, full_sel, full_stats), np.float64)
+            times = times * plan.delay_factors(full_sel)
+            o = self.cost_model.sync_overhead(self, sel, out[-1])
+            wall = float(np.max(times)) + o / max(state.tau, 1)
+        return sel, out, wall
+
+    # ------------------------------------------------------------------
+    # fused executor (the SyncScheduler's default path)
+    # ------------------------------------------------------------------
+
+    def fused_eligibility(self, state: EngineState | None = None) -> tuple[bool, str]:
+        """Can this engine run the fused executor bit-identically to the
+        stepwise one? Every component must declare itself safe for deferred
+        host observation: the selector precomputes a chunk's cohorts from
+        the host RNG alone, the aggregator runs inside the round body
+        (``jit_safe``), the strategy has no per-round host hooks, the cost
+        model prices rounds from streamed stats alone, and the callbacks are
+        the exact default-stack types. On CUDA (and given the ``state``)
+        the draws must come from ``TorchDraws``, whose generator a CUDA
+        graph replays; a provider of host draws cannot be captured.
+        Returns (ok, reason)."""
+        from repro_torch.api.strategies import MethodStrategy
+
+        scls = type(self.strategy)
+        fusable = getattr(self.strategy, "fusable", None)
+        if fusable is None:
+            fusable = (scls.pre_round is MethodStrategy.pre_round
+                       and scls.post_round is MethodStrategy.post_round)
+        if not fusable:
+            return False, f"strategy {scls.__name__} has per-round host hooks"
+        if not getattr(self.selector, "precomputable", False):
+            return False, (f"selector {type(self.selector).__name__} reads "
+                           "per-round state (not precomputable)")
+        if not getattr(self.aggregator, "jit_safe", False):
+            return False, (f"aggregator {type(self.aggregator).__name__} "
+                           "is not jit-traceable (jit_safe)")
+        if not getattr(self.cost_model, "fused_safe",
+                       isinstance(self.cost_model, PaperCostModel)):
+            return False, (f"cost model {type(self.cost_model).__name__} "
+                           "not declared fused_safe")
+        for cb in self.callbacks:
+            if not getattr(cb, "fused_safe", type(cb) in _FUSED_SAFE_CALLBACKS):
+                return False, (f"callback {type(cb).__name__} may observe "
+                               "per-round state (not fused_safe)")
+        if self._faults_active:
+            # the fault-aware round hardcodes a masked weighted mean; a
+            # custom merge rule takes the stepwise path
+            why = self._allreduce_unsafe_reason()
+            if why:
+                return False, ("fault-aware fused chunk needs a mean-family "
+                               "merge: " + why)
+        if (self.device.type == "cuda" and state is not None
+                and type(state.draws) is not TorchDraws):
+            return False, (f"draw provider {type(state.draws).__name__} is not "
+                           "TorchDraws: a CUDA graph replays only a device "
+                           "generator's draws")
+        return True, ""
+
+    def _allreduce_unsafe_reason(self) -> str:
+        """Why the aggregator cannot be replaced by the masked weighted mean
+        (empty string when it can). The flag must be vouched for by the
+        class that provides ``aggregate``: a subclass overriding it without
+        re-declaring ``allreduce_safe`` does not inherit eligibility."""
+        provider = next((c for c in type(self.aggregator).__mro__
+                         if "aggregate" in c.__dict__), None)
+        if provider is None or not provider.__dict__.get("allreduce_safe", False):
+            return (f"aggregator {type(self.aggregator).__name__} does "
+                    "not declare its aggregate() a weighted-mean "
+                    "family (allreduce_safe) rule")
+        return ""
+
+    def _run_chunk(self, state: EngineState, t0: int, n_rounds: int) -> bool:
+        """Select the cohorts of rounds [t0, t0 + n_rounds) on the host, run
+        the rounds through the fused executor, then replay the host tail
+        (cost accounting, ``post_round``, callbacks) per round from the
+        light stats read once. Under a live FaultPlan the chunk's drop and
+        corruption masks come from the plan's (round, client) coordinates,
+        the rounds take the fault-aware body, and the tail bills as the
+        stepwise merge does: dropped members nothing, stragglers stretch
+        the wall clock, a round with no survivor is an empty merge.
+        Returns True if a callback requested stop."""
+        sels, fans = [], []
+        for t in range(t0, t0 + n_rounds):
+            state.round = t
+            sel = np.asarray(self.selector.select(self, state))
+            sels.append(sel)
+            fans.append(self.strategy.choose_fanouts(self, sel))
+        if any(len(s) != len(sels[0]) for s in sels):
+            raise ValueError(
+                "fused executor needs constant cohort sizes across a chunk; "
+                "precomputable selectors must return fixed-size cohorts")
+        eoffs = np.arange(t0, t0 + n_rounds, dtype=np.int64) * self.mcfg.local_epochs
+
+        drop_stack = cmask_stack = None
+        if self._faults_active:
+            ts = range(t0, t0 + n_rounds)
+            drop_stack = np.stack([self.faults.drops(t, s) for t, s in zip(ts, sels)])
+            cmask_stack = np.stack([self.faults.corruptions(t, s) for t, s in zip(ts, sels)])
+            state.fault_events.n_dropped += int(drop_stack.sum())
+        self.last_executor = "fused_faulty" if self._faults_active else "fused"
+        if self._fused is None:
+            self._fused = FusedRounds(self)
+        light = self._fused.run_chunk(state, sels, fans, eoffs, drop_stack, cmask_stack)
+
+        n_quar_rounds = light.pop("n_quarantined", None)
+        if n_quar_rounds is not None:
+            state.fault_events.n_quarantined += int(np.sum(n_quar_rounds))
+        for i, t in enumerate(range(t0, t0 + n_rounds)):
+            state.round = t
+            stats_t = {k: v[i] for k, v in light.items()}
+            sel_t, stats_b, wall = sels[i], stats_t, None
+            if self._faults_active:
+                plan = self.faults
+                if drop_stack[i].any():
+                    # dropped uploads never reach the server: bill survivors
+                    keep = np.flatnonzero(~drop_stack[i])
+                    sel_t = sels[i][keep]
+                    stats_b = {k: v[keep] for k, v in stats_t.items()}
+                if plan.straggler_frac > 0.0:
+                    # as _inject_faults bills: the server waits for every
+                    # dispatched member, the overhead prices the arrivals
+                    times = np.asarray(self.cost_model.client_compute_times(
+                        self, state, sels[i], stats_t), np.float64)
+                    times = times * plan.delay_factors(sels[i])
+                    o = self.cost_model.sync_overhead(self, sel_t, stats_b)
+                    wall = float(np.max(times)) + o / max(state.tau, 1)
+                if len(sel_t) - int(n_quar_rounds[i]) <= 0:
+                    state.fault_events.n_empty_merges += 1
+            cost = (self.cost_model.round_cost(self, state, sel_t, stats_b) if len(sel_t)
+                    else CostMeter())
+            if wall is not None:
+                cost.wall_clock_s = wall
+            state.result.costs.add(cost)
+            if len(sel_t):
+                self.strategy.post_round(self, state, sel_t, stats_b)
+            ctx = RoundContext(engine=self, state=state, t=t, rounds=self.rounds)
+            for cb in self.callbacks:
+                cb.on_round_end(ctx)
+            if ctx.stop:
+                return True
+        return False
+
+    def run_fused(self, state: EngineState) -> None:
+        """Run every round through the fused executor, in chunks that end at
+        eval rounds, so the EvalCallback's cadence (server eval, tau update,
+        early stop) sees exactly the rounds the stepwise loop would."""
+        eval_every = next((cb.eval_every for cb in self.callbacks
+                           if isinstance(cb, EvalCallback)), None)
+        t = 0
+        while t < self.rounds:
+            if eval_every is None:          # no eval: one chunk for the run
+                t_end = self.rounds - 1
+            else:                           # the chunk ends at the next eval round
+                nxt = t if t % eval_every == 0 else (t // eval_every + 1) * eval_every
+                t_end = min(nxt, self.rounds - 1)
+            if self._run_chunk(state, t, t_end - t + 1):
+                return
+            t = t_end + 1
 
     def run(self, state: EngineState | None = None) -> RunResult:
         if state is None:

@@ -7,10 +7,6 @@ buffered-async. Each default reproduces the reference's choice. The class
 attributes the reference's executors read (``precomputable``,
 ``uses_weights``, ``jit_safe``, ``allreduce_safe``, ``fused_safe``) are
 kept with the reference's values.
-
-Still to port: the fused executor behind ``SyncScheduler(fused=True)``
-(ROADMAP A4) and the async scheduler's fault plan (A6; until then it runs
-as the reference does with no plan).
 """
 from __future__ import annotations
 
@@ -21,6 +17,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.faults import corrupt_params_stack
 from repro_torch.federated.costs import (
     BYTES_F32,
     CostMeter,
@@ -277,18 +274,29 @@ class PaperCostModel:
 @dataclass
 class SyncScheduler:
     """The paper's lockstep loop: every round dispatches a fresh cohort and
-    blocks until all of it merges, through the stepwise executor
-    (``FedEngine.run_round``). ``fused=True`` asks for the fused executor,
-    which is not ported (ROADMAP A4) and raises; ``None`` and ``False``
-    run stepwise."""
+    blocks until all of it merges — the same history through either
+    executor.
+
+    ``fused`` selects the executor: ``None`` (default) takes the fused one
+    (``FedEngine.run_fused``) whenever every component is fusable
+    (``FedEngine.fused_eligibility``), else the per-round stepwise loop;
+    ``True`` forces fused (raising with the reason if ineligible);
+    ``False`` forces stepwise. A fused run whose capture fails raises; it
+    never turns stepwise on its own."""
 
     fused: Optional[bool] = None
 
     def run(self, engine, state):
-        if self.fused:
-            raise NotImplementedError(
-                "the fused executor is not ported yet (ROADMAP A4); use "
-                "SyncScheduler(fused=None) for the stepwise executor")
+        fused = self.fused
+        if fused is None:
+            fused, _ = engine.fused_eligibility(state)
+        elif fused:
+            ok, why = engine.fused_eligibility(state)
+            if not ok:
+                raise ValueError(f"fused executor unavailable: {why}")
+        if fused:
+            engine.run_fused(state)
+            return
         for t in range(engine.rounds):
             if engine.run_round(state, t):
                 break
@@ -323,11 +331,13 @@ class AsyncScheduler:
       times, then abandoned and its slot backfilled with a fresh client.
     * ``max_staleness`` — arrivals older than this many versions are
       evicted unmerged (their slot backfills fresh).
+    * an engine ``FaultPlan`` — dropped uploads never arrive (without a
+      timeout the slot is lost and counted ``n_lost``, with one it times
+      out), stragglers stretch finish times by ``delay_factors``, corrupt
+      uploads are poisoned at dispatch and quarantined by the engine's
+      merge guard.
 
-    Every event is counted in ``EngineState.fault_events``. The reference
-    also reads an engine ``FaultPlan`` (dropped, delayed and corrupted
-    uploads); the port has none until ROADMAP A6 and runs as the reference
-    does without one.
+    Every event is counted in ``EngineState.fault_events``.
 
     A dispatched cohort's outputs wait in the heap while later merges write
     the tables in place; they are fresh tensors (the LocalUpdate's stacked
@@ -367,6 +377,8 @@ class AsyncScheduler:
         comm_f = (None if self.comm_factors is None else
                   self._per_client(self.comm_factors, engine.fed.n_clients,
                                    "comm_factors"))
+        plan = getattr(engine, "faults", None)
+        plan = plan if (plan is not None and not plan.empty) else None
         agg = engine.aggregator
         if isinstance(agg, StalenessWeightedAggregator):
             # the scheduler's staleness knobs only parameterize its default
@@ -386,8 +398,9 @@ class AsyncScheduler:
         seq = 0
         version = 0              # server model version (merge count)
         n_timeouts = 0
-        # circuit breaker: a run whose every retry times out again ends,
-        # truncated, instead of looping against the virtual clock
+        # circuit breaker: a run whose every retry times out again (total
+        # dropout included) ends, truncated, instead of looping against the
+        # virtual clock
         timeout_budget = engine.rounds * M * (self.max_retries + 2) * 8
 
         def dispatch_cohort(m: int, *, at: Optional[float] = None,
@@ -403,6 +416,16 @@ class AsyncScheduler:
                 finally:
                     engine.clients_per_round = saved
             out = engine.dispatch(state, sel, version)
+            if plan is not None:
+                cmask = plan.corruptions(version, sel)
+                if cmask.any():
+                    out = (corrupt_params_stack(out[0], cmask, plan.corrupt_value()),
+                           ) + tuple(out[1:])
+                drops = plan.drops(version, sel)
+                dfact = plan.delay_factors(sel)
+            else:
+                drops = np.zeros(len(sel), bool)
+                dfact = np.ones(len(sel), np.float64)
             times = engine.cost_model.client_compute_times(engine, state, sel, out[-1])
             ctimes = (None if comm_f is None else
                       engine.cost_model.client_comm_times(engine, state, sel, out[-1]))
@@ -411,17 +434,23 @@ class AsyncScheduler:
                 rel = float(times[pos]) * float(factors[cli])
                 if ctimes is not None:
                     rel += float(ctimes[pos]) * float(comm_f[cli])
+                rel *= float(dfact[pos])
                 entry = dict(version=version, pos=pos, client=int(cli),
                              cohort=len(sel), out=out, rel_time=rel,
                              dispatch_time=base, attempt=attempt)
                 budget = (None if self.timeout_s is None
                           else self.timeout_s * self.backoff ** attempt)
-                if budget is not None and rel > budget:
+                if drops[pos] and budget is None:
+                    # the upload is lost and the server waits forever for
+                    # it: without a timeout this in-flight slot leaks
+                    state.fault_events.n_lost += 1
+                elif budget is not None and (drops[pos] or rel > budget):
                     entry["timed_out"] = True
                     heapq.heappush(heap, (base + budget, seq, entry))
+                    seq += 1
                 else:
                     heapq.heappush(heap, (base + rel, seq, entry))
-                seq += 1
+                    seq += 1
 
         if engine.rounds <= 0:
             return    # SyncScheduler is a no-op here too; don't burn a cohort

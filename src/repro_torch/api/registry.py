@@ -4,9 +4,7 @@ aggregator name -> Aggregator factory, scheduler name -> RoundScheduler.
 Port of ``repro/api/registry.py``, with the paper's method-space registered
 as the reference registers it: all nine methods, the ``fedavg``,
 ``weighted`` and ``staleness`` aggregators and the ``sync``,
-``sync_stepwise`` and ``async`` schedulers run. ``sync_fused`` is the fused
-executor, still to port: it raises ``NotImplementedError`` naming ROADMAP
-A4.
+``sync_fused``, ``sync_stepwise`` and ``async`` schedulers.
 """
 from __future__ import annotations
 
@@ -63,9 +61,7 @@ def method_config(name: str, **overrides) -> MethodConfig:
     return MethodConfig(name=name, **kw)
 
 
-def _build(table: dict, not_ported: dict, what: str, name: str, **kwargs):
-    if name in not_ported:
-        raise NotImplementedError(f"{what} {name!r} is not ported yet ({not_ported[name]})")
+def _build(table: dict, what: str, name: str, **kwargs):
     if name not in table:
         raise KeyError(f"unknown {what} {name!r}; known: {sorted(table)}")
     return table[name](**kwargs)
@@ -85,7 +81,7 @@ def available_aggregators() -> tuple[str, ...]:
 
 
 def build_aggregator(name: str):
-    return _build(_AGGREGATORS, {}, "aggregator", name)
+    return _build(_AGGREGATORS, "aggregator", name)
 
 
 register_aggregator("fedavg", FedAvg)
@@ -94,7 +90,6 @@ register_aggregator("staleness", StalenessWeightedAggregator)
 
 
 _SCHEDULERS: dict[str, Callable] = {}
-_SCHEDULERS_NOT_PORTED = {"sync_fused": "ROADMAP A4"}
 
 
 def register_scheduler(name: str, factory: Callable, *, overwrite: bool = False) -> None:
@@ -109,10 +104,11 @@ def available_schedulers() -> tuple[str, ...]:
 
 def build_scheduler(name: str, **kwargs):
     """Resolve a registered scheduler key; kwargs go to the factory."""
-    return _build(_SCHEDULERS, _SCHEDULERS_NOT_PORTED, "scheduler", name, **kwargs)
+    return _build(_SCHEDULERS, "scheduler", name, **kwargs)
 
 
 register_scheduler("sync", SyncScheduler)
+register_scheduler("sync_fused", lambda **kw: SyncScheduler(fused=True, **kw))
 register_scheduler("sync_stepwise", lambda **kw: SyncScheduler(fused=False, **kw))
 register_scheduler("async", AsyncScheduler)
 

@@ -105,6 +105,16 @@ class TorchDraws:
         return torch.rand(shape, generator=self.gen, device=self.device)
 
 
+def sync_gates(mcfg: MethodConfig, tau: int, epoch_offset: int) -> tuple:
+    """Which of a LocalUpdate's J epochs pull the ghosts: every ``tau``-th
+    global batch epoch ``(epoch_offset + j) % tau == 0``, for the methods
+    that sync at all. Host integers only, so a round's gates are known
+    before it runs (the fused executor keys its captured rounds on them)."""
+    syncs = mcfg.use_ghosts and not mcfg.use_generator
+    return tuple(bool(syncs and (epoch_offset + j) % max(tau, 1) == 0)
+                 for j in range(mcfg.local_epochs))
+
+
 def ghost_need(nbr_rows: torch.Tensor, nbr_mask: torch.Tensor, keep: torch.Tensor,
                valid: torch.Tensor, ghost_mask: torch.Tensor, n_max: int) -> torch.Tensor:
     """(g_max,) 1.0 on the ghost slots the batch references through a kept,
@@ -133,7 +143,6 @@ def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "g
                          f"known: {AGG_BACKENDS}")
     check_sync_dtype(sync_dtype)
     bsz = batch_size_for(mcfg, n_max)
-    syncs = mcfg.use_ghosts and not mcfg.use_generator
 
     def local_update(
         params: dict,               # global model from the server
@@ -166,6 +175,7 @@ def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "g
                 probs = uniform_probs(train_mask)
 
         opt_state = adamw_init(params)
+        gates = sync_gates(mcfg, tau, epoch_offset)
         n_sync = 0
         n_pulled = torch.zeros((), dtype=torch.float32, device=dev)
         epoch_losses = []
@@ -190,7 +200,7 @@ def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "g
             # ---- lines 15-17: sync every tau epochs (pull the ghosts the
             # batch references) — j runs over the global batch epochs, so
             # round 0 epoch 0 always syncs as the warm-up ----
-            if syncs and (epoch_offset + j) % max(tau, 1) == 0:
+            if gates[j]:
                 need = ghost_need(b_nbr_idx, b_nbr_mask, keep, valid,
                                   client["ghost_mask"], n_max)
                 gf, gh = pull_ghosts(hist1_all, feats_all, client["ghost_owner"],

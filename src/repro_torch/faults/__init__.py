@@ -1,11 +1,24 @@
-"""repro_torch.faults — what the engine and scheduler did about faults.
+"""repro_torch.faults — deterministic fault injection and graceful degradation.
 
-Port of ``repro/faults``: ``FaultCounters``, the per-run ledger on
-``EngineState.fault_events`` that the async scheduler counts its timeouts,
-retries, aborts, evictions and lost slots into. Still to port (ROADMAP
-A6): ``FaultPlan`` (seeded fault injection), ``UpdateGuard`` /
-``guard_mask`` (the merge's quarantine) and the fault-aware masked merge.
+Port of ``repro/faults``: ``FaultPlan`` describes seeded faults (dropout,
+stragglers, corrupt uploads, torn checkpoint writes); ``UpdateGuard`` and
+``guard_mask`` are the merge-side admission rule; ``FaultCounters`` is the
+per-run ledger on ``EngineState.fault_events``; ``build_faulty_merge`` is
+the fused executor's fault-aware merge (the reference's
+``build_faulty_chunk``).
 """
-from repro_torch.faults.plan import FaultCounters
+from repro_torch.faults.fused import build_faulty_merge
+from repro_torch.faults.plan import (
+    CORRUPT_MODES,
+    FaultCounters,
+    FaultPlan,
+    UpdateGuard,
+    corrupt_params_stack,
+    guard_mask,
+    tear_file,
+)
 
-__all__ = ["FaultCounters"]
+__all__ = [
+    "FaultPlan", "FaultCounters", "UpdateGuard", "guard_mask",
+    "corrupt_params_stack", "tear_file", "build_faulty_merge", "CORRUPT_MODES",
+]

@@ -19,8 +19,18 @@ def select_clients(rng: np.random.Generator, n_clients: int, m: int) -> np.ndarr
 
 
 def fedavg(stacked_params: dict) -> dict:
-    """Mean over the leading (selected-client) axis — Algorithm 1 line 7."""
-    return {k: v.mean(dim=0) for k, v in stacked_params.items()}
+    """Mean over the leading (selected-client) axis — Algorithm 1 line 7.
+
+    The sum, divided by the count as a 0-d tensor on the params' device:
+    the CPU's ``mean`` does just that, CUDA's multiplies by a rounded
+    reciprocal instead. Written out, one formula holds on both, and the
+    fused executor's masked merge (``faults.fused``), which divides by a
+    survivor count it holds on the device, gives the same bits."""
+    out = {}
+    for k, v in stacked_params.items():
+        n = torch.full((), v.shape[0], dtype=v.dtype, device=v.device)
+        out[k] = v.sum(dim=0) / n
+    return out
 
 
 def fedavg_weighted(stacked_params: dict, weights: torch.Tensor) -> dict:

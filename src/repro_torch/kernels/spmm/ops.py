@@ -31,6 +31,10 @@ with the mask scattered straight from the neighbor list
 
 ``block_spmm.launches`` counts kernel launches (a plain integer; the CPU
 path never moves it), so a run can show that it went through the kernel.
+A launch recorded into a CUDA graph under capture runs nothing then: it
+adds to ``block_spmm.captured`` instead, and the graph's owner
+(``api.fused``) adds the launches it captured to ``launches`` each time it
+replays the graph.
 """
 from __future__ import annotations
 
@@ -165,6 +169,7 @@ def _product(a: torch.Tensor, x: torch.Tensor,
 
 
 block_spmm.launches = 0
+block_spmm.captured = 0
 
 
 def launch(a: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
@@ -186,7 +191,10 @@ def launch(a: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"spmm_block_f32 launch failed: "
                            f"{err_str(rc).decode()} (cudaError {rc})")
-    block_spmm.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        block_spmm.captured += 1
+    else:
+        block_spmm.launches += 1
     return y
 
 

@@ -3,9 +3,9 @@
 ``FedEngine(g, fed, "fedais", rounds=6, clients_per_round=4)`` on
 ``small_fed`` (pubmed scale 32, 8 clients), both engines from the
 reference's initial params, the port drawing from the reference's key
-chain (``test_torch_fedais.JaxDraws``). The port runs each training
-backend; the reference runs gather (its spmm backend's Pallas interpreter
-is too slow for six rounds).
+chain (``test_torch_fedais.JaxDraws``). Both take their default executor,
+the fused one. The port runs each training backend; the reference runs
+gather (its spmm backend's Pallas interpreter is too slow for six rounds).
 
 The whole-run tier (ROADMAP, North star): identical cohorts, history keys,
 tau schedule and flops column. The byte and wall-clock columns are exact
@@ -91,7 +91,9 @@ def test_whole_run_matches(reference, backend):
     state = eng.init_state(params=params_from_numpy(_init_params(fed), "cpu"),
                            draws=JaxDraws(0))
     got = eng.run(state)
-    assert eng.last_executor == "stepwise"
+    # the reference's default executor for these components, as the
+    # reference fixture's run took it
+    assert eng.last_executor == "fused"
     assert_whole_run_tier(got, ref, sel.cohorts, ref_cohorts[:ROUNDS])
     assert np.isfinite(got.history["test_loss"]).all()
     assert got.final["comm_total_bytes"] == got.history["comm_total"][-1]

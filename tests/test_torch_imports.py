@@ -51,11 +51,12 @@ print(len(names))
     assert int(out.stdout.strip()) >= 58
 
 
-@pytest.mark.parametrize("name", ["faults", "faults.plan", "federated.baselines",
-                                  "federated.simulator"])
+@pytest.mark.parametrize("name", ["faults", "faults.plan", "faults.fused", "api.fused",
+                                  "federated.baselines", "federated.simulator"])
 def test_method_space_modules_stand_alone(name):
-    """The method space's modules are among those checked above, and each
-    imports without jax and without the reference."""
+    """The method space's modules and the fused executor's are among those
+    checked above, and each imports without jax and without the
+    reference."""
     path = PORT.joinpath(*name.split(".")).with_suffix(".py")
     if not path.exists():
         path = PORT.joinpath(*name.split("."), "__init__.py")

@@ -101,23 +101,30 @@ def test_registry_matches_the_reference():
         strategy = treg.build_strategy(treg.method_config(name))
         assert type(strategy) is kinds.get(name, MethodStrategy), name
     assert treg.available_aggregators() == jreg.available_aggregators()
-    assert set(treg.available_schedulers()) | {"sync_fused"} == set(jreg.available_schedulers())
+    assert treg.available_schedulers() == jreg.available_schedulers()
     assert isinstance(treg.build_aggregator("staleness"), StalenessWeightedAggregator)
     sched = treg.build_scheduler("async", quorum=4)
     assert isinstance(sched, AsyncScheduler) and sched.quorum == 4
-    # only the fused executor is still to port
-    with pytest.raises(NotImplementedError, match="A4"):
-        treg.build_scheduler("sync_fused")
-    assert treg.build_scheduler("sync_stepwise").fused is False
+    # the three sync keys pick the executor as the reference's do
+    for key in ("sync", "sync_fused", "sync_stepwise"):
+        assert treg.build_scheduler(key).fused is jreg.build_scheduler(key).fused, key
 
 
 def test_engine_refuses_what_is_not_ported(small_fed):
+    """Only the mesh (ROADMAP A7) is still refused; the guard and the fault
+    plan are taken and checked as the reference checks them, and the fused
+    executor runs when asked for (tests/test_torch_fused.py holds it)."""
     g = make_dataset("pubmed", scale=32, seed=0)
     fed = partition_graph(g, 8, alpha=0.5, seed=0)
-    for kw, item in (({"guard": True}, "A6"), ({"faults": object()}, "A6"),
-                     ({"mesh": object()}, "A7")):
-        with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="A7"):
+        FedEngine(g, fed, "fedais", device="cpu", mesh=object())
+    for kw, word in (({"guard": "yes please"}, "guard"), ({"faults": object()}, "faults")):
+        with pytest.raises(ValueError, match=word):
             FedEngine(g, fed, "fedais", device="cpu", **kw)
+    from repro_torch.faults import FaultPlan, UpdateGuard
+
+    for guard in (True, False, None, UpdateGuard(max_norm=1.0)):
+        FedEngine(g, fed, "fedais", device="cpu", guard=guard, faults=FaultPlan())
     with pytest.raises(ValueError, match="train_backend"):
         FedEngine(g, fed, "fedais", device="cpu", train_backend="dense")
     with pytest.raises(ValueError, match="sync dtype"):
@@ -127,8 +134,9 @@ def test_engine_refuses_what_is_not_ported(small_fed):
     from repro_torch.api import SyncScheduler
 
     for scheduler in (SyncScheduler(fused=True), "sync_fused"):
-        with pytest.raises(NotImplementedError, match="A4"):
-            FedEngine(g, fed, "fedais", rounds=1, device="cpu", scheduler=scheduler).run()
+        eng = FedEngine(g, fed, "fedais", rounds=1, clients_per_round=2, device="cpu",
+                        scheduler=scheduler)
+        assert eng.run().history["round"] == [0] and eng.last_executor == "fused"
 
 
 def test_server_merge_helpers_match():
