@@ -7,13 +7,14 @@ Run from the root of a checkout, on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit (``nvcc``). It builds the port's three kernels from
 the sources in the checkout (the block-sparse SpMM, the WKV6 recurrence and
 flash attention, one ``nvcc`` each, all at once), holds each against its
-plain PyTorch version on the card, and drives three main paths with random
-weights from a seed:
+plain PyTorch version on the card, and drives the port's main paths with
+random weights from a seed:
 
 * GCN serving: the pubmed configuration at the paper's widths (19,717
   nodes, 500 features, 3 classes, GraphSAGE 256/128, max degree 32, 25%
   node headroom: capacity 24,647 rows) through ``ServedModel`` →
-  ``QueryEngine`` → ``LoadGenerator`` (the SpMM kernel);
+  ``QueryEngine`` → ``LoadGenerator`` (the SpMM kernel; each (body,
+  bucket) a CUDA graph, replayed);
 * LM serving: ``rwkv6-1.6b`` and ``gemma3-12b`` at full width (24 and 48
   layers, bf16) through ``launch.serve_lm_cli.serve``: a prefill of 4 x
   2,048 prompt tokens, then 32 greedy tokens (WKV6 and flash attention);
@@ -31,7 +32,11 @@ weights from a seed:
 * the fused executor (the default wherever every component is fusable,
   as for ``fedais``): one round captured as a CUDA graph per graph key and
   replayed each round, the SpMM inside the graph; against the stepwise
-  executor, and under a fault plan (``fused_faulty``, and async).
+  executor, and under a fault plan (``fused_faulty``, and async);
+* the deployment path: train → ``save_federation`` (the msgpack
+  checkpoint) → ``ServedModel.restore`` → ``QueryEngine`` → traffic,
+  through ``launch.serve_fed``, on the training configuration, and the
+  chaos harness ``launch.fed_chaos --quick``.
 
 Phases, one or more lines each:
   1 device      the card (nvidia-smi name and power limit), torch and CUDA
@@ -142,15 +147,32 @@ Phases, one or more lines each:
                 fault counters equal; a quarantine and drops counted); an
                 async run under the same plan that completes, its
                 counters recorded.
+  13 deploy     a row's product bits among b rows against among 19,717
+                (``torch.matmul`` recorded, ``row_matmul`` gated); on
+                phase 10's graph and partition, ``serve_fed.
+                serve_pipeline`` (fedais 3 rounds fused, spmm training)
+                under ``--backend spmm``: the restored step, the file's
+                leaves, params and table_age equal the trained state's
+                bits; a fresh restore's served logits within 1e-4 of the
+                eval path; the fused-vs-two-call gates (bit parity, fused
+                p50 <= two-call p50, nothing prepared after warmup); 3
+                graphs a bucket, each body's SpMM launches, the traffic's
+                launches exactly its replays' sum; p50, p99, queries/s,
+                capture seconds; under ``--backend gather
+                --parity-check`` every node's served logits bit-identical
+                to the eval path (segment's recorded); the int8 cache's
+                column; ``fed_chaos --quick`` exits 0, its rows recorded.
 The SpMM's launch counter is set to 0 just before phase 4 and read just
 after phase 5; every counter is set to 0 just before each ``serve`` of
-phase 8 and each ``run`` of phases 10, 11 and 12 and read just after it.
+phase 8, each ``run`` of phases 10, 11 and 12, each pipeline of phase 13
+and its chaos matrix, and read just after it.
 ``--profile`` traces a second traffic run after phase 6, one prefill + 4
 decode steps of each LM in phase 9, one steady training round replayed
 from its CUDA graph in phase 10 and one stepwise in phase 12 (the host's
 kernel and graph launches, the device's busy share, the SpMM's kernels
-under the replay), and one steady stepwise round of fedall and of
-fedsage+ in phase 11.
+under the replay), one steady stepwise round of fedall and of fedsage+ in
+phase 11, and a second traffic run of phase 13's spmm pipeline (host calls
+per replayed chunk).
 Before the last line it prints a ``{"kernels": [...]}`` line (all three
 kernels). The last line is ``{"ok": true, "device": {...}}``. Any failure
 raises and the exit code is not 0; without CUDA, or outside a checkout, it
@@ -1600,6 +1622,280 @@ def fused_phase(torch, api, counters, g, fed, dev, tag, method_runs,
     return rec, total
 
 
+# the deployment path (phase 13): serve_fed's arguments on phase 10's graph
+# and partition, training and serving through the SpMM kernel
+DEPLOY_ARGS = ["--scale", "1", "--max-features", "500", "--clients", str(TRAIN_CLIENTS),
+               "--cohort", str(TRAIN_M), "--rounds", str(TRAIN_ROUNDS), "--queries", "200",
+               "--updates", "20", "--mode", "closed", "--train-backend", "spmm",
+               "--device", "cuda:0"]
+# SpMM launches per serve body under spmm: the historical body aggregates
+# once, the fresh body twice (layer 0 over the refresh rows, then layer 1),
+# the refresh once
+BODY_SPMM = {"hist": 1, "fresh": 2, "refresh": 1}
+
+
+def _pipeline(torch, serve_fed, counters, argv) -> tuple:
+    """One ``serve_fed.serve_pipeline`` on the card, every launch counter
+    set to 0 just before and read just after."""
+    args = serve_fed.build_args(DEPLOY_ARGS + argv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    payload, ctx = serve_fed.serve_pipeline(args)
+    torch.cuda.synchronize()
+    ctx["seconds"] = time.perf_counter() - t0
+    ctx["launches"] = {n: c.launches for n, c in counters.items()}
+    ctx["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    ctx["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    if any(v for n, v in ctx["launches"].items() if n != "spmm") or not ctx["launches"]["spmm"]:
+        raise AssertionError(f"deploy: launches {ctx['launches']}")
+    return args, payload, ctx
+
+
+def _served_vs_eval(torch, ServedModel, QueryEngine, build_eval_graph, eval_logits, ckpt,
+                    g, fed, params, backend, dev) -> tuple[float, bool]:
+    """A fresh restore of ``ckpt`` under ``backend``, every node's served
+    historical logits against the eval path's: (max abs diff, bit-equal)."""
+    import numpy as np
+
+    model = ServedModel.restore(ckpt, g, fed, backend=backend, seed=0, device=dev)
+    engine = QueryEngine(model)
+    engine.warmup()
+    got = np.concatenate([engine.query(np.arange(i, min(i + 128, g.n_nodes)),
+                                       policy="historical")
+                          for i in range(0, g.n_nodes, 128)])
+    eg = build_eval_graph(g, max_deg=fed.max_deg, seed=0, backend=backend, device=dev)
+    want = eval_logits(params, eg).cpu().numpy()
+    del eg, engine, model
+    return float(np.abs(got - want).max()), bool(np.array_equal(got, want))
+
+
+def row_invariance(torch, dev) -> dict:
+    """Whether a row of a product gets the same bits among b rows as among
+    the eval path's 19,717, at the layer-1 shape (256 -> 128, fp32): through
+    ``torch.matmul`` (recorded: cuBLAS picks its kernel by the shape) and
+    through ``models.gcn.row_matmul`` (gated: the serving parity rests on
+    it)."""
+    from repro_torch.models.gcn import row_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((19717, 256), generator=gen, device=dev)
+    w = torch.randn((256, 128), generator=gen, device=dev)
+    full, blocked = x @ w, row_matmul(x, w)
+    sizes = (8, 128, 1024, 4224)
+    return {"matmul": {b: bool(torch.equal(x[:b] @ w, full[:b])) for b in sizes},
+            "row_matmul": {b: bool(torch.equal(row_matmul(x[:b], w), blocked[:b]))
+                           for b in sizes}}
+
+
+def eval_cost(torch, build_eval_graph, eval_logits, g, params, dev, reps: int = 10) -> dict:
+    """Recorded: host ms (after a synchronise) of the eval path under spmm,
+    whose products run in row blocks, against the same forward with one
+    product a layer (``_sage_layer``), in turns (blocked, whole, whole,
+    blocked, ...); medians."""
+    from repro_torch.models.gcn import HIDDEN, _sage_layer, neighbor_aggregate
+
+    eg = build_eval_graph(g, max_deg=32, seed=0, backend="spmm", device=dev)
+
+    def whole():
+        h = eg["features"]
+        for l in range(len(HIDDEN)):
+            h = _sage_layer(params, l, h, neighbor_aggregate(
+                h, eg["nbr_idx"], eg["nbr_mask"], backend="spmm", adj=eg["adj"]))
+        return h @ params["w_cls"] + params["b_cls"]
+
+    fns = {"row_blocks": lambda: eval_logits(params, eg), "one_product": whole}
+    times: dict = {k: [] for k in fns}
+    for i in range(2 * reps):
+        for k in (("row_blocks", "one_product") if i % 2 == 0 else ("one_product",
+                                                                    "row_blocks")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    del eg
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
+def deploy_phase(torch, counters, dev, tag, profile) -> tuple[dict, int]:
+    """Phase 13: the deployment path on the card, on phase 10's graph and
+    partition (fedais, 3 rounds, fused, spmm training):
+
+    * ``serve_fed.serve_pipeline`` under ``--backend spmm`` (fp32 cache,
+      closed loop, 200 queries, 20 updates): the restored step is the one
+      written; the file's leaves, the restored params and ``table_age``
+      equal the trained state's bits (and the template's dtypes); a fresh
+      restore's served historical logits of every node within 1e-4 of the
+      eval path; ``fused_ab``'s gates (bit parity with the two-call
+      pipeline, fused p50 <= two-call p50, nothing prepared after
+      warmup); 3 graphs a bucket, nothing captured after warmup; each
+      graph's SpMM launches per body (``BODY_SPMM``) and the traffic's
+      launches exactly the replays' sum. Recorded: p50, p99, queries/s,
+      the graphs' capture seconds, memory; under ``profile`` the host's
+      ``cudaLaunchKernel`` / ``cudaGraphLaunch`` calls per replayed chunk
+      of a second traffic run;
+    * the same under ``--backend gather --parity-check``: served historical
+      logits bit-identical to the eval path (the reference's gate);
+      recorded: the segment backend's served logits against its eval path
+      (bit-equal or not);
+    * ``--cache-dtype int8`` (spmm): the cache column (resident bytes,
+      served accuracy) beside fp32's;
+    * ``fed_chaos.main(["--quick", ...])``: exit code 0; every row's
+      executor, accuracy, delta and fault counters recorded.
+    """
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import latest_step, load_checkpoint
+    from repro_torch.federated.server import build_eval_graph, eval_logits
+    from repro_torch.launch import fed_chaos, serve_fed
+    from repro_torch.serve import (LoadGenerator, QueryEngine, ServedModel,
+                                   federation_template, federation_tree)
+    from repro_torch.serve.model import _scatter_tables
+
+    rec: dict = {"row_invariance": row_invariance(torch, dev)}
+    log(f"phase 13 deploy: {tag}: a row's bits among b rows vs among 19,717 (256 -> 128): "
+        f"torch.matmul {json.dumps(rec['row_invariance']['matmul'])} (recorded), row_matmul "
+        f"{json.dumps(rec['row_invariance']['row_matmul'])}")
+    if not all(rec["row_invariance"]["row_matmul"].values()):
+        raise AssertionError(f"deploy: row_matmul is not row-invariant: {rec['row_invariance']}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_deploy_") as work:
+        ckpt = f"{work}/ckpt_spmm"
+        args, pay, ctx = _pipeline(torch, serve_fed, counters, [
+            "--backend", "spmm", "--ckpt-dir", ckpt, "--out", f"{work}/serve_spmm.json"])
+        g, fed, state, model, eng = (ctx[k] for k in ("graph", "fed", "state", "model",
+                                                      "engine"))
+        total = ctx["launches"]["spmm"]
+
+        def leaves(t):
+            return {**{f"params/{k}": v for k, v in t["params"].items()},
+                    **{k: v for k, v in t.items() if k != "params"}}
+
+        tmpl = leaves(federation_template(fed))
+        in_file = leaves(load_checkpoint(ckpt, args.rounds, federation_template(fed)))
+        trained = leaves(federation_tree(state))
+        bits = {
+            "step": model.restored_step == latest_step(ckpt) == args.rounds,
+            "file": all(np.array_equal(in_file[k], trained[k]) and in_file[k].dtype == t.dtype
+                        for k, t in tmpl.items()),
+            "params": all(torch.equal(model.params[k], state.params[k]) for k in state.params),
+            "table_age": bool(np.array_equal(model.table_age,
+                                             _scatter_tables(fed, trained["age"]))),
+        }
+        n_b = len(eng.buckets)
+        by_key = {tuple(c["key"]): c["spmm_launches"] for c in eng.captures}
+        traffic = ctx["traffic"]
+        replayed = sum(n * by_key[k] for k, n in traffic["replays"].items())
+        graphs = {
+            "count": eng.graph_count, "captures": eng.captures,
+            "capture_s": sum(c["seconds"] for c in eng.captures),
+            "prepared": eng.trace_count, "after_warmup": eng.trace_count_after_warmup,
+            "body_launches": all(c["spmm_launches"] == BODY_SPMM[c["key"][0]]
+                                 for c in eng.captures),
+            "traffic_launches": traffic["spmm_launches"], "replayed_launches": replayed,
+            "traffic_replays": sum(traffic["replays"].values()),
+        }
+        err, _ = _served_vs_eval(torch, ServedModel, QueryEngine, build_eval_graph,
+                                 eval_logits, ckpt, g, fed, state.params, "spmm", dev)
+        rec["eval_ms"] = eval_cost(torch, build_eval_graph, eval_logits, g, state.params, dev)
+        log(f"phase 13 deploy: {tag}: the spmm eval path, median host ms (recorded): "
+            f"{json.dumps(rec['eval_ms'])}")
+        log(f"phase 13 deploy: {tag}: serve_fed spmm ({ctx['seconds']:.1f} s): restored step "
+            f"{model.restored_step}, bits {json.dumps(bits)}; served historical vs eval path "
+            f"max abs diff {err}; p50 {pay['p50_ms']} ms p99 {pay['p99_ms']} ms "
+            f"{pay['queries_per_s']} queries/s; fused column {json.dumps(pay['fused'])}; "
+            f"graphs {graphs['count']} (prepared {graphs['prepared']}, after warmup "
+            f"{graphs['after_warmup']}), capture {graphs['capture_s']:.3f} s in all, "
+            f"{json.dumps([round(c['seconds'], 4) for c in eng.captures])}; traffic "
+            f"{graphs['traffic_replays']} replays, SpMM launches {graphs['traffic_launches']} "
+            f"(replays' sum {replayed}); launches {json.dumps(ctx['launches'])}; peak "
+            f"{ctx['peak_gb']:.3f} GB, reserved {ctx['reserved_gb']:.3f} GB")
+        if not all(bits.values()):
+            raise AssertionError(f"deploy: the restored state is not the trained one: {bits}")
+        if not err <= TOL_LOGITS:
+            raise AssertionError(f"deploy: served vs eval path max abs diff {err}")
+        if (graphs["count"] != 3 * n_b or graphs["prepared"] != 3 * n_b
+                or graphs["after_warmup"] != 3 * n_b or not graphs["body_launches"]
+                or pay["fused"]["recompiles_after_warmup"] != 0):
+            raise AssertionError(f"deploy: graphs {graphs}")
+        if not 0 < replayed == traffic["spmm_launches"]:
+            raise AssertionError(f"deploy: traffic launched {traffic['spmm_launches']} SpMM, "
+                                 f"its replays hold {replayed}")
+        rec["spmm"] = {"payload": pay, "bits": bits, "served_vs_eval_max_abs": err,
+                       "graphs": graphs, "seconds": ctx["seconds"],
+                       "launches": ctx["launches"], "peak_gb": ctx["peak_gb"],
+                       "reserved_gb": ctx["reserved_gb"]}
+        if profile:
+            before = sum(eng.replays.values())
+            prof = profile_traffic(torch, eng, LoadGenerator)
+            prof["replays"] = sum(eng.replays.values()) - before
+            prof["calls_per_replay"] = {k: v / max(prof["replays"], 1)
+                                        for k, v in prof["api_calls"].items()}
+            rec["spmm"]["profile"] = prof
+            log(f"profile: {tag}: deploy traffic (replayed) wall {prof['wall_ms']} ms, device "
+                f"busy {prof['device_busy_ms']} ms (share {prof['device_busy_share']}), "
+                f"{prof['replays']} replays; host calls {json.dumps(prof['api_calls'])}, "
+                f"per replay {json.dumps(prof['calls_per_replay'])}")
+        del model, eng, ctx
+        # the reference's bit gate under gather, and what holds for segment
+        _, gpay, gctx = _pipeline(torch, serve_fed, counters, [
+            "--backend", "gather", "--parity-check", "--ckpt-dir", f"{work}/ckpt_gather",
+            "--out", f"{work}/serve_gather.json"])
+        total += gctx["launches"]["spmm"]
+        seg_err, seg_bits = _served_vs_eval(torch, ServedModel, QueryEngine, build_eval_graph,
+                                            eval_logits, f"{work}/ckpt_gather", gctx["graph"],
+                                            gctx["fed"], gctx["state"].params, "segment", dev)
+        log(f"phase 13 deploy: {tag}: serve_fed gather --parity-check: every node "
+            f"bit-identical to the eval path; p50 {gpay['p50_ms']} ms p99 {gpay['p99_ms']} ms; "
+            f"fused column {json.dumps(gpay['fused'])}; segment (recorded): bit-identical "
+            f"{seg_bits}, max abs diff {seg_err}")
+        rec["gather"] = {"payload": gpay, "parity": True, "launches": gctx["launches"],
+                         "segment_bit_identical": seg_bits, "segment_max_abs": seg_err}
+        del gctx
+        # the int8 cache on the spmm run's checkpoint (no training)
+        _, ipay, ictx = _pipeline(torch, serve_fed, counters, [
+            "--backend", "spmm", "--cache-dtype", "int8", "--ckpt-dir", ckpt,
+            "--out", f"{work}/serve_int8.json"])
+        total += ictx["launches"]["spmm"]
+        log(f"phase 13 deploy: {tag}: serve_fed spmm int8 cache: {json.dumps(ipay['cache'])} "
+            f"(fp32: {json.dumps(pay['cache'])}); p50 {ipay['p50_ms']} ms p99 "
+            f"{ipay['p99_ms']} ms")
+        rec["int8"] = {"payload": ipay, "launches": ictx["launches"]}
+        del ictx
+        # the chaos matrix
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        rc = fed_chaos.main(["--quick", "--out", f"{work}/faults.json", "--device", "cuda:0"])
+        torch.cuda.synchronize()
+        faults = json.loads(Path(f"{work}/faults.json").read_text())
+        rows = [{k: r[k] for k in ("scenario", "scheduler", "executor", "final_acc",
+                                   "acc_delta", "rounds_completed", "crashed", "faults")}
+                for r in faults["rows"]]
+        rec["chaos"] = {"rc": rc, "seconds": time.perf_counter() - t0, "rows": rows,
+                        "serve": faults["serve"], "ckpt": faults["ckpt"],
+                        "crashes": faults["crashes"], "max_acc_delta": faults["max_acc_delta"],
+                        "launches": {n: c.launches for n, c in counters.items()}}
+        log(f"phase 13 deploy: {tag}: fed_chaos --quick exit {rc} in "
+            f"{rec['chaos']['seconds']:.1f} s: {len(rows)} rows, crashes {faults['crashes']}, "
+            f"max acc delta {faults['max_acc_delta']}; ckpt {json.dumps(faults['ckpt'])}; "
+            f"serve {json.dumps(faults['serve'])}")
+        for r in rows:
+            log(f"phase 13 deploy: chaos {r['scheduler']} {r['scenario']}: executor "
+                f"{r['executor']!r} acc {r['final_acc']} delta {r['acc_delta']} faults "
+                f"{json.dumps({k: v for k, v in r['faults'].items() if v})}")
+        if rc != 0:
+            raise AssertionError(f"deploy: fed_chaos --quick exited {rc}")
+    rec["spmm_launches"] = total
+    return rec, total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the record as JSON here")
@@ -2025,16 +2321,24 @@ def main(argv=None) -> int:
     log(f"phase 12 fused: {tag}: {fused_launches} SpMM launches in "
         f"{record['fused']['seconds']:.1f} s")
 
+    # -- phase 13: deploy (train -> checkpoint -> restore -> serve; chaos) ------
+    t13 = time.perf_counter()
+    record["deploy"], deploy_launches = deploy_phase(torch, counters, dev, tag, args.profile)
+    record["deploy"]["seconds"] = time.perf_counter() - t13
+    log(f"phase 13 deploy: {tag}: {deploy_launches} SpMM launches in "
+        f"{record['deploy']['seconds']:.1f} s")
+
     # -- the kernels line --------------------------------------------------------
     warm = shapes[0]
     kernels = [{
         "name": "spmm_block_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/spmm/csrc/spmm.cu",
         "replaces": "src/repro/kernels/spmm/spmm.py:45",
-        "launches": launches + train_launches + methods_launches + fused_launches,
+        "launches": (launches + train_launches + methods_launches + fused_launches
+                     + deploy_launches),
         "launches_by_path": {"gcn_serving": launches, "fedais_training": train_launches,
                              "fedais_methods": methods_launches,
-                             "fedais_fused": fused_launches},
+                             "fedais_fused": fused_launches, "deploy": deploy_launches},
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": warm["ms"], "plain_ms": warm["plain_ms"], "bound_ms": warm["bound_ms"],
         "bound_by": warm["bound_by"], "library_ms": warm["library_ms"],

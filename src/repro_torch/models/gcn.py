@@ -21,6 +21,13 @@ from repro_torch.models.layers import dense_init
 
 HIDDEN = (256, 128)
 AGG_BACKENDS = ("gather", "segment", "spmm")
+# Rows per dense product of the full-graph forward and of the serving path.
+# cuBLAS picks its fp32 GEMM kernel by the shape, so one row's product has
+# other bits in a (128, K) call than in a (19,717, K) one (measured on an
+# H100, PERF.md §6). Both paths multiply in blocks of ROW_BLOCK rows,
+# the last one padded with zeros, so a row's bits do not depend on how many
+# rows come with it, and a served row equals the eval path's bit for bit.
+ROW_BLOCK = 1024
 
 
 def gcn_init(generator: torch.Generator, n_features: int, n_classes: int,
@@ -118,6 +125,32 @@ def _sage_layer(params: dict, l: int, h_self: torch.Tensor,
     )
 
 
+def row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` as products of ``ROW_BLOCK`` rows each (the last padded
+    with zeros): every row goes through one product shape, whatever the
+    number of rows."""
+    n = x.shape[0]
+    pad = (-n) % ROW_BLOCK
+    if n == 0:
+        return x @ w
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    return torch.cat([x[i:i + ROW_BLOCK] @ w for i in range(0, n + pad, ROW_BLOCK)])[:n]
+
+
+def sage_layer_rows(params: dict, l: int, h_self: torch.Tensor,
+                    h_agg: torch.Tensor) -> torch.Tensor:
+    """``_sage_layer`` with its products in row blocks (``row_matmul``):
+    the eval and serving paths' layer."""
+    return torch.relu(row_matmul(h_self, params[f"w_self{l}"])
+                      + row_matmul(h_agg, params[f"w_nbr{l}"]) + params[f"b{l}"])
+
+
+def classify_rows(params: dict, h: torch.Tensor) -> torch.Tensor:
+    """The classifier head with its product in row blocks."""
+    return row_matmul(h, params["w_cls"]) + params["b_cls"]
+
+
 def gcn_batch_forward(
     params: dict,
     features: torch.Tensor,      # (n, F) own features
@@ -184,13 +217,15 @@ def gcn_batch_forward(
 def gcn_full_forward(params, features, nbr_idx, nbr_mask, *,
                      backend: str = "gather", csr: dict | None = None,
                      adj: torch.Tensor | None = None) -> torch.Tensor:
-    """Exact full-graph forward (server-side evaluation; no history)."""
+    """Exact full-graph forward (server-side evaluation; no history). Its
+    dense products run in row blocks (``row_matmul``), as the serving
+    path's do."""
     h = features
     for l in range(len(HIDDEN)):
         agg = neighbor_aggregate(h, nbr_idx, nbr_mask, backend=backend,
                                  csr=csr, adj=adj)
-        h = _sage_layer(params, l, h, agg)
-    return h @ params["w_cls"] + params["b_cls"]
+        h = sage_layer_rows(params, l, h, agg)
+    return classify_rows(params, h)
 
 
 def per_node_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,9 @@ queries/s, batch occupancy, cache hit/invalidation rates). Service times
 are host clocks around calls that end in a device-to-host copy of the
 logits, so they include the device work.
 
-Still to port: ``validate_bench_serve``.
+``validate_bench_serve`` is the write gate of a serve ledger
+(``launch/serve_fed``): the reference's schema, with its ``cache`` and
+``fused`` columns.
 """
 from __future__ import annotations
 
@@ -27,13 +29,136 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch.federated.quant import SYNC_DTYPES
 from repro_torch.serve.engine import CACHE_POLICIES, QueryEngine
 
 LOAD_MODES = ("open", "closed")
 
+# a serve ledger's required top-level keys (see validate_bench_serve)
+_TOP_KEYS = ("bench", "backend", "devices", "quick", "mode", "policy_mix",
+             "n_queries", "n_updates", "queries_per_s", "p50_ms", "p99_ms",
+             "batch_occupancy", "cache_hit_rate", "invalidation_rate",
+             "rows_invalidated", "rows_refreshed", "buckets")
+_BUCKET_KEYS = ("bucket", "n", "p50_ms", "p99_ms")
+# the accuracy-vs-latency cache column (launch.serve_fed --cache-dtype),
+# optional in a payload
+_CACHE_KEYS = ("cache_dtype", "resident_bytes", "serve_accuracy")
+# the fused-vs-two-call column (launch.serve_fed measures both engine modes
+# on the same warm model), optional in a payload; the pipeline gates
+# p50_ms <= twocall_p50_ms with nothing prepared after warmup
+_FUSED_KEYS = ("bucket", "p50_ms", "twocall_p50_ms", "speedup",
+               "recompiles_after_warmup")
+
 
 def _pctl(xs, q: float) -> float:
     return float(np.percentile(np.asarray(xs, np.float64), q)) if len(xs) else 0.0
+
+
+def validate_bench_serve(payload) -> list[str]:
+    """Schema-check a serve ledger payload. Returns a list of problems
+    (empty = valid): required keys present and typed, percentiles ordered,
+    rates in range, and the per-bucket rows accounting for every query."""
+    errs: list[str] = []
+    if not isinstance(payload, dict):
+        return [f"payload is {type(payload).__name__}, expected dict"]
+    for k in _TOP_KEYS:
+        if k not in payload:
+            errs.append(f"missing key {k!r}")
+    if errs:
+        return errs
+    if payload["bench"] != "serve_latency":
+        errs.append(f"bench is {payload['bench']!r}, expected 'serve_latency'")
+    if not isinstance(payload["devices"], int) or payload["devices"] < 1:
+        errs.append(f"devices must be a positive int, got {payload['devices']!r}")
+    if not isinstance(payload["quick"], bool):
+        errs.append(f"quick must be a bool, got {payload['quick']!r}")
+    if payload["mode"] not in LOAD_MODES:
+        errs.append(f"mode must be one of {LOAD_MODES}, got {payload['mode']!r}")
+    if not isinstance(payload["policy_mix"], dict) or not all(
+            p in CACHE_POLICIES for p in payload["policy_mix"]):
+        errs.append(f"policy_mix must map {CACHE_POLICIES} to weights, "
+                    f"got {payload['policy_mix']!r}")
+    nq, nu = payload["n_queries"], payload["n_updates"]
+    if not isinstance(nq, int) or nq < 1:
+        errs.append(f"n_queries must be a positive int, got {nq!r}")
+    if not isinstance(nu, int) or nu < 0:
+        errs.append(f"n_updates must be a non-negative int, got {nu!r}")
+    for k in ("queries_per_s", "p50_ms", "p99_ms"):
+        v = payload[k]
+        if not isinstance(v, (int, float)) or not v > 0:
+            errs.append(f"{k} must be positive, got {v!r}")
+    if isinstance(payload["p50_ms"], (int, float)) \
+            and isinstance(payload["p99_ms"], (int, float)) \
+            and payload["p99_ms"] < payload["p50_ms"]:
+        errs.append(f"p99_ms {payload['p99_ms']!r} < p50_ms {payload['p50_ms']!r}")
+    occ = payload["batch_occupancy"]
+    if not isinstance(occ, (int, float)) or not 0 < occ <= 1:
+        errs.append(f"batch_occupancy must be in (0, 1], got {occ!r}")
+    for k in ("cache_hit_rate", "invalidation_rate"):
+        v = payload[k]
+        if not isinstance(v, (int, float)) or not 0 <= v <= 1:
+            errs.append(f"{k} must be in [0, 1], got {v!r}")
+    for k in ("rows_invalidated", "rows_refreshed"):
+        v = payload[k]
+        if not isinstance(v, int) or v < 0:
+            errs.append(f"{k} must be a non-negative int, got {v!r}")
+    buckets = payload["buckets"]
+    if not isinstance(buckets, list) or not buckets:
+        return errs + ["buckets must be a non-empty list"]
+    n_acc = 0
+    for i, row in enumerate(buckets):
+        if not isinstance(row, dict) or any(k not in row for k in _BUCKET_KEYS):
+            errs.append(f"buckets[{i}] missing keys (need {_BUCKET_KEYS})")
+            continue
+        if not isinstance(row["bucket"], int) or row["bucket"] < 1:
+            errs.append(f"buckets[{i}].bucket must be a positive int")
+        if not isinstance(row["n"], int) or row["n"] < 0:
+            errs.append(f"buckets[{i}].n must be a non-negative int")
+        else:
+            n_acc += row["n"]
+        if isinstance(row.get("p50_ms"), (int, float)) \
+                and isinstance(row.get("p99_ms"), (int, float)) \
+                and row["p99_ms"] < row["p50_ms"]:
+            errs.append(f"buckets[{i}]: p99_ms < p50_ms")
+    if isinstance(nq, int) and n_acc != nq and not errs:
+        errs.append(f"bucket rows account for {n_acc} queries, "
+                    f"n_queries says {nq}")
+    cache = payload.get("cache")
+    if cache is not None:
+        if not isinstance(cache, dict) or any(k not in cache
+                                              for k in _CACHE_KEYS):
+            errs.append(f"cache column missing keys (need {_CACHE_KEYS})")
+        else:
+            if cache["cache_dtype"] not in SYNC_DTYPES:
+                errs.append(f"cache.cache_dtype must be one of {SYNC_DTYPES}, "
+                            f"got {cache['cache_dtype']!r}")
+            rb = cache["resident_bytes"]
+            if not isinstance(rb, int) or rb < 1:
+                errs.append(f"cache.resident_bytes must be a positive int, "
+                            f"got {rb!r}")
+            acc = cache["serve_accuracy"]
+            if not isinstance(acc, (int, float)) or not 0.0 <= acc <= 1.0:
+                errs.append(f"cache.serve_accuracy must be in [0, 1], "
+                            f"got {acc!r}")
+    fused = payload.get("fused")
+    if fused is not None:
+        if not isinstance(fused, dict) or any(k not in fused
+                                              for k in _FUSED_KEYS):
+            errs.append(f"fused column missing keys (need {_FUSED_KEYS})")
+        else:
+            if not isinstance(fused["bucket"], int) or fused["bucket"] < 1:
+                errs.append(f"fused.bucket must be a positive int, "
+                            f"got {fused['bucket']!r}")
+            for k in ("p50_ms", "twocall_p50_ms", "speedup"):
+                v = fused[k]
+                if not isinstance(v, (int, float)) or not v > 0:
+                    errs.append(f"fused.{k} must be positive, got {v!r}")
+            rc = fused["recompiles_after_warmup"]
+            if not isinstance(rc, int) or rc < 0:
+                errs.append(f"fused.recompiles_after_warmup must be a "
+                            f"non-negative int, got {rc!r}")
+    return errs
+
 
 
 @dataclass
@@ -79,7 +204,9 @@ class LatencyLedger:
 
     def summary(self, *, backend: str, devices: int, quick: bool, mode: str,
                 policy_mix: dict, model_summary: dict | None = None,
-                degraded: dict | None = None) -> dict:
+                degraded: dict | None = None,
+                cache: dict | None = None,
+                fused: dict | None = None) -> dict:
         lat = [q.latency_ms for q in self.queries]
         by_bucket: dict[int, list] = {}
         by_policy: dict[str, list] = {}
@@ -120,6 +247,14 @@ class LatencyLedger:
         }
         if model_summary:
             payload["model"] = model_summary
+        if cache is not None:
+            # the accuracy-vs-latency column: which wire format the h1
+            # cache is resident in, what it costs, what accuracy it serves
+            payload["cache"] = dict(cache)
+        if fused is not None:
+            # the fused-vs-two-call A/B (launch.serve_fed measures both
+            # engine modes on the same warm model + bucket)
+            payload["fused"] = dict(fused)
         if degraded is not None or self.rejects:
             # engine degradation counters + the requests this ledger shed
             payload["degraded"] = {"n_shed": self.rejects, **(degraded or {})}

@@ -1,4 +1,5 @@
-"""The port stands alone: no jax and nothing of ``repro`` in
+"""The port stands alone: no jax, nothing of ``repro`` and no ``msgpack``
+(the card's machine has none; the port's checkpoints use its own codec) in
 ``src/repro_torch`` or ``chip_smoke.py``, and no quiet CPU fallback."""
 import ast
 import os
@@ -12,7 +13,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -36,6 +37,7 @@ def test_every_submodule_imports_without_jax():
 import sys, pkgutil, importlib
 sys.modules["jax"] = None          # any `import jax` now raises
 sys.modules["jaxlib"] = None
+sys.modules["msgpack"] = None
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
@@ -74,6 +76,58 @@ assert not [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("name", ["checkpoint", "checkpoint.ckpt", "checkpoint._msgpack",
+                                  "serve.model", "serve.engine", "launch.serve_fed",
+                                  "launch.fed_chaos", "launch.serve"])
+def test_deployment_modules_stand_alone(name):
+    """The deployment path's modules import without jax, the reference and
+    msgpack."""
+    path = PORT.joinpath(*name.split(".")).with_suffix(".py")
+    if not path.exists():
+        path = PORT.joinpath(*name.split("."), "__init__.py")
+    assert path.is_file(), name
+    assert not (_imported_roots(path) & set(FORBIDDEN)), name
+    code = f"""
+import sys, warnings
+warnings.simplefilter("ignore", DeprecationWarning)
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["msgpack"] = None
+import importlib
+importlib.import_module("repro_torch.{name}")
+assert not [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_deployment_entry_points_never_fall_back(monkeypatch, tmp_path):
+    """``ServedModel.restore`` and the launchers default to ``cuda:0`` and
+    raise without CUDA."""
+    from repro_torch.api import FedEngine
+    from repro_torch.federated.partition import partition_graph
+    from repro_torch.graph.data import make_dataset
+    from repro_torch.launch import fed_chaos, serve_fed
+    from repro_torch.serve import ServedModel, save_federation
+
+    g = make_dataset("pubmed", scale=64, seed=0)
+    fed = partition_graph(g, 3, alpha=0.5, seed=0)
+    eng = FedEngine(g, fed, "fedais", rounds=1, clients_per_round=2, device="cpu")
+    state = eng.init_state()
+    save_federation(str(tmp_path), 1, state)
+    assert ServedModel.restore(str(tmp_path), g, fed, device="cpu").device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServedModel.restore(str(tmp_path), g, fed)
+    assert serve_fed.build_args([]).device == fed_chaos.build_args([]).device == "cuda:0"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_fed.run_pipeline(serve_fed.build_args([
+            "--quick", "--ckpt-dir", str(tmp_path / "new"), "--out", str(tmp_path / "x.json")]))
+    assert not (tmp_path / "x.json").exists()
 
 
 def test_resolve_device_never_falls_back(monkeypatch):
