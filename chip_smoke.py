@@ -36,7 +36,11 @@ random weights from a seed:
 * the deployment path: train → ``save_federation`` (the msgpack
   checkpoint) → ``ServedModel.restore`` → ``QueryEngine`` → traffic,
   through ``launch.serve_fed``, on the training configuration, and the
-  chaos harness ``launch.fed_chaos --quick``.
+  chaos harness ``launch.fed_chaos --quick``;
+* the multi-device executors: ``FedEngine(..., mesh=...)`` on a one-rank
+  NCCL group (the card is the whole world), the client-sharded and the
+  pod-sharded round, each a CUDA graph per key with its collectives
+  inside, on the training configuration.
 
 Phases, one or more lines each:
   1 device      the card (nvidia-smi name and power limit), torch and CUDA
@@ -161,18 +165,37 @@ Phases, one or more lines each:
                 capture seconds; under ``--backend gather
                 --parity-check`` every node's served logits bit-identical
                 to the eval path (segment's recorded); the int8 cache's
-                column; ``fed_chaos --quick`` exits 0, its rows recorded.
+                column; ``fed_chaos --quick`` exits 0, its rows recorded;
+  14 sharded    a one-rank NCCL group from a ``FileStore`` in a temporary
+                directory; on phase 10's partition ``fedais`` 6 rounds, an
+                eval every 2, fused, then ``sharded_fused`` on a (1,)
+                client mesh (``merge_reduce`` psum and pairwise) and
+                ``pod_sharded`` on a (1, 1) pod mesh (fp32, and int8 with
+                the fp32 run's cohorts and tau): the executor named;
+                cohorts, tau, comm, flops and wall clock exact; test_acc
+                and test_loss within 1e-4 (params and tables bit-equal
+                recorded); the SpMM exactly rounds x m x (2 + 3J) + evals
+                x 2 through the replays; each round's collectives, calls
+                and bytes, those of ``sharding.ledger``; memory after each
+                chunk equal from the second on; a pod run at tau0 8 whose
+                gated-off rounds move no ghost byte; under
+                ``FaultPlan(seed=78, dropout=0.2, straggler_frac=0.3)``
+                ``sharded_fused`` against ``fused_faulty`` (discrete
+                columns and ``FaultCounters`` equal, a dropped client's
+                rows unchanged to the bit).
 The SpMM's launch counter is set to 0 just before phase 4 and read just
 after phase 5; every counter is set to 0 just before each ``serve`` of
-phase 8, each ``run`` of phases 10, 11 and 12, each pipeline of phase 13
-and its chaos matrix, and read just after it.
+phase 8, each ``run`` of phases 10, 11, 12 and 14 (the collective counts
+too), each pipeline of phase 13 and its chaos matrix, and read just after
+it.
 ``--profile`` traces a second traffic run after phase 6, one prefill + 4
 decode steps of each LM in phase 9, one steady training round replayed
 from its CUDA graph in phase 10 and one stepwise in phase 12 (the host's
 kernel and graph launches, the device's busy share, the SpMM's kernels
 under the replay), one steady stepwise round of fedall and of fedsage+ in
 phase 11, and a second traffic run of phase 13's spmm pipeline (host calls
-per replayed chunk).
+per replayed chunk), and one replayed pod-sharded round in phase 14 (graph
+launches, the NCCL kernels' device time, the busy share).
 Before the last line it prints a ``{"kernels": [...]}`` line (all three
 kernels). The last line is ``{"ok": true, "device": {...}}``. Any failure
 raises and the exit code is not 0; without CUDA, or outside a checkout, it
@@ -674,11 +697,14 @@ def _trace(torch, fn, top: int):
     by_dev = sorted(on_dev, key=dev_us, reverse=True)[:top]
     by_cpu = sorted(on_host, key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
     spmm = [e for e in on_dev if "spmm" in e.key]
+    nccl = [e for e in on_dev if "nccl" in e.key.lower()]
     return out, {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
         "api_calls": {n: sum(e.count for e in on_host if e.key == n) for n in API_CALLS},
         "spmm_kernels": {"count": sum(e.count for e in spmm),
                          "device_ms": sum(dev_us(e) for e in spmm) / 1e3},
+        "nccl_kernels": {"count": sum(e.count for e in nccl),
+                         "device_ms": sum(dev_us(e) for e in nccl) / 1e3},
         "top_device": [{"name": e.key, "count": e.count, "device_ms": dev_us(e) / 1e3}
                        for e in by_dev],
         "top_host": [{"name": e.key, "count": e.count,
@@ -1249,7 +1275,7 @@ def method_run(torch, api, counters, g, fed, dev, method, rounds, eval_every=1,
         torch.cuda.synchronize()
         chunks.append({"rounds": [t0, n], "ms": (time.perf_counter() - c0) * 1e3,
                        "allocated": torch.cuda.memory_allocated(),
-                       "graphs": len(eng._fused.captures)})
+                       "graphs": len(_captures(eng))})
         return stop
 
     def dispatch(state, s, t):
@@ -1272,15 +1298,20 @@ def method_run(torch, api, counters, g, fed, dev, method, rounds, eval_every=1,
     torch.cuda.synchronize()
     launches = {n: c.launches for n, c in counters.items()}
     ms = [(b - a) * 1e3 for a, b in zip(timer.stamps, timer.stamps[1:])]
-    if eng.last_executor in ("fused", "fused_faulty"):
-        # the fused executor trains every cohort it selects; it never calls
-        # dispatch
+    if eng.last_executor in ("fused", "fused_faulty", "sharded_fused", "pod_sharded"):
+        # the fused executors train every cohort they select; they never
+        # call dispatch
         dispatched = [len(c) for c in sel.cohorts]
     return {"engine": eng, "state": state, "result": res, "launches": launches,
             "round_ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "cohorts": sel.cohorts, "dispatched": dispatched, "fanouts": fanouts,
-            "executor": eng.last_executor, "chunks": chunks,
-            "captures": [] if eng._fused is None else eng._fused.captures}
+            "executor": eng.last_executor, "chunks": chunks, "captures": _captures(eng)}
+
+
+def _captures(eng) -> list:
+    """The graph keys every fused executor of ``eng`` captured."""
+    rounds = ([] if eng._fused is None else [eng._fused]) + list(eng._sharded.values())
+    return [c for r in rounds for c in r.captures]
 
 
 def _method_gate(counters, run, name, merges) -> dict:
@@ -1896,6 +1927,295 @@ def deploy_phase(torch, counters, dev, tag, profile) -> tuple[dict, int]:
     return rec, total
 
 
+# the multi-device executors (phase 14): fedais rounds and eval cadence as
+# phase 12's fused run, a 4-round run at tau0 8 (J 4: every other round's
+# sync gate off) and a 4-round run under a fault plan without corruption
+# (the sharded executors refuse it); float columns against the fused run at
+# the reference's tolerance (tests/test_sharding.py), discrete ones exact
+SHARD_ROUNDS, SHARD_EVAL_EVERY, SHARD_GATED_TAU0, SHARD_FAULT_ROUNDS = 6, 2, 8, 4
+SHARD_FAULTS = dict(seed=78, dropout=0.2, straggler_frac=0.3)
+SHARD_RTOL, SHARD_ATOL = 1e-4, 1e-6
+EXACT_KEYS = ("tau", "comm_total", "comm_embed", "flops", "wall_clock")
+
+
+def _shard_compare(ref, got) -> dict:
+    """A sharded run's history against the fused run's: the discrete
+    columns equal, test_acc / test_loss within the reference's tolerance,
+    and whether the floats are bit-equal."""
+    import numpy as np
+
+    out = {k: ref.history[k] == got.history[k] for k in EXACT_KEYS}
+    for k in ("test_acc", "test_loss"):
+        a = np.asarray(got.history[k], np.float64)
+        b = np.asarray(ref.history[k], np.float64)
+        out[k] = bool(np.allclose(a, b, rtol=SHARD_RTOL, atol=SHARD_ATOL))
+    out["floats_bit_equal"] = (got.history["test_acc"] == ref.history["test_acc"]
+                               and got.history["test_loss"] == ref.history["test_loss"])
+    return out
+
+
+def _shard_ledger_rounds(eng, sync_dtype: str) -> tuple[list, list]:
+    """Each round's counted collectives of a sharded run against what the
+    ledger says that round moves (``sharding.ledger``)."""
+    from repro_torch.federated.partition import ghost_exchange_buckets
+    from repro_torch.sharding import ledger
+
+    fed, m = eng.fed, TRAIN_M
+    rounds = eng._sharded[eng.last_executor == "pod_sharded"].round_log
+    got, want = [], []
+    for r in rounds:
+        got.append({k: list(v) for k, v in r["collectives"].items()})
+        if eng.last_executor == "pod_sharded":
+            b = ghost_exchange_buckets(fed.ghost_owner, fed.ghost_row, fed.ghost_mask, 1)
+            led = ledger.pod_placement_ledger(
+                b, n_pods=1, cohort_pad=m, wb_cap=r["cap"], n_max=fed.n_max, g_max=fed.g_max,
+                n_feat=fed.n_features, n_classes=fed.n_classes, tau=2,
+                local_epochs=eng.mcfg.local_epochs, max_deg=fed.max_deg,
+                sync_dtype=sync_dtype)
+            w = ledger.round_collectives(led, gate=r["gate"], merge_reduce=eng.merge_reduce)
+        else:
+            w = ledger.sharded_round_collectives(
+                cohort_pad=m, n_shards=1, n_max=fed.n_max, g_max=fed.g_max,
+                n_feat=fed.n_features, n_classes=fed.n_classes, merge_reduce=eng.merge_reduce,
+                sync_dtype=sync_dtype)
+        want.append({k: list(v) for k, v in w.items()})
+    return got, want
+
+
+def sharded_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict, int]:
+    """Phase 14: the multi-device executors on a one-rank NCCL group (the
+    card is the whole world): ``FedEngine(..., mesh=...)`` on phase 10's
+    partition, spmm backends, every launch counter and the collective
+    counts set to 0 just before each run and read just after it.
+
+    * ``fedais`` for ``SHARD_ROUNDS`` rounds, an eval every
+      ``SHARD_EVAL_EVERY``, fused (the reference run), then
+      ``sharded_fused`` on a ``(1,)`` client mesh with ``merge_reduce``
+      psum and pairwise, ``pod_sharded`` on a ``(1, 1)`` pod mesh at fp32
+      and at ``sync_dtype="int8"`` (the fp32 run's cohorts and tau): the
+      executor named; cohorts, tau, the comm, flops and wall-clock columns
+      exact; test_acc / test_loss within 1e-4 (bit-equal recorded); the SpMM
+      exactly rounds x m x (2 + 3J) + evals x 2 through the replays,
+      nothing else; each round's collectives (calls and bytes) those of
+      ``sharding.ledger``; the memory allocated after each chunk equal from
+      the second chunk on (a chunk that captured a new key aside);
+    * ``pod_sharded`` at tau0 ``SHARD_GATED_TAU0`` for 4 rounds: some
+      round's sync gate off, and such a round moves no ghost byte (its
+      graph holds no ghost exchange), the ledger per round;
+    * under ``FaultPlan(**SHARD_FAULTS)`` (dropout and stragglers)
+      ``sharded_fused`` against ``fused_faulty``: the discrete columns and
+      ``FaultCounters`` equal, floats within 1e-4; the rows of a client
+      dropped in a chunk and trained in none of its rounds unchanged to the
+      bit.
+
+    Under ``profile`` one replayed pod-sharded round is traced: graph
+    launches, the NCCL kernels' device time, the busy share."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.faults import FaultPlan
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.fed import make_client_mesh
+    from repro_torch.sharding.tables import gather_tables, make_pod_mesh
+
+    rec: dict = {}
+    total = 0
+    store = tempfile.mkdtemp(prefix="phase14-")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", world_size=1, rank=0)
+    try:
+        cmesh = make_client_mesh()
+        pmesh = make_pod_mesh(1, 1)
+        evals = len([t for t in range(SHARD_ROUNDS)
+                     if t % SHARD_EVAL_EVERY == 0 or t == SHARD_ROUNDS - 1])
+
+        def run(name, rounds, n_evals, executor, method="fedais", **kw):
+            comm.reset()
+            r = method_run(torch, api, counters, g, fed, dev, method, rounds,
+                           eval_every=SHARD_EVAL_EVERY, **kw)
+            J = r["engine"].mcfg.local_epochs
+            want = {n: 0 for n in counters}
+            want["spmm"] = rounds * TRAIN_M * (2 + 3 * J) + 2 * n_evals
+            hist = r["result"].history
+            if r["executor"] != executor or r["launches"] != want:
+                raise AssertionError(f"sharded: {name}: executor {r['executor']} (want "
+                                     f"{executor}), launches {r['launches']}, want {want}")
+            if not all(math.isfinite(x) for x in hist["test_loss"]):
+                raise AssertionError(f"sharded: {name}: history {hist}")
+            mem = [c["allocated"] for c in r["chunks"]]
+            graphs = [c["graphs"] for c in r["chunks"]]
+            r["growth"] = {f"chunk {i}": mem[i] - mem[i - 1] for i in range(2, len(mem))
+                           if graphs[i] == graphs[i - 1] and mem[i] != mem[i - 1]}
+            r["memory"] = mem
+            r["collectives"] = comm.snapshot()
+            return r
+
+        base = run("fedais fused", SHARD_ROUNDS, evals, "fused")
+        base_params = {k: v.clone() for k, v in base["state"].params.items()}
+        base_tables = [t.clone() for t in train_tables(base["state"])[len(base_params):]]
+        base_res, base_cohorts = base["result"], base["cohorts"]
+        total += base["launches"]["spmm"]
+        del base
+        rec["runs"] = {}
+        fp32_pod = None
+        for name, executor, kw in (
+                ("sharded psum", "sharded_fused", dict(mesh=cmesh)),
+                ("sharded pairwise", "sharded_fused", dict(mesh=cmesh, merge_reduce="pairwise")),
+                ("pod fp32", "pod_sharded", dict(mesh=pmesh)),
+                ("pod int8", "pod_sharded", dict(mesh=pmesh, sync_dtype="int8"))):
+            r = run(name, SHARD_ROUNDS, evals, executor, **kw)
+            eng, res = r["engine"], r["result"]
+            got, want = _shard_ledger_rounds(eng, kw.get("sync_dtype", "fp32"))
+            if kw.get("sync_dtype") == "int8":
+                same = {"cohorts": r["cohorts"] == fp32_pod["cohorts"],
+                        "tau": res.history["tau"] == fp32_pod["tau"]}
+            else:
+                same = _shard_compare(base_res, res)
+                same["cohorts"] = r["cohorts"] == base_cohorts
+            same["ledger"] = got == want
+            same["memory"] = not r["growth"]
+            params_equal = all(torch.equal(r["state"].params[k], base_params[k])
+                               for k in base_params)
+            st = r["state"]
+            tables = (st.hist.hist1, st.hist.age, st.hist.ghost_feat, st.prev_loss)
+            if st.pod_shard is not None:
+                # this rank's pod shards back to the K rows
+                tables = gather_tables(tables, pmesh, fed.n_clients)
+            tables_equal = all(torch.equal(a, b) for a, b in zip(tables, base_tables))
+            del st, tables
+            cap = [c["key"] for c in r["captures"]]
+            log(f"phase 14 sharded: {tag}: {name} ({r['executor']}) {SHARD_ROUNDS} rounds vs "
+                f"fused: {json.dumps(same)}; params bit-equal {params_equal}, tables "
+                f"{tables_equal}; test_acc "
+                f"{res.history['test_acc']}; test_loss {res.history['test_loss']}; launches "
+                f"{json.dumps(r['launches'])}; collectives {json.dumps(r['collectives'])}; "
+                f"round 0 {json.dumps(got[0])}; chunks ms {[c['ms'] for c in r['chunks']]}; "
+                f"memory after each chunk {r['memory']}; graph keys {len(cap)}, capture s "
+                f"{[c['seconds'] for c in r['captures']]}; peak {r['peak_gb']} GB")
+            failed = {k: v for k, v in same.items() if not v and k != "floats_bit_equal"}
+            if failed:
+                raise AssertionError(f"sharded: {name}: {failed}; ledger got {got} want "
+                                     f"{want}; growth {r['growth']}")
+            if name == "pod fp32":
+                fp32_pod = {"cohorts": r["cohorts"], "tau": res.history["tau"]}
+            rec["runs"][name] = {
+                "executor": r["executor"], "same": same, "params_bit_equal": params_equal,
+                "tables_bit_equal": tables_equal,
+                "launches": r["launches"], "collectives": r["collectives"],
+                "round_collectives": got, "chunks": r["chunks"], "captures": r["captures"],
+                "peak_gb": r["peak_gb"], "history": res.history}
+            total += r["launches"]["spmm"]
+            del r, eng, res
+
+        # the gate: tau0 8 leaves every other round's ghost exchange out
+        gated_rounds = 4
+        gated_evals = len([t for t in range(gated_rounds)
+                           if t % SHARD_EVAL_EVERY == 0 or t == gated_rounds - 1])
+        r = run("pod tau0 8", gated_rounds, gated_evals, "pod_sharded",
+                method=api.method_config("fedais", tau0=SHARD_GATED_TAU0), mesh=pmesh)
+        log_rounds = r["engine"]._sharded[True].round_log
+        got, want = _shard_ledger_rounds(r["engine"], "fp32")
+        gates = [x["gate"] for x in log_rounds]
+        off_bytes = [sum(v[1] for k, v in x["collectives"].items() if k.startswith("ghost"))
+                     for x in log_rounds if not x["gate"]]
+        log(f"phase 14 sharded: {tag}: pod tau0 {SHARD_GATED_TAU0}: gates {gates}, ghost "
+            f"bytes on the gated-off rounds {off_bytes}; ledger per round {got == want}; "
+            f"graph keys {[c['key'] for c in r['captures']]} with collectives "
+            f"{[c['collectives'] for c in r['captures']]}")
+        if all(gates) or not any(gates) or any(off_bytes) or got != want:
+            raise AssertionError(f"sharded: gated run: gates {gates}, off bytes {off_bytes}, "
+                                 f"ledger got {got} want {want}")
+        rec["gated"] = {"gates": gates, "round_collectives": got,
+                        "captures": r["captures"], "history": r["result"].history}
+        total += r["launches"]["spmm"]
+        del r
+
+        # the fault plan (dropout, stragglers): fused_faulty vs sharded_fused
+        plan = FaultPlan(**SHARD_FAULTS)
+        f_evals = len([t for t in range(SHARD_FAULT_ROUNDS)
+                       if t % SHARD_EVAL_EVERY == 0 or t == SHARD_FAULT_ROUNDS - 1])
+        fr = run("fedais fused_faulty", SHARD_FAULT_ROUNDS, f_evals, "fused_faulty",
+                 faults=plan)
+        fr_res, fr_events = fr["result"], fr["state"].fault_events.snapshot()
+        total += fr["launches"]["spmm"]
+        del fr
+        checked = []
+        real = api.FedEngine._run_chunk
+
+        def watched(self, state, t0, n):
+            # the tables before and after each chunk, and its dropped clients
+            # that trained in none of its rounds
+            before = [t.clone() for t in (state.hist.hist1, state.hist.age,
+                                          state.hist.ghost_feat, state.prev_loss)]
+            stop = real(self, state, t0, n)
+            cohorts = self.selector.cohorts[-n:]
+            dropped, trained = set(), set()
+            for t, c in zip(range(t0, t0 + n), cohorts):
+                mask = self.faults.drops(t, np.asarray(c))
+                dropped |= {k for k, d in zip(c, mask) if d}
+                trained |= {k for k, d in zip(c, mask) if not d}
+            after = (state.hist.hist1, state.hist.age, state.hist.ghost_feat,
+                     state.prev_loss)
+            for k in sorted(dropped - trained):
+                checked.append(all(torch.equal(a[k], b[k]) for a, b in zip(before, after)))
+            return stop
+
+        api.FedEngine._run_chunk = watched
+        try:
+            sf = method_run(torch, api, counters, g, fed, dev, "fedais", SHARD_FAULT_ROUNDS,
+                            eval_every=SHARD_EVAL_EVERY, faults=plan, mesh=cmesh)
+        finally:
+            api.FedEngine._run_chunk = real
+        comm.reset()
+        same = _shard_compare(fr_res, sf["result"])
+        same["fault_events"] = sf["state"].fault_events.snapshot() == fr_events
+        same["executor"] = sf["executor"] == "sharded_fused"
+        same["dropped_rows_unchanged"] = bool(checked) and all(checked)
+        log(f"phase 14 sharded: {tag}: fedais under FaultPlan({SHARD_FAULTS}) "
+            f"{SHARD_FAULT_ROUNDS} rounds, sharded_fused vs fused_faulty: {json.dumps(same)}; "
+            f"fault events {json.dumps(fr_events)}; dropped clients checked {len(checked)}; "
+            f"launches {json.dumps(sf['launches'])}")
+        J = sf["engine"].mcfg.local_epochs
+        want = {n: 0 for n in counters}
+        want["spmm"] = SHARD_FAULT_ROUNDS * TRAIN_M * (2 + 3 * J) + 2 * f_evals
+        failed = {k: v for k, v in same.items() if not v and k != "floats_bit_equal"}
+        if failed or sf["launches"] != want or fr_events["n_dropped"] < 1:
+            raise AssertionError(f"sharded: faults: {failed}, launches {sf['launches']} "
+                                 f"(want {want}), events {fr_events}")
+        rec["faults"] = {"plan": SHARD_FAULTS, "same": same, "fault_events": fr_events,
+                         "dropped_checked": len(checked), "launches": sf["launches"]}
+        total += sf["launches"]["spmm"]
+        del sf
+
+        if profile:
+            peng = api.FedEngine(g, fed, "fedais", rounds=2, clients_per_round=TRAIN_M,
+                                 seed=0, train_backend="spmm", eval_backend="spmm",
+                                 device=dev, mesh=pmesh)
+            pstate = peng.init_state()
+            peng._run_chunk(pstate, 0, 1)
+            peng._run_chunk(pstate, 1, 1)
+            _, prof = _trace(torch, lambda: peng._run_chunk(pstate, 1, 1), 10)
+            log(f"profile: {tag}: pod_sharded round replayed: wall {prof['wall_ms']} ms, "
+                f"device busy {prof['device_busy_ms']} ms (share {prof['device_busy_share']}); "
+                f"host API calls {json.dumps(prof['api_calls'])}; NCCL kernels "
+                f"{json.dumps(prof['nccl_kernels'])}; SpMM kernels "
+                f"{json.dumps(prof['spmm_kernels'])}")
+            for e in prof["top_device"]:
+                log(f"profile: pod_sharded device {e['device_ms']} ms x{e['count']} {e['name']}")
+            rec["profile"] = prof
+            del peng, pstate
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["spmm_launches"] = total
+    return rec, total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the record as JSON here")
@@ -2328,6 +2648,14 @@ def main(argv=None) -> int:
     log(f"phase 13 deploy: {tag}: {deploy_launches} SpMM launches in "
         f"{record['deploy']['seconds']:.1f} s")
 
+    # -- phase 14: sharded (the multi-device executors; counts from 0 before each)
+    t14 = time.perf_counter()
+    record["sharded"], sharded_launches = sharded_phase(torch, api, counters, g, fed, dev, tag,
+                                                        args.profile)
+    record["sharded"]["seconds"] = time.perf_counter() - t14
+    log(f"phase 14 sharded: {tag}: {sharded_launches} SpMM launches in "
+        f"{record['sharded']['seconds']:.1f} s")
+
     # -- the kernels line --------------------------------------------------------
     warm = shapes[0]
     kernels = [{
@@ -2335,10 +2663,11 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/spmm/csrc/spmm.cu",
         "replaces": "src/repro/kernels/spmm/spmm.py:45",
         "launches": (launches + train_launches + methods_launches + fused_launches
-                     + deploy_launches),
+                     + deploy_launches + sharded_launches),
         "launches_by_path": {"gcn_serving": launches, "fedais_training": train_launches,
                              "fedais_methods": methods_launches,
-                             "fedais_fused": fused_launches, "deploy": deploy_launches},
+                             "fedais_fused": fused_launches, "deploy": deploy_launches,
+                             "fedais_sharded": sharded_launches},
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": warm["ms"], "plain_ms": warm["plain_ms"], "bound_ms": warm["bound_ms"],
         "bound_by": warm["bound_by"], "library_ms": warm["library_ms"],

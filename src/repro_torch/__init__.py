@@ -22,7 +22,11 @@ Ported so far:
   ``models.layers``/``rwkv``/``attention``/``lm``, ``launch.train``'s
   configurations), with the WKV6 recurrence (``kernels.wkv6``) and flash
   attention (``kernels.flash_attention``) kernels. Every TPU kernel of
-  ``repro`` now has its Hopper counterpart.
+  ``repro`` now has its Hopper counterpart;
+* FedAIS training (``api.FedEngine``: the stepwise, fused, fault-aware and
+  async executors, the method space, the quantized wire), the deployment
+  path (``checkpoint``, ``launch.serve_fed``, ``launch.fed_chaos``) and
+  the multi-device executors on ``torch.distributed`` (``sharding``).
 """
 from repro_torch.device import resolve_device
 

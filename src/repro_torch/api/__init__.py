@@ -2,7 +2,9 @@
 
 Port of ``repro/api``: ``FedEngine(graph, fed, "fedais", ...).run()`` on one
 device, through the fused executor (a CUDA graph per round key on the
-card) where every component is fusable, else the stepwise one::
+card) where every component is fusable, else the stepwise one; with a
+``mesh`` (``repro_torch.sharding``) on every rank of it, client-sharded or
+pod-sharded::
 
     from repro_torch.api import FedEngine
 

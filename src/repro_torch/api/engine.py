@@ -2,13 +2,14 @@
 
 Port of ``repro/api/engine.py`` (``RunResult``, ``EngineState``,
 ``FedEngine``: ``init_state``, ``dispatch``, ``merge``, ``run_round``,
-``_inject_faults``, ``fused_eligibility``, ``_run_chunk``, ``run_fused``,
-``run``). A round is
+``_inject_faults``, ``fused_eligibility``, ``sharded_eligibility``,
+``pod_sharded_eligibility``, ``_run_chunk``, ``run_fused``, ``run``). A
+round is
 
     select clients -> strategy hooks -> cohort LocalUpdate -> aggregate
     -> historical write-back -> cost accounting -> callbacks
 
-Two executors run it on one device:
+Two executors run it on one device, and two more on a mesh:
 
 * the **stepwise** executor (``run_round`` = ``dispatch`` + ``merge``):
   ``dispatch`` runs the cohort's LocalUpdate (``core.fedais``) client by
@@ -34,8 +35,17 @@ updates it refuses. An empty plan and an all-pass guard change nothing.
 Under a live plan the fused executor runs the fault-aware round
 (``fused_faulty``, ``faults.fused``).
 
-Not ported yet, and refused when asked for: a device mesh (``mesh``,
-ROADMAP A7).
+With a device ``mesh`` (a ``torch.distributed`` ``DeviceMesh``, one process
+per rank, every rank running the same engine from the same seed) the fused
+chunk shards its cohort over the mesh's ``"clients"`` axis
+(``sharded_fused``, ``sharding.fed``: a weighted all-reduce merge, ragged
+cohorts padded with zero-weight dummies), and on a ``("pods", "clients")``
+mesh every K-sized table lives in pod shards (``pod_sharded``,
+``sharding.tables``: the owner-keyed fetch, the gated ghost all-to-all,
+the bucket-routed write-back). Ineligible configurations fall down the
+reference's chain: pod-sharded -> client-sharded -> fused -> stepwise
+(``pod_sharded_eligibility``, ``sharded_eligibility``).
+``merge_reduce="pairwise"`` sums the merge in a fixed tree on both.
 """
 from __future__ import annotations
 
@@ -53,7 +63,7 @@ from repro_torch.api.callbacks import (
     VerboseCallback,
     default_callbacks,
 )
-from repro_torch.api.fused import FusedRounds
+from repro_torch.api.fused import FusedRounds, ShardedRounds
 from repro_torch.api.protocols import (
     AdaptiveSyncController,
     PaperCostModel,
@@ -85,6 +95,8 @@ from repro_torch.federated.costs import CostMeter, DelayModel
 from repro_torch.federated.partition import FederatedGraph
 from repro_torch.federated.quant import check_sync_dtype, quant_roundtrip
 from repro_torch.federated.server import build_eval_graph, evaluate_global
+from repro_torch.sharding.fed import axis_size, client_axis_of
+from repro_torch.sharding.tables import pod_axes_of
 from repro_torch.graph.data import GraphData
 from repro_torch.models.gcn import (
     AGG_BACKENDS,
@@ -104,6 +116,13 @@ _CLIENT_ARRAY_KEYS = (
 # mid-chunk state the fused executor no longer materialises per round.
 _FUSED_SAFE_CALLBACKS = (EvalCallback, HistoryCallback, VerboseCallback,
                          EarlyStopCallback)
+
+
+def _check_full_tables(state) -> None:
+    if state.pod_shard is not None:
+        raise ValueError("the state's tables are this rank's pod shards (a pod-sharded "
+                         "run): gather them with sharding.tables.gather_tables before "
+                         "another executor takes the state")
 
 
 def _take(tree, keep: np.ndarray):
@@ -169,10 +188,15 @@ class EngineState:
     # what the engine/scheduler did about faults (dropped uploads,
     # quarantined updates, async timeouts/retries/evictions, ...)
     fault_events: FaultCounters = field(default_factory=FaultCounters)
+    # (n_pods, pod, rows_per_pod, n_clients) once a pod-sharded run holds
+    # this rank's pod shards in ``hist`` / ``prev_loss`` instead of K rows
+    # (``sharding.tables.gather_tables`` gives the K rows back)
+    pod_shard: Optional[tuple] = None
 
 
 class FedEngine:
-    """Federated trainer over a partitioned graph, on one device.
+    """Federated trainer over a partitioned graph, on one device or, with a
+    ``mesh``, on every rank of it.
 
     ``method`` is a registered method name (``api.registry``) or an
     explicit MethodConfig. Components can be overridden by keyword; the
@@ -205,14 +229,19 @@ class FedEngine:
         faults: Optional[FaultPlan] = None,
         guard: Union[UpdateGuard, bool, None] = True,
         mesh=None,
+        client_sharding: str = "auto",
+        table_sharding: str = "auto",
+        merge_reduce: str = "psum",
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("FedEngine(mesh=...) is not ported yet (ROADMAP A7)")
         self.sync_dtype = check_sync_dtype(sync_dtype)
         if train_backend not in AGG_BACKENDS:
             raise ValueError(f"unknown train_backend {train_backend!r}; "
                              f"known: {AGG_BACKENDS}")
+        if (mesh is not None and device is None and getattr(mesh, "device_type", None) == "cuda"
+                and torch.cuda.is_available()):
+            # the rank's own card (the launcher set it current)
+            device = torch.device("cuda", torch.cuda.current_device())
         self.device = resolve_device(device)
         self.graph, self.fed = graph, fed
         self.mcfg = method_config(method) if isinstance(method, str) else method
@@ -252,7 +281,46 @@ class FedEngine:
                     "them and add EvalCallback/VerboseCallback/"
                     "EarlyStopCallback to your list instead")
             self.callbacks = list(callbacks)
-        # "stepwise" | "fused" | "fused_faulty"
+        # ---- the mesh (the fused executor's scale-out) ----
+        if client_sharding not in ("auto", "divisible", "off"):
+            raise ValueError(
+                f"unknown client_sharding {client_sharding!r}; known: "
+                "auto (pad ragged cohorts) | divisible (shard only when the "
+                "cohort splits evenly) | off")
+        if table_sharding not in ("auto", "pods", "replicated"):
+            raise ValueError(
+                f"unknown table_sharding {table_sharding!r}; known: "
+                "auto (pod-shard when the mesh has a 'pods' axis) | pods | "
+                "replicated")
+        if merge_reduce not in ("psum", "pairwise"):
+            raise ValueError(
+                f"unknown merge_reduce {merge_reduce!r}; known: psum "
+                "(weighted all-reduce) | pairwise (fp32 fixed-tree over "
+                "gathered partials)")
+        self.mesh = mesh
+        self.client_sharding = client_sharding
+        self.table_sharding = table_sharding
+        self.merge_reduce = merge_reduce
+        self.client_axis = None
+        self.pod_axes = None
+        if mesh is not None:
+            if not (hasattr(mesh, "mesh_dim_names") and hasattr(mesh, "device_type")):
+                raise TypeError(f"mesh must be a torch.distributed DeviceMesh, got "
+                                f"{type(mesh).__name__}")
+            self.pod_axes = pod_axes_of(mesh)
+            self.client_axis = client_axis_of(mesh)
+            if self.client_axis is None and self.pod_axes is None:
+                raise ValueError(
+                    "client sharding needs a mesh with a 'clients' axis (or "
+                    f"a single axis); got axes {tuple(mesh.mesh_dim_names)}")
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"the mesh's ranks run on {mesh.device_type}, the "
+                                 f"engine's device is {self.device}")
+        if table_sharding == "pods" and self.pod_axes is None:
+            raise ValueError(
+                "table_sharding='pods' needs a mesh with ('pods', 'clients') "
+                f"axes; got {None if mesh is None else tuple(mesh.mesh_dim_names)}")
+        # "stepwise" | "fused" | "fused_faulty" | "sharded_fused" | "pod_sharded"
         self.last_executor: Optional[str] = None
 
         # ---- fault injection + merge guard (repro_torch.faults) ----
@@ -285,6 +353,7 @@ class FedEngine:
         self.eval_graph = build_eval_graph(graph, max_deg=fed.max_deg, seed=seed,
                                            backend=eval_backend, device=self.device)
         self._fused: Optional[FusedRounds] = None     # built by the first chunk
+        self._sharded: dict = {}                      # pods? -> ShardedRounds
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -320,6 +389,7 @@ class FedEngine:
         tables. Returns the stacked outputs ``(params, hist1, age,
         ghost_feat, stats)``; nothing in ``state`` but the draws moves."""
         state.round = t
+        _check_full_tables(state)
         streams = state.draws.clients(len(sel))
         fanouts = self.strategy.choose_fanouts(self, sel)
         self.strategy.pre_round(self, state, sel)
@@ -523,9 +593,99 @@ class FedEngine:
                     "family (allreduce_safe) rule")
         return ""
 
+    def sharded_eligibility(self, m: int | None = None) -> tuple[bool, str]:
+        """Can the fused chunk shard its client axis over ``self.mesh``?
+
+        Refines ``fused_eligibility`` (which must already hold: the sharded
+        executor is a variant of the fused one): the merge must be a
+        weighted mean (``allreduce_safe`` aggregators), the fault plan
+        dropout and stragglers only, and with
+        ``client_sharding="divisible"`` the cohort ``m`` must split evenly
+        across the mesh axis instead of being padded. Ineligible
+        configurations fall back to the fused chunk."""
+        if self.mesh is None:
+            return False, "no mesh configured"
+        if self.client_sharding == "off":
+            return False, "client_sharding='off'"
+        if self.client_axis is None:
+            return False, ("mesh has no 'clients' (or single) axis to shard "
+                           "the cohort over")
+        why = self._allreduce_unsafe_reason()
+        if why:
+            return False, why
+        why = self._sharded_faults_unsafe_reason()
+        if why:
+            return False, why
+        if m is not None and self.client_sharding == "divisible":
+            shards = axis_size(self.mesh, self.client_axis)
+            if m % shards:
+                return False, (f"cohort size {m} does not divide mesh axis "
+                               f"size {shards} (client_sharding='divisible' "
+                               "disables padding)")
+        return True, ""
+
+    def _sharded_faults_unsafe_reason(self) -> str:
+        """Why the active FaultPlan cannot run on the sharded executors
+        (empty string when it can). Dropout rides the executors'
+        zero-weight dummies; corruption needs the fault-aware fused round's
+        guard."""
+        if self._faults_active and self.faults.corrupt > 0.0:
+            return ("sharded executors support dropout/straggler faults "
+                    "only; corrupt updates need the fault-aware fused "
+                    "chunk's in-trace guard")
+        return ""
+
+    def pod_sharded_eligibility(self, m: int | None = None) -> tuple[bool, str]:
+        """Can the fused chunk run with pod-sharded tables?
+
+        Refines ``sharded_eligibility`` for the ``("pods", "clients")``
+        mesh (``sharding.tables``): the mesh must carry both axes,
+        ``table_sharding`` must allow it, and the merge must be a weighted
+        mean. Cohorts pad over every rank of the mesh (pods x clients);
+        ``client_sharding="divisible"`` demands divisibility instead.
+        Ineligible configurations fall down the chain: pod-sharded ->
+        client-sharded -> fused -> stepwise."""
+        if self.mesh is None:
+            return False, "no mesh configured"
+        if self.pod_axes is None:
+            return False, ("mesh has no ('pods', 'clients') axes "
+                           f"(got {tuple(self.mesh.mesh_dim_names)})")
+        if self.table_sharding == "replicated":
+            return False, "table_sharding='replicated'"
+        if self.client_sharding == "off":
+            return False, "client_sharding='off'"
+        why = self._allreduce_unsafe_reason()
+        if why:
+            return False, why
+        why = self._sharded_faults_unsafe_reason()
+        if why:
+            return False, why
+        if m is not None and self.client_sharding == "divisible":
+            shards = self.mesh.size()
+            if m % shards:
+                return False, (f"cohort size {m} does not divide the mesh's "
+                               f"{shards} devices (client_sharding="
+                               "'divisible' disables padding)")
+        return True, ""
+
+    def _cohort_weights(self, sel_stack: np.ndarray) -> np.ndarray:
+        """Per-client aggregation weights for the sharded merges: client
+        sizes when the aggregator folds them in (WeightedFedAvg), uniform
+        otherwise (FedAvg)."""
+        if getattr(self.aggregator, "uses_weights", False):
+            return self.fed.client_sizes[sel_stack].astype(np.float32)
+        return np.ones(sel_stack.shape, np.float32)
+
+    def _prefetched_cohort(self):
+        """The cohort LocalUpdate of the pod-sharded round: ghost sources
+        as the exchange delivered them."""
+        return make_cohort_update(self.mcfg, self.fed.n_max, train_backend=self.train_backend,
+                                  sync_dtype=self.sync_dtype, ghost_source="prefetched")
+
     def _run_chunk(self, state: EngineState, t0: int, n_rounds: int) -> bool:
         """Select the cohorts of rounds [t0, t0 + n_rounds) on the host, run
-        the rounds through the fused executor, then replay the host tail
+        the rounds through the fused executor (on a mesh, the pod-sharded or
+        client-sharded one where eligible), then replay the host tail
         (cost accounting, ``post_round``, callbacks) per round from the
         light stats read once. Under a live FaultPlan the chunk's drop and
         corruption masks come from the plan's (round, client) coordinates,
@@ -551,10 +711,22 @@ class FedEngine:
             drop_stack = np.stack([self.faults.drops(t, s) for t, s in zip(ts, sels)])
             cmask_stack = np.stack([self.faults.corruptions(t, s) for t, s in zip(ts, sels)])
             state.fault_events.n_dropped += int(drop_stack.sum())
-        self.last_executor = "fused_faulty" if self._faults_active else "fused"
-        if self._fused is None:
-            self._fused = FusedRounds(self)
-        light = self._fused.run_chunk(state, sels, fans, eoffs, drop_stack, cmask_stack)
+        m = len(sels[0])
+        if self.mesh is not None and self.pod_sharded_eligibility(m)[0]:
+            self.last_executor = "pod_sharded"
+            light = self._sharded_rounds(pods=True).run_chunk(state, sels, fans, eoffs,
+                                                              drop_stack)
+        elif self.mesh is not None and self.sharded_eligibility(m)[0]:
+            _check_full_tables(state)
+            self.last_executor = "sharded_fused"
+            light = self._sharded_rounds(pods=False).run_chunk(state, sels, fans, eoffs,
+                                                               drop_stack)
+        else:
+            _check_full_tables(state)
+            self.last_executor = "fused_faulty" if self._faults_active else "fused"
+            if self._fused is None:
+                self._fused = FusedRounds(self)
+            light = self._fused.run_chunk(state, sels, fans, eoffs, drop_stack, cmask_stack)
 
         n_quar_rounds = light.pop("n_quarantined", None)
         if n_quar_rounds is not None:
@@ -578,7 +750,8 @@ class FedEngine:
                     times = times * plan.delay_factors(sels[i])
                     o = self.cost_model.sync_overhead(self, sel_t, stats_b)
                     wall = float(np.max(times)) + o / max(state.tau, 1)
-                if len(sel_t) - int(n_quar_rounds[i]) <= 0:
+                n_quar_t = 0 if n_quar_rounds is None else int(n_quar_rounds[i])
+                if len(sel_t) - n_quar_t <= 0:
                     state.fault_events.n_empty_merges += 1
             cost = (self.cost_model.round_cost(self, state, sel_t, stats_b) if len(sel_t)
                     else CostMeter())
@@ -593,6 +766,11 @@ class FedEngine:
             if ctx.stop:
                 return True
         return False
+
+    def _sharded_rounds(self, *, pods: bool) -> ShardedRounds:
+        if pods not in self._sharded:
+            self._sharded[pods] = ShardedRounds(self, pods=pods)
+        return self._sharded[pods]
 
     def run_fused(self, state: EngineState) -> None:
         """Run every round through the fused executor, in chunks that end at

@@ -44,6 +44,7 @@ from repro_torch.core.fedais import TorchDraws, sync_gates
 from repro_torch.faults.fused import build_faulty_merge
 from repro_torch.federated.quant import quant_roundtrip
 from repro_torch.kernels.spmm.ops import block_spmm
+from repro_torch.sharding import comm
 
 # Per-round stats streamed out of a fused round: everything but the
 # (m, n_max) loss_all table, which the write-back puts into prev_loss, and
@@ -56,7 +57,10 @@ class FusedRounds:
     """The fused rounds of one engine (``FedEngine._fused``), bound to the
     ``EngineState`` of its current run. ``captures`` lists, per graph key
     captured, its key, the seconds the capture took and the SpMM launches
-    it recorded."""
+    (and collectives) it recorded."""
+
+    # no other thread touches the card while a fused round is captured
+    capture_error_mode = "global"
 
     def __init__(self, engine):
         self.engine = engine
@@ -68,7 +72,8 @@ class FusedRounds:
                 finite_guard=g is not None, max_norm=None if g is None else g.max_norm,
                 sync_dtype=engine.sync_dtype)
         self._state = self._draws = None
-        self._graphs: dict = {}      # graph key -> (CUDA graph, SpMM launches captured)
+        # graph key -> (CUDA graph, SpMM launches and collectives captured)
+        self._graphs: dict = {}
         self._inputs: dict = {}      # cohort size -> static input buffers
         self._pool = None
         self.captures: list = []
@@ -158,36 +163,43 @@ class FusedRounds:
     def _round(self, m: int, tau: int, eoff: int, fanouts) -> None:
         """Run one round: eagerly on the CPU and for a graph key's first
         round (which then captures the key), else by replay."""
+        key = (m, tuple(int(f) for f in fanouts), sync_gates(self.engine.mcfg, tau, eoff))
+        self._keyed(key, lambda: self._body(m, tau, eoff, fanouts))
+
+    def _keyed(self, key, body) -> None:
         if self.engine.device.type != "cuda":
-            self._body(m, tau, eoff, fanouts)
+            body()
             return
-        gates = sync_gates(self.engine.mcfg, tau, eoff)
-        key = (m, tuple(int(f) for f in fanouts), gates)
         if key in self._graphs:
-            graph, launches = self._graphs[key]
+            graph, launches, collectives = self._graphs[key]
             graph.replay()
             block_spmm.launches += launches
+            comm.add(collectives)
             return
-        self._body(m, tau, eoff, fanouts)
-        self._capture(key, m, tau, eoff, fanouts)
+        body()
+        self._capture(key, body)
 
-    def _capture(self, key, m: int, tau: int, eoff: int, fanouts) -> None:
-        """Record the body into a new graph of the shared pool, with the
-        draws' generator registered and the SpMM launches it recorded."""
+    def _capture(self, key, body) -> None:
+        """Record ``body`` into a new graph of the shared pool, with the
+        draws' generator registered, and the SpMM launches and collectives
+        it recorded."""
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._state.draws.gen)
-        before = block_spmm.captured
+        before, comm_before = block_spmm.captured, comm.snapshot(comm.CAPTURED)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self._pool):
-            self._body(m, tau, eoff, fanouts)
+        with torch.cuda.graph(graph, pool=self._pool,
+                              capture_error_mode=self.capture_error_mode):
+            body()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         if self._pool is None:
             self._pool = graph.pool()
         launches = block_spmm.captured - before
-        self._graphs[key] = (graph, launches)
-        self.captures.append({"key": [m, list(key[1]), list(key[2])], "seconds": seconds,
-                              "spmm_launches": launches})
+        collectives = comm.diff(comm.snapshot(comm.CAPTURED), comm_before)
+        self._graphs[key] = (graph, launches, collectives)
+        record = [list(k) if isinstance(k, tuple) else k for k in key]
+        self.captures.append({"key": record, "seconds": seconds, "spmm_launches": launches,
+                              "collectives": {k: list(v) for k, v in collectives.items()}})
 
     # -- a chunk ------------------------------------------------------------
 
@@ -230,4 +242,255 @@ class FusedRounds:
             at += width
         if self.faulty:
             out["n_quarantined"] = host[:, -1].astype(np.int64)
+        return out
+
+
+class ShardedRounds(FusedRounds):
+    """The sharded rounds of one engine on its mesh: client-sharded
+    (``pods=False``, executor ``"sharded_fused"``, ``sharding.fed``) or
+    pod-sharded (``pods=True``, ``"pod_sharded"``, ``sharding.tables``).
+
+    The same machinery as the fused rounds: static buffers bound to the
+    run's ``EngineState``, one round a body over them, on the card a CUDA
+    graph per key (the collectives captured inside it, NCCL's communicators
+    made by an eager collective on each group first), on the CPU the body
+    eagerly over gloo. The key adds the padded cohort size, and for pods
+    the write-back's bucket capacity; a round whose sync gate is off has
+    its own key, whose graph holds no ghost exchange. Captures run in
+    ``thread_local`` mode: NCCL's watchdog thread polls its events while a
+    graph is captured.
+
+    The client-sharded tables are the state's K-row tables with one
+    scratch row (the dummies' write-back); the pod-sharded ones are this
+    rank's pod shards (``rows_per_pod`` rows and a scratch row), and the
+    state then holds those shards (``EngineState.pod_shard``;
+    ``sharding.tables.gather_tables`` gives the K-row tables back).
+    ``round_log`` lists per round its sync gate, its write-back capacity
+    (pods) and its collectives, ``{tag: (calls, bytes)}``, replays
+    counted."""
+
+    capture_error_mode = "thread_local"
+
+    def __init__(self, engine, *, pods: bool):
+        import torch.distributed as dist
+
+        from repro_torch.sharding.fed import axis_index, axis_size
+        from repro_torch.sharding.tables import POD_AXIS
+
+        self.engine, self.pods, self.faulty = engine, pods, False
+        self._state = self._draws = None
+        self._graphs, self._inputs, self._pool = {}, {}, None
+        self.captures: list = []
+        self.round_log: list = []
+        mesh = engine.mesh
+        if pods:
+            P, C = axis_size(mesh, POD_AXIS), axis_size(mesh, "clients")
+            self.n_shards = P * C
+            self.shard = axis_index(mesh, POD_AXIS) * C + axis_index(mesh, "clients")
+            self.group = dist.group.WORLD
+            groups = (self.group, mesh.get_group(POD_AXIS), mesh.get_group("clients"))
+        else:
+            axis = engine.client_axis
+            self.n_shards, self.shard = axis_size(mesh, axis), axis_index(mesh, axis)
+            self.group = mesh.get_group(axis)
+            groups = (self.group,)
+        self._body_fn = None
+        if engine.device.type == "cuda":
+            # NCCL makes a communicator at a group's first collective, which
+            # a graph capture cannot hold: one eager collective per group
+            for g in groups:
+                dist.all_reduce(torch.zeros(1, device=engine.device), group=g)
+            torch.cuda.synchronize()
+
+    # -- binding ------------------------------------------------------------
+
+    def _bind(self, state) -> None:
+        """Make ``state``'s params and tables the rounds' buffers: the
+        client-sharded executor's K-row tables gain a scratch row, the
+        pod-sharded executor's become this rank's pod shards (with a scratch
+        row). A rebound table is copied back into its buffer."""
+        eng = self.engine
+        if eng.device.type == "cuda" and not isinstance(state.draws, TorchDraws):
+            raise ValueError(f"the sharded executors on CUDA replay a TorchDraws generator; "
+                             f"got {type(state.draws).__name__} (fused_eligibility)")
+        new_state = state is not self._state
+        if new_state or state.draws is not self._draws:
+            self._graphs, self._pool, self._draws = {}, None, state.draws
+        now = (state.hist.hist1, state.hist.age, state.hist.ghost_feat, state.prev_loss)
+        if new_state:
+            self._state, self._inputs = state, {}
+            self._params = {k: v.detach().clone() for k, v in state.params.items()}
+            if self.pods:
+                if state.pod_shard is not None:
+                    raise ValueError("the state's tables are pod shards of another run")
+                now = self._shard(now)
+            self._tables = tuple(torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
+                                 for t in now)
+            self._views = tuple(t[:-1] for t in self._tables)
+        else:
+            for view, cur in zip(self._views, now):
+                if cur is not view:
+                    view.copy_(cur)
+        for k, buf in self._params.items():
+            if state.params[k] is not buf:
+                buf.copy_(state.params[k])
+        state.params = self._params
+        hist1, age, ghost_feat, prev_loss = self._views
+        state.hist = state.hist._replace(hist1=hist1, age=age, ghost_feat=ghost_feat)
+        state.prev_loss = prev_loss
+        if self.pods:
+            state.pod_shard = self._pod_shard
+
+    def _shard(self, tables):
+        """This rank's pod shards of the K-row tables, and the engine's pod
+        statics (the ``POD_ARRAY_KEYS`` arrays and the ghost-source
+        features, from the bucketed owner exchange)."""
+        from repro_torch.federated.partition import (
+            exchange_ghost_features,
+            ghost_exchange_buckets,
+        )
+        from repro_torch.sharding.fed import axis_index, axis_size
+        from repro_torch.sharding.tables import (
+            POD_ARRAY_KEYS,
+            POD_AXIS,
+            build_pod_sharded_chunk,
+            pad_tables_to_pods,
+            shard_tables_to_mesh,
+        )
+
+        eng, fed, mesh, dev = self.engine, self.engine.fed, self.engine.mesh, self.engine.device
+        P = axis_size(mesh, POD_AXIS)
+        self.buckets = ghost_exchange_buckets(fed.ghost_owner, fed.ghost_row, fed.ghost_mask, P)
+        host = pad_tables_to_pods({k: torch.from_numpy(np.asarray(getattr(fed, k)))
+                                   for k in POD_ARRAY_KEYS}, P)
+        host["gsrc"] = torch.from_numpy(exchange_ghost_features(self.buckets, fed.features,
+                                                                dtype=eng.sync_dtype))
+        statics = {k: v.to(dev) for k, v in shard_tables_to_mesh(host, mesh).items()}
+        self._gsrc = statics.pop("gsrc")
+        self._statics = statics
+        self._pod_shard = (P, axis_index(mesh, POD_AXIS), self.buckets.rows_per_pod,
+                           fed.n_clients)
+        self._body_fn = build_pod_sharded_chunk(
+            eng._prefetched_cohort(), mesh, self.buckets, reduce=eng.merge_reduce,
+            sync_dtype=eng.sync_dtype, device=dev)
+        return shard_tables_to_mesh(pad_tables_to_pods(tuple(tables), P), mesh)
+
+    def _client_body(self):
+        if self._body_fn is None:
+            from repro_torch.sharding.fed import build_sharded_chunk
+
+            eng = self.engine
+            self._body_fn = build_sharded_chunk(eng._cohort, eng.mesh, eng.client_axis,
+                                                reduce=eng.merge_reduce,
+                                                sync_dtype=eng.sync_dtype)
+        return self._body_fn
+
+    # -- a chunk ------------------------------------------------------------
+
+    def _host_inputs(self, sel: np.ndarray, w: np.ndarray) -> tuple[dict, int | None]:
+        """The (rounds, ...) static inputs of a chunk's padded cohorts on
+        the host, and the write-back's bucket capacity (pods)."""
+        eng, lo = self.engine, self.shard * (sel.shape[1] // self.n_shards)
+        mL = sel.shape[1] // self.n_shards
+        out = {"w": w[:, lo:lo + mL], "w_all": w}
+        if not self.pods:
+            K = eng.fed.n_clients
+            out["rows"] = np.minimum(sel[:, lo:lo + mL], K - 1)     # JAX's gather clamp
+            out["dest"] = np.where(sel < K, sel, K)                  # dummies: scratch row
+            return out, None
+        from repro_torch.federated.partition import writeback_routing
+        from repro_torch.sharding.fed import axis_index, axis_size
+
+        P, p, rpp, _ = self._pod_shard
+        C = axis_size(eng.mesh, "clients")
+        owner = sel // rpp
+        out["local"] = np.clip(sel - owner * rpp, 0, rpp - 1)
+        out["own"] = (owner == p) & (axis_index(eng.mesh, "clients") == 0)
+        plan = writeback_routing(sel, P, C, rpp)
+        msl = sel.shape[1] // P
+        dst = plan.dst[:, p * msl:(p + 1) * msl].astype(np.int64)
+        pos = plan.pos[:, p * msl:(p + 1) * msl].astype(np.int64)
+        out["slot"] = np.where(dst < P, dst * plan.cap + pos, P * plan.cap)
+        out["tgt"] = plan.recv[:, p].reshape(sel.shape[0], -1).astype(np.int64)
+        return out, plan.cap
+
+    def run_chunk(self, state, sels, fans, eoffs, drop_stack=None, cmask_stack=None) -> dict:
+        """The client-sharded or pod-sharded rounds of a chunk (see
+        ``FusedRounds.run_chunk``). Under a fault plan (dropout and
+        stragglers only) the dropped members become dummies of weight 0
+        whose write-back lands nowhere; the light stats of every member
+        arrive in one all-gather per chunk (``light_stats_gather``)."""
+        from repro_torch.sharding.fed import cohort_padding, slice_streams
+        from repro_torch.sharding.tables import sync_round_gates
+
+        self._bind(state)
+        eng, dev = self.engine, self.engine.device
+        mcfg, fed = eng.mcfg, eng.fed
+        J, m, n = mcfg.local_epochs, len(sels[0]), len(sels)
+        dummy = self._pod_shard[0] * self._pod_shard[2] if self.pods else fed.n_clients
+        sel = np.stack([np.asarray(s, np.int64) for s in sels])
+        w = eng._cohort_weights(sel)
+        if drop_stack is not None and drop_stack.any():
+            w[drop_stack] = 0.0
+            sel[drop_stack] = dummy
+        pad = cohort_padding(m, self.n_shards)
+        fan = np.stack([np.asarray(f, np.int64) for f in fans])
+        if pad:
+            sel = np.pad(sel, ((0, 0), (0, pad)), constant_values=dummy)
+            fan = np.pad(fan, ((0, 0), (0, pad)), mode="edge")
+            w = np.pad(w, ((0, 0), (0, pad)))
+        m_pad = m + pad
+        mL = m_pad // self.n_shards
+        lo = self.shard * mL
+        host, cap = self._host_inputs(sel, w)
+        per_round = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                     for k, v in host.items()}
+        key_in = (m_pad, cap)
+        if key_in not in self._inputs:
+            self._inputs[key_in] = {k: torch.empty_like(v[0]) for k, v in per_round.items()}
+            self._inputs[key_in]["light"] = torch.zeros(mL * (J + 2), dtype=torch.float32,
+                                                        device=dev)
+        inp = self._inputs[key_in]
+        batch_shape = None if mcfg.use_all_samples else (fed.n_max,)
+        fanout_shape = (fed.n_max if mcfg.use_all_samples else eng.bsz, fed.max_deg)
+        gates = sync_round_gates(eoffs, state.tau, J,
+                                 enabled=mcfg.use_ghosts and not mcfg.use_generator)
+        light = torch.empty((n, inp["light"].numel()), dtype=torch.float32, device=dev)
+        n_sync = np.zeros((n, m), np.int32)
+        for i in range(n):
+            for k, v in per_round.items():
+                inp[k].copy_(v[i])
+            tau, eoff, fan_l = state.tau, int(eoffs[i]), fan[i, lo:lo + mL]
+            gate = bool(gates[i])
+
+            def body():
+                streams = slice_streams(state.draws, m, lo, lo + mL, local_epochs=J,
+                                        batch_shape=batch_shape, fanout_shape=fanout_shape,
+                                        device=dev)
+                if self.pods:
+                    stats = self._body_fn(self._params, self._tables, self._statics,
+                                          self._gsrc, inp, tau, fan_l, eoff, streams, gate)
+                else:
+                    stats = self._client_body()(self._params, self._tables, state.arrays,
+                                                inp, tau, fan_l, eoff, streams)
+                inp["light"].copy_(torch.cat([stats[k].reshape(-1) for k in LIGHT_STATS]))
+
+            before = comm.snapshot()
+            key = (m, m_pad, tuple(int(f) for f in fan[i]),
+                   sync_gates(mcfg, tau, eoff), cap)
+            self._keyed(key, body)
+            self.round_log.append({"gate": gate, "cap": cap,
+                                   "collectives": comm.diff(comm.snapshot(), before)})
+            light[i].copy_(inp["light"])
+            n_sync[i] = sum(sync_gates(mcfg, tau, eoff))
+        # (shards, rounds, mL * (J + 2)) -> each round's stats of the padded
+        # cohort in shard order -> the real cohort's
+        every = comm.all_gather(light, self.group, "light_stats_gather").cpu().numpy()
+        every = every.reshape(self.n_shards, n, -1)
+        out, at = {"n_sync": n_sync}, 0
+        for k, tail in zip(LIGHT_STATS, ((J,), (), ())):
+            width = mL * int(np.prod(tail))
+            part = every[:, :, at:at + width].reshape((self.n_shards, n, mL) + tail)
+            out[k] = np.concatenate(list(part), axis=1)[:, :m]
+            at += width
         return out

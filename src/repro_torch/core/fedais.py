@@ -23,10 +23,14 @@ in production; the tests pass one that replays the reference's key chain),
 so the discrete decisions are exact against the reference given the same
 uniforms.
 
-``sync_dtype`` is the ghost pull's wire format
-(``repro_torch.federated.quant``): the pulled rows round-trip through the
-codec, ``"fp32"`` takes no codec at all. Still to port:
-``ghost_source="prefetched"`` (the pod-sharded executor, ROADMAP A7).
+``ghost_source`` picks where the sync reads its ghost rows: ``"tables"``
+(the default) gathers them from the round-start snapshots of every client's
+features and layer-1 table; ``"prefetched"`` (the pod-sharded executor,
+``sharding.tables``) takes each client's rows as the exchange delivered
+them. ``sync_dtype`` is the ghost pull's wire format
+(``repro_torch.federated.quant``): in ``"tables"`` mode the pulled rows
+round-trip through the codec here, ``"fp32"`` takes no codec at all; in
+``"prefetched"`` mode the rows arrive decoded from the wire already.
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core.historical import pull_ghosts, push_embeddings
+from repro_torch.core.historical import pull_ghosts, pull_ghosts_prefetched, push_embeddings
 from repro_torch.core.importance import (
     importance_probs,
     loss_delta_scores,
@@ -105,6 +109,60 @@ class TorchDraws:
         return torch.rand(shape, generator=self.gen, device=self.device)
 
 
+class ReplayStream:
+    """One cohort member's draw stream over uniforms drawn beforehand:
+    ``epochs`` holds (batch uniforms or None, fanout uniforms) per local
+    epoch, handed out in order; a shape other than the one drawn raises."""
+
+    def __init__(self, epochs):
+        self._epochs = iter(epochs)
+
+    def epoch(self) -> "_ReplayEpoch":
+        return _ReplayEpoch(*next(self._epochs))
+
+
+class _ReplayEpoch:
+    def __init__(self, batch, fanout):
+        self._batch, self._fanout = batch, fanout
+
+    def batch_uniform(self, shape) -> torch.Tensor:
+        if self._batch is None or tuple(self._batch.shape) != tuple(shape):
+            got = None if self._batch is None else tuple(self._batch.shape)
+            raise ValueError(f"batch_uniform{tuple(shape)}: drew {got}")
+        return self._batch
+
+    def fanout_uniform(self, shape) -> torch.Tensor:
+        if tuple(self._fanout.shape) != tuple(shape):
+            raise ValueError(f"fanout_uniform{tuple(shape)}: drew "
+                             f"{tuple(self._fanout.shape)}")
+        return self._fanout
+
+
+class RecordedDraws:
+    """A draw provider replaying uniforms given as host arrays, one entry of
+    ``rounds`` per ``clients(m)`` call: ``(batch, fanout)`` with ``batch``
+    (m, J, n_max) or None (the methods that draw no batch) and ``fanout``
+    (m, J, rows, max_deg). A process that cannot make another provider's
+    draws (a rank of a sharded run replaying the reference's key chain) is
+    given them this way."""
+
+    def __init__(self, rounds, device):
+        self.device = torch.device(device)
+        self._rounds = iter(rounds)
+
+    def clients(self, m: int) -> list:
+        batch, fanout = next(self._rounds)
+        if fanout.shape[0] != m:
+            raise ValueError(f"recorded draws hold {fanout.shape[0]} members, asked for {m}")
+        dev = self.device
+
+        def t(x):
+            return None if x is None else torch.as_tensor(np.asarray(x), device=dev)
+
+        return [ReplayStream([(None if batch is None else t(batch[i, j]), t(fanout[i, j]))
+                              for j in range(fanout.shape[1])]) for i in range(m)]
+
+
 def sync_gates(mcfg: MethodConfig, tau: int, epoch_offset: int) -> tuple:
     """Which of a LocalUpdate's J epochs pull the ghosts: every ``tau``-th
     global batch epoch ``(epoch_offset + j) % tau == 0``, for the methods
@@ -128,8 +186,11 @@ def ghost_need(nbr_rows: torch.Tensor, nbr_mask: torch.Tensor, keep: torch.Tenso
     return need * ghost_mask
 
 
+GHOST_SOURCES = ("tables", "prefetched")
+
+
 def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "gather",
-                      sync_dtype: str = "fp32"):
+                      sync_dtype: str = "fp32", ghost_source: str = "tables"):
     """The LocalUpdate for one client (Algorithm 1 lines 10-19). The
     reference's ``g_max`` and ``h1_dim`` come from the tensors here.
 
@@ -137,7 +198,14 @@ def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "g
     ``gcn_batch_forward`` calls (the loss pass and the training step):
     ``gather``, ``segment`` or ``spmm`` (the SpMM kernel, whose backward is
     its transposed launch). ``sync_dtype`` is the ghost pull's wire format.
+    With ``ghost_source="prefetched"`` the arguments ``feats_all`` and
+    ``hist1_all`` carry this client's own (g_max, F) and (g_max, H1) ghost
+    source rows, pre-gathered (the same round-start values), and the pull
+    applies no second codec round-trip.
     """
+    if ghost_source not in GHOST_SOURCES:
+        raise ValueError(f"unknown ghost_source {ghost_source!r}; "
+                         "known: tables | prefetched")
     if train_backend not in AGG_BACKENDS:
         raise ValueError(f"unknown train_backend {train_backend!r}; "
                          f"known: {AGG_BACKENDS}")
@@ -148,7 +216,9 @@ def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "g
         params: dict,               # global model from the server
         client: dict,               # this client's slice of the stacked arrays
         feats_all: torch.Tensor,    # (K, n_max, F) ghost pull source
+                                    #   [prefetched: (g_max, F) source rows]
         hist1_all: torch.Tensor,    # (K, n_tot, H1) ghost pull source (snapshot)
+                                    #   [prefetched: (g_max, H1) source rows]
         hist1: torch.Tensor,        # (n_tot, H1) this client's table
         age: torch.Tensor,          # (n_tot,)
         ghost_feat: torch.Tensor,   # (g_max, F) current synced ghost features
@@ -203,9 +273,12 @@ def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "g
             if gates[j]:
                 need = ghost_need(b_nbr_idx, b_nbr_mask, keep, valid,
                                   client["ghost_mask"], n_max)
-                gf, gh = pull_ghosts(hist1_all, feats_all, client["ghost_owner"],
-                                     client["ghost_row"], client["ghost_mask"])
-                if sync_dtype != "fp32":
+                if ghost_source == "tables":
+                    gf, gh = pull_ghosts(hist1_all, feats_all, client["ghost_owner"],
+                                         client["ghost_row"], client["ghost_mask"])
+                else:
+                    gf, gh = pull_ghosts_prefetched(feats_all, hist1_all, client["ghost_mask"])
+                if sync_dtype != "fp32" and ghost_source == "tables":
                     gf = quant_roundtrip(gf, sync_dtype)
                     gh = quant_roundtrip(gh, sync_dtype)
                 pulled = need[:, None] > 0
@@ -247,18 +320,23 @@ def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "g
 
 
 def make_cohort_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "gather",
-                       sync_dtype: str = "fp32"):
-    """The cohort-stacked LocalUpdate (the reference's ``make_vmapped_update``
-    with ``ghost_source="tables"``): per-client arguments carry a leading
-    cohort axis, ``params``, ``feats_all``, ``hist1_all``, ``tau`` and
-    ``epoch_offset`` are shared, ``fanouts`` and ``streams`` have one entry
-    per client. Returns ``(params, hist1, age, ghost_feat, stats)``, each
-    stacked over the cohort (``stats["n_sync"]`` a host int32 array)."""
-    one = make_local_update(mcfg, n_max, train_backend=train_backend, sync_dtype=sync_dtype)
+                       sync_dtype: str = "fp32", ghost_source: str = "tables"):
+    """The cohort-stacked LocalUpdate (the reference's ``make_vmapped_update``):
+    per-client arguments carry a leading cohort axis, ``params``, ``tau``
+    and ``epoch_offset`` are shared, ``fanouts`` and ``streams`` have one
+    entry per client. ``feats_all`` and ``hist1_all`` are shared under
+    ``ghost_source="tables"`` and per client (a leading cohort axis) under
+    ``"prefetched"``. Returns ``(params, hist1, age, ghost_feat, stats)``,
+    each stacked over the cohort (``stats["n_sync"]`` a host int32 array)."""
+    one = make_local_update(mcfg, n_max, train_backend=train_backend, sync_dtype=sync_dtype,
+                            ghost_source=ghost_source)
+    per_client = ghost_source == "prefetched"
 
     def cohort_update(params, clients, feats_all, hist1_all, hist1, age, ghost_feat,
                       prev_loss, tau, fanouts, epoch_offset, streams):
-        outs = [one(params, {k: v[i] for k, v in clients.items()}, feats_all, hist1_all,
+        outs = [one(params, {k: v[i] for k, v in clients.items()},
+                    feats_all[i] if per_client else feats_all,
+                    hist1_all[i] if per_client else hist1_all,
                     hist1[i], age[i], ghost_feat[i], prev_loss[i], tau, int(fanouts[i]),
                     epoch_offset, streams[i])
                 for i in range(len(streams))]

@@ -19,11 +19,15 @@ then writes the schema-checked ledger (``--out``, by default
 
     PYTHONPATH=src python -m repro_torch.launch.fed_chaos --quick --device cpu
 
-The reference's third step, a dropout scenario through the client-sharded
-executor when two or more devices exist, needs ``FedEngine(mesh=...)``,
-which the port does not have yet (ROADMAP A7): the script says so in one
-line and runs the rest. The device is ``cuda:0`` unless ``--device`` names
-another; the poisoned features are written into the model's feature
+When two or more ranks run it (``torchrun --nproc-per-node N -m
+repro_torch.launch.fed_chaos``, or ``run_sharded_rows`` on the ranks of a
+``sharding.ranks.RankPool``), it adds the reference's third step: a
+baseline and a dropout scenario through the client-sharded executor
+(``FedEngine(mesh=...)`` on a ``("clients",)`` mesh over every rank,
+NCCL on the card and gloo with ``--device cpu``; rank 0 writes the
+ledger). On one rank it says in one line that it skips them. The device is
+``cuda:0`` (each rank's own card under ``torchrun``) unless ``--device``
+names another; the poisoned features are written into the model's feature
 buffer in place (and restored in place), since the query engine's CUDA
 graphs read that buffer.
 
@@ -210,7 +214,7 @@ def _dataset(args):
 
 
 def run_one(g, fed, args, plan, make_sched, *,
-            baseline_acc: float = float("nan")) -> dict:
+            baseline_acc: float = float("nan"), mesh=None) -> dict:
     """One (scenario, scheduler) cell: train under the plan, report the
     degradation row. A crash is caught and reported, never propagated."""
     import torch
@@ -236,7 +240,7 @@ def run_one(g, fed, args, plan, make_sched, *,
         engine = FedEngine(g, fed, args.method, rounds=args.rounds,
                            clients_per_round=args.cohort, seed=args.seed,
                            eval_every=args.rounds, scheduler=make_sched(),
-                           faults=plan, guard=guard, device=args.device)
+                           faults=plan, guard=guard, device=args.device, mesh=mesh)
         state = engine.init_state()
         result = engine.run(state)
         row.update(
@@ -287,9 +291,45 @@ def run_matrix(args) -> tuple[list, int]:
                   f"acc={row['final_acc']:.3f} (delta {row['acc_delta']:+.3f}) "
                   f"rounds={row['rounds_completed']} "
                   f"executor={row['executor']} faults={row['faults']}")
-    print("# sync_sharded: not run, the client-sharded executor "
-          "(FedEngine(mesh=...)) is not ported yet (ROADMAP A7)")
+    if _world_size() >= 2:
+        shard_rows, shard_crashes = run_sharded_rows(g, fed, args)
+        rows += shard_rows
+        crashes += shard_crashes
+    else:
+        print("# sync_sharded: not run, one rank (the client-sharded executor needs two "
+              "or more: torchrun --nproc-per-node N)")
     return rows, crashes
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def run_sharded_rows(g, fed, args) -> tuple[list, int]:
+    """The client-sharded rows, on every rank of the default process group:
+    a fault-free baseline and a dropout + straggler scenario (the sharded
+    executors carry dropout as zero-weight dummies; corruption needs the
+    guard, which they refuse) through ``FedEngine(mesh=...)`` on a
+    ``("clients",)`` mesh over every rank (a cohort that does not split
+    over the ranks is padded). Returns (rows, crashes)."""
+    from repro_torch.faults import FaultPlan
+    from repro_torch.sharding.fed import make_client_mesh
+
+    mesh = make_client_mesh(device=args.device)
+    sync_fused = _schedulers(args)["sync_fused"]
+    base = run_one(g, fed, args, None, sync_fused, mesh=mesh)
+    base.update(scenario="baseline", scheduler="sync_sharded",
+                baseline_acc=base["final_acc"], acc_delta=0.0)
+    plan = FaultPlan(seed=args.seed + 7, dropout=0.3, straggler_frac=0.25)
+    row = run_one(g, fed, args, plan, sync_fused, mesh=mesh,
+                  baseline_acc=base["final_acc"])
+    row.update(scenario=plan.describe(), scheduler="sync_sharded")
+    print(f"# sync_sharded  {plan.describe():24s} "
+          f"acc={row['final_acc']:.3f} executor={row['executor']} "
+          f"faults={row['faults']}")
+    return [base, row], int(base["crashed"]) + int(row["crashed"])
 
 
 def run_serve_chaos(args) -> tuple[dict, dict]:
@@ -348,14 +388,34 @@ def run_serve_chaos(args) -> tuple[dict, dict]:
     return serve, ckpt
 
 
+def _join_ranks(args) -> int:
+    """Under ``torchrun`` (``WORLD_SIZE`` > 1) join its process group: NCCL
+    on each rank's card, gloo with ``--device cpu``. Returns this rank."""
+    import torch
+    import torch.distributed as dist
+
+    if int(os.environ.get("WORLD_SIZE", "1")) < 2 or dist.is_initialized():
+        return dist.get_rank() if dist.is_initialized() else 0
+    if args.device == "cpu":
+        dist.init_process_group("gloo", init_method="env://")
+    else:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        args.device = f"cuda:{torch.cuda.current_device()}"
+        dist.init_process_group("nccl", init_method="env://")
+    return dist.get_rank()
+
+
 def main(argv=None) -> int:
     args = build_args(argv)
+    if _join_ranks(args) != 0:
+        run_matrix(args)            # the sharded rows need every rank
+        return 0
     rows, crashes = run_matrix(args)
     serve, ckpt = run_serve_chaos(args)
     deltas = [r["acc_delta"] for r in rows if math.isfinite(r["acc_delta"])]
     payload = {
         "bench": "fault_tolerance",
-        "devices": 1,
+        "devices": _world_size(),
         "quick": bool(args.quick),
         "seed": args.seed,
         "dataset": args.dataset,

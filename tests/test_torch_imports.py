@@ -200,3 +200,64 @@ def test_chip_smoke_refuses_without_a_checkout_or_card(tmp_path):
                          env=dict(os.environ, PYTHONPATH=""))
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+SHARDING = ("sharding", "sharding.comm", "sharding.fed", "sharding.tables", "sharding.ledger",
+            "sharding.ranks")
+
+
+def test_the_glob_covers_the_sharding_modules():
+    """``test_no_jax_or_reference_imports`` globs the port: the multi-device
+    executors' modules are among its cases."""
+    found = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    for name in SHARDING:
+        rel = name.replace(".", "/") + ("/__init__.py" if name == "sharding" else ".py")
+        assert rel in found, rel
+
+
+@pytest.mark.parametrize("name", SHARDING + ("api.fused", "api.engine", "launch.fed_chaos"))
+def test_sharding_modules_stand_alone(name):
+    """The multi-device executors' modules import without jax, the
+    reference and msgpack, and touch no process group at import."""
+    path = PORT.joinpath(*name.split(".")).with_suffix(".py")
+    if not path.exists():
+        path = PORT.joinpath(*name.split("."), "__init__.py")
+    assert path.is_file(), name
+    assert not (_imported_roots(path) & set(FORBIDDEN)), name
+    code = f"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["msgpack"] = None
+import importlib
+importlib.import_module("repro_torch.{name}")
+import torch.distributed as dist
+assert not dist.is_initialized()
+assert not [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_sharded_entry_points_never_fall_back(monkeypatch):
+    """The rank launcher defaults to the card (NCCL) and raises without
+    CUDA; an engine on the CPU refuses a mesh whose ranks run on the card."""
+    from types import SimpleNamespace
+
+    from repro_torch.api import FedEngine
+    from repro_torch.federated.partition import partition_graph
+    from repro_torch.graph.data import make_dataset
+    from repro_torch.sharding.ranks import RankPool
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RankPool(2)
+    g = make_dataset("pubmed", scale=64, seed=0)
+    fed = partition_graph(g, 3, alpha=0.5, seed=0)
+    mesh = SimpleNamespace(mesh_dim_names=("clients",), device_type="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FedEngine(g, fed, "fedais", rounds=1, mesh=mesh)
+    with pytest.raises(ValueError, match="device"):
+        FedEngine(g, fed, "fedais", rounds=1, mesh=mesh, device="cpu")

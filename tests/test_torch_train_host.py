@@ -111,13 +111,19 @@ def test_registry_matches_the_reference():
 
 
 def test_engine_refuses_what_is_not_ported(small_fed):
-    """Only the mesh (ROADMAP A7) is still refused; the guard and the fault
-    plan are taken and checked as the reference checks them, and the fused
-    executor runs when asked for (tests/test_torch_fused.py holds it)."""
+    """Nothing of the engine is refused any more: a mesh is taken (the
+    sharded executors, tests/test_torch_sharding.py) and checked, as the
+    guard and the fault plan are, as the reference checks them, and the
+    fused executor runs when asked for (tests/test_torch_fused.py)."""
+    from types import SimpleNamespace
+
     g = make_dataset("pubmed", scale=32, seed=0)
     fed = partition_graph(g, 8, alpha=0.5, seed=0)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         FedEngine(g, fed, "fedais", device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="clients"):
+        FedEngine(g, fed, "fedais", device="cpu",
+                  mesh=SimpleNamespace(mesh_dim_names=("x", "y"), device_type="cpu"))
     for kw, word in (({"guard": "yes please"}, "guard"), ({"faults": object()}, "faults")):
         with pytest.raises(ValueError, match=word):
             FedEngine(g, fed, "fedais", device="cpu", **kw)
