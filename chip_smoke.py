@@ -16,8 +16,10 @@ random weights from a seed:
   ``QueryEngine`` → ``LoadGenerator`` (the SpMM kernel; each (body,
   bucket) a CUDA graph, replayed);
 * LM serving: ``rwkv6-1.6b`` and ``gemma3-12b`` at full width (24 and 48
-  layers, bf16) through ``launch.serve_lm_cli.serve``: a prefill of 4 x
-  2,048 prompt tokens, then 32 greedy tokens (WKV6 and flash attention);
+  layers, bf16), Griffin's ``recurrentgemma-2b`` whole (26 layers) and the
+  MoE ``dbrx-132b`` at full width with 2 of its 40 layers, through
+  ``launch.serve_lm_cli.serve``: a prefill of 4 x 2,048 prompt tokens,
+  then 32 greedy tokens (WKV6 and flash attention);
 * FedAIS training: the same pubmed graph over 10 clients (Dirichlet alpha
   0.5: n_max 4,370, g_max 12,374), 5 a round, J = 4 local epochs, batch
   256, fanout 10, GraphSAGE 256/128, 3 rounds through
@@ -40,7 +42,10 @@ random weights from a seed:
 * the multi-device executors: ``FedEngine(..., mesh=...)`` on a one-rank
   NCCL group (the card is the whole world), the client-sharded and the
   pod-sharded round, each a CUDA graph per key with its collectives
-  inside, on the training configuration.
+  inside, on the training configuration;
+* the examples: ``examples.quickstart`` (FedAIS against FedAll) and
+  ``examples.variance_analysis`` (Eq. 3-5 and Eq. 7), their aggregation
+  on the SpMM kernel.
 
 Phases, one or more lines each:
   1 device      the card (nvidia-smi name and power limit), torch and CUDA
@@ -94,21 +99,34 @@ Phases, one or more lines each:
                 bf16 attention also at hd 128 (ragged S), non-causal hd 240
                 and an hd that is not a multiple of 8, so each width of
                 the tensor-core kernel and the FMA kernel's bf16 instance
-                (the layouts TMA cannot take) are held;
+                (the layouts TMA cannot take) are held; attention at the
+                new families' shapes in bf16 and fp32: recurrentgemma-2b's
+                local blocks (B 4, S 4,096, H 10, Hkv 1, hd 256, window
+                2,048: the window bites) and dbrx-132b's (B 4, S 2,048, H
+                48, Hkv 8, hd 128, causal);
   8 lm-serve    ``serve`` for each LM: prefill ms, decode tokens/s, peak
                 memory, and the launches over the prefill (24 WKV6 for
-                rwkv6-1.6b, 48 flash attention for gemma3-12b);
+                rwkv6-1.6b, 48 flash attention for gemma3-12b, 8 for
+                recurrentgemma-2b's local blocks, 2 for dbrx-132b at 2
+                layers; nothing else: ``rec`` blocks and MoE FFNs launch
+                no kernel of the port);
   9 lm-check    at full width, block by block, each block's kernel path
                 against its plain path on the same input on the card (output
-                and decode state, relative L2 ``TOL_BLOCK_REL``), and the
+                and decode state, relative L2 ``TOL_BLOCK_REL``; an MoE
+                block's attention output and its output over the tokens
+                both paths route alike, the tokens routed differently
+                under ``MAX_REROUTED_SHARE``), and the
                 whole plain-path prefill against the kernel path's, and
                 beside it the plain path against itself with one bf16 ulp
-                flipped in as many of the first block's outputs as the
-                kernel path changed (both recorded: they measure how far
-                the stack carries a rounding difference); at the smoke
-                configurations (fp32), the
-                card's kernel path against the plain path on the CPU
-                (prefill and 4 decode steps, 1e-4);
+                flipped in as many of the first changed block's outputs as
+                the kernel path changed (both recorded: they measure how far
+                the stack carries a rounding difference); the same for
+                recurrentgemma-2b (``rec`` blocks, ``local`` at hd 256),
+                dbrx-132b at 2 layers and arctic-480b at 1 (MoE ``attn``
+                blocks; arctic's with its dense residual); at the smoke
+                configurations (fp32) of the eight archs the port runs
+                and of ``mini``, the card's kernel path against the plain
+                path on the CPU (prefill and 4 decode steps, 1e-4);
   10 train      ``FedEngine.run()`` twice from one seed, through the fused
                 executor (rounds after a graph key's first replayed): the
                 SpMM launched exactly rounds x (m·(2 + 3J) + 2) times (a
@@ -182,12 +200,20 @@ Phases, one or more lines each:
                 ``FaultPlan(seed=78, dropout=0.2, straggler_frac=0.3)``
                 ``sharded_fused`` against ``fused_faulty`` (discrete
                 columns and ``FaultCounters`` equal, a dropped client's
-                rows unchanged to the bit).
+                rows unchanged to the bit);
+  15 examples   ``examples.quickstart --backend spmm`` (its own Pubmed at
+                1/32, 16 clients, 5 a round) for 5 rounds, FedAIS and
+                FedAll: finite histories, accuracies, comm bytes, tau;
+                ``examples.variance_analysis --backend spmm`` on the whole
+                Pubmed with 4 noise draws: the error is ~0 without
+                staleness and grows with it, and importance sampling's
+                Eq. 7 objective is below uniform's; each launches the
+                SpMM kernel and nothing else.
 The SpMM's launch counter is set to 0 just before phase 4 and read just
 after phase 5; every counter is set to 0 just before each ``serve`` of
 phase 8, each ``run`` of phases 10, 11, 12 and 14 (the collective counts
-too), each pipeline of phase 13 and its chaos matrix, and read just after
-it.
+too), each pipeline of phase 13 and its chaos matrix, and each example of
+phase 15, and read just after it.
 ``--profile`` traces a second traffic run after phase 6, one prefill + 4
 decode steps of each LM in phase 9, one steady training round replayed
 from its CUDA graph in phase 10 and one stepwise in phase 12 (the host's
@@ -246,8 +272,26 @@ ATOL_BF16_WKV_Y = 1e-2
 # then: more often where the recurrence's y is a small sum of large
 # cancelling terms; the block's norms carry that on into its output
 TOL_BLOCK_REL = 1e-2
+# an MoE block routes each token discretely: where the attention's one-ulp
+# differences move a token's router scores across a tie (or its rank across
+# an expert's capacity), the two paths route it differently and its output
+# differs by a whole expert's share. Such tokens are counted and must stay
+# under this share of the block's tokens; the rest of the block is held at
+# TOL_BLOCK_REL
+MAX_REROUTED_SHARE = 1e-2
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 LM_ARCHS = ("rwkv6-1.6b", "gemma3-12b")
+# the Griffin and MoE families at full width, each with the layer count one
+# card holds (None: the whole model). recurrentgemma-2b runs whole (26
+# layers, 2.89 B params); dbrx-132b (131.6 B) at 2 layers (7.75 B);
+# arctic-480b (476.9 B) at 1 layer (14.07 B), checked block by block only
+LM_FAMILIES_SERVE = (("recurrentgemma-2b", None), ("dbrx-132b", 2))
+LM_FAMILIES_CHECK = (("recurrentgemma-2b", None), ("dbrx-132b", 2), ("arctic-480b", 1))
+LM_FAMILIES_SMOKE = ("recurrentgemma-2b", "dbrx-132b", "arctic-480b", "deepseek-67b",
+                     "llama3-405b", "nemotron-4-15b")
+# the examples (phase 15): the quickstart at its own defaults for a few
+# rounds, the variance analysis on the whole Pubmed with several noise draws
+EXAMPLE_ROUNDS, VARIANCE_SCALE, VARIANCE_DRAWS = 5, 1, 4
 # FedAIS training: the paper's Pubmed over 10 clients, 5 a round, J = 4
 TRAIN_CLIENTS, TRAIN_M, TRAIN_ROUNDS = 10, 5, 3
 # the method space (phase 11): rounds per method and per quantized run, the
@@ -729,15 +773,30 @@ def profile_lm(torch, lm, params, cfg, prompts, max_len, top: int = 8) -> dict:
     return {"prefill": pre, "decode_4_steps": dec}
 
 
-def lm_serve(torch, serve, counters, cfg, dev, tag, batch, prompt, gen) -> dict:
+def full_width(get_config, arch, n_layers):
+    """(config, reduction): the full config, with ``n_layers`` layers when
+    one card cannot hold the whole model (``dataclasses.replace``)."""
+    import dataclasses
+
+    cfg = get_config(arch)
+    if n_layers is None:
+        return cfg, None
+    return (dataclasses.replace(cfg, n_layers=n_layers),
+            f"n_layers {cfg.n_layers} -> {n_layers} ({cfg.param_count():,} -> "
+            f"{dataclasses.replace(cfg, n_layers=n_layers).param_count():,} params)")
+
+
+def lm_serve(torch, serve, counters, cfg, dev, tag, batch, prompt, gen,
+             reduced=None) -> dict:
     """Phase 8 for one model: ``serve`` at full width with every launch
     counter set to 0 just before and read just after; the prefill must
     launch the WKV6 kernel once per ``rwkv`` block and flash attention once
-    per ``attn``/``local`` block, and nothing else."""
+    per ``attn``/``local`` block, and nothing else (``rec`` blocks and MoE
+    FFNs launch no kernel of the port)."""
     kinds = list(cfg.block_pattern) * cfg.n_units + list(cfg.remainder_pattern)
     want = {n: 0 for n in counters}
     want["wkv6"] = kinds.count("rwkv")
-    want["flash_attention"] = len(kinds) - kinds.count("rwkv")
+    want["flash_attention"] = sum(k in ("attn", "local") for k in kinds)
     args = argparse.Namespace(arch=cfg.arch_id, batch=batch, prompt_len=prompt, gen=gen,
                               seed=0, device=str(dev))
     torch.cuda.reset_peak_memory_stats()
@@ -753,32 +812,76 @@ def lm_serve(torch, serve, counters, cfg, dev, tag, batch, prompt, gen) -> dict:
         raise AssertionError(f"lm-serve {cfg.arch_id}: tokens {tuple(toks.shape)} or out "
                              "of the vocabulary")
     log(f"phase 8 lm-serve: {tag}: {cfg.arch_id} ({cfg.param_count():,} params, "
-        f"{cfg.dtype}) batch {batch} prompt {prompt} gen {gen}: prefill "
+        f"{cfg.dtype}{'; reduced ' + reduced if reduced else ''}) batch {batch} prompt "
+        f"{prompt} gen {gen}: prefill "
         f"{out['prefill_s'] * 1e3} ms, decode {out['decode_tok_s']} tokens/s, peak memory "
         f"{peak_gb} GB; launches over the prefill {json.dumps(got)}")
     if got != want:
         raise AssertionError(f"lm-serve {cfg.arch_id}: launches {got}, want {want}")
-    return {"params": cfg.param_count(), "batch": batch, "prompt": prompt, "gen": gen,
+    return {"params": cfg.param_count(), "reduced": reduced, "batch": batch,
+            "prompt": prompt, "gen": gen,
             "prefill_ms": out["prefill_s"] * 1e3, "decode_tok_s": out["decode_tok_s"],
             "peak_gb": peak_gb, "launches": got}
 
 
-def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile) -> dict:
+def moe_split(torch, cfg, bp, kind, h, out_k, out_p) -> dict:
+    """An MoE block's kernel path (``out_k``) against its plain path
+    (``out_p``) on the input ``h``, in two halves: the attention's output
+    (what the kernel computes) and the block's output over the tokens both
+    paths route alike (the same experts, the same kept pairs). Also the
+    number routed differently and the whole block's error."""
+    from repro_torch.models import attention, moe
+    from repro_torch.models.layers import rmsnorm
+
+    akind = "local" if kind == "local" else "causal"
+
+    def ffn_input(use_kernel):
+        return h + attention.multihead_attn(bp["attn"], cfg, h, kind=akind,
+                                            use_kernel=use_kernel)
+
+    def decisions(x):
+        hn = rmsnorm(bp["ffn"]["ln"], x, cfg.norm_eps).reshape(-1, cfg.d_model)
+        _, _, top_i, _ = moe.route(bp["ffn"]["moe"], cfg, hn)
+        T = hn.shape[0]
+        order, _, keep = moe.sort_dispatch(top_i, moe.capacity(T, cfg), cfg.n_experts)
+        kept = torch.empty_like(keep)
+        kept[order] = keep
+        return top_i, kept.reshape(T, cfg.top_k)
+
+    x_k, x_p = ffn_input(True), ffn_input(False)
+    (ti_k, kp_k), (ti_p, kp_p) = decisions(x_k), decisions(x_p)
+    alike = ((ti_k == ti_p) & (kp_k == kp_p)).all(-1)
+    d = cfg.d_model
+    return {"attn_rel_err": rel_err(torch, x_k, x_p),
+            "routed_alike_rel_err": rel_err(torch, out_k.reshape(-1, d)[alike],
+                                            out_p.reshape(-1, d)[alike]),
+            "block_rel_err": rel_err(torch, out_k, out_p), "tokens": int(alike.numel()),
+            "routed_differently": int((~alike).sum()),
+            "dropped_pairs": int((~kp_k).sum())}
+
+
+def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile,
+                  reduced=None) -> dict:
     """Phase 9 at full width, on the weights and prompts ``serve`` drew
     (seed 0).
 
     Gated, block by block: the prefill runs along the kernel path, and at
     every block the same input also goes through the block's plain path;
-    the block's output and its decode state (S, ``x_tm``, ``x_cm`` or the
-    K/V) must agree within ``TOL_BLOCK_REL`` (relative L2). Then the last
-    logits of that walk must equal those of ``lm_prefill``.
+    the block's output and its decode state (S, ``x_tm``, ``x_cm``, ``h``
+    and ``conv`` or the K/V) must agree within ``TOL_BLOCK_REL`` (relative
+    L2). An MoE block is held in two halves (``moe_split``): its attention
+    output and its output over the tokens both paths route alike, each
+    within ``TOL_BLOCK_REL``, and the tokens routed differently under
+    ``MAX_REROUTED_SHARE``; its whole output's error is recorded. Then the
+    last logits of that walk must equal those of ``lm_prefill``.
 
     Recorded, no gate: the first prefill after the init (allocations
     included) and the steady state (the median of three more); the whole
     prefill along the plain path against the kernel path's; and, as its
     witness, the plain path against itself with one bf16 ulp flipped in a
-    random share of the first block's output, the share of that output in
-    which the kernel path differs from the plain path. If the witness diverges as far as the kernel path does, the stack
+    random share of the output of the first block the kernel path changes,
+    the share of that output in which the kernel path differs from the
+    plain path. If the witness diverges as far as the kernel path does, the stack
     (random bf16 weights) amplifies any one-ulp difference, and the
     end-to-end number measures the model, not a kernel.
 
@@ -791,8 +894,10 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
               for i, kind in enumerate(cfg.block_pattern)]
     blocks += [(f"rem.b{i}", params["rem"][f"b{i}"], kind)
                for i, kind in enumerate(cfg.remainder_pattern)]
-    errs = {}
+    errs, whole, moe_rows = {}, {}, {}
+    by_kind: dict = {}
     first_plain = flip_frac = None
+    first_idx = 0
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -809,17 +914,29 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
             steady.append((time.perf_counter() - ts) * 1e3)
         t_walk = time.perf_counter()
         h = params["embed"][prompts]
-        for name, bp, kind in blocks:
+        for bi, (name, bp, kind) in enumerate(blocks):
             out_k, _, sk = lm.apply_block_full(bp, cfg, kind, h, collect_state=True)
             out_p, _, sp = lm.apply_block_full(bp, cfg, kind, h, collect_state=True,
                                                use_kernel=False)
             if not torch.isfinite(out_k.float()).all():
                 raise AssertionError(f"lm-check {cfg.arch_id}: {name} output not finite")
-            errs[f"{name}.out"] = rel_err(torch, out_k, out_p)
+            whole[name] = rel_err(torch, out_k, out_p)
+            if "moe" in bp.get("ffn", {}):
+                m = moe_rows[name] = moe_split(torch, cfg, bp, kind, h, out_k, out_p)
+                errs[f"{name}.attn"] = m["attn_rel_err"]
+                errs[f"{name}.out_routed_alike"] = m["routed_alike_rel_err"]
+                if m["routed_differently"] > MAX_REROUTED_SHARE * m["tokens"]:
+                    raise AssertionError(f"lm-check {cfg.arch_id}: {name} routes "
+                                         f"{m['routed_differently']} of {m['tokens']} tokens "
+                                         "differently on the two paths")
+            else:
+                errs[f"{name}.out"] = whole[name]
             for key in sk:
                 errs[f"{name}.{key}"] = rel_err(torch, sk[key], sp[key])
-            if first_plain is None:
-                first_plain = out_p
+            worst_here = max(v for k, v in errs.items() if k.startswith(f"{name}."))
+            by_kind[kind] = max(by_kind.get(kind, 0.0), worst_here)
+            if first_plain is None and (bool((out_k != out_p).any()) or bi == len(blocks) - 1):
+                first_idx, first_plain = bi, out_p
                 flip_frac = float((out_k != out_p).double().mean())
             h = out_k
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -834,10 +951,10 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
         # the witness: the plain path from the first block's plain output
         # with one ulp flipped in ``flip_frac`` of it
         h = flip_ulps(torch, first_plain, flip_frac, torch.Generator(device=dev).manual_seed(1))
-        witness = {"flip_frac": flip_frac,
+        witness = {"block": blocks[first_idx][0], "flip_frac": flip_frac,
                    "first_block_rel_err": rel_err(torch, h, first_plain),
-                   "kernel_first_block_rel_err": errs[f"{blocks[0][0]}.out"]}
-        for _, bp, kind in blocks[1:]:
+                   "kernel_first_block_rel_err": whole[blocks[first_idx][0]]}
+        for _, bp, kind in blocks[first_idx + 1:]:
             h, _, _ = lm.apply_block_full(bp, cfg, kind, h, use_kernel=False)
         last_w = rmsnorm(params["final_norm"], h, cfg.norm_eps)[:, -1] @ head
         witness["last_logits_rel_err"] = rel_err(torch, last_w, last_p)
@@ -847,14 +964,26 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
         free[name] = rel_err(torch, a, b)
     worst = max(errs, key=errs.get)
     free_worst = max(free, key=free.get)
-    row = {"block_rel_err": errs, "free_running_rel_err": free, "ulp_witness": witness,
+    row = {"reduced": reduced, "block_rel_err": errs, "worst_by_kind": by_kind,
+           "whole_block_rel_err": whole, "moe": moe_rows,
+           "free_running_rel_err": free, "ulp_witness": witness,
            "warm_prefill_ms": (t1 - t0) * 1e3,
            "steady_prefill_ms": sorted(steady)[1], "plain_prefill_ms": (t3 - t2) * 1e3,
            "block_walk_s": t2 - t_walk}
-    log(f"phase 9 lm-check: {cfg.arch_id} full width {cfg.dtype}, block by block on the "
+    log(f"phase 9 lm-check: {cfg.arch_id} full width {cfg.dtype}"
+        f"{' (reduced ' + reduced + ')' if reduced else ''}, block by block on the "
         f"card ({len(blocks)} blocks, kernel path vs plain path on the same input): worst "
         f"of {len(errs)} relative L2 errors {worst} {errs[worst]} (tol {TOL_BLOCK_REL}); "
+        f"worst by block kind {json.dumps(by_kind)}"
+        f"{' (MoE FFN, ' + str(cfg.n_experts) + ' experts top ' + str(cfg.top_k) + ')' if cfg.n_experts else ''}; "
         f"walk's last logits vs lm_prefill {errs['last_logits_vs_lm_prefill']}")
+    for name, m in moe_rows.items():
+        log(f"phase 9 lm-check: {cfg.arch_id} {name} MoE: attention relative L2 "
+            f"{m['attn_rel_err']}, output over the tokens routed alike "
+            f"{m['routed_alike_rel_err']} (tol {TOL_BLOCK_REL}); "
+            f"{m['routed_differently']} of {m['tokens']} tokens routed differently (at most "
+            f"{MAX_REROUTED_SHARE} of them); whole output {m['block_rel_err']} (recorded); "
+            f"{m['dropped_pairs']} (token, expert) pairs over capacity")
     log(f"phase 9 lm-check: {cfg.arch_id} free-running (recorded, no gate): plain-path "
         f"prefill vs kernel-path prefill relative L2 error last logits "
         f"{free['last_logits']}, worst {free_worst} {free[free_worst]}; first block's "
@@ -862,7 +991,7 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
         f"ms (steady, median of 3 more: {row['steady_prefill_ms']} ms), plain path "
         f"{row['plain_prefill_ms']} ms")
     log(f"phase 9 lm-check: {cfg.arch_id} witness (recorded, no gate): plain path with one "
-        f"bf16 ulp flipped in {witness['flip_frac']} of the first block's output (relative "
+        f"bf16 ulp flipped in {witness['flip_frac']} of {witness['block']}'s output (relative "
         f"L2 {witness['first_block_rel_err']}; the kernel path's there "
         f"{witness['kernel_first_block_rel_err']}) vs the plain path, last logits relative "
         f"L2 {witness['last_logits_rel_err']} (kernel path vs plain path "
@@ -2216,6 +2345,80 @@ def sharded_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict
     return rec, total
 
 
+def examples_phase(torch, counters, dev, tag) -> tuple[dict, int]:
+    """Phase 15: the port's two examples on the card, their aggregation on
+    the SpMM kernel (``--backend spmm``); every counter set to 0 just
+    before each and read just after.
+
+    quickstart at its own configuration (Pubmed at 1/32 scale, 16 clients,
+    5 a round) for ``EXAMPLE_ROUNDS`` rounds, FedAIS then FedAll: finite
+    histories of that length, accuracies in [0, 1], SpMM launches counted
+    and nothing else. variance_analysis on the whole Pubmed with
+    ``VARIANCE_DRAWS`` noise draws: the error is ~0 without staleness and
+    grows with it, and importance sampling's Eq. 7 objective is below
+    uniform's, as the paper claims and the reference prints."""
+    import numpy as np
+
+    from repro_torch.examples import quickstart, variance_analysis
+
+    def zero():
+        for c in counters.values():
+            c.launches = 0
+
+    def read(what):
+        torch.cuda.synchronize()
+        got = {n: c.launches for n, c in counters.items()}
+        if got["spmm"] <= 0 or any(v for n, v in got.items() if n != "spmm"):
+            raise AssertionError(f"examples {what}: launches {got}; want SpMM only, > 0")
+        return got
+
+    argv = ["--device", str(dev), "--backend", "spmm"]
+    zero()
+    t0 = time.perf_counter()
+    runs = quickstart.run(quickstart.build_args(argv + ["--rounds", str(EXAMPLE_ROUNDS)]))
+    quick_s = time.perf_counter() - t0
+    quick_launches = read("quickstart")
+    quick = {}
+    for method, res in runs.items():
+        h = res.history
+        acc = np.asarray(h["test_acc"], np.float64)
+        if (len(h["round"]) != EXAMPLE_ROUNDS or not np.isfinite(h["test_loss"]).all()
+                or not ((acc >= 0) & (acc <= 1)).all()):
+            raise AssertionError(f"examples quickstart {method}: history {h}")
+        quick[method] = {"acc": res.final["acc"], "f1": res.final["f1"],
+                         "comm_total_bytes": res.final["comm_total_bytes"],
+                         "comm_embed_bytes": res.final["comm_embed_bytes"],
+                         "tau": h["tau"], "test_acc": h["test_acc"]}
+    log(f"phase 15 examples: {tag}: quickstart --backend spmm {EXAMPLE_ROUNDS} rounds in "
+        f"{quick_s:.2f} s: " + "; ".join(
+            f"{m} acc {r['acc']} f1 {r['f1']} comm {r['comm_total_bytes']} B (embeddings "
+            f"{r['comm_embed_bytes']} B) tau {r['tau']}" for m, r in quick.items())
+        + f"; launches {json.dumps(quick_launches)}")
+
+    zero()
+    t0 = time.perf_counter()
+    var = variance_analysis.run(variance_analysis.build_args(
+        argv + ["--scale", str(VARIANCE_SCALE), "--rounds", str(VARIANCE_DRAWS)]))
+    var_s = time.perf_counter() - t0
+    var_launches = read("variance_analysis")
+    errs = [r["err"] for r in var["staleness"]]
+    log(f"phase 15 examples: variance_analysis --backend spmm --scale {VARIANCE_SCALE} "
+        f"--rounds {VARIANCE_DRAWS} in {var_s:.2f} s: errors by staleness "
+        f"{json.dumps({r['staleness']: r['err'] for r in var['staleness']})}, logit "
+        f"variance {json.dumps({r['staleness']: r['logit_variance'] for r in var['staleness']})}; "
+        f"Eq. 7 objective importance {var['v_imp']} < uniform {var['v_uni']} (reduction "
+        f"{var['reduction']}); launches {json.dumps(var_launches)}")
+    if (not np.isfinite(errs).all() or errs[0] > 1e-3
+            or not all(a < b for a, b in zip(errs, errs[1:]))):
+        raise AssertionError(f"examples variance_analysis: errors by staleness {errs}")
+    if not var["v_imp"] < var["v_uni"]:
+        raise AssertionError(f"examples variance_analysis: importance's Eq. 7 objective "
+                             f"{var['v_imp']} not below uniform's {var['v_uni']}")
+    launches = quick_launches["spmm"] + var_launches["spmm"]
+    return {"quickstart": quick, "quickstart_s": quick_s, "quickstart_launches": quick_launches,
+            "variance": var, "variance_s": var_s, "variance_launches": var_launches}, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the record as JSON here")
@@ -2594,6 +2797,17 @@ def main(argv=None) -> int:
         # hd not a multiple of 8: TMA cannot take it, bf16 runs the FMA kernel
         check_flash(torch, fops, fref, timer, gen, "odd_hd_bf16", 1, 300, 4, 2, 36, True,
                     None, bf16, 10),
+        # the new families' shapes: recurrentgemma-2b's local blocks (MQA, hd
+        # 256, a prompt twice its window, so the window bites) and dbrx-132b's
+        # causal GQA blocks
+        check_flash(torch, fops, fref, timer, gen, "rgemma_local_bf16", 4, 4096, 10, 1, 256,
+                    True, 2048, bf16, 10),
+        check_flash(torch, fops, fref, timer, gen, "rgemma_local_fp32", 4, 4096, 10, 1, 256,
+                    True, 2048, f32, 3),
+        check_flash(torch, fops, fref, timer, gen, "dbrx_attn_bf16", 4, 2048, 48, 8, 128,
+                    True, None, bf16, 10),
+        check_flash(torch, fops, fref, timer, gen, "dbrx_attn_fp32", 4, 2048, 48, 8, 128,
+                    True, None, f32, 3),
     ]
     record["wkv6_shapes"], record["flash_shapes"] = wkv_rows, flash_rows
     del timer
@@ -2604,22 +2818,25 @@ def main(argv=None) -> int:
                 "flash_attention": fops.flash_attention}
     tag = f"{kind}, {smi}"
     lm_counts = {}
-    for arch in LM_ARCHS:
-        row = lm_serve(torch, serve, counters, get_config(arch), dev, tag, LM_BATCH,
-                       LM_PROMPT, LM_GEN)
+    for arch, n_layers in [*((a, None) for a in LM_ARCHS), *LM_FAMILIES_SERVE]:
+        cfg, reduced = full_width(get_config, arch, n_layers)
+        row = lm_serve(torch, serve, counters, cfg, dev, tag, LM_BATCH, LM_PROMPT, LM_GEN,
+                       reduced)
         record.setdefault("lm_serve", {})[arch] = row
         lm_counts[arch] = row["launches"]
         torch.cuda.empty_cache()
 
     # -- phase 9: lm-check ------------------------------------------------------
-    for arch in LM_ARCHS:
+    for arch, n_layers in [*((a, None) for a in LM_ARCHS), *LM_FAMILIES_CHECK]:
+        cfg, reduced = full_width(get_config, arch, n_layers)
         record.setdefault("lm_check", {})[arch] = lm_check_full(
-            torch, lm, rmsnorm, get_config(arch), dev, tag, LM_BATCH, LM_PROMPT, LM_GEN,
-            args.profile)
+            torch, lm, rmsnorm, cfg, dev, tag, LM_BATCH, LM_PROMPT, LM_GEN, args.profile,
+            reduced)
         torch.cuda.empty_cache()
-    for arch in (*LM_ARCHS, "mini"):
+    for arch in (*LM_ARCHS, "mini", *LM_FAMILIES_SMOKE):
         cfg = mini_config() if arch == "mini" else get_smoke_config(arch)
-        lm_check_smoke(torch, lm, cfg, dev, lm_params_from_numpy, lm_params_to_numpy)
+        record.setdefault("lm_check_smoke", {})[arch] = lm_check_smoke(
+            torch, lm, cfg, dev, lm_params_from_numpy, lm_params_to_numpy)
 
     # -- phase 10: train (the FedAIS main path; counts from 0) -------------------
     record["train"], train_launches = train_phase(torch, api, fedais, ops, ref, counters, g,
@@ -2656,6 +2873,13 @@ def main(argv=None) -> int:
     log(f"phase 14 sharded: {tag}: {sharded_launches} SpMM launches in "
         f"{record['sharded']['seconds']:.1f} s")
 
+    # -- phase 15: examples (quickstart, variance analysis; counts from 0) -----
+    t15 = time.perf_counter()
+    record["examples"], examples_launches = examples_phase(torch, counters, dev, tag)
+    record["examples"]["seconds"] = time.perf_counter() - t15
+    log(f"phase 15 examples: {tag}: {examples_launches} SpMM launches in "
+        f"{record['examples']['seconds']:.1f} s")
+
     # -- the kernels line --------------------------------------------------------
     warm = shapes[0]
     kernels = [{
@@ -2663,27 +2887,30 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/spmm/csrc/spmm.cu",
         "replaces": "src/repro/kernels/spmm/spmm.py:45",
         "launches": (launches + train_launches + methods_launches + fused_launches
-                     + deploy_launches + sharded_launches),
+                     + deploy_launches + sharded_launches + examples_launches),
         "launches_by_path": {"gcn_serving": launches, "fedais_training": train_launches,
                              "fedais_methods": methods_launches,
                              "fedais_fused": fused_launches, "deploy": deploy_launches,
-                             "fedais_sharded": sharded_launches},
+                             "fedais_sharded": sharded_launches,
+                             "examples": examples_launches},
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": warm["ms"], "plain_ms": warm["plain_ms"], "bound_ms": warm["bound_ms"],
         "bound_by": warm["bound_by"], "library_ms": warm["library_ms"],
         "timed_shape": "warm_fill", "shapes": shapes,
     }]
-    for name, src, replaces, rows, count in (
+    for name, src, replaces, rows, counter in (
             ("wkv6_fwd", "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
-             "src/repro/kernels/wkv6/wkv6.py:54", wkv_rows, lm_counts["rwkv6-1.6b"]["wkv6"]),
+             "src/repro/kernels/wkv6/wkv6.py:54", wkv_rows, "wkv6"),
             ("flash_attention_fwd",
              "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/flash_attention.py:89", flash_rows,
-             lm_counts["gemma3-12b"]["flash_attention"])):
+             "flash_attention")):
         main_row = rows[0]
+        by_path = {arch: c[counter] for arch, c in lm_counts.items() if c[counter]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": count, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"], "timed_shape": main_row["shape"],

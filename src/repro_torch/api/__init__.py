@@ -16,6 +16,13 @@ registered method runs (``available_methods()``), under either scheduler
 (``scheduler="async"`` or ``AsyncScheduler(...)``), any aggregator, and any
 wire dtype (``sync_dtype="fp32" | "bf16" | "int8"``), with or without a
 ``faults=FaultPlan(...)`` and its ``guard`` (``repro_torch.faults``).
+
+Extension points: the registries (``register_method``,
+``register_strategy_kind``, ``register_aggregator``,
+``register_scheduler``), and components injected into the engine that
+satisfy the protocols ``ClientSelector``, ``Aggregator``,
+``SyncController``, ``CostModel``, ``RoundScheduler`` and
+``RoundCallback``.
 """
 from repro_torch.api.callbacks import (
     BaseCallback,
@@ -29,13 +36,19 @@ from repro_torch.api.callbacks import (
 from repro_torch.api.engine import EngineState, FedEngine, RunResult
 from repro_torch.api.protocols import (
     AdaptiveSyncController,
+    Aggregator,
     AsyncScheduler,
+    ClientSelector,
+    CostModel,
     FedAvg,
     FixedSyncController,
     LossBiasedSelector,
     PaperCostModel,
+    RoundCallback,
+    RoundScheduler,
     SizeBiasedSelector,
     StalenessWeightedAggregator,
+    SyncController,
     SyncScheduler,
     UniformSelector,
     WeightedFedAvg,
@@ -63,11 +76,14 @@ from repro_torch.api.strategies import (
 )
 
 __all__ = [
-    "AdaptiveSyncController", "AsyncScheduler", "BanditStrategy", "BaseCallback",
-    "EarlyStopCallback", "EngineState", "EvalCallback", "FedAvg", "FedEngine",
-    "FixedSyncController", "GeneratorStrategy", "HistoryCallback", "LossBiasedSelector",
-    "MethodStrategy", "PaperCostModel", "RoundContext", "RunResult", "SizeBiasedSelector",
-    "StalenessWeightedAggregator", "SyncScheduler", "UniformSelector", "VerboseCallback",
+    "AdaptiveSyncController", "Aggregator", "AsyncScheduler", "BanditStrategy",
+    "BaseCallback", "ClientSelector", "CostModel", "EarlyStopCallback",
+    "EngineState", "EvalCallback", "FedAvg", "FedEngine",
+    "FixedSyncController", "GeneratorStrategy", "HistoryCallback",
+    "LossBiasedSelector", "MethodStrategy", "PaperCostModel", "RoundCallback",
+    "RoundContext", "RoundScheduler", "RunResult", "SizeBiasedSelector",
+    "StalenessWeightedAggregator", "SyncController", "SyncScheduler",
+    "UniformSelector", "VerboseCallback",
     "WeightedFedAvg", "available_aggregators", "available_methods", "available_schedulers",
     "build_aggregator", "build_scheduler", "build_strategy", "default_callbacks",
     "method_config", "register_aggregator", "register_method", "register_scheduler",

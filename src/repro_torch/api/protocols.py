@@ -1,6 +1,18 @@
 """Pluggable components of the FedEngine, and their defaults.
 
-Port of ``repro/api/protocols.py``: the client selectors, the aggregators
+Port of ``repro/api/protocols.py``. The six extension protocols, one per
+axis of the method space that Algorithm 1 fixes to a single choice:
+
+    ClientSelector  which clients participate in a round
+    Aggregator      how client models merge on the server
+    SyncController  how the embedding-sync interval tau evolves (Eq. 11)
+    CostModel       what a round costs (bytes / FLOPs / wall-clock)
+    RoundScheduler  when client updates merge (lockstep vs buffered-async)
+    RoundCallback   side effects at round boundaries (eval, logging, ...)
+
+A custom component is any object with the protocol's methods; pass it to
+``FedEngine(..., selector=..., aggregator=...)``. The defaults: the client
+selectors, the aggregators
 (with the staleness-weighted wrapper), the sync-interval controllers, the
 paper's cost model and the two round schedulers, lockstep and
 buffered-async. Each default reproduces the reference's choice. The class
@@ -12,7 +24,7 @@ from __future__ import annotations
 
 import heapq
 from dataclasses import dataclass, field
-from typing import Optional, Sequence, Union
+from typing import TYPE_CHECKING, Optional, Protocol, Sequence, Union, runtime_checkable
 
 import numpy as np
 import torch
@@ -27,6 +39,10 @@ from repro_torch.federated.costs import (
     seq_sum,
 )
 from repro_torch.federated.server import fedavg, fedavg_weighted, select_clients, update_tau
+
+if TYPE_CHECKING:  # pragma: no cover - typing only
+    from repro_torch.api.engine import EngineState, FedEngine
+    from repro_torch.core.fedais import MethodConfig
 
 
 def to_host(x) -> np.ndarray:
@@ -48,6 +64,17 @@ def _stack_rows(entries, pick):
         return torch.stack(rows) if torch.is_tensor(first) else np.stack(rows)
 
     return rec([pick(e["out"]) for e in entries])
+
+
+@runtime_checkable
+class ClientSelector(Protocol):
+    def select(self, engine: "FedEngine", state: "EngineState") -> np.ndarray:
+        """Return the ids of the clients participating this round, drawn
+        without replacement (the synchronous merge's write-back scatters by
+        client id). A selector whose draws depend only on the host RNG and
+        static data may set ``precomputable = True`` to allow the fused
+        executor."""
+        ...
 
 
 class UniformSelector:
@@ -100,6 +127,13 @@ class LossBiasedSelector:
         order = np.lexsort((tie, -scores))
         m = min(engine.clients_per_round, engine.fed.n_clients)
         return order[:m]
+
+
+@runtime_checkable
+class Aggregator(Protocol):
+    def aggregate(self, stacked_params, weights=None):
+        """Merge a (m, ...) stacked client param dict into one global dict."""
+        ...
 
 
 class FedAvg:
@@ -189,6 +223,16 @@ class StalenessWeightedAggregator:
                                torch.as_tensor(d, dtype=torch.float32, device=dev))
 
 
+@runtime_checkable
+class SyncController(Protocol):
+    def initial(self, mcfg: "MethodConfig") -> int:
+        ...
+
+    def update(self, mcfg: "MethodConfig", test_loss: float,
+               initial_loss: float) -> int:
+        ...
+
+
 class AdaptiveSyncController:
     """Eq. 11 when ``mcfg.adaptive_sync``, else the fixed interval tau0."""
 
@@ -207,6 +251,27 @@ class FixedSyncController:
 
     def update(self, mcfg, test_loss, initial_loss):
         return mcfg.tau0
+
+
+@runtime_checkable
+class CostModel(Protocol):
+    def round_cost(self, engine: "FedEngine", state: "EngineState",
+                   sel: np.ndarray, stats: dict) -> CostMeter:
+        ...
+
+    # the async scheduler prices per-client finish times with these three
+
+    def client_compute_times(self, engine: "FedEngine", state: "EngineState",
+                             sel: np.ndarray, stats: dict) -> np.ndarray:
+        ...
+
+    def client_comm_times(self, engine: "FedEngine", state: "EngineState",
+                          sel: np.ndarray, stats: dict) -> np.ndarray:
+        ...
+
+    def sync_overhead(self, engine: "FedEngine", sel: np.ndarray,
+                      stats: dict) -> float:
+        ...
 
 
 @dataclass
@@ -269,6 +334,31 @@ class PaperCostModel:
         cost.wall_clock_s = float(np.max(per_client_compute)) + o / max(state.tau, 1)
         cost.sync_events = int(to_host(stats["n_sync"]).sum())
         return cost
+
+
+@runtime_checkable
+class RoundScheduler(Protocol):
+    """Owns the execution structure of a run: when cohorts dispatch, when
+    updates merge, and what wall-clock a merge bills. The engine exposes the
+    two halves of a round (``dispatch``, ``merge``) and the scheduler
+    sequences them."""
+
+    def run(self, engine: "FedEngine", state: "EngineState") -> None:
+        ...
+
+
+@runtime_checkable
+class RoundCallback(Protocol):
+    """Side-effect hooks; ``api.callbacks`` holds the default stack."""
+
+    def on_run_start(self, engine: "FedEngine", state: "EngineState") -> None:
+        ...
+
+    def on_round_end(self, ctx) -> None:
+        ...
+
+    def on_run_end(self, engine: "FedEngine", state: "EngineState") -> None:
+        ...
 
 
 @dataclass

@@ -3,9 +3,11 @@ from repro_torch.configs.base import (
     get_config,
     get_smoke_config,
     list_archs,
+    long_context_variant,
     register,
     smoke_variant,
 )
+from repro_torch.configs.shapes import INPUT_SHAPES, InputShape, input_specs, shape_applicable
 
 __all__ = [
     "ModelConfig",
@@ -14,4 +16,8 @@ __all__ = [
     "list_archs",
     "register",
     "smoke_variant",
+    "INPUT_SHAPES",
+    "InputShape",
+    "input_specs",
+    "shape_applicable",
 ]

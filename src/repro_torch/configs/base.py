@@ -2,10 +2,11 @@
 
 The fields, properties and ``smoke_variant`` are the reference's, value
 for value, so a configuration means the same model in both packages;
-``torch_dtype`` takes the place of ``jnp_dtype``. The registry holds only
-the architectures whose block kinds the port runs (``rwkv``, ``attn``,
-``local`` with a dense FFN): ``rwkv6-1.6b`` and ``gemma3-12b``. The others
-wait for their block kinds (ROADMAP).
+``torch_dtype`` takes the place of ``jnp_dtype``. The registry holds the
+reference's ten architectures. ``models.lm`` runs all but two of them:
+whisper-large-v3 (``enc``/``dec`` blocks, learned positions) and
+internvl2-2b (image tokens) wait (ROADMAP A8.1), and ``init_lm`` raises
+``NotImplementedError`` for them.
 
 Block kinds:
     "attn"    full (causal) self-attention + FFN
@@ -156,6 +157,19 @@ class ModelConfig:
             total += self.n_encoder_layers * (attn_p + ffn_dense)
         return int(total)
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of n_experts)."""
+        if not self.n_experts:
+            return self.param_count()
+        d, ff = self.d_model, self.d_ff
+        n_ffn_mats = 3 if self.gated_mlp else 2
+        inactive = (self.n_experts - self.top_k) * d * ff * n_ffn_mats
+        n_moe_layers = sum(
+            1 for k in (list(self.block_pattern) * self.n_units + list(self.remainder_pattern))
+            if k in ("attn", "local")
+        )
+        return int(self.param_count() - n_moe_layers * inactive)
+
     @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
@@ -197,7 +211,28 @@ def _ensure_loaded():
     # import the per-arch modules for their registration side effects
     if _REGISTRY:
         return
-    from repro_torch.configs import gemma3_12b, rwkv6_1_6b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        arctic_480b,
+        dbrx_132b,
+        deepseek_67b,
+        gemma3_12b,
+        internvl2_2b,
+        llama3_405b,
+        nemotron_4_15b,
+        recurrentgemma_2b,
+        rwkv6_1_6b,
+        whisper_large_v3,
+    )
+
+
+def long_context_variant(cfg: ModelConfig) -> ModelConfig:
+    """Long-context decode variant: full-attention blocks degrade to
+    sliding-window so a 500k cache stays sub-quadratic (used only for the
+    ``long_500k`` shape when ``cfg.long_context_local``)."""
+    if not cfg.long_context_local:
+        return cfg
+    pattern = tuple("local" if k == "attn" else k for k in cfg.block_pattern)
+    return replace(cfg, block_pattern=pattern)
 
 
 def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:

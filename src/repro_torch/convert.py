@@ -9,7 +9,11 @@ LM: the reference stacks each repeated unit on a leading axis
 dicts. ``lm_params_from_numpy`` unstacks, ``lm_params_to_numpy`` stacks
 back. The same two carry a decode state, which has the same layout. The
 other keys (``embed``, ``rem``, ``final_norm``, ``lm_head``; a tied head
-has no key of its own) map one to one.
+has no key of its own) map one to one. Every block kind's tree maps leaf
+by leaf: a ``rec`` block's ``{"rec": ..., "ffn": ...}``, an MoE FFN's
+expert stacks (E, d_in, d_out). A leaf keeps its dtype: ``lam``, ``b_a``,
+``b_i`` and ``router`` are fp32 in a bf16 model, as in the reference, and
+bf16 leaves carry their bits, so the round trip is bit-equal.
 """
 from __future__ import annotations
 

@@ -6,9 +6,12 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve_lm_cli --arch mini \\
         --batch 4 --prompt-len 64 --gen 32 [--device cpu]
 
-The prefill runs the Hopper kernels (WKV6 in ``rwkv`` blocks, flash
-attention in ``attn``/``local`` blocks); the decode is plain PyTorch. The
-device is ``cuda:0`` unless ``--device cpu`` is given.
+``--arch`` is ``mini`` or any registered architecture (its smoke
+configuration); whisper-large-v3 and internvl2-2b raise
+``NotImplementedError`` (ROADMAP A8.1). The prefill runs the Hopper
+kernels (WKV6 in ``rwkv`` blocks, flash attention in ``attn``/``local``
+blocks; ``rec`` blocks and MoE FFNs are plain PyTorch); the decode is
+plain PyTorch. The device is ``cuda:0`` unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 

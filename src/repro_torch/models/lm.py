@@ -1,6 +1,9 @@
 """Language model for serving: embedding + blocks + final norm + LM head
-(port of ``repro/models/lm.py`` for the block kinds ``rwkv``, ``attn`` and
-``local`` with a dense FFN).
+(port of ``repro/models/lm.py`` for the block kinds ``rwkv`` (RWKV6),
+``rec`` (Griffin's RG-LRU, ``models/griffin.py``), ``attn`` and ``local``,
+each with a dense or a mixture-of-experts FFN (``models/moe.py``)).
+Encoder/decoder blocks, image tokens and learned positions wait (ROADMAP
+A8.1: whisper-large-v3, internvl2-2b); ``check_supported`` raises for them.
 
 Parameters are plain dicts with the reference's keys. Where the reference
 stacks the repeated unit on a leading axis and scans over it, the port
@@ -11,8 +14,9 @@ unstacks the reference's tree and ``lm_params_to_numpy`` stacks it back.
 The full-sequence blocks run the Hopper kernels (``wkv6`` in ``rwkv``
 blocks, ``flash_attention`` in ``attn``/``local`` blocks); ``use_kernel=
 False`` takes the plain paths instead, so a run on the card can be held
-against them. The decode step is plain PyTorch and updates the KV caches
-of the state it is given in place.
+against them. ``rec`` blocks and the MoE FFN are plain PyTorch on both
+paths, as the reference computes them outside Pallas. The decode step is
+plain PyTorch and updates the KV caches of the state it is given in place.
 
 ``lm_prefill`` applies the LM head to the last position only (the
 reference builds the full (B, S, V) logits and keeps the last row: the
@@ -30,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import rwkv
+from repro_torch.models import griffin, rwkv
 from repro_torch.models.attention import attn_init, decode_attn, init_kv_cache, multihead_attn
 from repro_torch.models.layers import (
     dense_init,
@@ -40,26 +44,27 @@ from repro_torch.models.layers import (
     rmsnorm,
     rmsnorm_init,
 )
+from repro_torch.models.moe import moe_apply, moe_init
 
 _ATTN_KINDS = {"attn": "causal", "local": "local"}
-_KINDS = ("rwkv", *_ATTN_KINDS)
+_KINDS = ("rwkv", "rec", *_ATTN_KINDS)
+_WAITS = "wait (ROADMAP A8.1 (whisper, internvl2))"
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    encoder/decoder blocks, encoder frames, image tokens and learned
+    positions."""
     kinds = set(cfg.block_pattern) | set(cfg.remainder_pattern)
     if not kinds <= set(_KINDS):
         raise NotImplementedError(
-            f"{cfg.arch_id}: block kinds {sorted(kinds - set(_KINDS))} wait "
-            f"(rec: ROADMAP A8 griffin; enc/dec: A8 whisper); the port runs {_KINDS}")
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.arch_id}: MoE FFNs wait (ROADMAP A8 moe)")
+            f"{cfg.arch_id}: block kinds {sorted(kinds - set(_KINDS))} {_WAITS}; the port "
+            f"runs {_KINDS}")
     if cfg.n_encoder_layers or cfg.n_image_tokens:
-        raise NotImplementedError(f"{cfg.arch_id}: encoder frames and image tokens "
-                                  "wait (ROADMAP A8 whisper, internvl2)")
+        raise NotImplementedError(f"{cfg.arch_id}: encoder frames and image tokens {_WAITS}")
     if cfg.pos_embedding not in ("rope", "none"):
         raise NotImplementedError(f"{cfg.arch_id}: {cfg.pos_embedding!r} position "
-                                  "embeddings wait (ROADMAP A8)")
+                                  f"embeddings {_WAITS}")
 
 
 # ---------------------------------------------------------------------------
@@ -67,14 +72,20 @@ def check_supported(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 def _ffn_init(generator, cfg):
-    return {"ln": rmsnorm_init(cfg.d_model, cfg.torch_dtype, generator.device),
-            "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
-                            cfg.torch_dtype)}
+    p = {"ln": rmsnorm_init(cfg.d_model, cfg.torch_dtype, generator.device)}
+    if cfg.n_experts:
+        p["moe"] = moe_init(generator, cfg)
+    else:
+        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.gated_mlp, cfg.torch_dtype)
+    return p
 
 
 def init_block(generator, cfg, kind: str) -> dict:
     if kind == "rwkv":
         return rwkv.rwkv_block_init(generator, cfg)
+    if kind == "rec":
+        return {"rec": griffin.rglru_block_init(generator, cfg),
+                "ffn": _ffn_init(generator, cfg)}
     return {"attn": attn_init(generator, cfg), "ffn": _ffn_init(generator, cfg)}
 
 
@@ -109,8 +120,12 @@ def init_lm(generator: torch.Generator, cfg, device=None) -> dict:
 # ---------------------------------------------------------------------------
 
 def _apply_ffn(p, cfg, x):
+    """Returns (x, aux_loss): the dense MLP's aux is 0."""
     h = rmsnorm(p["ln"], x, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, cfg.activation)
+    if "moe" in p:
+        y, aux = moe_apply(p["moe"], cfg, h)
+        return x + y, aux
+    return x + mlp_apply(p["mlp"], h, cfg.activation), 0.0
 
 
 def apply_block_full(bp, cfg, kind, x, *, collect_state=False, use_kernel=True):
@@ -120,6 +135,11 @@ def apply_block_full(bp, cfg, kind, x, *, collect_state=False, use_kernel=True):
                                     collect_state=collect_state)
         x, state = out if collect_state else (out, None)
         return x, 0.0, state
+    if kind == "rec":
+        out = griffin.rglru_block_apply(bp["rec"], cfg, x, collect_state=collect_state)
+        x, state = out if collect_state else (out, None)
+        x, aux = _apply_ffn(bp["ffn"], cfg, x)
+        return x, aux, state
     akind = _ATTN_KINDS[kind]
     state = None
     if collect_state:
@@ -128,7 +148,8 @@ def apply_block_full(bp, cfg, kind, x, *, collect_state=False, use_kernel=True):
         state = {"k": k, "v": v}
     else:
         out = multihead_attn(bp["attn"], cfg, x, kind=akind, use_kernel=use_kernel)
-    return _apply_ffn(bp["ffn"], cfg, x + out), 0.0, state
+    x, aux = _apply_ffn(bp["ffn"], cfg, x + out)
+    return x, aux, state
 
 
 def _lm_head(params, cfg):
@@ -173,6 +194,8 @@ def lm_forward(params, cfg, tokens, *, use_kernel=True):
 def _init_block_state(cfg, kind, batch, max_len, device):
     if kind == "rwkv":
         return rwkv.rwkv_init_state(cfg, batch, device)
+    if kind == "rec":
+        return griffin.rglru_init_state(cfg, batch, device)
     return init_kv_cache(cfg, batch, max_len, device)
 
 
@@ -194,8 +217,12 @@ def init_decode_state(params, cfg, batch: int, max_len: int) -> dict:
 def apply_block_decode(bp, cfg, kind, x, st, pos):
     if kind == "rwkv":
         return rwkv.rwkv_block_decode(bp, cfg, x, st)
-    out, new = decode_attn(bp["attn"], cfg, x, st, pos, kind=_ATTN_KINDS[kind])
-    return _apply_ffn(bp["ffn"], cfg, x + out), new
+    if kind == "rec":
+        x, new = griffin.rglru_block_decode(bp["rec"], cfg, x, st)
+    else:
+        out, new = decode_attn(bp["attn"], cfg, x, st, pos, kind=_ATTN_KINDS[kind])
+        x = x + out
+    return _apply_ffn(bp["ffn"], cfg, x)[0], new
 
 
 def decode_step(params, cfg, state, tokens, pos: int):

@@ -1,4 +1,4 @@
-"""AdamW on a dict of tensors — a hand port of ``repro/optim/adam.py:16-64``.
+"""AdamW and SGD on a dict of tensors — a hand port of ``repro/optim/adam.py``.
 
 Not ``torch.optim.AdamW``: the decay sits inside the lr product,
 ``p - lr·(m̂/(√v̂+ε) + wd·p)``, with wd 0.001, as in the reference. The
@@ -12,6 +12,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.utils.tree import tree_map
 
 
 class AdamState(NamedTuple):
@@ -52,3 +54,13 @@ def adamw_update(grads: dict, state: AdamState, params: dict, lr: float, *,
                                 + weight_decay * p32)).to(p.dtype)
         new_m[k], new_v[k] = m32, v32
     return new_p, AdamState(step=step, mu=new_m, nu=new_v)
+
+
+@torch.no_grad()
+def sgd_update(grads, params, lr):
+    """Plain SGD step (the paper's client-side update, Algorithm 1 line
+    18) over a tree of params: ``p - lr·g`` in fp32, cast back to each
+    param's dtype."""
+    return tree_map(
+        lambda p, g: (p.detach().to(torch.float32) - lr * g.to(torch.float32)).to(p.dtype),
+        params, grads)

@@ -12,4 +12,37 @@ ledger of ``repro/launch/fed_dryrun.py``:
   round must move; ``ranks``: a launcher of N ranks on one machine.
 
 NCCL on the card, gloo on the CPU (only when the caller asks for the CPU).
+The reference's per-leaf spec rules (``sharding/specs.py``) wait (ROADMAP
+A11).
 """
+from repro_torch.sharding.fed import (
+    CLIENT_AXIS,
+    build_sharded_chunk,
+    client_axis_of,
+    cohort_padding,
+    make_client_mesh,
+    pairwise_sum,
+)
+from repro_torch.sharding.tables import (
+    POD_AXIS,
+    build_pod_sharded_chunk,
+    make_pod_mesh,
+    pad_tables_to_pods,
+    pod_axes_of,
+    shard_tables_to_mesh,
+)
+
+__all__ = [
+    "CLIENT_AXIS",
+    "POD_AXIS",
+    "build_pod_sharded_chunk",
+    "build_sharded_chunk",
+    "client_axis_of",
+    "cohort_padding",
+    "make_client_mesh",
+    "make_pod_mesh",
+    "pad_tables_to_pods",
+    "pairwise_sum",
+    "pod_axes_of",
+    "shard_tables_to_mesh",
+]
