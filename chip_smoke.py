@@ -19,7 +19,11 @@ random weights from a seed:
   layers, bf16), Griffin's ``recurrentgemma-2b`` whole (26 layers) and the
   MoE ``dbrx-132b`` at full width with 2 of its 40 layers, through
   ``launch.serve_lm_cli.serve``: a prefill of 4 x 2,048 prompt tokens,
-  then 32 greedy tokens (WKV6 and flash attention);
+  then 32 greedy tokens (WKV6 and flash attention); ``whisper-large-v3``
+  whole (32 encoder layers over 1,500 frames, 32 decoder layers with cross
+  attention, a 224-token decoder prompt) and ``internvl2-2b`` whole (256
+  image tokens before the 2,048-token prompt), the same way (flash
+  attention with Sq != Sk for the cross attention);
 * FedAIS training: the same pubmed graph over 10 clients (Dirichlet alpha
   0.5: n_max 4,370, g_max 12,374), 5 a round, J = 4 local epochs, batch
   256, fanout 10, GraphSAGE 256/128, 3 rounds through
@@ -103,13 +107,19 @@ Phases, one or more lines each:
                 new families' shapes in bf16 and fp32: recurrentgemma-2b's
                 local blocks (B 4, S 4,096, H 10, Hkv 1, hd 256, window
                 2,048: the window bites) and dbrx-132b's (B 4, S 2,048, H
-                48, Hkv 8, hd 128, causal);
+                48, Hkv 8, hd 128, causal); whisper-large-v3's encoder (B 4,
+                S 1,500, H = Hkv = 20, hd 64, unmasked), cross attention
+                (Sq 224, Sk 1,500, unmasked) and decoder (S 224, causal),
+                internvl2-2b's (S 2,304, H 16, Hkv 8, hd 128, causal), and
+                causal with Sq 200, Sk 333 and with Sq 333, Sk 200 under a
+                window of 64 (its last rows keep no key and come out 0);
   8 lm-serve    ``serve`` for each LM: prefill ms, decode tokens/s, peak
                 memory, and the launches over the prefill (24 WKV6 for
                 rwkv6-1.6b, 48 flash attention for gemma3-12b, 8 for
                 recurrentgemma-2b's local blocks, 2 for dbrx-132b at 2
-                layers; nothing else: ``rec`` blocks and MoE FFNs launch
-                no kernel of the port);
+                layers, 96 for whisper-large-v3 (32 encoder, 32 decoder
+                self, 32 cross), 24 for internvl2-2b; nothing else: ``rec``
+                blocks and MoE FFNs launch no kernel of the port);
   9 lm-check    at full width, block by block, each block's kernel path
                 against its plain path on the same input on the card (output
                 and decode state, relative L2 ``TOL_BLOCK_REL``; an MoE
@@ -123,10 +133,14 @@ Phases, one or more lines each:
                 the stack carries a rounding difference); the same for
                 recurrentgemma-2b (``rec`` blocks, ``local`` at hd 256),
                 dbrx-132b at 2 layers and arctic-480b at 1 (MoE ``attn``
-                blocks; arctic's with its dense residual); at the smoke
-                configurations (fp32) of the eight archs the port runs
-                and of ``mini``, the card's kernel path against the plain
-                path on the CPU (prefill and 4 decode steps, 1e-4);
+                blocks; arctic's with its dense residual), whisper-large-v3
+                (encoder blocks first, then each unit's cross K/V from the
+                encoder's output on each path, then the decoder blocks,
+                all of them on the kernel walk's encoder output) and
+                internvl2-2b (zero image embeddings before the prompt); at
+                the smoke configurations (fp32) of the ten archs and of
+                ``mini``, the card's kernel path against the plain path on
+                the CPU (prefill and 4 decode steps, 1e-4);
   10 train      ``FedEngine.run()`` twice from one seed, through the fused
                 executor (rounds after a graph key's first replayed): the
                 SpMM launched exactly rounds x (m·(2 + 3J) + 2) times (a
@@ -288,7 +302,12 @@ LM_ARCHS = ("rwkv6-1.6b", "gemma3-12b")
 LM_FAMILIES_SERVE = (("recurrentgemma-2b", None), ("dbrx-132b", 2))
 LM_FAMILIES_CHECK = (("recurrentgemma-2b", None), ("dbrx-132b", 2), ("arctic-480b", 1))
 LM_FAMILIES_SMOKE = ("recurrentgemma-2b", "dbrx-132b", "arctic-480b", "deepseek-67b",
-                     "llama3-405b", "nemotron-4-15b")
+                     "llama3-405b", "nemotron-4-15b", "whisper-large-v3", "internvl2-2b")
+# the encoder-decoder and the image-token model, whole, with the decoder
+# prompt each takes: whisper-large-v3 (1,500 encoder frames, a 224-token
+# decoder prompt: 224 + 32 within its 448-token text context) and
+# internvl2-2b (256 image tokens before a 2,048-token prompt)
+LM_ENC_IMG = (("whisper-large-v3", 224), ("internvl2-2b", LM_PROMPT))
 # the examples (phase 15): the quickstart at its own defaults for a few
 # rounds, the variance analysis on the whole Pubmed with several noise draws
 EXAMPLE_ROUNDS, VARIANCE_SCALE, VARIANCE_DRAWS = 5, 1, 4
@@ -456,28 +475,29 @@ def wkv6_bound(torch, B, T, H, N, dtype):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def live_pairs(S, causal, window):
-    """(query, key) pairs the mask keeps, for one (batch, head)."""
+def live_pairs(Sq, Sk, causal, window):
+    """(query, key) pairs the mask keeps, for one (batch, head): query i
+    keeps keys j < Sk with, when causal, j <= i and i - j < window."""
     if not causal:
-        return S * S
-    w = min(window or S, S)            # row i keeps min(i + 1, w) keys
-    return w * (w + 1) // 2 + (S - w) * w
+        return Sq * Sk
+    w = window or max(Sq, Sk)
+    return sum(max(0, min(i, Sk - 1) - max(0, i - w + 1) + 1) for i in range(Sq))
 
 
-def flash_bound(torch, B, S, H, Hkv, hd, causal, window, dtype):
+def flash_bound(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype):
     """(bound_ms, bound_by): q, k, v read once and o written once over HBM
     bandwidth, against 4·hd operations (q·k and p·v) per live pair over the
     peak for the inputs' type: bf16 inputs and output leave both products
     to the tensor cores (989 TFLOP/s), fp32 ones to the FMA pipes (67)."""
     esz = torch.tensor([], dtype=dtype).element_size()
-    nbytes = esz * (2 * B * S * H * hd + 2 * B * S * Hkv * hd)
-    flops = 4.0 * hd * B * H * live_pairs(S, causal, window)
+    nbytes = esz * (2 * B * Sq * H * hd + 2 * B * Sk * Hkv * hd)
+    flops = 4.0 * hd * B * H * live_pairs(Sq, Sk, causal, window)
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def flash_floor(torch, B, S, H, Hkv, hd, causal, window, dtype):
+def flash_floor(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype):
     """The kernel's own floor (ms): the operations it executes, over the peak
     of the units that execute them, or the bound's bytes if more. It counts
     the (query, key) tile pairs the kernel computes, masked parts of the
@@ -493,15 +513,15 @@ def flash_floor(torch, B, S, H, Hkv, hd, causal, window, dtype):
     block = 128 if tc else 64
     win = window if (causal and window) else 0
     pairs = 0
-    for q0 in range(0, S, block):
-        q_last = min(q0 + block, S) - 1
-        kt_lo, kt_hi = 0, (S - 1) // bk
+    for q0 in range(0, Sq, block):
+        q_last = min(q0 + block, Sq) - 1
+        kt_lo, kt_hi = 0, (Sk - 1) // bk
         if causal:
-            kt_hi = q_last // bk
+            kt_hi = min(q_last, Sk - 1) // bk
             if win:
                 kt_lo = max(0, q0 - win + 1) // bk
         for first in range(q0, q0 + block, rows):
-            last = min(first + rows - 1, S - 1)
+            last = min(first + rows - 1, Sq - 1)
             if last < first:
                 continue
             for kt in range(kt_lo, kt_hi + 1):
@@ -512,7 +532,7 @@ def flash_floor(torch, B, S, H, Hkv, hd, causal, window, dtype):
     flops = (6.0 if tc else 4.0) * hdp * B * H * pairs
     t_ops = flops / (PEAK_BF16_FLOPS if tc else PEAK_FP32_FLOPS)
     esz = torch.tensor([], dtype=dtype).element_size()
-    t_bytes = esz * (2 * B * S * H * hd + 2 * B * S * Hkv * hd) / PEAK_BYTES_PER_S
+    t_bytes = esz * (2 * B * Sq * H * hd + 2 * B * Sk * Hkv * hd) / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3
 
 
@@ -643,12 +663,17 @@ def check_wkv6(torch, ops, ref, timer, gen, name, B, T, H, N, dtype, reps, plain
 
 
 def check_flash(torch, ops, ref, timer, gen, name, B, S, H, Hkv, hd, causal, window, dtype,
-                reps):
+                reps, Sk=None):
+    """One attention shape: q (B, S, H, hd) against k, v (B, Sk, Hkv, hd)
+    (``Sk`` defaults to S), kernel vs plain version on the card, then the
+    kernel's, the plain version's and SDPA's times, the bound and the
+    kernel's floor."""
     import torch.nn.functional as F
 
     dev = gen.device
-    q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dtype)
-    k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
+    Sq, Sk = S, Sk or S
+    q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((B, Sk, Hkv, hd), generator=gen, device=dev).to(dtype)
             for _ in range(2))
     o = ops.flash_attention(q, k, v, causal=causal, window=window)
     want = ref.attention_ref(q, k, v, causal=causal, window=window)
@@ -661,18 +686,21 @@ def check_flash(torch, ops, ref, timer, gen, name, B, S, H, Hkv, hd, causal, win
         raise AssertionError(f"flash {name}: max abs err {err} beyond atol {atol} "
                              f"rtol {rtol}")
     # the library yardstick: one SDPA call on the same inputs in its own
-    # (B, H, S, hd) layout, with the same mask; never called by the port
+    # (B, H, S, hd) layout, with the same mask (``is_causal`` aligns the
+    # diagonal top left: key j <= query i, as the kernel counts); never
+    # called by the port
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     kw = {"enable_gqa": Hkv != H}
     if causal and window:
-        i = torch.arange(S, device=dev)
-        diff = i[:, None] - i[None, :]
+        diff = (torch.arange(Sq, device=dev)[:, None]
+                - torch.arange(Sk, device=dev)[None, :])
         kw["attn_mask"] = (diff >= 0) & (diff < window)
     else:
         kw["is_causal"] = causal
-    bound_ms, bound_by = flash_bound(torch, B, S, H, Hkv, hd, causal, window, dtype)
-    floor_ms = flash_floor(torch, B, S, H, Hkv, hd, causal, window, dtype)
-    row = {"shape": name, "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd, "causal": causal,
+    bound_ms, bound_by = flash_bound(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype)
+    floor_ms = flash_floor(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype)
+    row = {"shape": name, "B": B, "S": Sq, "Sk": Sk, "H": H, "Hkv": Hkv, "hd": hd,
+           "causal": causal,
            "window": window, "dtype": str(dtype), "atol": atol, "rtol": rtol,
            "max_abs_err": err,
            "ms": timer(lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
@@ -682,7 +710,7 @@ def check_flash(torch, ops, ref, timer, gen, name, B, S, H, Hkv, hd, causal, win
            "library_ms": timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
                                reps),
            "bound_ms": bound_ms, "bound_by": bound_by, "floor_ms": floor_ms}
-    log(f"phase 7 lm-kernels: flash {name} B={B} S={S} H={H} Hkv={Hkv} hd={hd} causal "
+    log(f"phase 7 lm-kernels: flash {name} B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} hd={hd} causal "
         f"{causal} window {window} {dtype}: max abs err {err} (atol {atol} rtol {rtol}); "
         f"kernel "
         f"{row['ms']} ms plain {row['plain_ms']} ms sdpa {row['library_ms']} ms bound "
@@ -706,14 +734,34 @@ def flip_ulps(torch, x, frac, gen):
 
 
 def _state_leaves(state):
-    """(name, tensor) for every leaf of a decode state, in a fixed order."""
+    """(name, tensor) for every leaf of a decode state, in a fixed order
+    (the units', the remainder's, then each unit's cross K/V)."""
     out = []
     for u, unit in enumerate(state["units"]):
         for b, st in unit.items():
             out += [(f"unit{u}.{b}.{k}", t) for k, t in st.items()]
     for b, st in state.get("rem", {}).items():
         out += [(f"rem.{b}.{k}", t) for k, t in st.items()]
+    for u, xc in enumerate(state.get("cross", [])):
+        out += [(f"cross.unit{u}.{k}", t) for k, t in xc.items()]
     return out
+
+
+def extra_inputs(torch, cfg, batch, dev, gen=None):
+    """``lm_prefill``'s other inputs, as ``serve`` makes them: image
+    embeddings (B, n_image_tokens, d) and encoder frames (B, Se, d), zero,
+    or drawn from ``gen`` when one is given."""
+    def make(shape):
+        if gen is None:
+            return torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
+        return torch.randn(shape, generator=gen).to(cfg.torch_dtype).to(dev)
+
+    kw = {}
+    if cfg.n_image_tokens:
+        kw["image_embeds"] = make((batch, cfg.n_image_tokens, cfg.d_model))
+    if cfg.n_encoder_layers:
+        kw["enc_frames"] = make((batch, cfg.encoder_seq_len, cfg.d_model))
+    return kw
 
 
 def _trace(torch, fn, top: int):
@@ -756,9 +804,9 @@ def _trace(torch, fn, top: int):
     }
 
 
-def profile_lm(torch, lm, params, cfg, prompts, max_len, top: int = 8) -> dict:
+def profile_lm(torch, lm, params, cfg, prompts, max_len, kw, top: int = 8) -> dict:
     """One prefill, then 4 decode steps, each traced on its own."""
-    n = prompts.shape[1]
+    n = prompts.shape[1] + (cfg.n_image_tokens or 0)
 
     def decode(state, tok):
         for i in range(4):
@@ -768,7 +816,7 @@ def profile_lm(torch, lm, params, cfg, prompts, max_len, top: int = 8) -> dict:
 
     with torch.inference_mode():
         (last, state), pre = _trace(torch, lambda: lm.lm_prefill(params, cfg, prompts,
-                                                                 max_len), top)
+                                                                 max_len, **kw), top)
         _, dec = _trace(torch, lambda: decode(state, last.argmax(-1)[:, None]), top)
     return {"prefill": pre, "decode_4_steps": dec}
 
@@ -791,12 +839,14 @@ def lm_serve(torch, serve, counters, cfg, dev, tag, batch, prompt, gen,
     """Phase 8 for one model: ``serve`` at full width with every launch
     counter set to 0 just before and read just after; the prefill must
     launch the WKV6 kernel once per ``rwkv`` block and flash attention once
-    per ``attn``/``local`` block, and nothing else (``rec`` blocks and MoE
-    FFNs launch no kernel of the port)."""
+    per ``attn``/``local`` block and encoder layer and twice per ``dec``
+    block (its self attention and its cross attention), and nothing else
+    (``rec`` blocks and MoE FFNs launch no kernel of the port)."""
     kinds = list(cfg.block_pattern) * cfg.n_units + list(cfg.remainder_pattern)
     want = {n: 0 for n in counters}
     want["wkv6"] = kinds.count("rwkv")
-    want["flash_attention"] = sum(k in ("attn", "local") for k in kinds)
+    want["flash_attention"] = (sum(k in ("attn", "local") for k in kinds)
+                               + 2 * kinds.count("dec") + cfg.n_encoder_layers)
     args = argparse.Namespace(arch=cfg.arch_id, batch=batch, prompt_len=prompt, gen=gen,
                               seed=0, device=str(dev))
     torch.cuda.reset_peak_memory_stats()
@@ -813,13 +863,17 @@ def lm_serve(torch, serve, counters, cfg, dev, tag, batch, prompt, gen,
                              "of the vocabulary")
     log(f"phase 8 lm-serve: {tag}: {cfg.arch_id} ({cfg.param_count():,} params, "
         f"{cfg.dtype}{'; reduced ' + reduced if reduced else ''}) batch {batch} prompt "
-        f"{prompt} gen {gen}: prefill "
+        f"{prompt} gen {gen}"
+        f"{' image tokens ' + str(cfg.n_image_tokens) if cfg.n_image_tokens else ''}"
+        f"{' encoder frames ' + str(cfg.encoder_seq_len) if cfg.n_encoder_layers else ''}"
+        f": prefill "
         f"{out['prefill_s'] * 1e3} ms, decode {out['decode_tok_s']} tokens/s, peak memory "
         f"{peak_gb} GB; launches over the prefill {json.dumps(got)}")
     if got != want:
         raise AssertionError(f"lm-serve {cfg.arch_id}: launches {got}, want {want}")
     return {"params": cfg.param_count(), "reduced": reduced, "batch": batch,
-            "prompt": prompt, "gen": gen,
+            "prompt": prompt, "gen": gen, "image_tokens": cfg.n_image_tokens,
+            "encoder_frames": cfg.encoder_seq_len if cfg.n_encoder_layers else 0,
             "prefill_ms": out["prefill_s"] * 1e3, "decode_tok_s": out["decode_tok_s"],
             "peak_gb": peak_gb, "launches": got}
 
@@ -872,8 +926,14 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
     L2). An MoE block is held in two halves (``moe_split``): its attention
     output and its output over the tokens both paths route alike, each
     within ``TOL_BLOCK_REL``, and the tokens routed differently under
-    ``MAX_REROUTED_SHARE``; its whole output's error is recorded. Then the
-    last logits of that walk must equal those of ``lm_prefill``.
+    ``MAX_REROUTED_SHARE``; its whole output's error is recorded. An
+    encoder-decoder is walked encoder first, each ``enc`` block gated the
+    same way; the encoder norm of the last ``enc`` block's output on each
+    path gives each unit's cross K/V (``init_decode_state``), held kernel
+    path against plain path; then every ``dec`` block of both paths attends
+    to the kernel walk's encoder output, its state its self K/V. Image
+    embeddings and encoder frames are zero, as ``serve`` makes them. Then
+    the last logits of that walk must equal those of ``lm_prefill``.
 
     Recorded, no gate: the first prefill after the init (allocations
     included) and the steady state (the median of three more); the whole
@@ -889,11 +949,28 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
     g = torch.Generator(device=dev).manual_seed(0)
     params = lm.init_lm(g, cfg, dev)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g, device=dev)
-    max_len = prompt + gen
-    blocks = [(f"unit{u}.b{i}", up[f"b{i}"], kind) for u, up in enumerate(params["units"])
-              for i, kind in enumerate(cfg.block_pattern)]
+    kw = extra_inputs(torch, cfg, batch, dev)
+    max_len = prompt + gen + (cfg.n_image_tokens or 0)
+    blocks = [(f"enc{u}.b0", up["b0"], "enc") for u, up in enumerate(params.get("enc_units",
+                                                                               []))]
+    n_enc = len(blocks)
+    blocks += [(f"unit{u}.b{i}", up[f"b{i}"], kind) for u, up in enumerate(params["units"])
+               for i, kind in enumerate(cfg.block_pattern)]
     blocks += [(f"rem.b{i}", params["rem"][f"b{i}"], kind)
                for i, kind in enumerate(cfg.remainder_pattern)]
+
+    def enc_norm(x):
+        return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+    def plain_from(start, h, enc_out):
+        """The plain path from block ``start`` on, its input ``h``; the
+        encoder's output is taken where the walk leaves the encoder."""
+        for bi in range(start, len(blocks)):
+            if n_enc and bi == n_enc:
+                enc_out, h = enc_norm(h), h_dec0
+            h, _, _ = lm.apply_block_full(blocks[bi][1], cfg, blocks[bi][2], h,
+                                          enc_out=enc_out, use_kernel=False)
+        return h
     errs, whole, moe_rows = {}, {}, {}
     by_kind: dict = {}
     first_plain = flip_frac = None
@@ -901,7 +978,7 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        last_k, st_k = lm.lm_prefill(params, cfg, prompts, max_len)
+        last_k, st_k = lm.lm_prefill(params, cfg, prompts, max_len, **kw)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         # the first call after a fresh init allocates its activations anew;
@@ -909,15 +986,24 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
         steady = []
         for _ in range(3):
             ts = time.perf_counter()
-            lm.lm_prefill(params, cfg, prompts, max_len)
+            lm.lm_prefill(params, cfg, prompts, max_len, **kw)
             torch.cuda.synchronize()
             steady.append((time.perf_counter() - ts) * 1e3)
         t_walk = time.perf_counter()
-        h = params["embed"][prompts]
+        h_dec0 = lm._embed_tokens(params, cfg, prompts, kw.get("image_embeds"))
+        h, enc_out = h_dec0, None
+        if n_enc:
+            frames = kw["enc_frames"]
+            h = frames + params["enc_pos"][None, :frames.shape[1]]
         for bi, (name, bp, kind) in enumerate(blocks):
-            out_k, _, sk = lm.apply_block_full(bp, cfg, kind, h, collect_state=True)
-            out_p, _, sp = lm.apply_block_full(bp, cfg, kind, h, collect_state=True,
-                                               use_kernel=False)
+            if n_enc and bi == n_enc:
+                # every decoder block of both paths attends to the kernel
+                # walk's encoder output
+                enc_out, h = enc_norm(h), h_dec0
+            out_k, _, sk = lm.apply_block_full(bp, cfg, kind, h, enc_out=enc_out,
+                                               collect_state=True)
+            out_p, _, sp = lm.apply_block_full(bp, cfg, kind, h, enc_out=enc_out,
+                                               collect_state=True, use_kernel=False)
             if not torch.isfinite(out_k.float()).all():
                 raise AssertionError(f"lm-check {cfg.arch_id}: {name} output not finite")
             whole[name] = rel_err(torch, out_k, out_p)
@@ -931,10 +1017,20 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
                                          "differently on the two paths")
             else:
                 errs[f"{name}.out"] = whole[name]
-            for key in sk:
+            for key in sk or {}:
                 errs[f"{name}.{key}"] = rel_err(torch, sk[key], sp[key])
             worst_here = max(v for k, v in errs.items() if k.startswith(f"{name}."))
             by_kind[kind] = max(by_kind.get(kind, 0.0), worst_here)
+            if bi == n_enc - 1:
+                # each unit's cross K/V from the encoder's output on each path
+                xs = [lm.init_decode_state(params, cfg, batch, 1, enc_out=enc_norm(o))["cross"]
+                      for o in (out_k, out_p)]
+                for u, (xc_k, xc_p) in enumerate(zip(*xs)):
+                    for key in xc_k:
+                        errs[f"cross.unit{u}.{key}"] = rel_err(torch, xc_k[key], xc_p[key])
+                        by_kind["cross"] = max(by_kind.get("cross", 0.0),
+                                               errs[f"cross.unit{u}.{key}"])
+                del xs
             if first_plain is None and (bool((out_k != out_p).any()) or bi == len(blocks) - 1):
                 first_idx, first_plain = bi, out_p
                 flip_frac = float((out_k != out_p).double().mean())
@@ -945,7 +1041,7 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
         del h, out_k, out_p, sk, sp
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        last_p, st_p = lm.lm_prefill(params, cfg, prompts, max_len, use_kernel=False)
+        last_p, st_p = lm.lm_prefill(params, cfg, prompts, max_len, use_kernel=False, **kw)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         # the witness: the plain path from the first block's plain output
@@ -954,11 +1050,12 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
         witness = {"block": blocks[first_idx][0], "flip_frac": flip_frac,
                    "first_block_rel_err": rel_err(torch, h, first_plain),
                    "kernel_first_block_rel_err": whole[blocks[first_idx][0]]}
-        for _, bp, kind in blocks[first_idx + 1:]:
-            h, _, _ = lm.apply_block_full(bp, cfg, kind, h, use_kernel=False)
+        # (a first changed block in the decoder means no encoder block
+        # changed, so the walk's encoder output is the plain path's)
+        h = plain_from(first_idx + 1, h, enc_out)
         last_w = rmsnorm(params["final_norm"], h, cfg.norm_eps)[:, -1] @ head
         witness["last_logits_rel_err"] = rel_err(torch, last_w, last_p)
-        del h, first_plain, last_w
+        del h, first_plain, last_w, h_dec0, enc_out
     free = {"last_logits": rel_err(torch, last_k, last_p)}
     for (name, a), (_, b) in zip(_state_leaves(st_k), _state_leaves(st_p)):
         free[name] = rel_err(torch, a, b)
@@ -1001,7 +1098,7 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
                              f"{errs[worst]} beyond {TOL_BLOCK_REL}")
     del last_k, st_k, last_p, st_p
     if profile:
-        row["profile"] = profile_lm(torch, lm, params, cfg, prompts, max_len)
+        row["profile"] = profile_lm(torch, lm, params, cfg, prompts, max_len, kw)
         for what, prof in row["profile"].items():
             log(f"profile: {tag}: {cfg.arch_id} {what} wall {prof['wall_ms']} ms, device "
                 f"busy {prof['device_busy_ms']} ms (share {prof['device_busy_share']})")
@@ -1017,12 +1114,17 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
 def lm_check_smoke(torch, lm, cfg, dev, from_numpy, to_numpy) -> float:
     """Phase 9 at a smoke configuration (fp32): the same params on the card
     (kernel path) and on the CPU (plain path); the prefill's last logits and
-    decode state, then 4 decode steps fed the same tokens, at 1e-4."""
+    decode state (with random image embeddings or encoder frames where the
+    configuration takes them), then 4 decode steps fed the same tokens, at
+    1e-4."""
     cpu_params = lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
     params = from_numpy(to_numpy(cpu_params), cfg, dev)
     toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
     steps = torch.randint(0, cfg.vocab_size, (4, 2, 1),
                           generator=torch.Generator().manual_seed(2))
+    cpu_kw = extra_inputs(torch, cfg, 2, "cpu", torch.Generator().manual_seed(3))
+    kw = {n: t.to(dev) for n, t in cpu_kw.items()}
+    n = 40 + (cfg.n_image_tokens or 0)
     errs = []
 
     def hold(a, b, what):
@@ -1032,15 +1134,15 @@ def lm_check_smoke(torch, lm, cfg, dev, from_numpy, to_numpy) -> float:
                                  f"max abs diff {errs[-1]}")
 
     with torch.inference_mode():
-        got, st = lm.lm_prefill(params, cfg, toks.to(dev), 44)
-        want, st_c = lm.lm_prefill(cpu_params, cfg, toks, 44)
+        got, st = lm.lm_prefill(params, cfg, toks.to(dev), n + 4, **kw)
+        want, st_c = lm.lm_prefill(cpu_params, cfg, toks, n + 4, **cpu_kw)
         hold(got, want, "prefill logits")
         leaves = list(zip(_state_leaves(st), _state_leaves(st_c)))
         for (name, a), (_, b) in leaves:
             hold(a, b, name)
         for i in range(4):
-            o, st = lm.decode_step(params, cfg, st, steps[i].to(dev), 40 + i)
-            o_c, st_c = lm.decode_step(cpu_params, cfg, st_c, steps[i], 40 + i)
+            o, st = lm.decode_step(params, cfg, st, steps[i].to(dev), n + i)
+            o_c, st_c = lm.decode_step(cpu_params, cfg, st_c, steps[i], n + i)
             hold(o, o_c, f"decode step {i}")
     log(f"phase 9 lm-check: {cfg.arch_id} smoke fp32, kernel path on the card vs plain "
         f"path on the CPU: prefill logits, {len(leaves)} state leaves and 4 decode steps "
@@ -2808,6 +2910,37 @@ def main(argv=None) -> int:
                     True, None, bf16, 10),
         check_flash(torch, fops, fref, timer, gen, "dbrx_attn_fp32", 4, 2048, 48, 8, 128,
                     True, None, f32, 3),
+        # whisper-large-v3 and internvl2-2b: the encoder (1,500 frames = 23 key
+        # tiles of 64 and 28 keys, unmasked: the zero-filled keys past Sk are
+        # the first place a missing mask shows), the cross attention (the
+        # 224-token decoder prompt against the 1,500 frames), the decoder's
+        # causal self attention, internvl2's causal GQA over 256 image + 2,048
+        # text tokens; then causal with Sq != Sk both ways, the second with a
+        # window that leaves the last rows no live key (they come out 0)
+        check_flash(torch, fops, fref, timer, gen, "whisper_enc_bf16", 4, 1500, 20, 20, 64,
+                    False, None, bf16, 10),
+        check_flash(torch, fops, fref, timer, gen, "whisper_enc_fp32", 4, 1500, 20, 20, 64,
+                    False, None, f32, 3),
+        check_flash(torch, fops, fref, timer, gen, "whisper_cross_bf16", 4, 224, 20, 20, 64,
+                    False, None, bf16, 10, Sk=1500),
+        check_flash(torch, fops, fref, timer, gen, "whisper_cross_fp32", 4, 224, 20, 20, 64,
+                    False, None, f32, 5, Sk=1500),
+        check_flash(torch, fops, fref, timer, gen, "whisper_dec_bf16", 4, 224, 20, 20, 64,
+                    True, None, bf16, 10),
+        check_flash(torch, fops, fref, timer, gen, "whisper_dec_fp32", 4, 224, 20, 20, 64,
+                    True, None, f32, 5),
+        check_flash(torch, fops, fref, timer, gen, "internvl2_attn_bf16", 4, 2304, 16, 8, 128,
+                    True, None, bf16, 10),
+        check_flash(torch, fops, fref, timer, gen, "internvl2_attn_fp32", 4, 2304, 16, 8, 128,
+                    True, None, f32, 3),
+        check_flash(torch, fops, fref, timer, gen, "causal_cross_bf16", 2, 200, 8, 4, 64,
+                    True, None, bf16, 10, Sk=333),
+        check_flash(torch, fops, fref, timer, gen, "causal_cross_fp32", 2, 200, 8, 4, 64,
+                    True, None, f32, 10, Sk=333),
+        check_flash(torch, fops, fref, timer, gen, "causal_past_sk_window_bf16", 2, 333, 8, 4,
+                    128, True, 64, bf16, 10, Sk=200),
+        check_flash(torch, fops, fref, timer, gen, "causal_past_sk_window_fp32", 2, 333, 8, 4,
+                    128, True, 64, f32, 10, Sk=200),
     ]
     record["wkv6_shapes"], record["flash_shapes"] = wkv_rows, flash_rows
     del timer
@@ -2818,19 +2951,23 @@ def main(argv=None) -> int:
                 "flash_attention": fops.flash_attention}
     tag = f"{kind}, {smi}"
     lm_counts = {}
-    for arch, n_layers in [*((a, None) for a in LM_ARCHS), *LM_FAMILIES_SERVE]:
+    for arch, n_layers, prompt in [*((a, None, LM_PROMPT) for a in LM_ARCHS),
+                                   *((a, n, LM_PROMPT) for a, n in LM_FAMILIES_SERVE),
+                                   *((a, None, p) for a, p in LM_ENC_IMG)]:
         cfg, reduced = full_width(get_config, arch, n_layers)
-        row = lm_serve(torch, serve, counters, cfg, dev, tag, LM_BATCH, LM_PROMPT, LM_GEN,
+        row = lm_serve(torch, serve, counters, cfg, dev, tag, LM_BATCH, prompt, LM_GEN,
                        reduced)
         record.setdefault("lm_serve", {})[arch] = row
         lm_counts[arch] = row["launches"]
         torch.cuda.empty_cache()
 
     # -- phase 9: lm-check ------------------------------------------------------
-    for arch, n_layers in [*((a, None) for a in LM_ARCHS), *LM_FAMILIES_CHECK]:
+    for arch, n_layers, prompt in [*((a, None, LM_PROMPT) for a in LM_ARCHS),
+                                   *((a, n, LM_PROMPT) for a, n in LM_FAMILIES_CHECK),
+                                   *((a, None, p) for a, p in LM_ENC_IMG)]:
         cfg, reduced = full_width(get_config, arch, n_layers)
         record.setdefault("lm_check", {})[arch] = lm_check_full(
-            torch, lm, rmsnorm, cfg, dev, tag, LM_BATCH, LM_PROMPT, LM_GEN, args.profile,
+            torch, lm, rmsnorm, cfg, dev, tag, LM_BATCH, prompt, LM_GEN, args.profile,
             reduced)
         torch.cuda.empty_cache()
     for arch in (*LM_ARCHS, "mini", *LM_FAMILIES_SMOKE):

@@ -3,10 +3,7 @@
 The fields, properties and ``smoke_variant`` are the reference's, value
 for value, so a configuration means the same model in both packages;
 ``torch_dtype`` takes the place of ``jnp_dtype``. The registry holds the
-reference's ten architectures. ``models.lm`` runs all but two of them:
-whisper-large-v3 (``enc``/``dec`` blocks, learned positions) and
-internvl2-2b (image tokens) wait (ROADMAP A8.1), and ``init_lm`` raises
-``NotImplementedError`` for them.
+reference's ten architectures, and ``models.lm`` runs all ten.
 
 Block kinds:
     "attn"    full (causal) self-attention + FFN

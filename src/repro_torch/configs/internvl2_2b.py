@@ -1,7 +1,7 @@
 """internvl2-2b [vlm] — InternViT + InternLM2: 24L d_model=2048 16H (GQA kv=8)
 d_ff=8192 vocab=92553. Vision encoder + projector are a stub: input_specs
-provides (B, 256, d_model) projected patch embeddings. The port does not
-run image tokens yet (ROADMAP A8.1).
+provides (B, 256, d_model) projected patch embeddings, prepended to the
+prompt; RoPE positions count them.
 [arXiv:2404.16821]
 """
 from repro_torch.configs.base import ModelConfig, register, smoke_variant

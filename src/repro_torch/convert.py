@@ -4,12 +4,15 @@ GCN: the keys are the reference's (``w_self{l}``, ``w_nbr{l}``, ``b{l}``,
 ``w_cls``, ``b_cls``), so the reference's params, passed through
 ``np.asarray``, load into the port unchanged, and back.
 
-LM: the reference stacks each repeated unit on a leading axis
-(``units``, of length ``cfg.n_units``); the port keeps a list of per-unit
-dicts. ``lm_params_from_numpy`` unstacks, ``lm_params_to_numpy`` stacks
-back. The same two carry a decode state, which has the same layout. The
-other keys (``embed``, ``rem``, ``final_norm``, ``lm_head``; a tied head
-has no key of its own) map one to one. Every block kind's tree maps leaf
+LM: the reference stacks each repeated unit on a leading axis (``units``,
+of length ``cfg.n_units``, and whisper's ``enc_units``, of length
+``cfg.n_encoder_layers``); the port keeps a list of per-unit dicts.
+``lm_params_from_numpy`` unstacks, ``lm_params_to_numpy`` stacks back. The
+same two carry a decode state, which has the same layout (its ``cross``,
+the per-unit cross K/V, stacked like ``units``). The other keys
+(``embed``, ``rem``, ``final_norm``, ``lm_head``, ``pos_emb``,
+``enc_norm``, ``enc_pos``; a tied head has no key of its own) map one to
+one. Every block kind's tree maps leaf
 by leaf: a ``rec`` block's ``{"rec": ..., "ffn": ...}``, an MoE FFN's
 expert stacks (E, d_in, d_out). A leaf keeps its dtype: ``lam``, ``b_a``,
 ``b_i`` and ``router`` are fp32 in a bf16 model, as in the reference, and
@@ -43,6 +46,14 @@ def _tensor(a, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(dev)
 
 
+# stacked on a leading axis in the reference, lists in the port
+_STACKED = ("units", "enc_units", "cross")
+
+
+def _n_stacked(key: str, cfg) -> int:
+    return cfg.n_encoder_layers if key == "enc_units" else cfg.n_units
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -56,9 +67,9 @@ def lm_params_from_numpy(tree: dict, cfg, device=None) -> dict:
     dev = resolve_device(device)
     out = {}
     for key, sub in tree.items():
-        if key == "units":
+        if key in _STACKED:
             out[key] = [_map(sub, lambda a, u=u: _tensor(np.asarray(a)[u], dev))
-                        for u in range(cfg.n_units)]
+                        for u in range(_n_stacked(key, cfg))]
         else:
             out[key] = _map(sub, lambda a: _tensor(a, dev))
     return out
@@ -75,7 +86,7 @@ def lm_params_to_numpy(params: dict) -> dict:
     as fp32 (numpy has no bf16)."""
     out = {}
     for key, sub in params.items():
-        if key == "units":
+        if key in _STACKED:
             per_unit = [_map(u, _numpy) for u in sub]
             out[key] = _stack(per_unit)
         else:

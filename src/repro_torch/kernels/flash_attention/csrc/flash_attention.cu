@@ -1,14 +1,17 @@
-// Flash attention forward for Hopper (sm_90a): causal or sliding-window GQA
-// attention with an online softmax in fp32.
+// Flash attention forward for Hopper (sm_90a): causal, sliding-window or
+// unmasked GQA attention with an online softmax in fp32, the query and key
+// lengths apart (self attention, and cross attention onto an encoder).
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention/flash_attention.py::flash_attention_pallas
-// (body _flash_kernel). It computes the same function: q (B, S, H, hd),
-// k and v (B, S, Hkv, hd), fp32 or bf16; o (B, S, H, hd) in q's type, with
-// o = softmax(q k^T * hd^-0.5 + mask) v, where the mask keeps key j for
-// query i when j <= i (causal) and, with a window, i - j < window (the
-// window applies only when causal). Running max, sum and accumulator are
-// fp32. It is not a block-by-block copy of the Pallas version:
+// (body _flash_kernel). It computes the same function: q (B, Sq, H, hd),
+// k and v (B, Sk, Hkv, hd), fp32 or bf16; o (B, Sq, H, hd) in q's type, with
+// o = softmax(q k^T * hd^-0.5 + mask) v, where the mask keeps key j < Sk and,
+// when causal, key j for query i when j <= i, both counted from 0 (the
+// Pallas kernel's rule, whatever Sq and Sk are) and, with a window,
+// i - j < window (the window applies only when causal). A query row with no
+// live key comes out 0. Running max, sum and accumulator are fp32. It is not
+// a block-by-block copy of the Pallas version:
 //
 // * The TPU grid carries (m, l, acc) in VMEM scratch across a sequential
 //   KV grid axis. Here one thread block owns a query tile of one (b, h)
@@ -23,8 +26,11 @@
 //   kernel's does.
 // * GQA: query head h reads KV head h / (H / Hkv) by index; K and V are
 //   never repeated in memory. The kernels read the (B, S, heads, hd) layout
-//   in place and the ragged S and hd edges arrive zero-filled in shared
-//   memory, so nothing is transposed or padded in device memory. hd is any
+//   in place and the ragged Sq, Sk and hd edges arrive zero-filled in shared
+//   memory, so nothing is transposed or padded in device memory. A key tile
+//   that crosses Sk is an edge tile: its zero-filled keys score 0, which is
+//   live unless masked, so the key mask (key < Sk) runs there causal or not.
+//   hd is any
 //   value up to 256 (gemma3's 240 included); it runs at the next of 64,
 //   128, 256.
 //
@@ -51,7 +57,8 @@
 //     V tiles into a 2-stage ring in shared memory with TMA (descriptors
 //     encoded on the host per call, passed as __grid_constant__), each
 //     stage guarded by a full and an empty mbarrier. The descriptors give
-//     the true S and hd extents, so TMA zero-fills the ragged edges. Tiles
+//     the true extents (Q's Sq, K's and V's Sk, hd), so TMA zero-fills the
+//     ragged edges. Tiles
 //     are 128-byte swizzled panels of 64 columns, the layout the wgmma
 //     descriptors read; hd 240 runs at 256 with the tail zero (6.7% more
 //     work). Where TMA cannot take the layout (hd not a multiple of 8, or
@@ -68,7 +75,7 @@
 //     That makes 6 hd tensor-core operations a live pair, not 4. The row
 //     sum l adds the fp32 p.
 //   - Dead tiles are skipped per warpgroup, the mask is applied only in
-//     tiles that cross the diagonal, the window's edge or S, and the grid
+//     tiles that cross the diagonal, the window's edge or Sk, and the grid
 //     runs the heaviest query tiles (the last) first.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -115,7 +122,7 @@ constexpr size_t smem_bytes() {
 template <typename T, int HDP>
 __global__ void __launch_bounds__(kNT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int S, int H, int Hkv, int hd, int causal, int window,
+    T* __restrict__ o, int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
     float scale) {
   constexpr int LD = HDP + 4;         // padded row of the Q and K tiles
   constexpr int kCols = HDP / kTX;    // accumulator columns per thread
@@ -133,21 +140,22 @@ __global__ void __launch_bounds__(kNT) flash_fwd_kernel(
   const int q0 = blockIdx.x * kBQ;
   const long long q_stride = (long long)H * hd;   // between positions
   const long long kv_stride = (long long)Hkv * hd;
-  const T* qb = q + (long long)b * S * q_stride + (long long)h * hd;
-  const T* kb = k + (long long)b * S * kv_stride + (long long)hk * hd;
-  const T* vb = v + (long long)b * S * kv_stride + (long long)hk * hd;
-  T* ob = o + (long long)b * S * q_stride + (long long)h * hd;
+  const T* qb = q + (long long)b * Sq * q_stride + (long long)h * hd;
+  const T* kb = k + (long long)b * Sk * kv_stride + (long long)hk * hd;
+  const T* vb = v + (long long)b * Sk * kv_stride + (long long)hk * hd;
+  T* ob = o + (long long)b * Sq * q_stride + (long long)h * hd;
 
   for (int i = tid; i < kBQ * HDP; i += kNT) {
     const int rr = i / HDP, d = i % HDP, s = q0 + rr;
-    Qs[rr * LD + d] = (s < S && d < hd) ? to_f32(qb[s * q_stride + d]) : 0.f;
+    Qs[rr * LD + d] = (s < Sq && d < hd) ? to_f32(qb[s * q_stride + d]) : 0.f;
   }
 
-  // the KV tiles some pair of this query tile leaves live, ascending
-  const int q_last = min(q0 + kBQ, S) - 1;
-  int kt_lo = 0, kt_hi = (S - 1) / kBK;
+  // the KV tiles some pair of this query tile leaves live, ascending (none
+  // when a window lies wholly past Sk: the rows then come out 0)
+  const int q_last = min(q0 + kBQ, Sq) - 1;
+  int kt_lo = 0, kt_hi = (Sk - 1) / kBK;
   if (causal) {
-    kt_hi = q_last / kBK;
+    kt_hi = min(q_last, Sk - 1) / kBK;
     if (window > 0) kt_lo = max(0, q0 - window + 1) / kBK;
   }
 
@@ -165,7 +173,7 @@ __global__ void __launch_bounds__(kNT) flash_fwd_kernel(
     __syncthreads();  // the previous tile's K, V and P are consumed
     for (int i = tid; i < kBK * HDP; i += kNT) {
       const int rr = i / HDP, d = i % HDP, s = k0 + rr;
-      const bool in = s < S && d < hd;
+      const bool in = s < Sk && d < hd;
       Ks[rr * LD + d] = in ? to_f32(kb[s * kv_stride + d]) : 0.f;
       Vs[rr * HDP + d] = in ? to_f32(vb[s * kv_stride + d]) : 0.f;
     }
@@ -206,7 +214,7 @@ __global__ void __launch_bounds__(kNT) flash_fwd_kernel(
 #pragma unroll
       for (int c = 0; c < kKeys; ++c) {
         const int kp = k0 + tx + c * kTX;
-        bool live = kp < S;
+        bool live = kp < Sk;
         if (causal) {
           live = live && kp <= qp;
           if (window > 0) live = live && kp > qp - window;
@@ -254,7 +262,7 @@ __global__ void __launch_bounds__(kNT) flash_fwd_kernel(
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int qp = q0 + ty * kRows + r;
-    if (qp >= S) continue;
+    if (qp >= Sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -265,8 +273,8 @@ __global__ void __launch_bounds__(kNT) flash_fwd_kernel(
 }
 
 template <typename T, int HDP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-                   int H, int Hkv, int hd, int causal, int window, float scale,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                   int Sk, int H, int Hkv, int hd, int causal, int window, float scale,
                    cudaStream_t st) {
   constexpr size_t bytes = smem_bytes<HDP>();
   static bool attr_set = false;
@@ -277,21 +285,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   flash_fwd_kernel<T, HDP><<<grid, kNT, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, Hkv, hd, causal, window, scale);
+      static_cast<T*>(o), Sq, Sk, H, Hkv, hd, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int S,
-                     int H, int Hkv, int hd, int causal, int window, float scale,
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                     int Sk, int H, int Hkv, int hd, int causal, int window, float scale,
                      cudaStream_t st) {
-  if (hd <= 64) return launch<T, 64>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, st);
+  if (hd <= 64)
+    return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
   if (hd <= 128)
-    return launch<T, 128>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, st);
-  return launch<T, 256>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, st);
+    return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
+  return launch<T, 256>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
 }
 
 
@@ -482,8 +491,8 @@ __device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t d
 template <int HDP>
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_tc_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S, int H, int Hkv, int hd, int causal, int window,
-    float scale_log2) {
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int Sq, int Sk,
+    int H, int Hkv, int hd, int causal, int window, float scale_log2) {
   using L = Layout<HDP>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -498,12 +507,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_tc_kernel(
   const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
   const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / (H / Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest (last) tiles first
-  const int q_last = min(q0 + kBQ, S) - 1;
-  int kt_lo = 0, kt_hi = (S - 1) / kBK;
+  const int q_last = min(q0 + kBQ, Sq) - 1;
+  int kt_lo = 0, kt_hi = (Sk - 1) / kBK;
   if (causal) {
-    kt_hi = q_last / kBK;
+    kt_hi = min(q_last, Sk - 1) / kBK;
     if (window > 0) kt_lo = max(0, q0 - window + 1) / kBK;
   }
+  // <= 0 when a window lies wholly past Sk: no tile is loaded, the rows are 0
   const int n_tiles = kt_hi - kt_lo + 1;
 
   if (threadIdx.x == 0) {
@@ -540,7 +550,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_tc_kernel(
     const int lane = tw % 32;
     // this thread's accumulator rows: qp0 and qp0 + 8 (wgmma's fragment)
     const int qp0 = q0 + wg * 64 + (tw / 32) * 16 + lane / 4, qp1 = qp0 + 8;
-    const int w_first = q0 + wg * 64, w_last = min(w_first + 63, S - 1);
+    const int w_first = q0 + wg * 64, w_last = min(w_first + 63, Sq - 1);
     float acc[HDP / 2];
 #pragma unroll
     for (int j = 0; j < HDP / 2; ++j) acc[j] = 0.f;
@@ -551,7 +561,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_tc_kernel(
       const int s = it % kStages;
       const int k0 = (kt_lo + it) * kBK;
       mbar_wait(full(s), (it / kStages) & 1);
-      bool dead = w_last < w_first;  // every row of this warpgroup lies beyond S
+      bool dead = w_last < w_first;  // every row of this warpgroup lies beyond Sq
       if (causal) {
         dead = dead || k0 > w_last;
         if (window > 0) dead = dead || k0 + kBK - 1 <= w_first - window;
@@ -574,16 +584,16 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_tc_kernel(
         wgmma_wait0();
         pin<32>(sc);
 
-        // mask, only in tiles that cross S, the diagonal or the window's edge
+        // mask, only in tiles that cross Sk, the diagonal or the window's edge
         const bool edge =
-            k0 + kBK > S ||
+            k0 + kBK > Sk ||
             (causal && (k0 + kBK - 1 > w_first || (window > 0 && k0 <= w_last - window)));
         if (edge) {
 #pragma unroll
           for (int i = 0; i < 32; ++i) {
             const int key = k0 + (i / 4) * 8 + (lane % 4) * 2 + (i % 2);
             const int qp = (i & 2) ? qp1 : qp0;
-            bool live = key < S;
+            bool live = key < Sk;
             if (causal) live = live && key <= qp && (window <= 0 || key > qp - window);
             if (!live) sc[i] = -INFINITY;
           }
@@ -653,14 +663,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_tc_kernel(
     }
     const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
     const long long q_stride = (long long)H * hd;
-    __nv_bfloat16* ob = o + (long long)b * S * q_stride + (long long)h * hd;
+    __nv_bfloat16* ob = o + (long long)b * Sq * q_stride + (long long)h * hd;
     const bool pairs = (hd % 2 == 0) && (reinterpret_cast<uintptr_t>(o) % 4 == 0);
 #pragma unroll
     for (int j = 0; j < HDP / 2; j += 2) {
       const int d = (j / 4) * 8 + (lane % 4) * 2;
       const int qp = (j & 2) ? qp1 : qp0;
       const float den = (j & 2) ? den1 : den0;
-      if (qp < S && d < hd) {
+      if (qp < Sq && d < hd) {
         __nv_bfloat16* dst = ob + qp * q_stride + d;
         const float x0 = acc[j] / den, x1 = acc[j + 1] / den;
         if (pairs) {
@@ -719,8 +729,9 @@ cudaError_t encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, i
 }
 
 template <int HDP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                   int Hkv, int hd, int causal, int window, float scale, cudaStream_t st) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                   int Sk, int H, int Hkv, int hd, int causal, int window, float scale,
+                   cudaStream_t st) {
   constexpr int bytes = Layout<HDP>::kBytes;
   static bool attr_set = false;
   if (!attr_set) {
@@ -730,13 +741,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
     attr_set = true;
   }
   CUtensorMap tq, tk, tv;
-  cudaError_t e = encode(&tq, q, B, S, H, hd, kBQ);
-  if (e == cudaSuccess) e = encode(&tk, k, B, S, Hkv, hd, kBK);
-  if (e == cudaSuccess) e = encode(&tv, v, B, S, Hkv, hd, kBK);
+  cudaError_t e = encode(&tq, q, B, Sq, H, hd, kBQ);
+  if (e == cudaSuccess) e = encode(&tk, k, B, Sk, Hkv, hd, kBK);
+  if (e == cudaSuccess) e = encode(&tv, v, B, Sk, Hkv, hd, kBK);
   if (e != cudaSuccess) return e;
-  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_fwd_tc_kernel<HDP><<<grid, kThreads, bytes, st>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, Hkv, hd, causal, window,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, Hkv, hd, causal, window,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -748,12 +759,15 @@ bool tma_layout(const void* q, const void* k, const void* v, int hd) {
                           reinterpret_cast<uintptr_t>(v)) % 16) == 0;
 }
 
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                     int Hkv, int hd, int causal, int window, float scale, cudaStream_t st) {
-  if ((long long)S > 65535LL * kBQ) return cudaErrorInvalidValue;
-  if (hd <= 64) return launch<64>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, st);
-  if (hd <= 128) return launch<128>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, st);
-  return launch<256>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, st);
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                     int Sk, int H, int Hkv, int hd, int causal, int window, float scale,
+                     cudaStream_t st) {
+  if ((long long)Sq > 65535LL * kBQ) return cudaErrorInvalidValue;
+  if (hd <= 64)
+    return launch<64>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
+  if (hd <= 128)
+    return launch<128>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
+  return launch<256>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
 }
 
 }  // namespace tc
@@ -762,30 +776,31 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B
 
 extern "C" {
 
-// o (B, S, H, hd) = attention of q (B, S, H, hd) over k, v (B, S, Hkv, hd),
+// o (B, Sq, H, hd) = attention of q (B, Sq, H, hd) over k, v (B, Sk, Hkv, hd),
 // all contiguous, fp32 when dtype == 0 (flash_fwd_kernel, FMA) and bf16 when
 // dtype == 1 (tc::flash_fwd_tc_kernel, tensor cores; a layout TMA cannot
 // take, hd not a multiple of 8 or a base not 16-byte aligned, runs
-// flash_fwd_kernel's bf16 instance). causal != 0
-// masks keys after the query; window > 0 (only with causal) also masks keys
-// window or more positions before it. H must be a multiple of Hkv, and
+// flash_fwd_kernel's bf16 instance). causal != 0 masks keys after the query,
+// positions counted from 0 in both; window > 0 (only with causal) also masks
+// keys window or more positions before it. Sk >= 1, H a multiple of Hkv,
 // 1 <= hd <= 256. Launches on `stream`, does not synchronise, and returns
 // cudaGetLastError().
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                        int S, int H, int Hkv, int hd, int causal, int window,
+                        int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
                         float scale, int dtype, void* stream) {
-  if (B < 0 || S < 0 || H < 1 || Hkv < 1 || H % Hkv != 0 || hd < 1 || hd > 256 ||
-      (long long)B * H > 65535)
+  if (B < 0 || Sq < 0 || Sk < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || hd < 1 ||
+      hd > 256 || (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  if (B == 0 || S == 0) return (int)cudaSuccess;
+  if (B == 0 || Sq == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch<float>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, st);
+    return (int)dispatch<float>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, causal, window, scale,
+                                st);
   if (dtype == 1 && tc::tma_layout(q, k, v, hd))
-    return (int)tc::dispatch(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, st);
+    return (int)tc::dispatch(q, k, v, o, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale,
-                                        st);
+    return (int)dispatch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, causal, window,
+                                        scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

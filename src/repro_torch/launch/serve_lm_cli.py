@@ -7,11 +7,14 @@ Usage:
         --batch 4 --prompt-len 64 --gen 32 [--device cpu]
 
 ``--arch`` is ``mini`` or any registered architecture (its smoke
-configuration); whisper-large-v3 and internvl2-2b raise
-``NotImplementedError`` (ROADMAP A8.1). The prefill runs the Hopper
-kernels (WKV6 in ``rwkv`` blocks, flash attention in ``attn``/``local``
-blocks; ``rec`` blocks and MoE FFNs are plain PyTorch); the decode is
-plain PyTorch. The device is ``cuda:0`` unless ``--device cpu`` is given.
+configuration). As in the reference, whisper-large-v3's encoder runs over
+zero frame embeddings (B, ``encoder_seq_len``, d) and internvl2-2b's
+prompt follows zero image embeddings (B, ``n_image_tokens``, d); the
+decode positions count the image tokens. The prefill runs the Hopper
+kernels (WKV6 in ``rwkv`` blocks, flash attention in ``attn``/``local``/
+``enc`` blocks and twice in ``dec`` blocks, self and cross; ``rec`` blocks
+and MoE FFNs are plain PyTorch); the decode is plain PyTorch. The device is
+``cuda:0`` unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -45,13 +48,21 @@ def serve(args, cfg=None) -> dict:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = lm.init_lm(gen, cfg, dev)
     B, P, G = args.batch, args.prompt_len, args.gen
-    max_len = P + G
+    n_img = cfg.n_image_tokens or 0
+    max_len = P + G + n_img
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev)
+    kw = {}
+    if n_img:
+        kw["image_embeds"] = torch.zeros((B, n_img, cfg.d_model), dtype=cfg.torch_dtype,
+                                         device=dev)
+    if cfg.n_encoder_layers:
+        kw["enc_frames"] = torch.zeros((B, cfg.encoder_seq_len, cfg.d_model),
+                                       dtype=cfg.torch_dtype, device=dev)
 
     with torch.inference_mode():
         _sync(dev)
         t0 = time.perf_counter()
-        last_logits, state = lm.lm_prefill(params, cfg, prompts, max_len)
+        last_logits, state = lm.lm_prefill(params, cfg, prompts, max_len, **kw)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
 
@@ -59,7 +70,7 @@ def serve(args, cfg=None) -> dict:
         generated = [tok]
         t0 = time.perf_counter()
         for i in range(G - 1):
-            logits, state = lm.decode_step(params, cfg, state, tok, P + i)
+            logits, state = lm.decode_step(params, cfg, state, tok, P + n_img + i)
             tok = logits[:, -1].argmax(-1)[:, None]
             generated.append(tok)
         _sync(dev)

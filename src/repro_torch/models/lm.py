@@ -1,19 +1,25 @@
 """Language model for serving: embedding + blocks + final norm + LM head
-(port of ``repro/models/lm.py`` for the block kinds ``rwkv`` (RWKV6),
+(port of ``repro/models/lm.py`` for every block kind: ``rwkv`` (RWKV6),
 ``rec`` (Griffin's RG-LRU, ``models/griffin.py``), ``attn`` and ``local``,
-each with a dense or a mixture-of-experts FFN (``models/moe.py``)).
-Encoder/decoder blocks, image tokens and learned positions wait (ROADMAP
-A8.1: whisper-large-v3, internvl2-2b); ``check_supported`` raises for them.
+each with a dense or a mixture-of-experts FFN (``models/moe.py``), and
+whisper's ``enc`` (bidirectional) and ``dec`` (causal self attention, then
+cross attention onto the encoder's output) blocks). An encoder
+(``n_encoder_layers``) runs over ``enc_frames`` (B, Se, d), stub frame
+embeddings with learned positions (``enc_pos``); image embeddings
+(B, n_image_tokens, d) are prepended to the prompt; ``pos_emb`` adds
+learned positions to the decoder's tokens, absolute in the decode step.
 
 Parameters are plain dicts with the reference's keys. Where the reference
 stacks the repeated unit on a leading axis and scans over it, the port
-keeps ``params["units"]`` (and the decode state's ``"units"``) as a Python
-list of per-unit dicts and loops over it; ``convert.lm_params_from_numpy``
+keeps ``params["units"]`` and ``params["enc_units"]`` (and the decode
+state's ``"units"`` and ``"cross"``, the per-unit cross K/V) as Python
+lists of per-unit dicts and loops over them; ``convert.lm_params_from_numpy``
 unstacks the reference's tree and ``lm_params_to_numpy`` stacks it back.
 
 The full-sequence blocks run the Hopper kernels (``wkv6`` in ``rwkv``
-blocks, ``flash_attention`` in ``attn``/``local`` blocks); ``use_kernel=
-False`` takes the plain paths instead, so a run on the card can be held
+blocks, ``flash_attention`` in ``attn``/``local``/``enc`` blocks and twice
+in a ``dec`` block: its self attention and its cross attention, Sq != Sk);
+``use_kernel=False`` takes the plain paths instead, so a run on the card can be held
 against them. ``rec`` blocks and the MoE FFN are plain PyTorch on both
 paths, as the reference computes them outside Pallas. The decode step is
 plain PyTorch and updates the KV caches of the state it is given in place.
@@ -24,10 +30,14 @@ same numbers, without gemma3-12b's 4 GB of logits at B=4, S=2048).
 
 Entry points:
     init_lm(generator, cfg, device)             -> params
-    lm_forward(params, cfg, tokens)             -> (logits, aux_loss)
-    lm_prefill(params, cfg, tokens, max_len)    -> (last_logits, decode_state)
-    init_decode_state(params, cfg, B, max_len)  -> state
+    lm_forward(params, cfg, tokens, ...)        -> (logits, aux_loss)
+    lm_prefill(params, cfg, tokens, max_len, ...)
+                                                -> (last_logits, decode_state)
+    init_decode_state(params, cfg, B, max_len, enc_out=...) -> state
     decode_step(params, cfg, state, token, pos) -> (logits, state)
+
+``...`` is ``image_embeds`` and ``enc_frames``, as the reference takes
+them. The logits of ``lm_forward`` cover the image tokens too.
 """
 from __future__ import annotations
 
@@ -46,25 +56,18 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.moe import moe_apply, moe_init
 
-_ATTN_KINDS = {"attn": "causal", "local": "local"}
+_ATTN_KINDS = {"attn": "causal", "local": "local", "enc": "bidir", "dec": "causal"}
 _KINDS = ("rwkv", "rec", *_ATTN_KINDS)
-_WAITS = "wait (ROADMAP A8.1 (whisper, internvl2))"
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    encoder/decoder blocks, encoder frames, image tokens and learned
-    positions."""
+    """Raise ``NotImplementedError`` for a block kind the reference does
+    not have either."""
     kinds = set(cfg.block_pattern) | set(cfg.remainder_pattern)
     if not kinds <= set(_KINDS):
         raise NotImplementedError(
-            f"{cfg.arch_id}: block kinds {sorted(kinds - set(_KINDS))} {_WAITS}; the port "
-            f"runs {_KINDS}")
-    if cfg.n_encoder_layers or cfg.n_image_tokens:
-        raise NotImplementedError(f"{cfg.arch_id}: encoder frames and image tokens {_WAITS}")
-    if cfg.pos_embedding not in ("rope", "none"):
-        raise NotImplementedError(f"{cfg.arch_id}: {cfg.pos_embedding!r} position "
-                                  f"embeddings {_WAITS}")
+            f"{cfg.arch_id}: unknown block kinds {sorted(kinds - set(_KINDS))}; the "
+            f"reference and the port run {_KINDS}")
 
 
 # ---------------------------------------------------------------------------
@@ -86,7 +89,10 @@ def init_block(generator, cfg, kind: str) -> dict:
     if kind == "rec":
         return {"rec": griffin.rglru_block_init(generator, cfg),
                 "ffn": _ffn_init(generator, cfg)}
-    return {"attn": attn_init(generator, cfg), "ffn": _ffn_init(generator, cfg)}
+    p = {"attn": attn_init(generator, cfg), "ffn": _ffn_init(generator, cfg)}
+    if kind == "dec":
+        p["xattn"] = attn_init(generator, cfg, cross=True)
+    return p
 
 
 def _init_unit(generator, cfg, pattern) -> dict:
@@ -112,6 +118,13 @@ def init_lm(generator: torch.Generator, cfg, device=None) -> dict:
     params["final_norm"] = rmsnorm_init(cfg.d_model, dt, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size, dt)
+    if cfg.pos_embedding == "learned":
+        params["pos_emb"] = embed_init(generator, cfg.max_seq_len, cfg.d_model, dt)
+    if cfg.n_encoder_layers:
+        params["enc_units"] = [_init_unit(generator, cfg, ("enc",))
+                               for _ in range(cfg.n_encoder_layers)]
+        params["enc_norm"] = rmsnorm_init(cfg.d_model, dt, dev)
+        params["enc_pos"] = embed_init(generator, cfg.encoder_seq_len, cfg.d_model, dt)
     return params
 
 
@@ -128,8 +141,11 @@ def _apply_ffn(p, cfg, x):
     return x + mlp_apply(p["mlp"], h, cfg.activation), 0.0
 
 
-def apply_block_full(bp, cfg, kind, x, *, collect_state=False, use_kernel=True):
-    """Returns (x, aux_loss, state_or_None)."""
+def apply_block_full(bp, cfg, kind, x, *, enc_out=None, collect_state=False,
+                     use_kernel=True):
+    """Returns (x, aux_loss, state_or_None). A ``dec`` block attends to
+    ``enc_out`` (B, Se, d), the normed encoder output; an ``enc`` block
+    keeps no state."""
     if kind == "rwkv":
         out = rwkv.rwkv_block_apply(bp, cfg, x, use_kernel=use_kernel,
                                     collect_state=collect_state)
@@ -142,13 +158,17 @@ def apply_block_full(bp, cfg, kind, x, *, collect_state=False, use_kernel=True):
         return x, aux, state
     akind = _ATTN_KINDS[kind]
     state = None
-    if collect_state:
+    if collect_state and kind != "enc":
         out, (k, v) = multihead_attn(bp["attn"], cfg, x, kind=akind, return_kv=True,
                                      use_kernel=use_kernel)
         state = {"k": k, "v": v}
     else:
         out = multihead_attn(bp["attn"], cfg, x, kind=akind, use_kernel=use_kernel)
-    x, aux = _apply_ffn(bp["ffn"], cfg, x + out)
+    x = x + out
+    if kind == "dec":
+        x = x + multihead_attn(bp["xattn"], cfg, x, kind="bidir", kv_source=enc_out,
+                               use_kernel=use_kernel)
+    x, aux = _apply_ffn(bp["ffn"], cfg, x)
     return x, aux, state
 
 
@@ -156,34 +176,67 @@ def _lm_head(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _forward_hidden(params, cfg, tokens, *, collect_state, use_kernel):
-    """tokens (B, S) -> (final-normed hidden (B, S, d), aux, unit states,
-    remainder states)."""
-    check_supported(cfg)
-    h = params["embed"][tokens]
+def _run_encoder(params, cfg, enc_frames, *, use_kernel=True):
+    """Whisper's encoder over stub frame embeddings (B, Se, d): learned
+    positions, the ``enc`` blocks, the encoder norm. Returns (enc_out,
+    aux)."""
+    h = enc_frames.to(cfg.torch_dtype) + params["enc_pos"][None, :enc_frames.shape[1]]
     aux = 0.0
-    unit_states = []
-    for up in params["units"]:
+    for up in params["enc_units"]:
+        h, a, _ = apply_block_full(up["b0"], cfg, "enc", h, use_kernel=use_kernel)
+        aux = aux + a
+    return rmsnorm(params["enc_norm"], h, cfg.norm_eps), aux
+
+
+def _embed_tokens(params, cfg, tokens, image_embeds=None, position_offset: int = 0):
+    """tokens (B, S) -> (B, n_image + S, d): the image embeddings first,
+    then learned positions from ``position_offset`` where the config has
+    them."""
+    h = params["embed"][tokens]
+    if image_embeds is not None:
+        h = torch.cat([image_embeds.to(h.dtype), h], dim=1)
+    if cfg.pos_embedding == "learned":
+        h = h + params["pos_emb"][None, position_offset:position_offset + h.shape[1]]
+    return h
+
+
+def _forward_hidden(params, cfg, tokens, *, image_embeds, enc_frames, collect_state,
+                    use_kernel):
+    """tokens (B, S) -> (final-normed hidden (B, S_total, d), aux, unit
+    states, remainder states, encoder output or None)."""
+    check_supported(cfg)
+    aux, enc_out = 0.0, None
+    if cfg.n_encoder_layers:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.arch_id}: the encoder needs enc_frames (B, "
+                             f"{cfg.encoder_seq_len}, {cfg.d_model})")
+        enc_out, aux = _run_encoder(params, cfg, enc_frames, use_kernel=use_kernel)
+    h = _embed_tokens(params, cfg, tokens, image_embeds)
+
+    def blocks(bps, pattern):
+        nonlocal h, aux
         states = {}
-        for i, kind in enumerate(cfg.block_pattern):
-            h, a, states[f"b{i}"] = apply_block_full(up[f"b{i}"], cfg, kind, h,
+        for i, kind in enumerate(pattern):
+            h, a, states[f"b{i}"] = apply_block_full(bps[f"b{i}"], cfg, kind, h,
+                                                     enc_out=enc_out,
                                                      collect_state=collect_state,
                                                      use_kernel=use_kernel)
             aux = aux + a
-        unit_states.append(states)
-    rem_states = {}
-    for i, kind in enumerate(cfg.remainder_pattern):
-        h, a, rem_states[f"b{i}"] = apply_block_full(params["rem"][f"b{i}"], cfg, kind, h,
-                                                     collect_state=collect_state,
-                                                     use_kernel=use_kernel)
-        aux = aux + a
-    return rmsnorm(params["final_norm"], h, cfg.norm_eps), aux, unit_states, rem_states
+        return states
+
+    unit_states = [blocks(up, cfg.block_pattern) for up in params["units"]]
+    rem_states = blocks(params["rem"], cfg.remainder_pattern) if cfg.remainder_pattern else {}
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return h, aux, unit_states, rem_states, enc_out
 
 
-def lm_forward(params, cfg, tokens, *, use_kernel=True):
-    """tokens (B, S) -> (logits (B, S, V), aux_loss)."""
-    h, aux, _, _ = _forward_hidden(params, cfg, tokens, collect_state=False,
-                                   use_kernel=use_kernel)
+def lm_forward(params, cfg, tokens, *, image_embeds=None, enc_frames=None,
+               use_kernel=True):
+    """tokens (B, S) -> (logits (B, S_total, V), aux_loss); S_total counts
+    the image tokens."""
+    h, aux, _, _, _ = _forward_hidden(params, cfg, tokens, image_embeds=image_embeds,
+                                      enc_frames=enc_frames, collect_state=False,
+                                      use_kernel=use_kernel)
     return h @ _lm_head(params, cfg), aux
 
 
@@ -199,8 +252,10 @@ def _init_block_state(cfg, kind, batch, max_len, device):
     return init_kv_cache(cfg, batch, max_len, device)
 
 
-def init_decode_state(params, cfg, batch: int, max_len: int) -> dict:
-    """Zero-initialised decode state (pre-prefill), on the params' device."""
+def init_decode_state(params, cfg, batch: int, max_len: int, *, enc_out=None) -> dict:
+    """Zero-initialised decode state (pre-prefill), on the params' device.
+    With an encoder and ``enc_out`` (B, Se, d), also each unit's cross K/V
+    (``"cross"``: a list of {"xk", "xv"}, each (B, Se, Hkv, hd))."""
     check_supported(cfg)
     dev = params["embed"].device
 
@@ -211,32 +266,49 @@ def init_decode_state(params, cfg, batch: int, max_len: int) -> dict:
     state = {"units": [one_unit(cfg.block_pattern) for _ in range(cfg.n_units)]}
     if cfg.remainder_pattern:
         state["rem"] = one_unit(cfg.remainder_pattern)
+    if cfg.n_encoder_layers and enc_out is not None:
+        B, Se = enc_out.shape[:2]
+        shape = (B, Se, cfg.n_kv_heads, cfg.resolved_head_dim)
+        state["cross"] = [{"xk": (enc_out @ up["b0"]["xattn"]["wk"]).reshape(shape),
+                           "xv": (enc_out @ up["b0"]["xattn"]["wv"]).reshape(shape)}
+                          for up in params["units"]]
     return state
 
 
-def apply_block_decode(bp, cfg, kind, x, st, pos):
+def apply_block_decode(bp, cfg, kind, x, st, pos, cross=None):
+    """One block of the decode step; a ``dec`` block also attends to its
+    unit's ``cross`` K/V."""
     if kind == "rwkv":
         return rwkv.rwkv_block_decode(bp, cfg, x, st)
     if kind == "rec":
         x, new = griffin.rglru_block_decode(bp["rec"], cfg, x, st)
     else:
-        out, new = decode_attn(bp["attn"], cfg, x, st, pos, kind=_ATTN_KINDS[kind])
+        akind = "local" if kind == "local" else "causal"
+        out, new = decode_attn(bp["attn"], cfg, x, st, pos, kind=akind)
         x = x + out
+        if kind == "dec" and cross is not None:
+            x = x + decode_attn(bp["xattn"], cfg, x, st, pos,
+                                cross_kv=(cross["xk"], cross["xv"]))[0]
     return _apply_ffn(bp["ffn"], cfg, x)[0], new
 
 
 def decode_step(params, cfg, state, tokens, pos: int):
-    """One decode step. tokens (B, 1) int; pos the position of the token.
+    """One decode step. tokens (B, 1) int; pos the position of the token
+    (counting the image tokens; learned positions take ``pos_emb[pos]``).
 
     Returns (logits (B, 1, V), new_state); the KV caches of ``state`` are
-    updated in place and shared with the new state."""
+    updated in place and shared with the new state, as are its cross
+    K/V."""
     h = params["embed"][tokens]
+    if cfg.pos_embedding == "learned":
+        h = h + params["pos_emb"][pos][None, None]
+    cross = state.get("cross", [None] * len(state["units"]))
     new_units = []
-    for up, uc in zip(params["units"], state["units"]):
+    for up, uc, xc in zip(params["units"], state["units"], cross):
         new_uc = {}
         for i, kind in enumerate(cfg.block_pattern):
             h, new_uc[f"b{i}"] = apply_block_decode(up[f"b{i}"], cfg, kind, h,
-                                                    uc[f"b{i}"], pos)
+                                                    uc[f"b{i}"], pos, cross=xc)
         new_units.append(new_uc)
     new_state = dict(state, units=new_units)
     if cfg.remainder_pattern:
@@ -249,14 +321,18 @@ def decode_step(params, cfg, state, tokens, pos: int):
     return h @ _lm_head(params, cfg), new_state
 
 
-def lm_prefill(params, cfg, tokens, max_len: int, *, use_kernel=True):
-    """Run the full prompt, returning (last-token logits (B, V), decode
-    state with the prompt's K/V written into ``max_len`` caches)."""
-    h, _aux, unit_states, rem_states = _forward_hidden(
-        params, cfg, tokens, collect_state=True, use_kernel=use_kernel)
+def lm_prefill(params, cfg, tokens, max_len: int, *, image_embeds=None, enc_frames=None,
+               use_kernel=True):
+    """Run the full prompt (after its image tokens, with the encoder over
+    ``enc_frames``), returning (last-token logits (B, V), decode state with
+    the K/V of all S_total positions written into ``max_len`` caches and,
+    with an encoder, the cross K/V)."""
+    h, _aux, unit_states, rem_states, enc_out = _forward_hidden(
+        params, cfg, tokens, image_embeds=image_embeds, enc_frames=enc_frames,
+        collect_state=True, use_kernel=use_kernel)
     last_logits = h[:, -1] @ _lm_head(params, cfg)
-    B, S = tokens.shape
-    state = init_decode_state(params, cfg, B, max_len)
+    B, S = h.shape[:2]
+    state = init_decode_state(params, cfg, B, max_len, enc_out=enc_out)
 
     def write_unit(init_st, got_st):
         out = {}

@@ -32,10 +32,11 @@ BQ, HALF, BK = 128, 64, 64
 
 
 def tc_emulate(q, k, v, *, causal, window=None, split_p=True):
-    """The kernel's order of operations on bf16 q (B, S, H, hd), k, v
-    (B, S, Hkv, hd); returns bf16 (B, S, H, hd). ``split_p=False`` rounds P
-    to bf16 once instead (what FlashAttention and SDPA do)."""
+    """The kernel's order of operations on bf16 q (B, Sq, H, hd), k, v
+    (B, Sk, Hkv, hd); returns bf16 (B, Sq, H, hd). ``split_p=False`` rounds
+    P to bf16 once instead (what FlashAttention and SDPA do)."""
     B, S, H, hd = q.shape
+    Sk = k.shape[1]
     rep = H // k.shape[2]
     hdp = 64 if hd <= 64 else 128 if hd <= 128 else 256
     pad = (0, hdp - hd)
@@ -47,9 +48,9 @@ def tc_emulate(q, k, v, *, causal, window=None, split_p=True):
     out = torch.zeros((B, H, S, hdp))
     for q0 in range(0, S, BQ):
         q_last = min(q0 + BQ, S) - 1
-        kt_lo, kt_hi = 0, (S - 1) // BK
+        kt_lo, kt_hi = 0, (Sk - 1) // BK
         if causal:
-            kt_hi = q_last // BK
+            kt_hi = min(q_last, Sk - 1) // BK
             if win:
                 kt_lo = max(0, q0 - win + 1) // BK
         for first in (q0, q0 + HALF):
@@ -64,7 +65,7 @@ def tc_emulate(q, k, v, *, causal, window=None, split_p=True):
                 k0 = kt * BK
                 if causal and (k0 > last or (win and k0 + BK - 1 <= first - win)):
                     continue
-                keys = torch.arange(k0, min(k0 + BK, S))
+                keys = torch.arange(k0, min(k0 + BK, Sk))
                 s = qf[:, :, qp] @ kf[:, :, keys].transpose(-1, -2)
                 live = torch.ones((len(qp), len(keys)), dtype=torch.bool)
                 if causal:
@@ -118,6 +119,31 @@ def test_tc_order_matches_reference(b, s, h, hkv, hd, causal, window):
     jwant = jops.flash_attention(jq, jk, jv, causal=causal, window=window, interpret=True)
     for w in (want.float().numpy(), np.asarray(jwant, np.float32)):
         np.testing.assert_allclose(got.float().numpy(), w, atol=ATOL, rtol=RTOL)
+
+
+CROSS_CASES = [
+    # b, sq, sk, h, hkv, hd, causal, window
+    (1, 100, 300, 4, 4, 64, False, None),   # whisper's cross attention, ragged Sk
+    (2, 150, 70, 4, 2, 128, False, None),   # Sk < Sq, GQA 2:1
+    (1, 200, 333, 2, 1, 64, True, None),    # causal, Sq < Sk: key <= query from 0
+    (1, 260, 90, 4, 2, 64, True, 40),       # causal, windowed, rows past Sk + window
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,hd,causal,window", CROSS_CASES)
+def test_tc_order_with_sq_ne_sk_matches_reference(b, sq, sk, h, hkv, hd, causal, window):
+    """The kernel's order with the query and key lengths apart: query tiles
+    over Sq, key tiles and the key mask over Sk, against the plain version
+    (which gives a row without a live key 0, as the kernel does)."""
+    rng = np.random.default_rng(sq + sk)
+    q = torch.from_numpy(rng.standard_normal((b, sq, h, hd)).astype(np.float32)).bfloat16()
+    k, v = (torch.from_numpy(rng.standard_normal((b, sk, hkv, hd)).astype(np.float32)
+                             ).bfloat16() for _ in range(2))
+    got = tc_emulate(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), atol=ATOL,
+                               rtol=RTOL)
 
 
 @pytest.mark.parametrize("window", [None, 1024])

@@ -152,6 +152,28 @@ def test_resolve_device_never_falls_back(monkeypatch):
         ServedModel(params, store, backend="gather")
 
 
+@pytest.mark.parametrize("name", ["examples.serve_lm", "launch.serve_lm_cli", "models.lm",
+                                  "models.attention"])
+def test_lm_modules_stand_alone(name):
+    """The LM slice's modules, the serving example among them, import
+    without jax and the reference."""
+    path = PORT.joinpath(*name.split(".")).with_suffix(".py")
+    assert path.is_file(), name
+    assert not (_imported_roots(path) & set(FORBIDDEN)), name
+    code = f"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+import importlib
+importlib.import_module("repro_torch.{name}")
+assert not [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_lm_entry_points_never_fall_back(monkeypatch):
     """The LM slice's entry points default to ``cuda:0`` and raise without
     CUDA, like the serving slice's."""

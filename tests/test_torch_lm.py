@@ -81,17 +81,20 @@ def test_configs_equal_the_reference(arch, smoke):
 
 
 def test_registry_holds_what_the_port_runs():
-    """The registry holds the reference's ten architectures; ``init_lm``
-    refuses what the port does not run yet: encoder/decoder blocks, image
-    tokens and learned positions (whisper-large-v3, internvl2-2b)."""
+    """The registry holds the reference's ten architectures and the port
+    runs all ten; ``init_lm`` refuses only a block kind the reference does
+    not have either."""
     assert list_archs() == jax_list_archs()
     assert dataclasses.asdict(mini_config()) == dataclasses.asdict(jax_mini_config())
     with pytest.raises(KeyError):
         get_config("gpt-2")
-    for cfg in (get_smoke_config("whisper-large-v3"), get_smoke_config("internvl2-2b"),
-                ModelConfig("x", "audio", 2, 64, 2, 2, 128, 100, block_pattern=("dec",)),
-                ModelConfig("x", "dense", 2, 64, 2, 2, 128, 100, pos_embedding="learned")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for arch in list_archs():
+        tlm.check_supported(get_config(arch))
+        tlm.check_supported(get_smoke_config(arch))
+    for cfg in (ModelConfig("x", "audio", 2, 64, 2, 2, 128, 100, block_pattern=("xdec",)),
+                ModelConfig("x", "dense", 3, 64, 2, 2, 128, 100,
+                            block_pattern=("attn", "conv"))):
+        with pytest.raises(NotImplementedError, match="unknown block kinds"):
             tlm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
 
 

@@ -7,8 +7,9 @@ doubling scan against the reference's associative scan, the decode step,
 both MoE dispatches and the aux loss) at 1e-5 on the same inputs; the
 MoE's discrete decisions (top-k, rank, keep) exactly, an exact tie in the
 router included; the convert round trip in bf16; whisper-large-v3 and
-internvl2-2b still raising. The smoke configs end to end are in
-``test_torch_lm_families_run.py``.
+internvl2-2b accepted, with the reference's parameter tree. The smoke
+configs end to end are in ``test_torch_lm_families_run.py`` and
+``test_torch_lm_encdec.py``.
 """
 import dataclasses
 
@@ -46,7 +47,7 @@ from repro_torch.models import moe as tmoe
 
 TOL = 1e-4
 PIECE_TOL = 1e-5
-WAITING = ["whisper-large-v3", "internvl2-2b"]
+ENC_IMG = ["whisper-large-v3", "internvl2-2b"]
 
 
 def _np(tree):
@@ -260,16 +261,42 @@ def test_capacity_uses_pythons_round():
                                                 capacity_factor=1.0)) == round(2.5) == 2
 
 
-@pytest.mark.parametrize("arch", WAITING)
+@pytest.mark.parametrize("arch", ENC_IMG)
 def test_whisper_and_internvl2_still_wait(arch):
+    """They wait no more: ``check_supported`` accepts the full and the smoke
+    configs, and the port's ``init_lm`` gives the reference's tree
+    (``enc_units``, ``enc_norm``, ``enc_pos``, ``pos_emb``, a ``dec``
+    block's ``xattn``), shapes and dtypes, in fp32 and in bf16."""
     for cfg in (get_smoke_config(arch), get_config(arch)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8.1"):
-            tlm.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8.1"):
-        tlm.init_lm(torch.Generator().manual_seed(0), get_smoke_config(arch), "cpu")
+        tlm.check_supported(cfg)
+    for dt in ("float32", "bfloat16"):
+        tc = dataclasses.replace(get_smoke_config(arch), dtype=dt)
+        jc = dataclasses.replace(jsmoke(arch), dtype=dt)
+        own = tlm.init_lm(torch.Generator().manual_seed(0), tc, "cpu")
+        want = jax.eval_shape(lambda jc=jc: jlm.init_lm(jax.random.PRNGKey(0), jc))
+        got = lm_params_to_numpy(own)
+        assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
+        paths = jax.tree_util.tree_flatten_with_path(want)[0]
+        for (path, w), g in zip(paths, jax.tree_util.tree_leaves(got)):
+            assert g.shape == w.shape, path
+        for (path, w), t in zip(paths, jax.tree_util.tree_leaves(_stacked_dtypes(own))):
+            assert t == _dtype_name(w.dtype), path
+    assert ("enc_units" in own) == (arch == "whisper-large-v3")
+    assert ("xattn" in own["units"][0]["b0"]) == (arch == "whisper-large-v3")
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "dbrx-132b"])
+def _stacked_dtypes(params):
+    """The port's tree with each leaf replaced by its dtype's name, the
+    per-unit lists collapsed to one entry (the reference stacks them)."""
+    out = {}
+    for key, sub in params.items():
+        if isinstance(sub, list):
+            sub = sub[0]
+        out[key] = jax.tree_util.tree_map(lambda t: _dtype_name(t.dtype), sub)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "dbrx-132b", *ENC_IMG])
 def test_convert_round_trip_is_bit_equal_in_bf16(arch):
     """The reference's bf16 params through the port and back, bit for bit;
     ``lam``, ``b_a``, ``b_i`` and ``router`` stay fp32 on both sides, the
