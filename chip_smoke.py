@@ -49,7 +49,11 @@ random weights from a seed:
   inside, on the training configuration;
 * the examples: ``examples.quickstart`` (FedAIS against FedAll) and
   ``examples.variance_analysis`` (Eq. 3-5 and Eq. 7), their aggregation
-  on the SpMM kernel.
+  on the SpMM kernel;
+* LM training: ``internvl2-2b`` whole through ``models.lm.make_train_step``
+  (flash attention's forward and its two backward kernels), mini through
+  ``launch.train`` (``train``, ``train_federated``) and
+  ``examples.train_lm_federated``.
 
 Phases, one or more lines each:
   1 device      the card (nvidia-smi name and power limit), torch and CUDA
@@ -222,24 +226,55 @@ Phases, one or more lines each:
                 Pubmed with 4 noise draws: the error is ~0 without
                 staleness and grows with it, and importance sampling's
                 Eq. 7 objective is below uniform's; each launches the
-                SpMM kernel and nothing else.
+                SpMM kernel and nothing else;
+  16 lm-train   the flash attention backward kernels (dq, then dk/dv) and
+                the forward's row log-sum-exp against their plain versions
+                (``attention_bwd_ref``, ``attention_ref(return_lse=True)``)
+                at the training path's shapes: internvl2-2b's (B 2, S 2,304,
+                H 16/8, hd 128, causal) in bf16 and fp32, mini's, gemma3-12b's
+                local block (hd 240, window 1,024), whisper-large-v3's cross
+                attention and encoder, causal Sq != Sk both ways (rows with
+                no live key); lse 1e-5, fp32 gradients 1e-4, bf16 one ulp
+                relative and 4 x the fp32 kernels' error on the same inputs;
+                each launch twice, the same bits; times against the plain
+                backward, SDPA's autograd backward and the bound. Then
+                internvl2-2b at 2 of its 24 layers, full width: loss and every
+                gradient, kernel path vs plain path (relative L2 1e-2); then
+                the main path, internvl2-2b whole (1.89 B params, bf16, AdamW
+                moments fp32) for 4 steps of ``make_train_step`` on 2 x (256
+                image embeddings, a seeded draw at scale 0.02, + 2,048
+                ``TokenPipeline`` tokens; zero embeddings, which phase 8
+                serves, make the image rows' gradient grow ~10^3 a layer:
+                recorded at 8 layers): finite
+                losses and grad norms, exactly 24 forward, 24 dq and 24 dk/dv
+                launches a step and nothing else; first and steady step ms,
+                tokens/s, peak memory. ``launch.train``'s ``train`` and
+                ``train_federated`` on mini, card against CPU from the same
+                params (losses 1e-4; tau, steps, syncs equal);
+                ``examples.train_lm_federated`` at a cut size; an RWKV train
+                step on the card refuses (``NotImplementedError``: WKV6 has no
+                backward yet) and, with ``rwkv_chunk``, trains on the plain
+                chunked scan.
 The SpMM's launch counter is set to 0 just before phase 4 and read just
 after phase 5; every counter is set to 0 just before each ``serve`` of
 phase 8, each ``run`` of phases 10, 11, 12 and 14 (the collective counts
 too), each pipeline of phase 13 and its chaos matrix, and each example of
-phase 15, and read just after it.
-``--profile`` traces a second traffic run after phase 6, one prefill + 4
-decode steps of each LM in phase 9, one steady training round replayed
-from its CUDA graph in phase 10 and one stepwise in phase 12 (the host's
-kernel and graph launches, the device's busy share, the SpMM's kernels
-under the replay), one steady stepwise round of fedall and of fedsage+ in
-phase 11, and a second traffic run of phase 13's spmm pipeline (host calls
-per replayed chunk), and one replayed pod-sharded round in phase 14 (graph
-launches, the NCCL kernels' device time, the busy share).
-Before the last line it prints a ``{"kernels": [...]}`` line (all three
-kernels). The last line is ``{"ok": true, "device": {...}}``. Any failure
-raises and the exit code is not 0; without CUDA, or outside a checkout, it
-prints no result and exits 2.
+phase 15, and the internvl2-2b training run of phase 16 and each of its
+other runs, and read just after it.
+``--profile`` traces one steady internvl2-2b train step in phase 16, a
+second traffic run after phase 6, one prefill + 4 decode steps of each LM
+in phase 9, one steady training round replayed from its CUDA graph in phase
+10 and one stepwise in phase 12 (the host's kernel and graph launches, the
+device's busy share, the SpMM's kernels under the replay), one steady
+stepwise round of fedall and of fedsage+ in phase 11, and a second traffic
+run of phase 13's spmm pipeline (host calls per replayed chunk), and one
+replayed pod-sharded round in phase 14 (graph launches, the NCCL kernels'
+device time, the busy share).
+Before the last line it prints a ``{"kernels": [...]}`` line (the three
+forward kernels and flash attention's two backward kernels). The last
+line is ``{"ok": true, "device": {...}}``. Any failure raises and the exit
+code is not 0; without CUDA, or outside a checkout, it prints no result
+and exits 2.
 """
 from __future__ import annotations
 
@@ -271,6 +306,10 @@ N_IDS = 256
 # attention 2e-5); in bf16 see _tol
 TOL_WKV = 1e-5
 TOL_ATTN = 2e-5
+# the training path (phase 16): the forward's row log-sum-exp in fp32, and
+# the per-op gradient tier of the backward kernels (ROADMAP) in fp32
+TOL_LSE = 1e-5
+TOL_GRAD = 1e-4
 # bf16 outputs: both versions round an fp32 value to bf16, so they land at
 # most one bf16 ulp apart (2^-7 of the value); the atol covers outputs near
 # 0, where the fp32 values differ by their own rounding: about 1e-6 for
@@ -715,6 +754,139 @@ def check_flash(torch, ops, ref, timer, gen, name, B, S, H, Hkv, hd, causal, win
         f"kernel "
         f"{row['ms']} ms plain {row['plain_ms']} ms sdpa {row['library_ms']} ms bound "
         f"{bound_ms} ms ({bound_by}) floor {floor_ms} ms")
+    return row
+
+
+def flash_bwd_bound(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype, products=5,
+                    reads_o=True):
+    """(bound_ms, bound_by) of the attention backward: q, k, v, o, dO (in
+    their type) and lse (fp32) read once, dq, dk, dv written once, over HBM
+    bandwidth, against ``products`` products of 2·hd operations per live
+    pair (the backward as a whole needs five: s, dp, dv, dq, dk) over the
+    peak for the inputs' type. Per kernel: the dq kernel's work is three
+    products (s, dp, dq) reading o and writing dq and delta; the dK/dV
+    kernel's four (s, dp, dv, dk) reading delta in o's place and writing
+    dk and dv."""
+    esz = torch.tensor([], dtype=dtype).element_size()
+    q_elems, kv_elems = B * Sq * H * hd, B * Sk * Hkv * hd
+    rows = B * H * Sq
+    nbytes = esz * (3 * q_elems + 2 * kv_elems) + 4 * rows   # q, o, dO, k, v, lse
+    if products == 5:
+        nbytes += esz * (q_elems + 2 * kv_elems)             # dq, dk, dv
+    elif reads_o:
+        nbytes += esz * q_elems + 4 * rows                   # dq, delta
+    else:
+        nbytes += -esz * q_elems + 4 * rows + esz * 2 * kv_elems  # delta for o; dk, dv
+    flops = products * 2.0 * hd * B * H * live_pairs(Sq, Sk, causal, window)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal, window,
+                    dtype, reps, Sk=None):
+    """One attention shape of the training path: the forward's lse against
+    the plain lse (1e-5), then the backward kernels against
+    ``attention_bwd_ref`` on the same (q, k, v, o, lse, dO): fp32 atol =
+    rtol = 1e-4; bf16 rtol 2^-7 (one ulp) and an atol of 4 x the max abs
+    error the fp32 kernels make on the same inputs widened to fp32 (the
+    bf16 instance runs the same fp32 arithmetic and rounds once at the
+    end). Each backward launch is made twice and must give the same bits.
+    Then the times and bounds, each of the whole backward and of each
+    kernel alone: the kernels', their plain versions' (the two halves of
+    ``attention_bwd_ref``) and the library's (autograd's backward of one
+    SDPA call, for all of q, k, v; for q alone; for k and v alone)."""
+    import torch.nn.functional as F
+
+    dev = gen.device
+    Sk = Sk or Sq
+    q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((B, Sk, Hkv, hd), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    do = torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(dtype)
+    kw = {"causal": causal, "window": window}
+    o, lse = ops.flash_attention_lse(q, k, v, **kw)
+    lse_want = ref.attention_ref(q, k, v, return_lse=True, **kw)[1]
+    dq, dk, dv = ops.flash_bwd(q, k, v, o, lse, do, **kw)
+    again = ops.flash_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    dead = int(torch.isinf(lse_want).sum())
+    if not (torch.equal(torch.isinf(lse), torch.isinf(lse_want))
+            and torch.allclose(lse, lse_want, atol=TOL_LSE, rtol=TOL_LSE)):
+        fin = torch.isfinite(lse_want)
+        raise AssertionError(f"flash bwd {name}: lse max abs err "
+                             f"{float((lse[fin] - lse_want[fin]).abs().max())}")
+    lse_err = float((lse - lse_want)[torch.isfinite(lse_want)].abs().max())
+    if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
+        raise AssertionError(f"flash bwd {name}: a second launch gave other bits")
+    if dtype == torch.float32:
+        atol = rtol = TOL_GRAD
+        e32 = None
+    else:
+        w32 = [t.float() for t in (q, k, v, o)]
+        g32 = ops.flash_bwd(*w32, lse, do.float(), **kw)
+        r32 = ref.attention_bwd_ref(*w32, lse, do.float(), **kw)
+        e32 = max(float((a - b).abs().max()) for a, b in zip(g32, r32))
+        atol, rtol = 4 * e32, RTOL_BF16
+        # recorded: the bf16 outputs are the fp32 kernels' rounded to bf16
+        same_bits = all(torch.equal(a, b.to(dtype)) for a, b in zip((dq, dk, dv), g32))
+    errs = {}
+    for gname, got, exp in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        if got.shape != exp.shape or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"flash bwd {name}: {gname} shape {tuple(got.shape)} or "
+                                 "non-finite")
+        errs[gname] = float((got.float() - exp.float()).abs().max())
+        if not torch.allclose(got.float(), exp.float(), atol=atol, rtol=rtol):
+            raise AssertionError(f"flash bwd {name}: {gname} max abs err {errs[gname]} beyond "
+                                 f"atol {atol} rtol {rtol}")
+    # the library yardstick: autograd's backward of one SDPA call in its own
+    # (B, H, S, hd) layout with the same mask; never called by the port
+    qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True) for a in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    skw = {"enable_gqa": Hkv != H}
+    if causal and window:
+        diff = (torch.arange(Sq, device=dev)[:, None] - torch.arange(Sk, device=dev)[None, :])
+        skw["attn_mask"] = (diff >= 0) & (diff < window)
+    else:
+        skw["is_causal"] = causal
+    out_t = F.scaled_dot_product_attention(qt, kt, vt, **skw)
+    dq_only, delta = ops.flash_bwd_dq(q, k, v, o, lse, do, **kw)
+    delta_plain = ref.attention_bwd_dq_ref(q, k, v, o, lse, do, **kw)[1]
+    plain_reps = max(1, reps // 3)
+    sdpa_grad = lambda *ins: timer(lambda: torch.autograd.grad(out_t, ins, dot,
+                                                               retain_graph=True), reps)
+    row = {"shape": name, "B": B, "S": Sq, "Sk": Sk, "H": H, "Hkv": Hkv, "hd": hd,
+           "causal": causal, "window": window, "dtype": str(dtype), "atol": atol,
+           "rtol": rtol, "fp32_max_abs_err_same_inputs": e32, "lse_max_abs_err": lse_err,
+           "dead_rows": dead, "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+           "bf16_is_fp32_rounded": None if e32 is None else same_bits,
+           "ms": timer(lambda: ops.flash_bwd(q, k, v, o, lse, do, **kw), reps),
+           "dq_ms": timer(lambda: ops.flash_bwd_dq(q, k, v, o, lse, do, **kw), reps),
+           "dkdv_ms": timer(lambda: ops.flash_bwd_dkdv(q, k, v, lse, delta, do, **kw), reps),
+           "plain_ms": timer(lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, **kw),
+                             plain_reps),
+           "plain_dq_ms": timer(lambda: ref.attention_bwd_dq_ref(q, k, v, o, lse, do, **kw),
+                                plain_reps),
+           "plain_dkdv_ms": timer(lambda: ref.attention_bwd_dkdv_ref(q, k, v, lse, delta_plain,
+                                                                     do, **kw), plain_reps),
+           "library_ms": sdpa_grad(qt, kt, vt), "library_dq_ms": sdpa_grad(qt),
+           "library_dkdv_ms": sdpa_grad(kt, vt)}
+    dims = (B, Sq, Sk, H, Hkv, hd, causal, window, dtype)
+    row["bound_ms"], row["bound_by"] = flash_bwd_bound(torch, *dims)
+    row["dq_bound_ms"], row["dq_bound_by"] = flash_bwd_bound(torch, *dims, products=3)
+    row["dkdv_bound_ms"], row["dkdv_bound_by"] = flash_bwd_bound(torch, *dims, products=4,
+                                                                 reads_o=False)
+    del qt, kt, vt, out_t
+    log(f"phase 16 lm-train: flash bwd {name} B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} hd={hd} "
+        f"causal {causal} window {window} {dtype}: lse max abs err {lse_err} ({dead} rows "
+        f"with no live key); max abs err {json.dumps(errs)} (atol {atol} rtol {rtol}); "
+        f"deterministic; kernels {row['ms']} ms (dq {row['dq_ms']}, dkdv {row['dkdv_ms']}) "
+        f"plain {row['plain_ms']} ms (dq {row['plain_dq_ms']}, dkdv {row['plain_dkdv_ms']}) "
+        f"sdpa backward {row['library_ms']} ms (q alone {row['library_dq_ms']}, k and v "
+        f"{row['library_dkdv_ms']}) bound {row['bound_ms']} ms ({row['bound_by']}; dq "
+        f"{row['dq_bound_ms']}, dkdv {row['dkdv_bound_ms']})"
+        + ("" if e32 is None else f"; bf16 = fp32 kernels rounded: {same_bits}"))
     return row
 
 
@@ -2521,6 +2693,338 @@ def examples_phase(torch, counters, dev, tag) -> tuple[dict, int]:
             "variance": var, "variance_s": var_s, "variance_launches": var_launches}, launches
 
 
+# LM training (phase 16): internvl2-2b whole at its training shape (2 x (256
+# image + 2,048 text) tokens; the image embeddings drawn, see lm_train_phase), AdamW with fp32 moments under
+# linear_warmup_cosine at 3e-4, 4 steps (the first is the warm-up); the
+# kernel-vs-plain gradient check at 2 of its 24 layers; mini on the card
+# against the CPU; the example at a cut size
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_TEXT, TRAIN_STEPS, TRAIN_LR = "internvl2-2b", 2, 2048, 4, 3e-4
+TRAIN_CHECK_LAYERS = 2
+ZERO_IMAGE_LAYERS = 8
+MINI_TRAIN = dict(steps=4, batch=2, seq_len=64)
+MINI_FED = dict(steps=8, batch=2, seq_len=64, clients=2, tau0=2)
+TOL_MINI = 1e-4
+
+
+def _counts(counters) -> dict:
+    return {n: c.launches for n, c in counters.items()}
+
+
+def _zero(counters) -> None:
+    for c in counters.values():
+        c.launches = 0
+
+
+def flash_bwd_shapes(torch, fops, fref, timer, gen) -> list:
+    """Phase 16's per-op rows: the backward kernels (and the forward's lse)
+    at the training path's shapes."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # internvl2-2b's training shape: 256 image + 2,048 text tokens
+        ("internvl2_train_bf16", 2, 2304, 16, 8, 128, True, None, bf16, 5),
+        ("internvl2_train_fp32", 2, 2304, 16, 8, 128, True, None, f32, 3),
+        ("mini_fp32", 8, 256, 6, 2, 64, True, None, f32, 10),
+        # gemma3-12b's local block (hd 240 runs at 256)
+        ("gemma3_local_bf16", 2, 2048, 16, 8, 240, True, 1024, bf16, 5),
+        # whisper-large-v3's cross attention and encoder, unmasked
+        ("whisper_cross_bf16", 2, 224, 20, 20, 64, False, None, bf16, 10, 1500),
+        ("whisper_enc_bf16", 2, 1500, 20, 20, 64, False, None, bf16, 5),
+        # causal with Sq != Sk both ways; the second's last rows keep no key
+        ("causal_cross_fp32", 2, 200, 8, 4, 64, True, None, f32, 10, 333),
+        ("causal_past_sk_window_fp32", 2, 333, 8, 4, 128, True, 64, f32, 10, 200),
+        ("causal_past_sk_window_bf16", 2, 333, 8, 4, 128, True, 64, bf16, 10, 200),
+    ]
+    rows = []
+    for c in cases:
+        rows.append(check_flash_bwd(torch, fops, fref, timer, gen, *c[:10],
+                                    **({"Sk": c[10]} if len(c) > 10 else {})))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _grad_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _grad_leaves(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [x for i, t in enumerate(tree) for x in _grad_leaves(t, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def train_kernel_vs_plain(torch, lm, cfg, dev, batch, tag) -> dict:
+    """At ``TRAIN_CHECK_LAYERS`` layers of the full-width config, one
+    batch's loss and every param's gradient through the kernels against the
+    plain path (``use_kernel=False``: ``attention_ref`` under autograd), on
+    the same params: relative L2 within ``TOL_BLOCK_REL`` (bf16 sums in
+    another order, rounded)."""
+    params = lm.init_lm(torch.Generator(device=dev).manual_seed(1), cfg, dev)
+    loss_k, _, g_k = lm.loss_and_grads(params, cfg, batch, use_kernel=True)
+    loss_p, _, g_p = lm.loss_and_grads(params, cfg, batch, use_kernel=False)
+    torch.cuda.synchronize()
+    errs = {name: rel_err(torch, a, b)
+            for (name, a), (_, b) in zip(_grad_leaves(g_k), _grad_leaves(g_p))}
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst = max(errs, key=errs.get)
+    if loss_err > TOL_BLOCK_REL or errs[worst] > TOL_BLOCK_REL:
+        raise AssertionError(f"lm-train kernel vs plain: loss relative error {loss_err}, "
+                             f"worst gradient {worst} {errs[worst]} beyond {TOL_BLOCK_REL}")
+    log(f"phase 16 lm-train: {tag}: {cfg.arch_id} at {cfg.n_layers} layers, full width "
+        f"{cfg.dtype}: kernel path vs plain path, loss {float(loss_k)} vs {float(loss_p)} "
+        f"(relative {loss_err}); {len(errs)} gradients, worst relative L2 {errs[worst]} "
+        f"({worst}), median {sorted(errs.values())[len(errs) // 2]}")
+    return {"layers": cfg.n_layers, "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+            "loss_rel_err": loss_err, "grad_rel_l2": errs}
+
+
+def mini_card_vs_cpu(torch, counters, dev, tag) -> dict:
+    """``launch.train``'s ``train`` and ``train_federated`` on ``mini``, on
+    the card and on the CPU, from the same initial params (handed in
+    through ``_init_params``): losses within ``TOL_MINI``; tau, steps and
+    sync events equal; the backward kernels launched once per attention
+    block per train step on the card."""
+    import argparse as ap
+
+    import numpy as np
+
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import lm
+
+    cfg = train_mod.mini_config()
+    host = lm_params_to_numpy(lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu"))
+    real = train_mod._init_params
+    train_mod._init_params = lambda cfg, seed, device: lm_params_from_numpy(host, cfg, device)
+    base = dict(arch="mini", lr=3e-4, seed=0, log_every=1000, ckpt_dir=None,
+                ckpt_every=1000, fed=False, clients=2, tau0=2)
+    out = {}
+    try:
+        for name, fn, kw in (("train", train_mod.train, MINI_TRAIN),
+                             ("train_federated", train_mod.train_federated, MINI_FED)):
+            runs = {}
+            for where in (str(dev), "cpu"):
+                _zero(counters)
+                t0 = time.perf_counter()
+                runs[where] = fn(ap.Namespace(**{**base, **kw, "device": where}))
+                torch.cuda.synchronize()
+                runs[where]["seconds"] = time.perf_counter() - t0
+                runs[where]["launches"] = _counts(counters)
+            card, cpu = runs[str(dev)], runs["cpu"]
+            n_layers = cfg.n_layers
+            if name == "train":
+                a, b = np.asarray(card["losses"]), np.asarray(cpu["losses"])
+                steps = len(a)
+                same = {}
+            else:
+                a = np.asarray([h["loss"] for h in card["history"]])
+                b = np.asarray([h["loss"] for h in cpu["history"]])
+                steps = sum(len(p) for r in card["picks"] for p in r)
+                same = {k: [h[k] for h in card["history"]] == [h[k] for h in cpu["history"]]
+                        for k in ("tau", "steps", "round")}
+                same["sync_events"] = card["sync_events"] == cpu["sync_events"]
+                same["picks"] = card["picks"] == cpu["picks"]
+            err = float(np.abs(a - b).max())
+            got = card["launches"]
+            want_bwd = steps * n_layers
+            if (a.shape != b.shape or not np.isfinite(a).all() or err > TOL_MINI
+                    or not all(v for k, v in same.items() if k != "picks")
+                    or got["flash_bwd_dq"] != want_bwd or got["flash_bwd_dkdv"] != want_bwd
+                    or got["flash_attention"] < want_bwd or got["wkv6"] or got["spmm"]
+                    or any(cpu["launches"].values())):
+                raise AssertionError(f"lm-train mini {name}: card vs CPU max loss diff {err}, "
+                                     f"same {same}, card launches {got} (want {want_bwd} of "
+                                     f"each backward kernel), CPU {cpu['launches']}")
+            log(f"phase 16 lm-train: {tag}: mini {name} {json.dumps(kw)}: card vs CPU max "
+                f"loss diff {err} over {len(a)} {'steps' if name == 'train' else 'rounds'}; "
+                f"{json.dumps(same)}; card launches {json.dumps(got)}; "
+                f"{card['seconds']:.2f} s on the card, {cpu['seconds']:.2f} s on the CPU")
+            out[name] = {"max_loss_diff": err, "same": same, "launches": got,
+                         "card_s": card["seconds"], "cpu_s": cpu["seconds"],
+                         "losses_card": a.tolist(), "losses_cpu": b.tolist()}
+    finally:
+        train_mod._init_params = real
+    return out
+
+
+def lm_train_phase(torch, counters, get_config, get_smoke_config, dev, tag,
+                   profile) -> tuple[dict, dict]:
+    """Phase 16: LM training on the card. Returns (record, the main path's
+    launches)."""
+    import dataclasses
+
+    from repro_torch.data import TokenPipeline, make_lm_batch
+    from repro_torch.examples import train_lm_federated
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init, constant, linear_warmup_cosine
+
+    rec = {}
+    timer = Timer(torch)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    rec["flash_bwd_shapes"] = flash_bwd_shapes(torch, fops, fref, timer, gen)
+    del timer
+    torch.cuda.empty_cache()
+
+    cfg = get_config(TRAIN_ARCH)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_TEXT, TRAIN_BATCH, seed=0)
+    # the image embeddings: a seeded draw at the embedding table's init scale
+    # (0.02), standing in for the vision projector's output. Zero embeddings
+    # (what serving feeds) keep the image rows exactly 0 through every
+    # layer; RMSNorm's gradient at 0 is 1/sqrt(eps) = 1000, so the gradient
+    # into those rows grows about 10^3 a layer through their K/V and
+    # overflows fp32 within the 24 layers, on either path (recorded below)
+    image = (torch.randn((TRAIN_BATCH, cfg.n_image_tokens, cfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(23)) * 0.02
+             ).to(cfg.torch_dtype)
+
+    def batch_at(i, img=image):
+        return dict(make_lm_batch(pipe, i, dev), image_embeds=img)
+
+    # the kernel path's gradients against the plain path's, 2 layers
+    cut, reduced = full_width(get_config, TRAIN_ARCH, TRAIN_CHECK_LAYERS)
+    rec["kernel_vs_plain"] = train_kernel_vs_plain(torch, lm, cut, dev, batch_at(0), tag)
+    rec["kernel_vs_plain"]["reduced"] = reduced
+    gc.collect()
+    torch.cuda.empty_cache()
+    # recorded: the largest |d loss / d image embedding| with drawn and with
+    # zero image embeddings, on both paths, at ZERO_IMAGE_LAYERS layers. The
+    # growth lives in the image rows' activation gradients; the params'
+    # gradients see it only once it overflows (it meets activations of 0)
+    probe, _ = full_width(get_config, TRAIN_ARCH, ZERO_IMAGE_LAYERS)
+    pparams = lm.init_lm(torch.Generator(device=dev).manual_seed(1), probe, dev)
+    norms = {}
+    for name, img in (("drawn", image), ("zero", torch.zeros_like(image))):
+        for path, use in (("kernel", True), ("plain", False)):
+            leaf = img.clone().requires_grad_(True)
+            with torch.enable_grad():
+                loss, _ = lm.lm_loss(pparams, probe, batch_at(0, leaf), use_kernel=use)
+                (g,) = torch.autograd.grad(loss, (leaf,))
+            norms[f"{name}_{path}"] = float(g.float().abs().max())
+            del g, loss, leaf
+            gc.collect()
+            torch.cuda.empty_cache()
+    del pparams
+    rec["image_embeds_grad_max"] = {"layers": ZERO_IMAGE_LAYERS, **norms}
+    log(f"phase 16 lm-train: {tag}: {TRAIN_ARCH} at {ZERO_IMAGE_LAYERS} layers, max |d loss / "
+        f"d image embedding| with drawn vs zero image embeddings (recorded): "
+        f"{json.dumps(norms)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the main path: internvl2-2b whole, 4 steps (counts from 0)
+    t0 = time.perf_counter()
+    params, opt = lm.init_train_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                                      torch.float32, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = lm.make_train_step(cfg, linear_warmup_cosine(TRAIN_LR, TRAIN_STEPS // 10 + 1,
+                                                        TRAIN_STEPS))
+    layers = cfg.n_layers
+    want = {n: 0 for n in counters}
+    want.update(flash_attention=layers, flash_bwd_dq=layers, flash_bwd_dkdv=layers)
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    steps = []
+    for i in range(TRAIN_STEPS):
+        batch = batch_at(i)
+        before = _counts(counters)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        got = {n: c - before[n] for n, c in _counts(counters).items()}
+        row = {"step": i, "ms": ms, "loss": float(m["loss"]), "xent": float(m["xent"]),
+               "grad_norm": float(m["grad_norm"]), "lr": m["lr"], "launches": got}
+        steps.append(row)
+        if (got != want or not math.isfinite(row["loss"])
+                or not (math.isfinite(row["grad_norm"]) and row["grad_norm"] > 0)):
+            raise AssertionError(f"lm-train {TRAIN_ARCH} step {i}: {row}; want launches {want}")
+    main_launches = _counts(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steady = sorted(r["ms"] for r in steps[1:])[len(steps[1:]) // 2]
+    text_tokens = TRAIN_BATCH * TRAIN_TEXT
+    rec["train_full"] = {
+        "arch": TRAIN_ARCH, "params": cfg.param_count(), "dtype": cfg.dtype,
+        "moments": "float32", "batch": TRAIN_BATCH, "image_tokens": cfg.n_image_tokens,
+        "text_tokens": TRAIN_TEXT, "init_s": init_s, "steps": steps,
+        "first_step_ms": steps[0]["ms"], "steady_step_ms": steady,
+        "text_tokens_per_s": text_tokens / (steady / 1e3),
+        "all_tokens_per_s": TRAIN_BATCH * (TRAIN_TEXT + cfg.n_image_tokens) / (steady / 1e3),
+        "peak_memory_gb": peak_gb, "launches": main_launches}
+    log(f"phase 16 lm-train: {tag}: {TRAIN_ARCH} whole ({cfg.param_count():,} params, "
+        f"{cfg.dtype}, AdamW moments fp32) batch {TRAIN_BATCH} x ({cfg.n_image_tokens} image "
+        f"+ {TRAIN_TEXT} text) tokens, {TRAIN_STEPS} steps: losses "
+        f"{[r['loss'] for r in steps]} grad norms {[r['grad_norm'] for r in steps]} lr "
+        f"{[r['lr'] for r in steps]}; first step {steps[0]['ms']:.1f} ms, steady "
+        f"{steady:.1f} ms ({rec['train_full']['text_tokens_per_s']:.0f} text tokens/s); peak "
+        f"memory {peak_gb:.2f} GB; launches a step {json.dumps(want)}, in all "
+        f"{json.dumps(main_launches)}; init {init_s:.1f} s")
+    if profile:
+        batch = batch_at(TRAIN_STEPS)
+        (params, opt, _), prof = _trace(torch, lambda: step(params, opt, batch), 10)
+        rec["profile"] = prof
+        log(f"profile: {tag}: {TRAIN_ARCH} one steady train step: wall {prof['wall_ms']} ms, "
+            f"device busy {prof['device_busy_ms']} ms (share {prof['device_busy_share']}); "
+            f"host calls {json.dumps(prof['api_calls'])}")
+        for e in prof["top_device"]:
+            log(f"profile: device {e['device_ms']} ms x{e['count']} {e['name']}")
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rec["mini"] = mini_card_vs_cpu(torch, counters, dev, tag)
+
+    # the example at a cut size
+    _zero(counters)
+    t0 = time.perf_counter()
+    ex = train_lm_federated.main(["--steps", "8", "--batch", "2", "--seq-len", "64",
+                                  "--clients", "2", "--device", str(dev)])
+    torch.cuda.synchronize()
+    got = _counts(counters)
+    losses = [ex["centralized"]["final_loss"], ex["federated"]["final_loss"]]
+    if (not all(math.isfinite(x) for x in losses) or got["flash_bwd_dq"] <= 0
+            or got["flash_bwd_dq"] != got["flash_bwd_dkdv"] or got["wkv6"] or got["spmm"]):
+        raise AssertionError(f"lm-train example: final losses {losses}, launches {got}")
+    rec["example"] = {"final_losses": losses, "sync_events": ex["federated"]["sync_events"],
+                      "launches": got, "seconds": time.perf_counter() - t0}
+    log(f"phase 16 lm-train: {tag}: examples.train_lm_federated --steps 8 --batch 2 "
+        f"--seq-len 64 --clients 2: final losses {losses}, "
+        f"{ex['federated']['sync_events']} syncs, launches {json.dumps(got)}")
+
+    # RWKV refuses: the WKV6 kernel has no backward yet, and use_kernel wins
+    # over rwkv_chunk as in the reference, so the chunk does not route round it
+    rcfg = get_smoke_config("rwkv6-1.6b")
+    rparams = lm.init_lm(torch.Generator(device=dev).manual_seed(0), rcfg, dev)
+    rbatch = make_lm_batch(TokenPipeline(rcfg.vocab_size, 32, 2, seed=0), 0, dev)
+    refusals = {}
+    for chunk in (0, 16):
+        ccfg = dataclasses.replace(rcfg, rwkv_chunk=chunk)
+        _zero(counters)
+        try:
+            lm.make_train_step(ccfg, constant(1e-3))(rparams, adamw_init(rparams), rbatch)
+        except NotImplementedError as e:
+            refusals[chunk] = str(e)
+        else:
+            raise AssertionError(f"lm-train: an RWKV train step (rwkv_chunk {chunk}) on the "
+                                 "card did not refuse")
+        if "A8.2b" not in refusals[chunk] or _counts(counters)["wkv6"]:
+            raise AssertionError(f"lm-train: RWKV refusal (rwkv_chunk {chunk}) "
+                                 f"{refusals[chunk]!r}, launches {_counts(counters)}")
+    # a forward in grad mode that wants no gradient still launches the kernel
+    _zero(counters)
+    logits, _ = lm.lm_forward(rparams, dataclasses.replace(rcfg, rwkv_chunk=16),
+                              rbatch["tokens"])
+    torch.cuda.synchronize()
+    if _counts(counters)["wkv6"] != rcfg.n_layers or not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"lm-train: RWKV forward with rwkv_chunk and no gradient: "
+                             f"launches {_counts(counters)}")
+    rec["rwkv_refusal"] = refusals[0]
+    log(f"phase 16 lm-train: {tag}: rwkv6-1.6b smoke train step on the card refuses with "
+        f"rwkv_chunk 0 and 16, no WKV6 launch: NotImplementedError({refusals[0]!r}); a "
+        f"forward in grad mode with no gradient wanted launched WKV6 {rcfg.n_layers} times")
+    return rec, main_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the record as JSON here")
@@ -2948,7 +3452,8 @@ def main(argv=None) -> int:
 
     # -- phase 8: lm-serve (the LM main paths; counts from 0 before each) ------
     counters = {"spmm": ops.block_spmm, "wkv6": wops.wkv6,
-                "flash_attention": fops.flash_attention}
+                "flash_attention": fops.flash_attention, "flash_bwd_dq": fops.flash_bwd_dq,
+                "flash_bwd_dkdv": fops.flash_bwd_dkdv}
     tag = f"{kind}, {smi}"
     lm_counts = {}
     for arch, n_layers, prompt in [*((a, None, LM_PROMPT) for a in LM_ARCHS),
@@ -3017,6 +3522,14 @@ def main(argv=None) -> int:
     log(f"phase 15 examples: {tag}: {examples_launches} SpMM launches in "
         f"{record['examples']['seconds']:.1f} s")
 
+    # -- phase 16: lm-train (LM training on the card; counts from 0) ------------
+    t16 = time.perf_counter()
+    record["lm_train"], train_lm_launches = lm_train_phase(
+        torch, counters, get_config, get_smoke_config, dev, tag, args.profile)
+    record["lm_train"]["seconds"] = time.perf_counter() - t16
+    log(f"phase 16 lm-train: {tag}: {json.dumps(train_lm_launches)} launches on the main "
+        f"path in {record['lm_train']['seconds']:.1f} s")
+
     # -- the kernels line --------------------------------------------------------
     warm = shapes[0]
     kernels = [{
@@ -3044,6 +3557,8 @@ def main(argv=None) -> int:
              "flash_attention")):
         main_row = rows[0]
         by_path = {arch: c[counter] for arch, c in lm_counts.items() if c[counter]}
+        if train_lm_launches[counter]:
+            by_path[f"{TRAIN_ARCH} train"] = train_lm_launches[counter]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3054,6 +3569,24 @@ def main(argv=None) -> int:
             # floor_ms is a model of the kernel's work, not a measurement:
             # it stays in the phase-7 rows of the record, not in this line
             "shapes": [{k: v for k, v in r.items() if k != "floor_ms"} for r in rows]})
+    # the backward pair: each kernel's own time, bound, plain version (its
+    # half of attention_bwd_ref) and library call (autograd of SDPA asked
+    # for its outputs only) at the training shape
+    bwd_rows = record["lm_train"]["flash_bwd_shapes"]
+    main_row = bwd_rows[0]
+    for name, key in (("flash_bwd_dq", "dq"), ("flash_bwd_dkdv", "dkdv")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "replaces": "src/repro/models/attention.py:212 (_flash_bwd, jnp; no Pallas kernel)",
+            "launches": train_lm_launches[name],
+            "launches_by_path": {f"{TRAIN_ARCH} train": train_lm_launches[name]},
+            "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+            "ms": main_row[f"{key}_ms"], "plain_ms": main_row[f"plain_{key}_ms"],
+            "bound_ms": main_row[f"{key}_bound_ms"], "bound_by": main_row[f"{key}_bound_by"],
+            "library_ms": main_row[f"library_{key}_ms"], "timed_shape": main_row["shape"],
+            "shapes": [{k: v for k, v in r.items() if k != "max_abs_err_by_grad"}
+                       for r in bwd_rows]})
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     if args.out:

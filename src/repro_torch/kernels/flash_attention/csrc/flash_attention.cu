@@ -1,4 +1,4 @@
-// Flash attention forward for Hopper (sm_90a): causal, sliding-window or
+// Flash attention for Hopper (sm_90a), forward and backward: causal, sliding-window or
 // unmasked GQA attention with an online softmax in fp32, the query and key
 // lengths apart (self attention, and cross attention onto an encoder).
 //
@@ -78,6 +78,12 @@
 //     tiles that cross the diagonal, the window's edge or Sk, and the grid
 //     runs the heaviest query tiles (the last) first.
 //
+// Both forward kernels also write each query row's fp32 log-sum-exp of its
+// scaled scores, lse (B, H, Sq), when the caller gives a buffer for it (null
+// leaves the launch as it was); a row with no live key gets +inf. The
+// backward (flash_bwd_dq_kernel, flash_bwd_dkdv_kernel, below) recomputes
+// the probabilities from it.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (repro_torch/kernels/build.py). Entry points have
 //        a plain C interface, loaded with ctypes. cuTensorMapEncodeTiled is
@@ -122,8 +128,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int HDP>
 __global__ void __launch_bounds__(kNT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
-    float scale) {
+    T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int Hkv, int hd,
+    int causal, int window, float scale) {
   constexpr int LD = HDP + 4;         // padded row of the Q and K tiles
   constexpr int kCols = HDP / kTX;    // accumulator columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -269,13 +275,16 @@ __global__ void __launch_bounds__(kNT) flash_fwd_kernel(
       const int d = tx + c * kTX;
       if (d < hd) ob[qp * q_stride + d] = from_f32<T>(acc[r][c] / den);
     }
+    // m and l are the same in the 16 threads of the row group
+    if (lse != nullptr && tx == 0)
+      lse[(long long)bh * Sq + qp] = l[r] > 0.f ? m[r] + logf(l[r]) : INFINITY;
   }
 }
 
 template <typename T, int HDP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                   int Sk, int H, int Hkv, int hd, int causal, int window, float scale,
-                   cudaStream_t st) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                   float scale, cudaStream_t st) {
   constexpr size_t bytes = smem_bytes<HDP>();
   static bool attr_set = false;
   if (!attr_set) {
@@ -288,19 +297,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   flash_fwd_kernel<T, HDP><<<grid, kNT, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, Hkv, hd, causal, window, scale);
+      static_cast<T*>(o), lse, Sq, Sk, H, Hkv, hd, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                     int Sk, int H, int Hkv, int hd, int causal, int window, float scale,
-                     cudaStream_t st) {
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                     int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                     float scale, cudaStream_t st) {
   if (hd <= 64)
-    return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
+    return launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
   if (hd <= 128)
-    return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
-  return launch<T, 256>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
+    return launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
+  return launch<T, 256>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
 }
 
 
@@ -491,8 +500,9 @@ __device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t d
 template <int HDP>
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_tc_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int Sq, int Sk,
-    int H, int Hkv, int hd, int causal, int window, float scale_log2) {
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+    float scale_log2) {
   using L = Layout<HDP>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -662,6 +672,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_tc_kernel(
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+    // the natural log-sum-exp of the scaled scores: m is the raw score's
+    // max, l the sum of 2^((s - m) * scale_log2); m and l are the same in a
+    // quad
+    if (lse != nullptr && lane % 4 == 0) {
+      constexpr float kLn2 = 0.6931471805599453f;
+      float* lb = lse + (long long)blockIdx.x * Sq;
+      if (qp0 < Sq) lb[qp0] = l0 > 0.f ? (m0 * scale_log2 + log2f(l0)) * kLn2 : INFINITY;
+      if (qp1 < Sq) lb[qp1] = l1 > 0.f ? (m1 * scale_log2 + log2f(l1)) * kLn2 : INFINITY;
+    }
     const long long q_stride = (long long)H * hd;
     __nv_bfloat16* ob = o + (long long)b * Sq * q_stride + (long long)h * hd;
     const bool pairs = (hd % 2 == 0) && (reinterpret_cast<uintptr_t>(o) % 4 == 0);
@@ -729,9 +748,9 @@ cudaError_t encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, i
 }
 
 template <int HDP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                   int Sk, int H, int Hkv, int hd, int causal, int window, float scale,
-                   cudaStream_t st) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                   float scale, cudaStream_t st) {
   constexpr int bytes = Layout<HDP>::kBytes;
   static bool attr_set = false;
   if (!attr_set) {
@@ -747,7 +766,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_fwd_tc_kernel<HDP><<<grid, kThreads, bytes, st>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, Hkv, hd, causal, window,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, H, Hkv, hd, causal, window,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -759,18 +778,476 @@ bool tma_layout(const void* q, const void* k, const void* v, int hd) {
                           reinterpret_cast<uintptr_t>(v)) % 16) == 0;
 }
 
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                     int Sk, int H, int Hkv, int hd, int causal, int window, float scale,
-                     cudaStream_t st) {
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                     int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                     float scale, cudaStream_t st) {
   if ((long long)Sq > 65535LL * kBQ) return cudaErrorInvalidValue;
   if (hd <= 64)
-    return launch<64>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
+    return launch<64>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
   if (hd <= 128)
-    return launch<128>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
-  return launch<256>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
+    return launch<128>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
+  return launch<256>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
 }
 
 }  // namespace tc
+
+// ---------------------------------------------------------------------------
+// backward: dQ (and delta), then dK and dV
+// ---------------------------------------------------------------------------
+//
+// The card's form of the reference's _flash_bwd (src/repro/models/
+// attention.py:212-264, jnp; there is no Pallas backward). From q, k, v,
+// the forward's o and per-row log-sum-exp lse (B, H, Sq) fp32, and dO:
+//   delta_i = sum_d dO_id O_id;  p_ij = exp(s_ij - lse_i), s = q k^T * scale;
+//   dp_ij = dO_i . v_j;  ds_ij = p_ij (dp_ij - delta_i) * scale;
+//   dQ = ds K,  dK = ds^T Q,  dV = p^T dO.
+// The probabilities are recomputed tile by tile from q, k and lse: nothing
+// of size Sq x Sk is kept. The mask is the forward's (keys at or past Sk,
+// causal j <= i counted from 0, the window only with causal); a masked pair
+// has p = 0 and is never exponentiated, and a row with no live key has
+// lse = +inf, so its p, its dq and its share of dk and dv are exactly 0.
+//
+// Two kernels, on the stream in this order:
+// * flash_bwd_dq_kernel: a block owns 64 query rows of one (b, h), 256
+//   threads as 16 x 16 as in flash_fwd_kernel (thread (ty, tx): 4 rows,
+//   keys tx and tx + 16 of each 32-key tile, dq columns tx + 16 i). It
+//   first computes delta for its rows from O and dO (the only place delta
+//   is computed) and writes it to a scratch (B, H, Sq) fp32 for the second
+//   kernel, then walks the forward's live key tiles: s and dp in one pass
+//   over hd, ds into shared memory, dq += ds K.
+// * flash_bwd_dkdv_kernel: a block owns one (b, kv head) and KB keys (64,
+//   or 32 at hd 256 so that dk and dv fit in registers), and loops over the
+//   H / Hkv query heads of its group and, for each, over the 32-query tiles
+//   that some key of its tile leaves live. Thread (ty, tx) owns KB / 16
+//   keys and queries tx and tx + 16 of a tile for s and dp; p and ds go to
+//   shared memory; then dv += p^T dO and dk += ds^T q over dk/dv columns
+//   tx + 16 i.
+// Every output element is written by one thread, and every sum runs in one
+// fixed order: no floating-point atomics, so two runs give the same bits
+// (GQA's sum over the group's query heads is the dK/dV block's loop). The
+// inputs are fp32 or bf16, widened to fp32 in shared memory; products are
+// accumulated in fp32 on the FMA pipes; dq, dk, dv come out in the input
+// type. What bounds it: five products of 2 hd operations a live pair
+// (s, dp and dq; s again, dp again, dv and dk: seven executed), so
+// operations on the FMA pipes; tensor cores and TMA are for a later PR.
+
+constexpr int kBQB = 32;   // queries per tile of the dK/dV kernel
+
+template <int HDP>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(float) * (2 * (size_t)kBQ * (HDP + 4) + 2 * (size_t)kBK * (HDP + 4) +
+                          (size_t)kBQ * kPL);
+}
+
+template <typename T, int HDP>
+__global__ void __launch_bounds__(kNT) flash_bwd_dq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ o, const float* __restrict__ lse, const T* __restrict__ dout,
+    T* __restrict__ dq, float* __restrict__ delta, int Sq, int Sk, int H, int Hkv, int hd,
+    int causal, int window, float scale) {
+  constexpr int LD = HDP + 4;
+  constexpr int kCols = HDP / kTX;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* Ds = Qs + kBQ * LD;      // dO
+  float* Ks = Ds + kBQ * LD;
+  float* Vs = Ks + kBK * LD;
+  float* Ss = Vs + kBK * LD;      // ds
+
+  const int tid = threadIdx.x;
+  const int tx = tid % kTX, ty = tid / kTX;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  const int q0 = blockIdx.x * kBQ;
+  const long long q_stride = (long long)H * hd;
+  const long long kv_stride = (long long)Hkv * hd;
+  const long long q_base = (long long)b * Sq * q_stride + (long long)h * hd;
+  const T* kb = k + (long long)b * Sk * kv_stride + (long long)hk * hd;
+  const T* vb = v + (long long)b * Sk * kv_stride + (long long)hk * hd;
+
+  for (int i = tid; i < kBQ * HDP; i += kNT) {
+    const int rr = i / HDP, d = i % HDP, s = q0 + rr;
+    const bool in = s < Sq && d < hd;
+    Qs[rr * LD + d] = in ? to_f32(q[q_base + s * q_stride + d]) : 0.f;
+    Ds[rr * LD + d] = in ? to_f32(dout[q_base + s * q_stride + d]) : 0.f;
+  }
+
+  // delta and lse of this thread's rows; delta over hd in the row group's
+  // 16 threads, then 4 shuffles
+  float dl[kRows], ls[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qp = q0 + ty * kRows + r;
+    float acc = 0.f;
+    if (qp < Sq)
+      for (int d = tx; d < hd; d += kTX)
+        acc = fmaf(to_f32(dout[q_base + qp * q_stride + d]),
+                   to_f32(o[q_base + qp * q_stride + d]), acc);
+#pragma unroll
+    for (int off = kTX / 2; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    dl[r] = acc;
+    ls[r] = qp < Sq ? lse[(long long)bh * Sq + qp] : INFINITY;
+    if (qp < Sq && tx == 0) delta[(long long)bh * Sq + qp] = acc;
+  }
+
+  const int q_last = min(q0 + kBQ, Sq) - 1;
+  int kt_lo = 0, kt_hi = (Sk - 1) / kBK;
+  if (causal) {
+    kt_hi = min(q_last, Sk - 1) / kBK;
+    if (window > 0) kt_lo = max(0, q0 - window + 1) / kBK;
+  }
+
+  float acc[kRows][kCols];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int k0 = kt * kBK;
+    __syncthreads();  // Q and dO are in; the previous tile's K, V, ds consumed
+    for (int i = tid; i < kBK * HDP; i += kNT) {
+      const int rr = i / HDP, d = i % HDP, s = k0 + rr;
+      const bool in = s < Sk && d < hd;
+      Ks[rr * LD + d] = in ? to_f32(kb[s * kv_stride + d]) : 0.f;
+      Vs[rr * LD + d] = in ? to_f32(vb[s * kv_stride + d]) : 0.f;
+    }
+    __syncthreads();
+
+    float sc[kRows][kKeys], dp[kRows][kKeys];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int c = 0; c < kKeys; ++c) sc[r][c] = dp[r][c] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < HDP; d += 4) {
+      float4 qv[kRows], gv[kRows], kv[kKeys], vv[kKeys];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        qv[r] = *reinterpret_cast<const float4*>(&Qs[(ty * kRows + r) * LD + d]);
+        gv[r] = *reinterpret_cast<const float4*>(&Ds[(ty * kRows + r) * LD + d]);
+      }
+#pragma unroll
+      for (int c = 0; c < kKeys; ++c) {
+        kv[c] = *reinterpret_cast<const float4*>(&Ks[(tx + c * kTX) * LD + d]);
+        vv[c] = *reinterpret_cast<const float4*>(&Vs[(tx + c * kTX) * LD + d]);
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int c = 0; c < kKeys; ++c) {
+          float a = sc[r][c], g = dp[r][c];
+          a = fmaf(qv[r].x, kv[c].x, a);
+          a = fmaf(qv[r].y, kv[c].y, a);
+          a = fmaf(qv[r].z, kv[c].z, a);
+          a = fmaf(qv[r].w, kv[c].w, a);
+          g = fmaf(gv[r].x, vv[c].x, g);
+          g = fmaf(gv[r].y, vv[c].y, g);
+          g = fmaf(gv[r].z, vv[c].z, g);
+          g = fmaf(gv[r].w, vv[c].w, g);
+          sc[r][c] = a;
+          dp[r][c] = g;
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int qp = q0 + ty * kRows + r;
+#pragma unroll
+      for (int c = 0; c < kKeys; ++c) {
+        const int kp = k0 + tx + c * kTX;
+        bool live = kp < Sk && qp < Sq;
+        if (causal) {
+          live = live && kp <= qp;
+          if (window > 0) live = live && kp > qp - window;
+        }
+        const float p = live ? expf(fmaf(sc[r][c], scale, -ls[r])) : 0.f;
+        Ss[(ty * kRows + r) * kPL + tx + c * kTX] = p * (dp[r][c] - dl[r]) * scale;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < kBK; ++kk) {
+      float sr[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) sr[r] = Ss[(ty * kRows + r) * kPL + kk];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float kvv = Ks[kk * LD + tx + c * kTX];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) acc[r][c] = fmaf(sr[r], kvv, acc[r][c]);
+      }
+    }
+  }
+
+  T* dqb = dq + q_base;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qp = q0 + ty * kRows + r;
+    if (qp >= Sq) continue;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int d = tx + c * kTX;
+      if (d < hd) dqb[qp * q_stride + d] = from_f32<T>(acc[r][c]);
+    }
+  }
+}
+
+// keys per block of the dK/dV kernel: 64, or 32 at hd 256 (dk and dv, KB x
+// HDP fp32 each, are held by the block's 256 threads in registers)
+template <int HDP>
+__host__ __device__ constexpr int dkdv_keys() { return HDP <= 128 ? 64 : 32; }
+
+template <int HDP>
+constexpr size_t dkdv_smem_bytes() {
+  constexpr int KB = dkdv_keys<HDP>();
+  return sizeof(float) * (2 * (size_t)KB * (HDP + 4) + 2 * (size_t)kBQB * (HDP + 4) +
+                          2 * (size_t)KB * (kBQB + 1) + 2 * kBQB);
+}
+
+template <typename T, int HDP>
+__global__ void __launch_bounds__(kNT) flash_bwd_dkdv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const T* __restrict__ dout, T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H,
+    int Hkv, int hd, int causal, int window, float scale) {
+  constexpr int LD = HDP + 4;
+  constexpr int KB = dkdv_keys<HDP>();
+  constexpr int kKR = KB / kTY;          // keys per thread
+  constexpr int kQT = kBQB / kTX;        // queries per thread in the score phase
+  constexpr int PL = kBQB + 1;
+  constexpr int kCols = HDP / kTX;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + KB * LD;
+  float* Qs = Vs + KB * LD;
+  float* Ds = Qs + kBQB * LD;            // dO
+  float* Ps = Ds + kBQB * LD;            // p, by key row
+  float* Ss = Ps + KB * PL;              // ds, by key row
+  float* Ls = Ss + KB * PL;              // lse of the query tile
+  float* Es = Ls + kBQB;                 // delta of the query tile
+
+  const int tid = threadIdx.x;
+  const int tx = tid % kTX, ty = tid / kTX;
+  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+  const int R = H / Hkv;
+  const int k0 = blockIdx.x * KB;
+  const long long q_stride = (long long)H * hd;
+  const long long kv_stride = (long long)Hkv * hd;
+  const long long kv_base = (long long)b * Sk * kv_stride + (long long)hk * hd;
+
+  for (int i = tid; i < KB * HDP; i += kNT) {
+    const int rr = i / HDP, d = i % HDP, s = k0 + rr;
+    const bool in = s < Sk && d < hd;
+    Ks[rr * LD + d] = in ? to_f32(k[kv_base + s * kv_stride + d]) : 0.f;
+    Vs[rr * LD + d] = in ? to_f32(v[kv_base + s * kv_stride + d]) : 0.f;
+  }
+
+  // the query tiles some key of this tile leaves live, ascending
+  const int k_last = min(k0 + KB, Sk) - 1;
+  int qt_lo = 0, qt_hi = (Sq - 1) / kBQB;
+  if (causal) {
+    qt_lo = k0 / kBQB;
+    if (window > 0) qt_hi = min(Sq - 1, k_last + window - 1) / kBQB;
+  }
+
+  float gk[kKR][kCols], gv[kKR][kCols];
+#pragma unroll
+  for (int r = 0; r < kKR; ++r)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) gk[r][c] = gv[r][c] = 0.f;
+
+  for (int rh = 0; rh < R; ++rh) {
+    const int h = hk * R + rh;
+    const long long q_base = (long long)b * Sq * q_stride + (long long)h * hd;
+    const long long row_base = ((long long)b * H + h) * Sq;
+    for (int qt = qt_lo; qt <= qt_hi; ++qt) {
+      const int q0 = qt * kBQB;
+      __syncthreads();  // the previous tile's Q, dO, p and ds are consumed
+      for (int i = tid; i < kBQB * HDP; i += kNT) {
+        const int rr = i / HDP, d = i % HDP, s = q0 + rr;
+        const bool in = s < Sq && d < hd;
+        Qs[rr * LD + d] = in ? to_f32(q[q_base + s * q_stride + d]) : 0.f;
+        Ds[rr * LD + d] = in ? to_f32(dout[q_base + s * q_stride + d]) : 0.f;
+      }
+      if (tid < kBQB) {
+        const int s = q0 + tid;
+        Ls[tid] = s < Sq ? lse[row_base + s] : INFINITY;
+        Es[tid] = s < Sq ? delta[row_base + s] : 0.f;
+      }
+      __syncthreads();
+
+      float sc[kKR][kQT], dp[kKR][kQT];
+#pragma unroll
+      for (int r = 0; r < kKR; ++r)
+#pragma unroll
+        for (int c = 0; c < kQT; ++c) sc[r][c] = dp[r][c] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < HDP; d += 4) {
+        float4 kv[kKR], vv[kKR], qv[kQT], gq[kQT];
+#pragma unroll
+        for (int r = 0; r < kKR; ++r) {
+          kv[r] = *reinterpret_cast<const float4*>(&Ks[(ty * kKR + r) * LD + d]);
+          vv[r] = *reinterpret_cast<const float4*>(&Vs[(ty * kKR + r) * LD + d]);
+        }
+#pragma unroll
+        for (int c = 0; c < kQT; ++c) {
+          qv[c] = *reinterpret_cast<const float4*>(&Qs[(tx + c * kTX) * LD + d]);
+          gq[c] = *reinterpret_cast<const float4*>(&Ds[(tx + c * kTX) * LD + d]);
+        }
+#pragma unroll
+        for (int r = 0; r < kKR; ++r)
+#pragma unroll
+          for (int c = 0; c < kQT; ++c) {
+            float a = sc[r][c], g = dp[r][c];
+            a = fmaf(qv[c].x, kv[r].x, a);
+            a = fmaf(qv[c].y, kv[r].y, a);
+            a = fmaf(qv[c].z, kv[r].z, a);
+            a = fmaf(qv[c].w, kv[r].w, a);
+            g = fmaf(gq[c].x, vv[r].x, g);
+            g = fmaf(gq[c].y, vv[r].y, g);
+            g = fmaf(gq[c].z, vv[r].z, g);
+            g = fmaf(gq[c].w, vv[r].w, g);
+            sc[r][c] = a;
+            dp[r][c] = g;
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < kKR; ++r) {
+        const int kp = k0 + ty * kKR + r;
+#pragma unroll
+        for (int c = 0; c < kQT; ++c) {
+          const int qi = tx + c * kTX, qp = q0 + qi;
+          bool live = kp < Sk && qp < Sq;
+          if (causal) {
+            live = live && kp <= qp;
+            if (window > 0) live = live && kp > qp - window;
+          }
+          const float p = live ? expf(fmaf(sc[r][c], scale, -Ls[qi])) : 0.f;
+          Ps[(ty * kKR + r) * PL + qi] = p;
+          Ss[(ty * kKR + r) * PL + qi] = p * (dp[r][c] - Es[qi]) * scale;
+        }
+      }
+      __syncthreads();
+
+#pragma unroll 4
+      for (int qq = 0; qq < kBQB; ++qq) {
+        float pr[kKR], sr[kKR];
+#pragma unroll
+        for (int r = 0; r < kKR; ++r) {
+          pr[r] = Ps[(ty * kKR + r) * PL + qq];
+          sr[r] = Ss[(ty * kKR + r) * PL + qq];
+        }
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          const float gd = Ds[qq * LD + tx + c * kTX];
+          const float qd = Qs[qq * LD + tx + c * kTX];
+#pragma unroll
+          for (int r = 0; r < kKR; ++r) {
+            gv[r][c] = fmaf(pr[r], gd, gv[r][c]);
+            gk[r][c] = fmaf(sr[r], qd, gk[r][c]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kKR; ++r) {
+    const int kp = k0 + ty * kKR + r;
+    if (kp >= Sk) continue;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int d = tx + c * kTX;
+      if (d < hd) {
+        dk[kv_base + kp * kv_stride + d] = from_f32<T>(gk[r][c]);
+        dv[kv_base + kp * kv_stride + d] = from_f32<T>(gv[r][c]);
+      }
+    }
+  }
+}
+
+template <typename T, int HDP>
+cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                          const float* lse, const void* dout, void* dq, float* delta, int B,
+                          int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                          float scale, cudaStream_t st) {
+  constexpr size_t bytes = dq_smem_bytes<HDP>();
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, HDP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
+  flash_bwd_dq_kernel<T, HDP><<<grid, kNT, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), lse, static_cast<const T*>(dout), static_cast<T*>(dq), delta,
+      Sq, Sk, H, Hkv, hd, causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int HDP>
+cudaError_t launch_bwd_dkdv(const void* q, const void* k, const void* v, const float* lse,
+                            const float* delta, const void* dout, void* dk, void* dv, int B,
+                            int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                            float scale, cudaStream_t st) {
+  constexpr size_t bytes = dkdv_smem_bytes<HDP>();
+  constexpr int KB = dkdv_keys<HDP>();
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, HDP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid((Sk + KB - 1) / KB, B * Hkv);
+  flash_bwd_dkdv_kernel<T, HDP><<<grid, kNT, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lse, delta,
+      static_cast<const T*>(dout), static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, Hkv,
+      hd, causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                            const float* lse, const void* dout, void* dq, float* delta, int B,
+                            int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                            float scale, cudaStream_t st) {
+  if (hd <= 64)
+    return launch_bwd_dq<T, 64>(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H, Hkv, hd,
+                                causal, window, scale, st);
+  if (hd <= 128)
+    return launch_bwd_dq<T, 128>(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H, Hkv, hd,
+                                 causal, window, scale, st);
+  return launch_bwd_dq<T, 256>(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H, Hkv, hd,
+                               causal, window, scale, st);
+}
+
+template <typename T>
+cudaError_t dispatch_bwd_dkdv(const void* q, const void* k, const void* v, const float* lse,
+                              const float* delta, const void* dout, void* dk, void* dv, int B,
+                              int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                              float scale, cudaStream_t st) {
+  if (hd <= 64)
+    return launch_bwd_dkdv<T, 64>(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk, H, Hkv, hd,
+                                  causal, window, scale, st);
+  if (hd <= 128)
+    return launch_bwd_dkdv<T, 128>(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk, H, Hkv, hd,
+                                   causal, window, scale, st);
+  return launch_bwd_dkdv<T, 256>(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk, H, Hkv, hd,
+                                 causal, window, scale, st);
+}
+
+bool bad_shape(int B, int Sq, int Sk, int H, int Hkv, int hd) {
+  return B < 0 || Sq < 0 || Sk < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || hd < 1 ||
+         hd > 256 || (long long)B * H > 65535;
+}
 
 }  // namespace
 
@@ -785,23 +1262,62 @@ extern "C" {
 // keys window or more positions before it. Sk >= 1, H a multiple of Hkv,
 // 1 <= hd <= 256. Launches on `stream`, does not synchronise, and returns
 // cudaGetLastError().
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                        int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
-                        float scale, int dtype, void* stream) {
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int B, int Sq, int Sk, int H, int Hkv, int hd, int causal,
+                        int window, float scale, int dtype, void* stream) {
   if (B < 0 || Sq < 0 || Sk < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || hd < 1 ||
       hd > 256 || (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch<float>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, causal, window, scale,
-                                st);
+    return (int)dispatch<float>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, causal, window,
+                                scale, st);
   if (dtype == 1 && tc::tma_layout(q, k, v, hd))
-    return (int)tc::dispatch(q, k, v, o, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
+    return (int)tc::dispatch(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, causal, window, scale,
+                             st);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, causal, window,
-                                        scale, st);
+    return (int)dispatch<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, causal,
+                                        window, scale, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Backward, first kernel: dq (B, Sq, H, hd) and delta (B, H, Sq) fp32 (a
+// scratch the second kernel reads) from q, k, v, o, lse (B, H, Sq) fp32 as
+// flash_attention_fwd wrote it, and dout (B, Sq, H, hd); fp32 when dtype ==
+// 0, bf16 when 1, every tensor contiguous. Launches on `stream`, does not
+// synchronise, returns cudaGetLastError().
+int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                           const float* lse, const void* dout, void* dq, float* delta, int B,
+                           int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                           float scale, int dtype, void* stream) {
+  if (bad_shape(B, Sq, Sk, H, Hkv, hd) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || Sq == 0) return (int)cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)dispatch_bwd_dq<float>(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H, Hkv,
+                                       hd, causal, window, scale, st);
+  return (int)dispatch_bwd_dq<__nv_bfloat16>(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H,
+                                             Hkv, hd, causal, window, scale, st);
+}
+
+// Backward, second kernel, after flash_attention_bwd_dq on the same stream:
+// dk, dv (B, Sk, Hkv, hd) from q, k, v, lse, delta and dout. The same rules.
+int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const float* lse,
+                             const float* delta, const void* dout, void* dk, void* dv, int B,
+                             int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                             float scale, int dtype, void* stream) {
+  if (bad_shape(B, Sq, Sk, H, Hkv, hd) || (dtype != 0 && dtype != 1) ||
+      (long long)B * Hkv > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)dispatch_bwd_dkdv<float>(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk, H,
+                                         Hkv, hd, causal, window, scale, st);
+  return (int)dispatch_bwd_dkdv<__nv_bfloat16>(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk,
+                                               H, Hkv, hd, causal, window, scale, st);
 }
 
 const char* flash_attention_error_string(int code) {

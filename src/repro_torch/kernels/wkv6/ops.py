@@ -20,6 +20,13 @@ and blocks per (b, h) row. ``configs`` lists every launch the kernel takes
 of them, which ``chip_smoke.py`` uses to time the ones ``CONFIG`` did not
 pick.
 
+The kernel has no backward yet (ROADMAP A8.2b brings it). On CUDA
+tensors a call that needs a gradient (grad mode on, any input requiring
+one) raises ``NotImplementedError``: an output filled through ctypes has
+no ``grad_fn``, and returning it would drop the gradient of every weight
+before it. The serving path (no gradient) is unchanged; on CPU tensors the
+plain version is differentiable.
+
 ``wkv6.launches`` counts kernel launches (a plain integer; the CPU path
 never moves it), so a run can show that it went through the kernel.
 """
@@ -110,6 +117,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     tensors = (r, k, v, w, u)
     if all(t.device.type == "cpu" for t in tensors):
         return wkv6_ref(r, k, v, w, u)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "wkv6: the CUDA kernel has no backward yet (ROADMAP A8.2b, the WKV6 backward "
+            "kernel); call it without gradients (torch.no_grad) or train RWKV on the CPU")
     dev = r.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("wkv6: r, k, v, w, u must all be on one CUDA device "

@@ -69,20 +69,15 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None)
     Returns (h (B, T, W), final state (B, W)). A doubling scan: after the
     step of offset s each position holds the composition of the s·2
     elements ending there, combined as (a₂·a₁, a₂·b₁ + b₂); ⌈log₂ T⌉
-    steps."""
+    steps, each a new tensor (differentiable)."""
     if h0 is not None:
         b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
     T = a.shape[1]
     s = 1
     while s < T:
-        nb = torch.empty_like(b)
-        nb[:, :s] = b[:, :s]
-        torch.addcmul(b[:, s:], a[:, s:], b[:, :-s], out=nb[:, s:])
+        nb = torch.cat([b[:, :s], torch.addcmul(b[:, s:], a[:, s:], b[:, :-s])], dim=1)
         if 2 * s < T:       # the last step needs no new a
-            na = torch.empty_like(a)
-            na[:, :s] = a[:, :s]
-            torch.mul(a[:, s:], a[:, :-s], out=na[:, s:])
-            a = na
+            a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1)
         b = nb
         s *= 2
     return b, b[:, -1]

@@ -125,3 +125,21 @@ def mlp_apply(params: dict, x: torch.Tensor, act_name: str) -> torch.Tensor:
     else:
         h = act(h)
     return h @ params["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
+    """Next-token cross entropy. logits (..., V) of any float type, labels
+    (...) int; in fp32. With ``mask`` (...), the masked mean (the sum over
+    the mask, over at least 1)."""
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    gold = torch.take_along_dim(logits32, labels[..., None].long(), dim=-1)[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -1,5 +1,5 @@
-"""Language model for serving: embedding + blocks + final norm + LM head
-(port of ``repro/models/lm.py`` for every block kind: ``rwkv`` (RWKV6),
+"""Language model for serving and training: embedding + blocks + final
+norm + LM head (port of ``repro/models/lm.py`` for every block kind: ``rwkv`` (RWKV6),
 ``rec`` (Griffin's RG-LRU, ``models/griffin.py``), ``attn`` and ``local``,
 each with a dense or a mixture-of-experts FFN (``models/moe.py``), and
 whisper's ``enc`` (bidirectional) and ``dec`` (causal self attention, then
@@ -28,9 +28,20 @@ plain PyTorch and updates the KV caches of the state it is given in place.
 reference builds the full (B, S, V) logits and keeps the last row: the
 same numbers, without gemma3-12b's 4 GB of logits at B=4, S=2048).
 
+Training (``lm_loss``, ``make_train_step``) differentiates the same
+forward with autograd: the flash attention kernel carries gradients
+through its own backward kernels (``kernels/flash_attention/ops.py``); the
+WKV6 kernel has no backward yet and refuses on the card, ``rwkv_chunk``
+or not (``use_kernel=False`` trains RWKV through the plain scans). Under ``cfg.remat`` each repeated unit runs under
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` does.
+
 Entry points:
     init_lm(generator, cfg, device)             -> params
     lm_forward(params, cfg, tokens, ...)        -> (logits, aux_loss)
+    lm_loss(params, cfg, batch)                 -> (loss, metrics)
+    loss_and_grads(params, cfg, batch)          -> (loss, metrics, grads)
+    make_train_step(cfg, lr_schedule)           -> train_step
+    init_train_state(generator, cfg, ...)       -> (params, opt_state)
     lm_prefill(params, cfg, tokens, max_len, ...)
                                                 -> (last_logits, decode_state)
     init_decode_state(params, cfg, B, max_len, enc_out=...) -> state
@@ -42,6 +53,7 @@ them. The logits of ``lm_forward`` cover the image tokens too.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import griffin, rwkv
@@ -53,8 +65,11 @@ from repro_torch.models.layers import (
     mlp_init,
     rmsnorm,
     rmsnorm_init,
+    softmax_xent,
 )
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.optim import AdamState, adamw_init, adamw_update
+from repro_torch.utils.tree import global_norm_clip, tree_map
 
 _ATTN_KINDS = {"attn": "causal", "local": "local", "enc": "bidir", "dec": "causal"}
 _KINDS = ("rwkv", "rec", *_ATTN_KINDS)
@@ -213,8 +228,7 @@ def _forward_hidden(params, cfg, tokens, *, image_embeds, enc_frames, collect_st
         enc_out, aux = _run_encoder(params, cfg, enc_frames, use_kernel=use_kernel)
     h = _embed_tokens(params, cfg, tokens, image_embeds)
 
-    def blocks(bps, pattern):
-        nonlocal h, aux
+    def blocks(h, aux, bps, pattern):
         states = {}
         for i, kind in enumerate(pattern):
             h, a, states[f"b{i}"] = apply_block_full(bps[f"b{i}"], cfg, kind, h,
@@ -222,10 +236,20 @@ def _forward_hidden(params, cfg, tokens, *, image_embeds, enc_frames, collect_st
                                                      collect_state=collect_state,
                                                      use_kernel=use_kernel)
             aux = aux + a
-        return states
+        return h, aux, states
 
-    unit_states = [blocks(up, cfg.block_pattern) for up in params["units"]]
-    rem_states = blocks(params["rem"], cfg.remainder_pattern) if cfg.remainder_pattern else {}
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_state
+    unit_states = []
+    for up in params["units"]:
+        if remat:
+            h, aux, st = checkpoint(blocks, h, aux, up, cfg.block_pattern,
+                                    use_reentrant=False)
+        else:
+            h, aux, st = blocks(h, aux, up, cfg.block_pattern)
+        unit_states.append(st)
+    rem_states = {}
+    if cfg.remainder_pattern:
+        h, aux, rem_states = blocks(h, aux, params["rem"], cfg.remainder_pattern)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return h, aux, unit_states, rem_states, enc_out
 
@@ -238,6 +262,62 @@ def lm_forward(params, cfg, tokens, *, image_embeds=None, enc_frames=None,
                                       enc_frames=enc_frames, collect_state=False,
                                       use_kernel=use_kernel)
     return h @ _lm_head(params, cfg), aux
+
+
+# ---------------------------------------------------------------------------
+# loss / train step
+# ---------------------------------------------------------------------------
+
+def lm_loss(params, cfg, batch, *, use_kernel=True):
+    """(loss, {"xent", "aux"}): the next-token cross entropy over the text
+    positions (the image tokens' logits sliced off) plus 0.01 x the MoE
+    load-balancing aux. ``batch`` holds "tokens" and "labels" (B, S), and
+    "image_embeds" / "enc_frames" where the config takes them."""
+    logits, aux = lm_forward(params, cfg, batch["tokens"],
+                             image_embeds=batch.get("image_embeds"),
+                             enc_frames=batch.get("enc_frames"), use_kernel=use_kernel)
+    if cfg.n_image_tokens:
+        logits = logits[:, cfg.n_image_tokens:]
+    loss = softmax_xent(logits, batch["labels"])
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    return loss + 0.01 * aux, {"xent": loss, "aux": aux}
+
+
+def loss_and_grads(params, cfg, batch, *, use_kernel=True):
+    """(loss, metrics, grads): ``lm_loss`` and its gradient in every param,
+    a tree of the params' structure and dtypes, by autograd. A param the
+    loss does not reach (an expert no token chose) gets zeros, as the
+    reference's ``jax.grad`` gives it. ``params`` is not changed."""
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss, metrics = lm_loss(leaves, cfg, batch, use_kernel=use_kernel)
+        loss.backward()
+    grads = tree_map(lambda t: torch.zeros_like(t) if t.grad is None else t.grad, leaves)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def make_train_step(cfg, lr_schedule, *, clip_norm: float = 1.0):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: ``loss_and_grads``, the gradient's global norm clipped to
+    ``clip_norm``, then AdamW at ``lr_schedule(opt_state.step)``. Returns
+    new trees; the ones given are not changed. ``metrics`` holds "loss",
+    "xent", "aux", "grad_norm" (before clipping) and "lr"."""
+
+    def train_step(params, opt_state: AdamState, batch):
+        loss, metrics, grads = loss_and_grads(params, cfg, batch)
+        grads, gnorm = global_norm_clip(grads, clip_norm)
+        lr = lr_schedule(opt_state.step)
+        new_params, new_state = adamw_update(grads, opt_state, params, lr)
+        return new_params, new_state, dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
+
+    return train_step
+
+
+def init_train_state(generator: torch.Generator, cfg, state_dtype=torch.float32,
+                     device=None):
+    """(params, AdamW state with its moments in ``state_dtype``)."""
+    params = init_lm(generator, cfg, device)
+    return params, adamw_init(params, state_dtype)
 
 
 # ---------------------------------------------------------------------------

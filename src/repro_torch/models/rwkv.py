@@ -7,11 +7,21 @@ plain version); ``use_kernel=False`` takes the plain sequential scan
 (``wkv_scan``) whatever the device, so a run on the card can be held
 against the plain path. The single-token decode is plain PyTorch, as the
 reference computes it in ``jnp``.
+
+Training: the kernel has no backward yet (ROADMAP A8.2b), so on CUDA a
+block that runs the kernel and needs gradients raises
+``NotImplementedError`` (from ``wkv6``), ``cfg.rwkv_chunk`` or not:
+``use_kernel`` wins over the chunk, as in the reference's
+``rwkv_block_apply``. ``wkv_chunked_scan`` (plain PyTorch, checkpointed at
+chunk boundaries) runs when ``cfg.rwkv_chunk`` is set and gradients are
+wanted, with ``use_kernel=False`` or on CPU tensors, where the kernel's
+wrapper would run the plain scan anyway.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.kernels.wkv6.ref import wkv6_ref
@@ -83,6 +93,28 @@ def wkv_scan(r, k, v, w, u, state0=None):
     return wkv6_ref(r, k, v, w, u, state0)
 
 
+def wkv_chunked_scan(r, k, v, w, u, chunk: int = 128, state0=None):
+    """WKV over chunks of ``chunk`` steps, each chunk's scan under
+    ``torch.utils.checkpoint`` (port of the reference's ``wkv_chunked_scan``,
+    ``src/repro/models/rwkv.py:76``): the backward keeps only the
+    chunk-boundary states (B, H, N, N) and recomputes the steps inside a
+    chunk, instead of one state per step. T not a multiple of ``chunk``
+    takes the plain ``wkv_scan``, as the reference does. Returns (y, final
+    state)."""
+    B, T, H, N = r.shape
+    if T % chunk:
+        return wkv_scan(r, k, v, w, u, state0)
+    S = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+         if state0 is None else state0)
+    ys = []
+    for c in range(T // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        y, S = checkpoint(wkv_scan, r[:, sl], k[:, sl], v[:, sl], w[:, sl], u, S,
+                          use_reentrant=False)
+        ys.append(y)
+    return torch.cat(ys, dim=1), S
+
+
 def _time_mix_out(p, cfg, y, g, x_shape):
     d = cfg.d_model
     H = d // cfg.rwkv_head_dim
@@ -109,7 +141,15 @@ def rwkv_block_apply(p, cfg, x, use_kernel: bool = True, collect_state: bool = F
     ``x_cm``); the prefill uses that."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     r, k, v, g, w = _time_mix_inputs(p, cfg, h, _shift(h))
-    y, S = (wkv_ops.wkv6 if use_kernel else wkv_scan)(r, k, v, w, p["u"])
+    wkv_in = (r, k, v, w, p["u"])
+    wants_grad = torch.is_grad_enabled() and any(t.requires_grad for t in wkv_in)
+    chunk = cfg.rwkv_chunk if wants_grad else 0
+    if use_kernel and (r.device.type != "cpu" or not chunk):
+        y, S = wkv_ops.wkv6(*wkv_in)          # on CUDA, refuses a gradient
+    elif chunk:
+        y, S = wkv_chunked_scan(*wkv_in, chunk=chunk)
+    else:
+        y, S = wkv_scan(*wkv_in)
     x = x + _time_mix_out(p, cfg, y, g, x.shape)
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
     x = x + _channel_mix(p, h2, _shift(h2))

@@ -1,5 +1,13 @@
-"""Optimizers on dicts of tensors. The reference's lr schedules wait
-(ROADMAP A8.3)."""
+"""Optimizers on trees of tensors, and the lr schedules."""
 from repro_torch.optim.adam import AdamState, adamw_init, adamw_update, sgd_update
+from repro_torch.optim.schedules import constant, cosine_decay, linear_warmup_cosine
 
-__all__ = ["AdamState", "adamw_init", "adamw_update", "sgd_update"]
+__all__ = [
+    "AdamState",
+    "adamw_init",
+    "adamw_update",
+    "sgd_update",
+    "constant",
+    "cosine_decay",
+    "linear_warmup_cosine",
+]

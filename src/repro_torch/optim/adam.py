@@ -1,39 +1,42 @@
-"""AdamW and SGD on a dict of tensors — a hand port of ``repro/optim/adam.py``.
+"""AdamW and SGD on a tree of tensors — a hand port of ``repro/optim/adam.py``.
 
 Not ``torch.optim.AdamW``: the decay sits inside the lr product,
-``p - lr·(m̂/(√v̂+ε) + wd·p)``, with wd 0.001, as in the reference. The
-moments are fp32 and the update is done without autograd. The step count
-is a host integer (the LocalUpdate re-initialises the state on every call,
-so it never leaves the host).
+``p - lr·(m̂/(√v̂+ε) + wd·p)``, with wd 0.001, as in the reference. A tree
+is a nest of dicts and lists (the GCN's flat dict, the LM's dicts and unit
+lists). The moments are stored in ``state_dtype`` (fp32 by default; bf16
+keeps large models' moments at half the bytes), the math is fp32 whatever
+the storage types, as the reference's ``m32.astype(m.dtype)`` does, and
+the update is done without autograd. The step count is a host integer (the
+LocalUpdate re-initialises the state on every call, the LM train step
+reads it for the lr schedule, so it never leaves the host).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.utils.tree import tree_map
 
+PyTree = Any
+
 
 class AdamState(NamedTuple):
     step: int                     # steps taken
-    mu: dict                      # first moment, one fp32 tensor per param
-    nu: dict                      # second moment
+    mu: PyTree                    # first moment, the params' tree in state_dtype
+    nu: PyTree                    # second moment
 
 
-def adamw_init(params: dict) -> AdamState:
-    return AdamState(
-        step=0,
-        mu={k: torch.zeros_like(v, dtype=torch.float32) for k, v in params.items()},
-        nu={k: torch.zeros_like(v, dtype=torch.float32) for k, v in params.items()},
-    )
+def adamw_init(params: PyTree, state_dtype=torch.float32) -> AdamState:
+    zeros = lambda p: torch.zeros_like(p, dtype=state_dtype)
+    return AdamState(step=0, mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
 @torch.no_grad()
-def adamw_update(grads: dict, state: AdamState, params: dict, lr: float, *,
+def adamw_update(grads: PyTree, state: AdamState, params: PyTree, lr: float, *,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 0.001) -> tuple[dict, AdamState]:
+                 weight_decay: float = 0.001) -> tuple[PyTree, AdamState]:
     """One AdamW step. Returns (new_params, new_state); nothing is updated
     in place. Math in fp32."""
     step = state.step + 1
@@ -42,17 +45,19 @@ def adamw_update(grads: dict, state: AdamState, params: dict, lr: float, *,
     one, t = np.float32(1.0), np.float32(step)
     b1c = float(one - np.float32(b1) ** t)
     b2c = float(one - np.float32(b2) ** t)
-    new_p, new_m, new_v = {}, {}, {}
-    for k, p in params.items():
-        g32 = grads[k].to(torch.float32)
-        m32 = state.mu[k] * b1 + g32 * (1.0 - b1)
-        v32 = state.nu[k] * b2 + torch.square(g32) * (1.0 - b2)
+
+    def upd(g, m, v, p):
+        g32 = g.to(torch.float32)
+        m32 = m.to(torch.float32) * b1 + g32 * (1.0 - b1)
+        v32 = v.to(torch.float32) * b2 + torch.square(g32) * (1.0 - b2)
         mhat = m32 / b1c
         vhat = v32 / b2c
         p32 = p.detach().to(torch.float32)
-        new_p[k] = (p32 - lr * (mhat / (torch.sqrt(vhat) + eps)
-                                + weight_decay * p32)).to(p.dtype)
-        new_m[k], new_v[k] = m32, v32
+        newp = p32 - lr * (mhat / (torch.sqrt(vhat) + eps) + weight_decay * p32)
+        return newp.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
+
+    out = tree_map(upd, grads, state.mu, state.nu, params)
+    new_p, new_m, new_v = (tree_map(lambda p, o: o[i], params, out) for i in range(3))
     return new_p, AdamState(step=step, mu=new_m, nu=new_v)
 
 

@@ -117,9 +117,13 @@ def tree_random_like(generator: torch.Generator, tree: PyTree,
 
 
 def global_norm_clip(tree: PyTree, max_norm: float) -> tuple[PyTree, torch.Tensor]:
+    """(tree scaled to a global L2 norm of at most ``max_norm``, the norm).
+    A bf16 leaf comes back fp32, as jnp promotes a bf16 array times an
+    fp32 scalar array."""
     norm = tree_l2_norm(tree)
     scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
-    return tree_scale(tree, scale), norm
+    return tree_map(lambda x: x.to(torch.promote_types(x.dtype, scale.dtype)) * scale,
+                    tree), norm
 
 
 def format_bytes(n: float) -> str:
