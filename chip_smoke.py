@@ -60,8 +60,10 @@ Phases, one or more lines each:
                 versions, the fp32 matmul flags (set to full fp32);
   2 build       nvcc time and the ptxas register report; from the built
                 flash library (cuobjdump, so a cached build is read too),
-                the bf16 kernel's three instances spill nothing, and its
-                SASS holds HGMMA (wgmma) instructions, counted; each of
+                the bf16 forward's three instances spill nothing, the
+                tensor-core backward's four (dq and dk/dv at hd 64 and 128)
+                have no spill load or store among their HGMMA, and its SASS
+                holds HGMMA (wgmma) instructions, counted; each of
                 the 18 wkv6 instances' and the 8 SpMM instances' registers,
                 and none spills;
   3 kernels     the SpMM against its plain version at the serving path's
@@ -234,10 +236,14 @@ Phases, one or more lines each:
                 H 16/8, hd 128, causal) in bf16 and fp32, mini's, gemma3-12b's
                 local block (hd 240, window 1,024), whisper-large-v3's cross
                 attention and encoder, causal Sq != Sk both ways (rows with
-                no live key); lse 1e-5, fp32 gradients 1e-4, bf16 one ulp
-                relative and 4 x the fp32 kernels' error on the same inputs;
-                each launch twice, the same bits; times against the plain
-                backward, SDPA's autograd backward and the bound. Then
+                no live key), an hd of 80 under a window; lse 1e-5, fp32
+                gradients 1e-4, bf16 one ulp relative and 4 x the fp32
+                kernels' error on the same inputs; each row on the route it
+                must take (the tensor-core kernels for bf16 at hd <= 128,
+                the FMA kernels for fp32 and hd 240, from the wrappers'
+                route counts); each launch twice, the same bits; times
+                against the plain backward, SDPA's autograd backward and the
+                bound. Then
                 internvl2-2b at 2 of its 24 layers, full width: loss and every
                 gradient, kernel path vs plain path (relative L2 1e-2); then
                 the main path, internvl2-2b whole (1.89 B params, bf16, AdamW
@@ -247,10 +253,12 @@ Phases, one or more lines each:
                 serves, make the image rows' gradient grow ~10^3 a layer:
                 recorded at 8 layers): finite
                 losses and grad norms, exactly 24 forward, 24 dq and 24 dk/dv
-                launches a step and nothing else; first and steady step ms,
+                launches a step and nothing else, every backward launch on
+                the tensor-core route; first and steady step ms,
                 tokens/s, peak memory. ``launch.train``'s ``train`` and
                 ``train_federated`` on mini, card against CPU from the same
-                params (losses 1e-4; tau, steps, syncs equal);
+                params (losses 1e-4; tau, steps, syncs equal; fp32, so
+                every backward launch on the FMA route);
                 ``examples.train_lm_federated`` at a cut size; an RWKV train
                 step on the card refuses (``NotImplementedError``: WKV6 has no
                 backward yet) and, with ``rwkv_chunk``, trains on the plain
@@ -595,6 +603,33 @@ def sass_count(build, name: str, opcode: str) -> int:
                if opcode in line)
 
 
+def spills_among_hgmma(build, name: str, pattern: str) -> dict:
+    """{function matching ``pattern`` (a regex with one group naming it):
+    the local-memory loads and stores (LDL, STL: spill traffic) between its
+    first and its last HGMMA} in the built library's SASS, so a spill left
+    outside the tensor-core loop can be told from one inside it."""
+    out, fn, ops = {}, None, []
+
+    def close():
+        if fn is not None:
+            hg = [i for i, o in enumerate(ops) if o.startswith("HGMMA")]
+            out[fn] = (sum(1 for o in ops[hg[0]:hg[-1]] if o.split(".")[0] in ("LDL", "STL"))
+                       if hg else 0)
+
+    for line in cuobjdump(build, name, "-sass").splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            close()
+            k = re.search(pattern, m.group(1))
+            fn, ops = (k.group(1) if k else None), []
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if fn is not None and op:
+            ops.append(op.group(1))
+    close()
+    return out
+
+
 def res_usage(build, name: str) -> dict:
     """{mangled function: {"REG": n, "STACK": bytes, "LOCAL": bytes, ...}} from
     ``cuobjdump -res-usage``. A spill goes to the stack frame, so STACK and
@@ -784,14 +819,17 @@ def flash_bwd_bound(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype, product
 
 
 def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal, window,
-                    dtype, reps, Sk=None):
+                    dtype, reps, want_route, Sk=None):
     """One attention shape of the training path: the forward's lse against
     the plain lse (1e-5), then the backward kernels against
     ``attention_bwd_ref`` on the same (q, k, v, o, lse, dO): fp32 atol =
     rtol = 1e-4; bf16 rtol 2^-7 (one ulp) and an atol of 4 x the max abs
-    error the fp32 kernels make on the same inputs widened to fp32 (the
-    bf16 instance runs the same fp32 arithmetic and rounds once at the
-    end). Each backward launch is made twice and must give the same bits.
+    error the fp32 kernels make on the same inputs widened to fp32 (the FMA
+    route's bf16 instance runs the same fp32 arithmetic and rounds once at
+    the end; the tensor-core route forms s and dp in fp32 from the bf16
+    operands and takes p and dS as three bf16 terms). Both kernels must
+    run ``want_route`` (the wrappers' route counts, from the library's own
+    rule). Each backward launch is made twice and must give the same bits.
     Then the times and bounds, each of the whole backward and of each
     kernel alone: the kernels', their plain versions' (the two halves of
     ``attention_bwd_ref``) and the library's (autograd's backward of one
@@ -807,7 +845,12 @@ def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal
     kw = {"causal": causal, "window": window}
     o, lse = ops.flash_attention_lse(q, k, v, **kw)
     lse_want = ref.attention_ref(q, k, v, return_lse=True, **kw)[1]
+    before = {n: dict(getattr(ops, n).routes) for n in BWD_KERNELS}
     dq, dk, dv = ops.flash_bwd(q, k, v, o, lse, do, **kw)
+    route = {n: [r for r, c in getattr(ops, n).routes.items() if c != before[n][r]]
+             for n in BWD_KERNELS}
+    if any(r != [want_route] for r in route.values()):
+        raise AssertionError(f"flash bwd {name}: routes {route}, want {want_route}")
     again = ops.flash_bwd(q, k, v, o, lse, do, **kw)
     want = ref.attention_bwd_ref(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
@@ -830,6 +873,7 @@ def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal
         e32 = max(float((a - b).abs().max()) for a, b in zip(g32, r32))
         atol, rtol = 4 * e32, RTOL_BF16
         # recorded: the bf16 outputs are the fp32 kernels' rounded to bf16
+        # (so on the FMA route; the tensor-core route rounds p and dS)
         same_bits = all(torch.equal(a, b.to(dtype)) for a, b in zip((dq, dk, dv), g32))
     errs = {}
     for gname, got, exp in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
@@ -857,8 +901,9 @@ def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal
     sdpa_grad = lambda *ins: timer(lambda: torch.autograd.grad(out_t, ins, dot,
                                                                retain_graph=True), reps)
     row = {"shape": name, "B": B, "S": Sq, "Sk": Sk, "H": H, "Hkv": Hkv, "hd": hd,
-           "causal": causal, "window": window, "dtype": str(dtype), "atol": atol,
-           "rtol": rtol, "fp32_max_abs_err_same_inputs": e32, "lse_max_abs_err": lse_err,
+           "causal": causal, "window": window, "dtype": str(dtype), "route": want_route,
+           "atol": atol, "rtol": rtol, "fp32_max_abs_err_same_inputs": e32,
+           "lse_max_abs_err": lse_err,
            "dead_rows": dead, "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
            "bf16_is_fp32_rounded": None if e32 is None else same_bits,
            "ms": timer(lambda: ops.flash_bwd(q, k, v, o, lse, do, **kw), reps),
@@ -879,7 +924,8 @@ def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal
                                                                  reads_o=False)
     del qt, kt, vt, out_t
     log(f"phase 16 lm-train: flash bwd {name} B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} hd={hd} "
-        f"causal {causal} window {window} {dtype}: lse max abs err {lse_err} ({dead} rows "
+        f"causal {causal} window {window} {dtype}, {want_route} route: lse max abs err "
+        f"{lse_err} ({dead} rows "
         f"with no live key); max abs err {json.dumps(errs)} (atol {atol} rtol {rtol}); "
         f"deterministic; kernels {row['ms']} ms (dq {row['dq_ms']}, dkdv {row['dkdv_ms']}) "
         f"plain {row['plain_ms']} ms (dq {row['plain_dq_ms']}, dkdv {row['plain_dkdv_ms']}) "
@@ -2710,6 +2756,19 @@ def _counts(counters) -> dict:
     return {n: c.launches for n, c in counters.items()}
 
 
+BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkdv")
+
+
+def _routes(counters) -> dict:
+    """{backward kernel: {route: launches}}, the wrappers' route counts."""
+    return {n: dict(counters[n].routes) for n in BWD_KERNELS}
+
+
+def _routes_since(counters, before) -> dict:
+    return {n: {r: c - before[n][r] for r, c in now.items()}
+            for n, now in _routes(counters).items()}
+
+
 def _zero(counters) -> None:
     for c in counters.values():
         c.launches = 0
@@ -2717,27 +2776,33 @@ def _zero(counters) -> None:
 
 def flash_bwd_shapes(torch, fops, fref, timer, gen) -> list:
     """Phase 16's per-op rows: the backward kernels (and the forward's lse)
-    at the training path's shapes."""
+    at the training path's shapes, each with the route it must run: the
+    tensor cores for bf16 at hd <= 128, the FMA kernels for fp32 and hd 240."""
     bf16, f32 = torch.bfloat16, torch.float32
+    tc, fma = "tensor_core", "fma"
     cases = [
         # internvl2-2b's training shape: 256 image + 2,048 text tokens
-        ("internvl2_train_bf16", 2, 2304, 16, 8, 128, True, None, bf16, 5),
-        ("internvl2_train_fp32", 2, 2304, 16, 8, 128, True, None, f32, 3),
-        ("mini_fp32", 8, 256, 6, 2, 64, True, None, f32, 10),
+        ("internvl2_train_bf16", 2, 2304, 16, 8, 128, True, None, bf16, 5, tc),
+        ("internvl2_train_fp32", 2, 2304, 16, 8, 128, True, None, f32, 3, fma),
+        ("mini_fp32", 8, 256, 6, 2, 64, True, None, f32, 10, fma),
         # gemma3-12b's local block (hd 240 runs at 256)
-        ("gemma3_local_bf16", 2, 2048, 16, 8, 240, True, 1024, bf16, 5),
+        ("gemma3_local_bf16", 2, 2048, 16, 8, 240, True, 1024, bf16, 5, fma),
         # whisper-large-v3's cross attention and encoder, unmasked
-        ("whisper_cross_bf16", 2, 224, 20, 20, 64, False, None, bf16, 10, 1500),
-        ("whisper_enc_bf16", 2, 1500, 20, 20, 64, False, None, bf16, 5),
+        ("whisper_cross_bf16", 2, 224, 20, 20, 64, False, None, bf16, 10, tc, 1500),
+        ("whisper_enc_bf16", 2, 1500, 20, 20, 64, False, None, bf16, 5, tc),
         # causal with Sq != Sk both ways; the second's last rows keep no key
-        ("causal_cross_fp32", 2, 200, 8, 4, 64, True, None, f32, 10, 333),
-        ("causal_past_sk_window_fp32", 2, 333, 8, 4, 128, True, 64, f32, 10, 200),
-        ("causal_past_sk_window_bf16", 2, 333, 8, 4, 128, True, 64, bf16, 10, 200),
+        ("causal_cross_fp32", 2, 200, 8, 4, 64, True, None, f32, 10, fma, 333),
+        ("causal_cross_bf16", 2, 200, 8, 4, 64, True, None, bf16, 10, tc, 333),
+        ("causal_past_sk_window_fp32", 2, 333, 8, 4, 128, True, 64, f32, 10, fma, 200),
+        ("causal_past_sk_window_bf16", 2, 333, 8, 4, 128, True, 64, bf16, 10, tc, 200),
+        # an hd between the widths (80 runs at 128; TMA zero-fills the
+        # columns past hd), windowed, ragged S
+        ("ragged_hd80_window_bf16", 1, 300, 4, 2, 80, True, 100, bf16, 10, tc),
     ]
     rows = []
     for c in cases:
-        rows.append(check_flash_bwd(torch, fops, fref, timer, gen, *c[:10],
-                                    **({"Sk": c[10]} if len(c) > 10 else {})))
+        rows.append(check_flash_bwd(torch, fops, fref, timer, gen, *c[:11],
+                                    **({"Sk": c[11]} if len(c) > 11 else {})))
         torch.cuda.empty_cache()
     return rows
 
@@ -2802,11 +2867,13 @@ def mini_card_vs_cpu(torch, counters, dev, tag) -> dict:
             runs = {}
             for where in (str(dev), "cpu"):
                 _zero(counters)
+                routes0 = _routes(counters)
                 t0 = time.perf_counter()
                 runs[where] = fn(ap.Namespace(**{**base, **kw, "device": where}))
                 torch.cuda.synchronize()
                 runs[where]["seconds"] = time.perf_counter() - t0
                 runs[where]["launches"] = _counts(counters)
+                runs[where]["routes"] = _routes_since(counters, routes0)
             card, cpu = runs[str(dev)], runs["cpu"]
             n_layers = cfg.n_layers
             if name == "train":
@@ -2824,19 +2891,25 @@ def mini_card_vs_cpu(torch, counters, dev, tag) -> dict:
             err = float(np.abs(a - b).max())
             got = card["launches"]
             want_bwd = steps * n_layers
+            # mini is fp32: every backward launch on the FMA route
+            want_routes = {n: {"tensor_core": 0, "fma": want_bwd} for n in BWD_KERNELS}
             if (a.shape != b.shape or not np.isfinite(a).all() or err > TOL_MINI
                     or not all(v for k, v in same.items() if k != "picks")
                     or got["flash_bwd_dq"] != want_bwd or got["flash_bwd_dkdv"] != want_bwd
+                    or card["routes"] != want_routes
                     or got["flash_attention"] < want_bwd or got["wkv6"] or got["spmm"]
                     or any(cpu["launches"].values())):
                 raise AssertionError(f"lm-train mini {name}: card vs CPU max loss diff {err}, "
                                      f"same {same}, card launches {got} (want {want_bwd} of "
-                                     f"each backward kernel), CPU {cpu['launches']}")
+                                     f"each backward kernel), routes {card['routes']} (want "
+                                     f"{want_routes}), CPU {cpu['launches']}")
             log(f"phase 16 lm-train: {tag}: mini {name} {json.dumps(kw)}: card vs CPU max "
                 f"loss diff {err} over {len(a)} {'steps' if name == 'train' else 'rounds'}; "
-                f"{json.dumps(same)}; card launches {json.dumps(got)}; "
+                f"{json.dumps(same)}; card launches {json.dumps(got)}, routes "
+                f"{json.dumps(card['routes'])}; "
                 f"{card['seconds']:.2f} s on the card, {cpu['seconds']:.2f} s on the CPU")
             out[name] = {"max_loss_diff": err, "same": same, "launches": got,
+                         "routes": card["routes"],
                          "card_s": card["seconds"], "cpu_s": cpu["seconds"],
                          "losses_card": a.tolist(), "losses_cpu": b.tolist()}
     finally:
@@ -2921,25 +2994,32 @@ def lm_train_phase(torch, counters, get_config, get_smoke_config, dev, tag,
     layers = cfg.n_layers
     want = {n: 0 for n in counters}
     want.update(flash_attention=layers, flash_bwd_dq=layers, flash_bwd_dkdv=layers)
+    # every backward launch of a step on the tensor-core route (bf16, hd 128)
+    want_routes = {n: {"tensor_core": layers, "fma": 0} for n in BWD_KERNELS}
     torch.cuda.reset_peak_memory_stats()
     _zero(counters)
+    routes0 = _routes(counters)
     steps = []
     for i in range(TRAIN_STEPS):
         batch = batch_at(i)
-        before = _counts(counters)
+        before, before_routes = _counts(counters), _routes(counters)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         params, opt, m = step(params, opt, batch)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t1) * 1e3
         got = {n: c - before[n] for n, c in _counts(counters).items()}
+        routes = _routes_since(counters, before_routes)
         row = {"step": i, "ms": ms, "loss": float(m["loss"]), "xent": float(m["xent"]),
-               "grad_norm": float(m["grad_norm"]), "lr": m["lr"], "launches": got}
+               "grad_norm": float(m["grad_norm"]), "lr": m["lr"], "launches": got,
+               "routes": routes}
         steps.append(row)
-        if (got != want or not math.isfinite(row["loss"])
+        if (got != want or routes != want_routes or not math.isfinite(row["loss"])
                 or not (math.isfinite(row["grad_norm"]) and row["grad_norm"] > 0)):
-            raise AssertionError(f"lm-train {TRAIN_ARCH} step {i}: {row}; want launches {want}")
+            raise AssertionError(f"lm-train {TRAIN_ARCH} step {i}: {row}; want launches {want}, "
+                                 f"routes {want_routes}")
     main_launches = _counts(counters)
+    rec["routes"] = {f"{TRAIN_ARCH} train": _routes_since(counters, routes0)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steady = sorted(r["ms"] for r in steps[1:])[len(steps[1:]) // 2]
     text_tokens = TRAIN_BATCH * TRAIN_TEXT
@@ -2950,7 +3030,8 @@ def lm_train_phase(torch, counters, get_config, get_smoke_config, dev, tag,
         "first_step_ms": steps[0]["ms"], "steady_step_ms": steady,
         "text_tokens_per_s": text_tokens / (steady / 1e3),
         "all_tokens_per_s": TRAIN_BATCH * (TRAIN_TEXT + cfg.n_image_tokens) / (steady / 1e3),
-        "peak_memory_gb": peak_gb, "launches": main_launches}
+        "peak_memory_gb": peak_gb, "launches": main_launches,
+        "routes": rec["routes"][f"{TRAIN_ARCH} train"]}
     log(f"phase 16 lm-train: {tag}: {TRAIN_ARCH} whole ({cfg.param_count():,} params, "
         f"{cfg.dtype}, AdamW moments fp32) batch {TRAIN_BATCH} x ({cfg.n_image_tokens} image "
         f"+ {TRAIN_TEXT} text) tokens, {TRAIN_STEPS} steps: losses "
@@ -2958,10 +3039,11 @@ def lm_train_phase(torch, counters, get_config, get_smoke_config, dev, tag,
         f"{[r['lr'] for r in steps]}; first step {steps[0]['ms']:.1f} ms, steady "
         f"{steady:.1f} ms ({rec['train_full']['text_tokens_per_s']:.0f} text tokens/s); peak "
         f"memory {peak_gb:.2f} GB; launches a step {json.dumps(want)}, in all "
-        f"{json.dumps(main_launches)}; init {init_s:.1f} s")
+        f"{json.dumps(main_launches)}, every backward launch on the tensor-core route "
+        f"{json.dumps(rec['routes'])}; init {init_s:.1f} s")
     if profile:
         batch = batch_at(TRAIN_STEPS)
-        (params, opt, _), prof = _trace(torch, lambda: step(params, opt, batch), 10)
+        (params, opt, _), prof = _trace(torch, lambda: step(params, opt, batch), 16)
         rec["profile"] = prof
         log(f"profile: {tag}: {TRAIN_ARCH} one steady train step: wall {prof['wall_ms']} ms, "
             f"device busy {prof['device_busy_ms']} ms (share {prof['device_busy_share']}); "
@@ -2976,17 +3058,23 @@ def lm_train_phase(torch, counters, get_config, get_smoke_config, dev, tag,
 
     # the example at a cut size
     _zero(counters)
+    routes0 = _routes(counters)
     t0 = time.perf_counter()
     ex = train_lm_federated.main(["--steps", "8", "--batch", "2", "--seq-len", "64",
                                   "--clients", "2", "--device", str(dev)])
     torch.cuda.synchronize()
     got = _counts(counters)
+    rec["routes"]["mini train"] = {
+        n: {r: sum(rec["mini"][run]["routes"][n][r] for run in rec["mini"]) for r in c}
+        for n, c in routes0.items()}
+    rec["routes"]["example"] = _routes_since(counters, routes0)
     losses = [ex["centralized"]["final_loss"], ex["federated"]["final_loss"]]
     if (not all(math.isfinite(x) for x in losses) or got["flash_bwd_dq"] <= 0
             or got["flash_bwd_dq"] != got["flash_bwd_dkdv"] or got["wkv6"] or got["spmm"]):
         raise AssertionError(f"lm-train example: final losses {losses}, launches {got}")
     rec["example"] = {"final_losses": losses, "sync_events": ex["federated"]["sync_events"],
-                      "launches": got, "seconds": time.perf_counter() - t0}
+                      "launches": got, "routes": rec["routes"]["example"],
+                      "seconds": time.perf_counter() - t0}
     log(f"phase 16 lm-train: {tag}: examples.train_lm_federated --steps 8 --batch 2 "
         f"--seq-len 64 --clients 2: final losses {losses}, "
         f"{ex['federated']['sync_events']} syncs, launches {json.dumps(got)}")
@@ -3110,24 +3198,39 @@ def main(argv=None) -> int:
     hgmma = sass_count(build, "flash_attention", "HGMMA")
     tc_fns = {}
     for n, r in res_usage(build, "flash_attention").items():
-        m = re.search(r"flash_fwd_tc_kernelILi(\d+)E", n)
+        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkdv)_tc_kernel)ILi(\d+)E", n)
         if m:
-            tc_fns[f"flash_fwd_tc_kernel<{m.group(1)}>"] = {
+            tc_fns[f"{m.group(1)}<{m.group(2)}>"] = {
                 "registers": r.get("REG"), "stack_bytes": r.get("STACK"),
                 "local_bytes": r.get("LOCAL")}
+    # the backward's spill traffic among its tensor-core instructions
+    among = spills_among_hgmma(build, "flash_attention",
+                               r"(flash_bwd_(?:dq|dkdv)_tc_kernelILi\d+E)")
+    for n, c in among.items():
+        m = re.match(r"(\w+)ILi(\d+)E", n)
+        tc_fns[f"{m.group(1)}<{m.group(2)}>"]["spill_ops_among_hgmma"] = c
     for n, r in sorted(tc_fns.items()):
-        log(f"phase 2 build: flash_attention: {n}: {r['registers']} registers at launch "
-            f"(setmaxnreg then gives the consumers 240), stack {r['stack_bytes']} B, "
-            f"local {r['local_bytes']} B: nothing spilled")
+        log(f"phase 2 build: flash_attention: {n}: {r['registers']} registers a thread "
+            f"as ptxas allocated them, stack {r['stack_bytes']} B, local "
+            f"{r['local_bytes']} B"
+            + (f", {r['spill_ops_among_hgmma']} spill loads and stores among its HGMMA"
+               if "spill_ops_among_hgmma" in r else ""))
     log(f"phase 2 build: flash_attention: {hgmma} HGMMA instructions in the library's "
         f"SASS; {len(tc_fns)} tensor-core kernel instances")
     if hgmma == 0:
         raise AssertionError("build: no HGMMA in the flash attention library: the bf16 "
                              "kernel does not run on the tensor cores")
-    # three widths (64, 128, 256), none with a stack frame or local memory
-    if len(tc_fns) != 3 or any(r["stack_bytes"] != 0 or r["local_bytes"] != 0
-                               for r in tc_fns.values()):
-        raise AssertionError(f"build: the bf16 flash kernel's instances spill or are "
+    # the forward at three widths (64, 128, 256), none with a stack frame or
+    # local memory; each backward kernel at two (64, 128), with no spill
+    # traffic among its tensor-core instructions (what ptxas spills of the
+    # consumers' 240 registers lies before or after the loop's products)
+    fwd = [r for n, r in tc_fns.items() if n.startswith("flash_fwd")]
+    bwd = [r for n, r in tc_fns.items() if not n.startswith("flash_fwd")]
+    if (len(fwd) != 3 or len(bwd) != 4
+            or any(r["stack_bytes"] != 0 or r["local_bytes"] != 0 for r in fwd)
+            or any(r["local_bytes"] != 0 or r.get("spill_ops_among_hgmma") != 0
+                   for r in bwd)):
+        raise AssertionError(f"build: the bf16 flash kernels' instances spill or are "
                              f"missing: {tc_fns}")
     record["flash_build"] = {"hgmma": hgmma, "tc_kernels": tc_fns}
     # every instance of the wkv6 kernel (3 head sizes x 3 column tiles x 2
@@ -3569,24 +3672,32 @@ def main(argv=None) -> int:
             # floor_ms is a model of the kernel's work, not a measurement:
             # it stays in the phase-7 rows of the record, not in this line
             "shapes": [{k: v for k, v in r.items() if k != "floor_ms"} for r in rows]})
-    # the backward pair: each kernel's own time, bound, plain version (its
-    # half of attention_bwd_ref) and library call (autograd of SDPA asked
-    # for its outputs only) at the training shape
+    # the backward pair on each route: each kernel's own time, bound, plain
+    # version (its half of attention_bwd_ref) and library call (autograd of
+    # SDPA asked for its outputs only) at internvl2-2b's training shape, in
+    # bf16 for the tensor-core kernels (the main path's) and in fp32 for the
+    # FMA ones (mini's); launches by path from the route counts
     bwd_rows = record["lm_train"]["flash_bwd_shapes"]
-    main_row = bwd_rows[0]
-    for name, key in (("flash_bwd_dq", "dq"), ("flash_bwd_dkdv", "dkdv")):
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-            "replaces": "src/repro/models/attention.py:212 (_flash_bwd, jnp; no Pallas kernel)",
-            "launches": train_lm_launches[name],
-            "launches_by_path": {f"{TRAIN_ARCH} train": train_lm_launches[name]},
-            "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
-            "ms": main_row[f"{key}_ms"], "plain_ms": main_row[f"plain_{key}_ms"],
-            "bound_ms": main_row[f"{key}_bound_ms"], "bound_by": main_row[f"{key}_bound_by"],
-            "library_ms": main_row[f"library_{key}_ms"], "timed_shape": main_row["shape"],
-            "shapes": [{k: v for k, v in r.items() if k != "max_abs_err_by_grad"}
-                       for r in bwd_rows]})
+    bwd_routes = record["lm_train"]["routes"]
+    for route, suffix, timed in (("tensor_core", "tc", "internvl2_train_bf16"),
+                                 ("fma", "fma", "internvl2_train_fp32")):
+        rows = [r for r in bwd_rows if r["route"] == route]
+        main_row = next(r for r in rows if r["shape"] == timed)
+        for name, key in (("flash_bwd_dq", "dq"), ("flash_bwd_dkdv", "dkdv")):
+            by_path = {p: c[name][route] for p, c in bwd_routes.items() if c[name][route]}
+            kernels.append({
+                "name": f"{name}_{suffix}", "route": "cuda",
+                "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                "replaces": ("src/repro/models/attention.py:212 (_flash_bwd, jnp; no Pallas "
+                             "kernel)"),
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": main_row[f"{key}_ms"], "plain_ms": main_row[f"plain_{key}_ms"],
+                "bound_ms": main_row[f"{key}_bound_ms"],
+                "bound_by": main_row[f"{key}_bound_by"],
+                "library_ms": main_row[f"library_{key}_ms"], "timed_shape": main_row["shape"],
+                "shapes": [{k: v for k, v in r.items() if k != "max_abs_err_by_grad"}
+                           for r in rows]})
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     if args.out:

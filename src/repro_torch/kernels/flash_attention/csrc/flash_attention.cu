@@ -81,8 +81,8 @@
 // Both forward kernels also write each query row's fp32 log-sum-exp of its
 // scaled scores, lse (B, H, Sq), when the caller gives a buffer for it (null
 // leaves the launch as it was); a row with no live key gets +inf. The
-// backward (flash_bwd_dq_kernel, flash_bwd_dkdv_kernel, below) recomputes
-// the probabilities from it.
+// backward's kernels (below: on the tensor cores for bf16 up to hd 128, on
+// the FMA pipes otherwise) recompute the probabilities from it.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (repro_torch/kernels/build.py). Entry points have
@@ -94,6 +94,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -497,6 +499,22 @@ __device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t d
   else wgmma_rs_n256(d, a, db);
 }
 
+// (x0, x1) fp32 as N bf16x2 terms of the A fragment, `stride` registers
+// apart: t[0] = bf16(x), t[1] = bf16(x - t[0]), t[2] = bf16(x - t[0] - t[1])
+// (each difference exact in fp32). Two terms keep about 16 of x's 24
+// significant bits, three all of them.
+template <int N>
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t* t, int stride) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    t[n * stride] = *reinterpret_cast<const uint32_t*>(&h);
+    x0 -= hf.x;
+    x1 -= hf.y;
+  }
+}
+
 template <int HDP>
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_tc_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -630,7 +648,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_tc_kernel(
 #pragma unroll
         for (int j = 0; j < HDP / 2; ++j) acc[j] *= (j & 2) ? c1 : c0;
         // P = hi + lo, two bf16 terms of the fp32 p, in the A fragment order
-        uint32_t phi[16], plo[16];
+        uint32_t pt[32];
 #pragma unroll
         for (int i = 0; i < 16; ++i) {
           const float bb = (i & 1) ? b1 : b0;
@@ -639,28 +657,22 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_tc_kernel(
           const float p1 = (edge && e1 == -INFINITY) ? 0.f : exp2f(fmaf(e1, scale_log2, -bb));
           if (i & 1) l1 += p0 + p1;
           else l0 += p0 + p1;
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-          const float2 hf = __bfloat1622float2(hi);
-          const __nv_bfloat162 lo = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
-          phi[i] = *reinterpret_cast<const uint32_t*>(&hi);
-          plo[i] = *reinterpret_cast<const uint32_t*>(&lo);
+          split_bf16<2>(p0, p1, pt + i, 16);
         }
         // O += P_hi V + P_lo V over 4 steps of 16 keys
         pin<HDP / 2>(acc);
-        pin<16>(phi);
-        pin<16>(plo);
+        pin<32>(pt);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_pv<HDP>(acc, phi + 4 * kk, sw128_desc(sv(s) + kk * 2048, L::kKVPanel, 1024));
+        for (int t = 0; t < 2; ++t)
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_pv<HDP>(acc, plo + 4 * kk, sw128_desc(sv(s) + kk * 2048, L::kKVPanel, 1024));
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_pv<HDP>(acc, pt + 16 * t + 4 * kk,
+                          sw128_desc(sv(s) + kk * 2048, L::kKVPanel, 1024));
         wgmma_commit();
         wgmma_wait0();
         pin<HDP / 2>(acc);
-        pin<16>(phi);
-        pin<16>(plo);
+        pin<32>(pt);
       }
       mbar_arrive(empty(s));
     }
@@ -789,6 +801,560 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float
   return launch<256>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 backward on the tensor cores: dQ (and delta), then dK and dV. The
+// design and what bounds it are in the backward's note below.
+// ---------------------------------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kTerms = 3;   // bf16 terms of p and dS in the backward's products
+// columns of a tile's product summed on the tensor cores at a time
+// (add_tile_product): 64, a 32-register accumulator. All 128 of hd 128 at
+// once spilled the dK/dV kernel's registers inside its loop (ptxas, with
+// the consumers' 240); 64 keeps the loops free of spill traffic.
+constexpr int kTileCols = 64;
+
+// Shared memory of the two backward kernels, in bytes from a 1024-aligned
+// base: two resident tiles of RES rows (dq: Q and dO, 128 rows; dk/dv: K
+// and V, 64), then a ring of kStages pairs of streamed tiles of kBK rows
+// (dq: K and V; dk/dv: Q and dO), each NP 128-byte swizzled panels of 64
+// columns as in Layout; then the streamed query tiles' lse (base 2) and
+// delta, kBK fp32 each a stage (dk/dv); then the barriers.
+template <int HDP, int RES>
+struct BwdLayout {
+  static constexpr int NP = HDP / 64;
+  static constexpr int kResPanel = RES * 128;
+  static constexpr int kStrPanel = kBK * 128;
+  static constexpr int kRes = NP * kResPanel;   // one resident tile
+  static constexpr int kStr = NP * kStrPanel;   // one streamed tile
+  static constexpr int kRows = 2 * kRes + 2 * kStages * kStr;
+  static constexpr int kBar = kRows + kStages * 2 * kBK * 4;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// acc (the 64 x HDP fp32 fragment of rows r0, r0 + 8) += A B, A (64 x 64)
+// as kTerms bf16 terms in registers (the S-shaped fragment, 16 registers a
+// term), B (64 x HDP) MN-major from shared memory at `b` in panels of 64
+// columns `panel` bytes apart. kTileCols columns at a time are summed on
+// the tensor cores into a zeroed accumulator (4 steps of 16 rows of B for
+// each term), then added to acc in fp32, so that a sum on the tensor cores
+// spans one tile.
+template <int HDP>
+__device__ __forceinline__ void add_tile_product(float* acc, uint32_t* a, uint32_t b,
+                                                 uint32_t panel) {
+  constexpr int NC = HDP < kTileCols ? HDP : kTileCols;
+#pragma unroll
+  for (int part = 0; part < HDP / NC; ++part) {
+    float tile[NC / 2];
+#pragma unroll
+    for (int j = 0; j < NC / 2; ++j) tile[j] = 0.f;
+    pin<NC / 2>(tile);
+    pin<16 * kTerms>(a);
+    wgmma_fence();
+#pragma unroll
+    for (int n = 0; n < kTerms; ++n)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_pv<NC>(tile, a + 16 * n + 4 * kk,
+                     sw128_desc(b + part * (NC / 64) * panel + kk * 2048, panel, 1024));
+    wgmma_commit();
+    wgmma_wait0();
+    pin<NC / 2>(tile);
+    pin<16 * kTerms>(a);
+#pragma unroll
+    for (int j = 0; j < NC / 2; ++j) acc[NC / 2 * part + j] += tile[j];
+  }
+}
+
+// 2^x as one MUFU.EX2 (ex2.approx.ftz; 2^-inf is +0): exp2f adds range
+// handling for results below 2^-126, which the backward's p can flush to 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// acc + the 8 products of two 16-byte chunks of bf16, widened to fp32
+__device__ __forceinline__ float dot8(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                                      float acc) {
+  const uint4 x = *reinterpret_cast<const uint4*>(a);
+  const uint4 y = *reinterpret_cast<const uint4*>(b);
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
+    const float2 yf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
+    acc = fmaf(xf.x, yf.x, acc);
+    acc = fmaf(xf.y, yf.y, acc);
+  }
+  return acc;
+}
+
+// rows r0 and r0 + 8 of a 64-row accumulator fragment (HDP / 2 fp32 a thread:
+// element j is row r0 + 8 * ((j / 2) % 2), column (j / 4) * 8 + 2 * (lane % 4)
+// + j % 2) into bf16 rows of `out`, `stride` elements apart; rows at or past
+// `n_rows` and columns at or past hd are not written
+template <int HDP>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long stride, int r0,
+                                           int n_rows, int hd, int lane, const float* acc) {
+  const bool pairs = (hd % 2 == 0) && (reinterpret_cast<uintptr_t>(out) % 4 == 0);
+#pragma unroll
+  for (int j = 0; j < HDP / 2; j += 2) {
+    const int d = (j / 4) * 8 + (lane % 4) * 2;
+    const int r = (j & 2) ? r0 + 8 : r0;
+    if (r < n_rows && d < hd) {
+      __nv_bfloat16* dst = out + r * stride + d;
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(acc[j], acc[j + 1]);
+      } else {
+        dst[0] = __float2bfloat16(acc[j]);
+        if (d + 1 < hd) dst[1] = __float2bfloat16(acc[j + 1]);
+      }
+    }
+  }
+}
+
+// dQ of 128 query rows of one (b, h), and their delta = sum dO.O (written to
+// `delta` for the dK/dV kernel). Warpgroups 0 and 1 consume, 64 rows each;
+// the producer warp's first lane loads Q and dO once and streams the live K
+// and V tiles through the ring.
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_tc_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
+    int Sq, int Sk, int H, int Hkv, int hd, int causal, int window, float scale) {
+  using L = BwdLayout<HDP, kBQ>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base, sdo = base + L::kRes;
+  auto sk = [&](int s) { return base + 2 * L::kRes + s * L::kStr; };
+  auto sv = [&](int s) { return base + 2 * L::kRes + (kStages + s) * L::kStr; };
+  const uint32_t res_full = base + L::kBar;
+  auto full = [&](int s) { return res_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return res_full + 8 * (1 + kStages + s); };
+
+  const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest (last) tiles first
+  const int q_last = min(q0 + kBQ, Sq) - 1;
+  int kt_lo = 0, kt_hi = (Sk - 1) / kBK;
+  if (causal) {
+    kt_hi = min(q_last, Sk - 1) / kBK;
+    if (window > 0) kt_lo = max(0, q0 - window + 1) / kBK;
+  }
+  const int n_tiles = kt_hi - kt_lo + 1;   // <= 0 when a window lies wholly past Sk
+
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: Q and dO once, then the K/V ring ---------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tw == 0) {
+      mbar_expect_tx(res_full, 2 * L::kRes);
+      for (int p = 0; p < L::NP; ++p) {
+        tma_load(sq + p * L::kResPanel, &tq, res_full, p * 64, h, q0, b);
+        tma_load(sdo + p * L::kResPanel, &tdo, res_full, p * 64, h, q0, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        const int k0 = (kt_lo + it) * kBK;
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * L::kStr);
+        for (int p = 0; p < L::NP; ++p) {
+          tma_load(sk(s) + p * L::kStrPanel, &tk, full(s), p * 64, hk, k0, b);
+          tma_load(sv(s) + p * L::kStrPanel, &tv, full(s), p * 64, hk, k0, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ---------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int lane = tw % 32;
+    const int r0 = wg * 64 + (tw / 32) * 16 + lane / 4;   // rows r0 and r0 + 8 of the tile
+    const int qp0 = q0 + r0, qp1 = qp0 + 8;
+    const int w_first = q0 + wg * 64, w_last = min(w_first + 63, Sq - 1);
+    const long long q_stride = (long long)H * hd;
+    const long long q_base = (long long)b * Sq * q_stride + (long long)h * hd;
+    // delta of rows qp0 and qp1: the quad's four threads take every fourth
+    // 16-byte chunk of the row, then sum over the quad (the same bits in all four)
+    const long long row0 = q_base + qp0 * q_stride, row1 = q_base + qp1 * q_stride;
+    float d0 = 0.f, d1 = 0.f;
+    for (int c = (lane % 4) * 8; c < hd; c += 32) {
+      if (qp0 < Sq) d0 = dot8(dout + row0 + c, o + row0 + c, d0);
+      if (qp1 < Sq) d1 = dot8(dout + row1 + c, o + row1 + c, d1);
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      d0 += __shfl_xor_sync(0xffffffffu, d0, off);
+      d1 += __shfl_xor_sync(0xffffffffu, d1, off);
+    }
+    if (lane % 4 == 0) {
+      if (qp0 < Sq) delta[(long long)bh * Sq + qp0] = d0;
+      if (qp1 < Sq) delta[(long long)bh * Sq + qp1] = d1;
+    }
+    // lse in base 2; a row past Sq takes +inf, so its p is 0
+    const float* lrow = lse + (long long)bh * Sq;
+    const float l0 = qp0 < Sq ? lrow[qp0] * kLog2e : INFINITY;
+    const float l1 = qp1 < Sq ? lrow[qp1] * kLog2e : INFINITY;
+    const float scale_log2 = scale * kLog2e;
+    float acc[HDP / 2];
+#pragma unroll
+    for (int j = 0; j < HDP / 2; ++j) acc[j] = 0.f;
+    mbar_wait(res_full, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      const int k0 = (kt_lo + it) * kBK;
+      mbar_wait(full(s), (it / kStages) & 1);
+      bool dead = w_last < w_first;  // every row of this warpgroup lies past Sq
+      if (causal) {
+        dead = dead || k0 > w_last;
+        if (window > 0) dead = dead || k0 + kBK - 1 <= w_first - window;
+      }
+      if (!dead) {
+        // S = Q K^T and dP = dO V^T, 64 x 64 each, over HDP / 16 steps
+        float sc[32], dp[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+        pin<32>(sc);
+        pin<32>(dp);
+        const uint32_t qa = sq + wg * 64 * 128, da = sdo + wg * 64 * 128;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HDP / 16; ++kk) {
+          const uint32_t off = (kk / 4) * L::kResPanel + (kk % 4) * 32;
+          const uint32_t koff = (kk / 4) * L::kStrPanel + (kk % 4) * 32;
+          wgmma_ss_n64(sc, sw128_desc(qa + off, 16, 1024), sw128_desc(sk(s) + koff, 16, 1024),
+                       kk > 0);
+          wgmma_ss_n64(dp, sw128_desc(da + off, 16, 1024), sw128_desc(sv(s) + koff, 16, 1024),
+                       kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        pin<32>(sc);
+        pin<32>(dp);
+
+        // p = 2^(s scale log2(e) - lse log2(e)) on live pairs, dS = p (dP -
+        // delta) scale, as kTerms bf16 terms in the A fragment's order. The
+        // mask only in tiles that cross Sk, the diagonal or the window's
+        // edge (a uniform branch, so the elementwise code has none); a
+        // masked pair's exponent is -inf, so its p is exactly 0 and its
+        // score never enters
+        const bool edge =
+            k0 + kBK > Sk ||
+            (causal && (k0 + kBK - 1 > w_first || (window > 0 && k0 <= w_last - window)));
+        uint32_t dst[16 * kTerms];
+        auto ds_terms = [&](auto edge_tag) {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int qp = (i & 1) ? qp1 : qp0;
+            const float lz = (i & 1) ? l1 : l0, dz = (i & 1) ? d1 : d0;
+            float x[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int key = k0 + (i / 2) * 8 + (lane % 4) * 2 + e;
+              bool live = true;
+              if constexpr (decltype(edge_tag)::value)
+                live = key < Sk && (!causal || (key <= qp && (window <= 0 || qp - key < window)));
+              const float arg = fmaf(sc[2 * i + e], scale_log2, -lz);
+              const float p = exp2_ftz(live ? arg : -INFINITY);
+              x[e] = p * (dp[2 * i + e] - dz) * scale;
+            }
+            split_bf16<kTerms>(x[0], x[1], dst + i, 16);
+          }
+        };
+        if (edge)
+          ds_terms(std::true_type{});
+        else
+          ds_terms(std::false_type{});
+        // dQ += this tile's dS K (K as the MN-major B)
+        add_tile_product<HDP>(acc, dst, sk(s), L::kStrPanel);
+      }
+      mbar_arrive(empty(s));
+    }
+    store_rows<HDP>(dq + (long long)b * Sq * q_stride + (long long)h * hd, q_stride, qp0, Sq,
+                    hd, lane, acc);
+  }
+}
+
+// dK and dV of 64 keys of one (b, kv head). Warpgroup 0 forms dV and
+// warpgroup 1 dK, each for all 64 keys, each held in registers over the
+// whole loop; the producer warp's first lane loads K and V once and
+// streams, for each query head of the group and each query tile some key
+// of the block leaves live, the Q and dO tiles, and the warp copies that
+// tile's lse (base 2) and delta into the ring beside them.
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_tc_kernel(
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int H,
+    int Hkv, int hd, int causal, int window, float scale) {
+  using L = BwdLayout<HDP, kBK>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sk = base, sv = base + L::kRes;
+  auto sq = [&](int s) { return base + 2 * L::kRes + s * L::kStr; };
+  auto sdo = [&](int s) { return base + 2 * L::kRes + (kStages + s) * L::kStr; };
+  float* rows = reinterpret_cast<float*>(smem_raw + (base - raw) + L::kRows);
+  auto lse_s = [&](int s) { return rows + s * 2 * kBK; };
+  auto delta_s = [&](int s) { return rows + s * 2 * kBK + kBK; };
+  const uint32_t res_full = base + L::kBar;
+  auto full = [&](int s) { return res_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return res_full + 8 * (1 + kStages + s); };
+
+  const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv, R = H / Hkv;
+  const int k0 = blockIdx.y * kBK;   // causal: the lowest keys, the heaviest blocks, first
+  const int k_last = min(k0 + kBK, Sk) - 1;
+  // the query tiles some key of this block leaves live, ascending
+  int qt_lo = 0, qt_hi = (Sq - 1) / kBK;
+  if (causal) {
+    qt_lo = k0 / kBK;
+    if (window > 0) qt_hi = min(Sq - 1, k_last + window - 1) / kBK;
+  }
+  const int n_q = max(0, qt_hi - qt_lo + 1), n_tiles = R * n_q;
+
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1 + 32);   // lane 0's expect_tx and the warp's 32 arrivals
+      mbar_init(empty(s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: K and V once, then the Q/dO ring; thread 0 issues the TMA
+    // loads, warp 0 copies each tile's lse (base 2) and delta (a query past
+    // Sq: lse +inf, so p = 0, and delta 0) ----------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tw >= 32) return;
+    if (tw == 0) {
+      mbar_expect_tx(res_full, 2 * L::kRes);
+      for (int p = 0; p < L::NP; ++p) {
+        tma_load(sk + p * L::kResPanel, &tk, res_full, p * 64, hk, k0, b);
+        tma_load(sv + p * L::kResPanel, &tv, res_full, p * 64, hk, k0, b);
+      }
+    }
+    int it = 0;
+    for (int h = hk * R; h < hk * R + R; ++h) {
+      const long long row = ((long long)b * H + h) * Sq;
+      for (int qt = qt_lo; qt < qt_lo + n_q; ++qt, ++it) {
+        const int s = it % kStages, q0 = qt * kBK;
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        if (tw == 0) {
+          mbar_expect_tx(full(s), 2 * L::kStr);
+          for (int p = 0; p < L::NP; ++p) {
+            tma_load(sq(s) + p * L::kStrPanel, &tq, full(s), p * 64, h, q0, b);
+            tma_load(sdo(s) + p * L::kStrPanel, &tdo, full(s), p * 64, h, q0, b);
+          }
+        }
+        for (int c = tw; c < kBK; c += 32) {
+          const int qp = q0 + c;
+          lse_s(s)[c] = qp < Sq ? lse[row + qp] * kLog2e : INFINITY;
+          delta_s(s)[c] = qp < Sq ? delta[row + qp] : 0.f;
+        }
+        mbar_arrive(full(s));
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup 0 dV, warpgroup 1 dK, of the block's 64 keys ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int lane = tw % 32;
+    const int kr0 = k0 + (tw / 32) * 16 + lane / 4, kr1 = kr0 + 8;
+    const float scale_log2 = scale * kLog2e;
+    // one body for each output, so that no wgmma sits on a branch
+    auto consume = [&](auto dk_tag) {
+      constexpr bool kDK = decltype(dk_tag)::value;
+      float g[HDP / 2];   // dV or dK of rows kr0, kr1
+#pragma unroll
+      for (int j = 0; j < HDP / 2; ++j) g[j] = 0.f;
+      mbar_wait(res_full, 0);
+
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        const int q0 = (qt_lo + it % n_q) * kBK, q_end = min(q0 + kBK, Sq) - 1;
+        mbar_wait(full(s), (it / kStages) & 1);
+        bool dead = false;
+        if (causal) {
+          dead = q_end < k0;
+          if (window > 0) dead = dead || q0 - k_last >= window;
+        }
+        if (!dead) {
+          // S^T = K Q^T (and for dK, dP^T = V dO^T), 64 keys x 64 queries
+          float st[32], dpt[32];
+#pragma unroll
+          for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+          pin<32>(st);
+          if constexpr (kDK) pin<32>(dpt);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < HDP / 16; ++kk) {
+            const uint32_t off = (kk / 4) * L::kResPanel + (kk % 4) * 32;
+            const uint32_t qoff = (kk / 4) * L::kStrPanel + (kk % 4) * 32;
+            wgmma_ss_n64(st, sw128_desc(sk + off, 16, 1024),
+                         sw128_desc(sq(s) + qoff, 16, 1024), kk > 0);
+            if constexpr (kDK)
+              wgmma_ss_n64(dpt, sw128_desc(sv + off, 16, 1024),
+                           sw128_desc(sdo(s) + qoff, 16, 1024), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait0();
+          pin<32>(st);
+          if constexpr (kDK) pin<32>(dpt);
+
+          // p^T (dV) or dS^T (dK) in place (element 4m + e: key row e & 2 ?
+          // kr1 : kr0, query column 8m + 2 (lane % 4) + (e & 1)); the mask,
+          // as in the dq kernel, only in tiles that cross Sq, Sk, the
+          // diagonal or the window's edge
+          const bool edge =
+              q0 + kBK > Sq || k0 + kBK > Sk ||
+              (causal && (k0 + kBK - 1 > q0 || (window > 0 && q0 + kBK - 1 - k0 >= window)));
+          const float* ls = lse_s(s);
+          const float* ds = delta_s(s);
+          auto p_or_ds = [&](auto edge_tag) {
+#pragma unroll
+            for (int m = 0; m < 8; ++m) {
+              const int c = m * 8 + (lane % 4) * 2;
+              const float2 lz = *reinterpret_cast<const float2*>(ls + c);
+              const float2 dz = *reinterpret_cast<const float2*>(ds + c);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int i = 4 * m + e;
+                const int kp = (e & 2) ? kr1 : kr0, qp = q0 + c + (e & 1);
+                bool live = true;
+                if constexpr (decltype(edge_tag)::value)
+                  live = kp < Sk && qp < Sq &&
+                         (!causal || (kp <= qp && (window <= 0 || qp - kp < window)));
+                const float arg = fmaf(st[i], scale_log2, -((e & 1) ? lz.y : lz.x));
+                const float p = exp2_ftz(live ? arg : -INFINITY);
+                st[i] = kDK ? p * (dpt[i] - ((e & 1) ? dz.y : dz.x)) * scale : p;
+              }
+            }
+          };
+          if (edge)
+            p_or_ds(std::true_type{});
+          else
+            p_or_ds(std::false_type{});
+          // g += this tile's p^T dO or dS^T Q (dO or Q as the MN-major B)
+          uint32_t t[16 * kTerms];
+#pragma unroll
+          for (int i = 0; i < 16; ++i) split_bf16<kTerms>(st[2 * i], st[2 * i + 1], t + i, 16);
+          add_tile_product<HDP>(g, t, kDK ? sq(s) : sdo(s), L::kStrPanel);
+        }
+        mbar_arrive(empty(s));
+      }
+      const long long kv_stride = (long long)Hkv * hd;
+      const long long kv_base = (long long)b * Sk * kv_stride + (long long)hk * hd;
+      store_rows<HDP>((kDK ? dk : dv) + kv_base, kv_stride, kr0, Sk, hd, lane, g);
+    };
+    if (wg == 0)
+      consume(std::false_type{});
+    else
+      consume(std::true_type{});
+  }
+}
+
+// The backward's route: the tensor-core kernels take bf16 at hd <= 128 in a
+// layout TMA can take, dO (and o, which the dq kernel reads in 16-byte loads,
+// when given) 16-byte aligned too; the rest runs the FMA kernels.
+bool bwd_tensor_cores(const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, int hd, int dtype) {
+  return dtype == 1 && hd <= 128 && tma_layout(q, k, v, hd) &&
+         ((reinterpret_cast<uintptr_t>(o) | reinterpret_cast<uintptr_t>(dout)) % 16) == 0;
+}
+
+template <int HDP>
+cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                          const float* lse, const void* dout, void* dq, float* delta, int B,
+                          int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                          float scale, cudaStream_t st) {
+  constexpr int bytes = BwdLayout<HDP, kBQ>::kBytes;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<HDP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  CUtensorMap tq, tdo, tk, tv;
+  cudaError_t e = encode(&tq, q, B, Sq, H, hd, kBQ);
+  if (e == cudaSuccess) e = encode(&tdo, dout, B, Sq, H, hd, kBQ);
+  if (e == cudaSuccess) e = encode(&tk, k, B, Sk, Hkv, hd, kBK);
+  if (e == cudaSuccess) e = encode(&tv, v, B, Sk, Hkv, hd, kBK);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
+  flash_bwd_dq_tc_kernel<HDP><<<grid, kThreads, bytes, st>>>(
+      tq, tdo, tk, tv, static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, static_cast<__nv_bfloat16*>(dq), delta, Sq,
+      Sk, H, Hkv, hd, causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <int HDP>
+cudaError_t launch_bwd_dkdv(const void* q, const void* k, const void* v, const float* lse,
+                            const float* delta, const void* dout, void* dk, void* dv, int B,
+                            int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                            float scale, cudaStream_t st) {
+  constexpr int bytes = BwdLayout<HDP, kBK>::kBytes;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_tc_kernel<HDP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  CUtensorMap tk, tv, tq, tdo;
+  cudaError_t e = encode(&tk, k, B, Sk, Hkv, hd, kBK);
+  if (e == cudaSuccess) e = encode(&tv, v, B, Sk, Hkv, hd, kBK);
+  if (e == cudaSuccess) e = encode(&tq, q, B, Sq, H, hd, kBK);
+  if (e == cudaSuccess) e = encode(&tdo, dout, B, Sq, H, hd, kBK);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(B * Hkv, (Sk + kBK - 1) / kBK);
+  flash_bwd_dkdv_tc_kernel<HDP><<<grid, kThreads, bytes, st>>>(
+      tk, tv, tq, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), Sq, Sk, H, Hkv, hd, causal, window, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                            const float* lse, const void* dout, void* dq, float* delta, int B,
+                            int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                            float scale, cudaStream_t st) {
+  if ((long long)Sq > 65535LL * kBQ) return cudaErrorInvalidValue;
+  if (hd <= 64)
+    return launch_bwd_dq<64>(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H, Hkv, hd, causal,
+                             window, scale, st);
+  return launch_bwd_dq<128>(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H, Hkv, hd, causal,
+                            window, scale, st);
+}
+
+cudaError_t dispatch_bwd_dkdv(const void* q, const void* k, const void* v, const float* lse,
+                              const float* delta, const void* dout, void* dk, void* dv, int B,
+                              int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                              float scale, cudaStream_t st) {
+  if ((long long)Sk > 65535LL * kBK) return cudaErrorInvalidValue;
+  if (hd <= 64)
+    return launch_bwd_dkdv<64>(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk, H, Hkv, hd,
+                               causal, window, scale, st);
+  return launch_bwd_dkdv<128>(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk, H, Hkv, hd,
+                              causal, window, scale, st);
+}
+
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
@@ -804,17 +1370,79 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float
 // The probabilities are recomputed tile by tile from q, k and lse: nothing
 // of size Sq x Sk is kept. The mask is the forward's (keys at or past Sk,
 // causal j <= i counted from 0, the window only with causal); a masked pair
-// has p = 0 and is never exponentiated, and a row with no live key has
-// lse = +inf, so its p, its dq and its share of dk and dv are exactly 0.
+// has p = 0 exactly, its score never exponentiated (the FMA kernels skip
+// it, the tensor-core kernels exponentiate -inf in its place), and a row
+// with no live key has lse = +inf, so its p, its dq and its share of dk and
+// dv are exactly 0.
+// Two kernels, on the stream in this order: the dq kernel (which also
+// computes delta, the only place it is computed, into a scratch (B, H, Sq)
+// fp32) and the dK/dV kernel, which reads it. Every output element is
+// written by one thread and every sum runs in one fixed order: no
+// floating-point atomics, so two runs give the same bits (GQA's sum over a
+// KV head's query heads is the dK/dV block's own loop). What bounds the
+// pair: five products of 2 hd operations a live pair (s, dp, dq, dk, dv),
+// against q, k, v, o, dO, lse read once and dq, dk, dv written once: at
+// internvl2-2b's training shape (B 2, S 2,304, H 16/8, hd 128, causal)
+// 0.11 TFLOP against 0.11 GB, so operations. Each kernel recomputes s and
+// dp, so the pair executes more: two routes (flash_attention_bwd_route).
 //
-// Two kernels, on the stream in this order:
+// bf16, hd <= 128, a layout TMA can take: tc::flash_bwd_dq_tc_kernel and
+// tc::flash_bwd_dkdv_tc_kernel, every product on the tensor cores (wgmma,
+// bf16 in, fp32 accumulate), warp-specialised as flash_fwd_tc_kernel (384
+// threads; setmaxnreg gives the two consumer warpgroups 240 registers each,
+// the producer 24), operands fed by TMA into 128-byte swizzled panels:
+// * dq: a block owns 128 query rows of one (b, h), 64 a consumer. The
+//   producer loads Q and dO once and streams the live 64-key K and V tiles
+//   through a 2-stage ring. A consumer first forms delta of its rows from O
+//   and dO (16-byte loads) and writes it out, then for each tile: S = Q K^T
+//   and dP = dO V^T (m64n64k16 from shared memory, K-major both), p and dS
+//   in fp32 registers, the tile's dS K with dS as the A operand from
+//   registers and K as the MN-major B operand (the forward's P V form).
+// * dk/dv: a block owns 64 keys of one (b, kv head), K and V loaded once;
+//   consumer 0 forms dV, consumer 1 dK, each for all 64 keys. The producer
+//   streams, for each query head of the group and each 64-query tile some
+//   key of the block leaves live, the Q and dO tiles, and copies the tile's
+//   lse (base 2) and delta into the same stage. For each
+//   tile: S^T = K Q^T (both consumers) and dP^T = V dO^T (dK's), then p^T
+//   (and dS^T) in registers, then the tile's p^T dO (or dS^T Q). With one
+//   output a warpgroup, a thread's registers hold that output (64 fp32 at
+//   hd 128), a tile's sum and the A operand's terms; the price is S^T
+//   formed twice.
+// * Each tile's product goes into a zeroed accumulator and is then added
+//   to the running fp32 sum (add_tile_product; dq, dk and dv stay in
+//   registers across the whole loop and are written once at the end).
+//   Summed on the tensor cores over all of whisper-large-v3's 1,500 keys,
+//   dq drifted beyond phase 16's atol there (about 1e-7, 4 x the FMA
+//   kernels' error); a tile's 12 steps do not.
+// * p and dS enter the products as three bf16 terms, t0 = bf16(x), t1 =
+//   bf16(x - t0), t2 = bf16(x - t0 - t1) (split_bf16, kTerms), which keep
+//   all 24 of x's significant bits. S and dP come from bf16 operands and are
+//   formed in fp32, so only p and dS are split. At that atol one rounding
+//   to bf16 puts about a tenth of the gradients beyond the gate, two terms
+//   (the forward's hi + lo) a few, three none
+//   (tests/test_torch_flash_attention_bwd_tc.py). That makes fourteen
+//   products executed a live pair (dq: s, dp, 3 x dq; dk/dv: s twice, dp,
+//   3 x dv, 3 x dk) against the bound's five, so the tensor-core floor is
+//   about 2.8 times the bound. Dead tiles are skipped (per warpgroup in the
+//   dq kernel).
+// * Besides the products, a consumer issues its tile's elementwise work
+//   itself (p, dS, their terms, the tile's sum): with a mask test and a
+//   branch for every element the kernels were bound by that issue (1.8x
+//   slower on an H100 at internvl2-2b's shape). The mask runs only in
+//   tiles that cross Sq, Sk, the diagonal or the window's edge, as a
+//   uniform branch around branch-free code, and 2^x is one MUFU.EX2
+//   (exp2_ftz).
+//
+// fp32 (which holds the reference's 1e-4 tier), hd > 128 (gemma3's 240,
+// where a 64-row output of 256 columns and a tile's sum, 256 fp32 a
+// thread, do not fit in a consumer's registers) and layouts TMA
+// cannot take: flash_bwd_dq_kernel and flash_bwd_dkdv_kernel, on the FMA
+// pipes, the inputs widened to fp32 in shared memory:
 // * flash_bwd_dq_kernel: a block owns 64 query rows of one (b, h), 256
 //   threads as 16 x 16 as in flash_fwd_kernel (thread (ty, tx): 4 rows,
 //   keys tx and tx + 16 of each 32-key tile, dq columns tx + 16 i). It
-//   first computes delta for its rows from O and dO (the only place delta
-//   is computed) and writes it to a scratch (B, H, Sq) fp32 for the second
-//   kernel, then walks the forward's live key tiles: s and dp in one pass
-//   over hd, ds into shared memory, dq += ds K.
+//   first computes delta for its rows, then walks the forward's live key
+//   tiles: s and dp in one pass over hd, ds into shared memory, dq += ds K.
 // * flash_bwd_dkdv_kernel: a block owns one (b, kv head) and KB keys (64,
 //   or 32 at hd 256 so that dk and dv fit in registers), and loops over the
 //   H / Hkv query heads of its group and, for each, over the 32-query tiles
@@ -822,14 +1450,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float
 //   keys and queries tx and tx + 16 of a tile for s and dp; p and ds go to
 //   shared memory; then dv += p^T dO and dk += ds^T q over dk/dv columns
 //   tx + 16 i.
-// Every output element is written by one thread, and every sum runs in one
-// fixed order: no floating-point atomics, so two runs give the same bits
-// (GQA's sum over the group's query heads is the dK/dV block's loop). The
-// inputs are fp32 or bf16, widened to fp32 in shared memory; products are
-// accumulated in fp32 on the FMA pipes; dq, dk, dv come out in the input
-// type. What bounds it: five products of 2 hd operations a live pair
-// (s, dp and dq; s again, dp again, dv and dk: seven executed), so
-// operations on the FMA pipes; tensor cores and TMA are for a later PR.
+// Seven products of 2 hd operations a live pair are executed (s, dp, dq;
+// s, dp, dv, dk), on the FMA pipes (67 TFLOP/s); dq, dk, dv come out in the
+// input type.
 
 constexpr int kBQB = 32;   // queries per tile of the dK/dV kernel
 
@@ -1282,10 +1905,20 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, fl
   return (int)cudaErrorInvalidValue;
 }
 
+// The backward's route for these operands: 1 when flash_attention_bwd_dq
+// (given o) or flash_attention_bwd_dkdv (o null) launches the tensor-core
+// kernel (bf16, hd <= 128, every base 16-byte aligned, hd a multiple of 8),
+// 0 when it launches the FMA kernel.
+int flash_attention_bwd_route(const void* q, const void* k, const void* v, const void* o,
+                              const void* dout, int hd, int dtype) {
+  return tc::bwd_tensor_cores(q, k, v, o, dout, hd, dtype) ? 1 : 0;
+}
+
 // Backward, first kernel: dq (B, Sq, H, hd) and delta (B, H, Sq) fp32 (a
 // scratch the second kernel reads) from q, k, v, o, lse (B, H, Sq) fp32 as
 // flash_attention_fwd wrote it, and dout (B, Sq, H, hd); fp32 when dtype ==
-// 0, bf16 when 1, every tensor contiguous. Launches on `stream`, does not
+// 0, bf16 when 1, every tensor contiguous; the route as
+// flash_attention_bwd_route says. Launches on `stream`, does not
 // synchronise, returns cudaGetLastError().
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                            const float* lse, const void* dout, void* dq, float* delta, int B,
@@ -1295,6 +1928,9 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc::bwd_tensor_cores(q, k, v, o, dout, hd, dtype))
+    return (int)tc::dispatch_bwd_dq(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H, Hkv, hd,
+                                    causal, window, scale, st);
   if (dtype == 0)
     return (int)dispatch_bwd_dq<float>(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H, Hkv,
                                        hd, causal, window, scale, st);
@@ -1313,6 +1949,9 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const 
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc::bwd_tensor_cores(q, k, v, nullptr, dout, hd, dtype))
+    return (int)tc::dispatch_bwd_dkdv(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk, H, Hkv,
+                                      hd, causal, window, scale, st);
   if (dtype == 0)
     return (int)dispatch_bwd_dkdv<float>(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk, H,
                                          Hkv, hd, causal, window, scale, st);

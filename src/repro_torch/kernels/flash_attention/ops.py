@@ -21,14 +21,21 @@ Gradients: when grad mode is on and any of q, k, v requires a gradient,
 ``flash_attention`` goes through ``FlashAttention`` (a
 ``torch.autograd.Function``). On CUDA its forward launches the forward
 kernel with the rows' log-sum-exp as a second output and saves (q, k, v,
-o, lse); its backward launches ``flash_bwd_dq_kernel`` (dq, and delta =
-Σ dO·O per row into a scratch) and then ``flash_bwd_dkdv_kernel`` (dk, dv),
-the card's form of the reference's ``_flash_bwd`` (there is no Pallas
-backward). On CPU tensors it runs the plain versions (``ref.attention_ref``
-with ``return_lse``, ``ref.attention_bwd_dq_ref`` and
-``ref.attention_bwd_dkdv_ref``). The dk/dv launch is skipped when neither
-k nor v wants a gradient. Otherwise (serving, no
-gradient) it makes the forward launch without ``lse``, as before.
+o, lse); its backward launches the dq kernel (dq, and delta = Σ dO·O per
+row into a scratch) and then the dk/dv kernel (dk, dv), the card's form of
+the reference's ``_flash_bwd`` (there is no Pallas backward). The library's
+routing rule picks each pair: bf16 at hd <= 128 in a layout TMA can take
+runs ``tc::flash_bwd_dq_tc_kernel`` and ``tc::flash_bwd_dkdv_tc_kernel``
+(every product on the tensor cores with ``wgmma``, operands fed by TMA, p
+and dS as three bf16 terms each, all 24 bits of the fp32 values, so the
+gradients stay within one bf16 ulp of fp32 ones); fp32, hd > 128 and the
+layouts TMA cannot take run ``flash_bwd_dq_kernel`` and
+``flash_bwd_dkdv_kernel`` (fp32 FMA, which holds the reference's 1e-4).
+On CPU tensors it runs the plain versions (``ref.attention_ref`` with
+``return_lse``, ``ref.attention_bwd_dq_ref`` and
+``ref.attention_bwd_dkdv_ref``). The dk/dv launch is skipped when neither k
+nor v wants a gradient. Otherwise (serving, no gradient) it makes the
+forward launch without ``lse``, as before.
 
 GQA maps query head h to KV head ``h // (H // Hkv)`` inside the kernels,
 where the ragged Sq, Sk and hd edges arrive zero-filled: nothing is
@@ -39,9 +46,11 @@ query row with no live key comes out 0, its lse +inf, its dq 0, and it
 adds nothing to dk or dv.
 
 ``flash_attention.launches`` counts forward launches, ``flash_bwd_dq.launches``
-and ``flash_bwd_dkdv.launches`` the backward kernels' (plain integers; the
-CPU path never moves them), so a run can show that it went through the
-kernels.
+and ``flash_bwd_dkdv.launches`` the backward kernels', and
+``flash_bwd_dq.routes`` / ``flash_bwd_dkdv.routes`` split those by route
+(``{"tensor_core": n, "fma": m}``, from the library's rule,
+``flash_attention_bwd_route``). They are plain integers; the CPU path never
+moves them, so a run can show that it went through the kernels and which.
 """
 from __future__ import annotations
 
@@ -75,6 +84,9 @@ def _kernel():
             fn.argtypes = [ctypes.c_void_p] * n + shape
             fn.restype = ctypes.c_int
             fns[name] = fn
+        lib.flash_attention_bwd_route.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+        lib.flash_attention_bwd_route.restype = ctypes.c_int
+        fns["bwd_route"] = lib.flash_attention_bwd_route
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         fns["error_string"] = lib.flash_attention_error_string
@@ -92,6 +104,17 @@ def _call(name: str, pointers: list, dims: tuple, causal: bool, window, hd: int,
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {fns['error_string'](rc).decode()} "
                            f"(cudaError {rc})")
+
+
+def _bwd_route(q, k, v, o, do) -> str:
+    """Which backward kernel the entry point launches for these CUDA
+    operands (``o`` None for the dk/dv kernel), as the library's own
+    routing rule (``flash_attention_bwd_route``) says: ``"tensor_core"``
+    or ``"fma"``."""
+    tc = _kernel()["bwd_route"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                None if o is None else o.data_ptr(), do.data_ptr(),
+                                q.shape[-1], _DTYPES[q.dtype])
+    return "tensor_core" if tc else "fma"
 
 
 def _check_shapes(q, k, v) -> tuple:
@@ -172,11 +195,13 @@ def flash_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if B == 0:
         return dq, delta
+    route = _bwd_route(q, k, v, o, do)
     _call("flash_attention_bwd_dq",
           [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
            do.data_ptr(), dq.data_ptr(), delta.data_ptr()], dims, causal, window, hd,
           q.dtype, q.device)
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.routes[route] += 1
     return dq, delta
 
 
@@ -194,11 +219,13 @@ def flash_bwd_dkdv(q, k, v, lse, delta, do, *, causal: bool = True,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if B == 0:
         return dk, dv
+    route = _bwd_route(q, k, v, None, do)
     _call("flash_attention_bwd_dkdv",
           [q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), delta.data_ptr(),
            do.data_ptr(), dk.data_ptr(), dv.data_ptr()], dims, causal, window, hd, q.dtype,
           q.device)
     flash_bwd_dkdv.launches += 1
+    flash_bwd_dkdv.routes[route] += 1
     return dk, dv
 
 
@@ -272,3 +299,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkdv.launches = 0
+flash_bwd_dq.routes = {"tensor_core": 0, "fma": 0}
+flash_bwd_dkdv.routes = {"tensor_core": 0, "fma": 0}
