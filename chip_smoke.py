@@ -51,9 +51,11 @@ random weights from a seed:
   ``examples.variance_analysis`` (Eq. 3-5 and Eq. 7), their aggregation
   on the SpMM kernel;
 * LM training: ``internvl2-2b`` whole through ``models.lm.make_train_step``
-  (flash attention's forward and its two backward kernels), mini through
-  ``launch.train`` (``train``, ``train_federated``) and
-  ``examples.train_lm_federated``.
+  (flash attention's forward and its two backward kernels), ``rwkv6-1.6b``
+  whole the same way (the WKV6 forward saving its stage states, and the
+  WKV6 backward), mini through ``launch.train`` (``train``,
+  ``train_federated``) and ``examples.train_lm_federated``, rwkv6-1.6b's
+  smoke configuration through ``launch.train``.
 
 Phases, one or more lines each:
   1 device      the card (nvidia-smi name and power limit), torch and CUDA
@@ -64,8 +66,10 @@ Phases, one or more lines each:
                 tensor-core backward's four (dq and dk/dv at hd 64 and 128)
                 have no spill load or store among their HGMMA, and its SASS
                 holds HGMMA (wgmma) instructions, counted; each of
-                the 18 wkv6 instances' and the 8 SpMM instances' registers,
-                and none spills;
+                the 18 wkv6 forward instances', the 12 wkv6 backward
+                instances' (the block sums and the reduce, 3 head sizes x 2
+                types) and the 8 SpMM instances' registers, and none
+                spills;
   3 kernels     the SpMM against its plain version at the serving path's
                 shapes, a ragged one, one with two windows of mask columns
                 and two column slabs, a dense one and an all-dead one
@@ -243,9 +247,23 @@ Phases, one or more lines each:
                 the FMA kernels for fp32 and hd 240, from the wrappers'
                 route counts); each launch twice, the same bits; times
                 against the plain backward, SDPA's autograd backward and the
-                bound. Then
+                bound. The WKV6 training forward (the kernel writing the
+                state at the start of each 32-step stage) against the
+                serving forward, y and S bit for bit, and the WKV6 backward
+                kernels against ``wkv6_bwd_ref`` at rwkv6-1.6b's training
+                shape (B 2, T 2,048, H 32, N 64) in bf16 and fp32 and with
+                an incoming gradient of S, at T 2,047 and 37, at N 32 and
+                128, with w 0.999 and 1e-6: fp32 1e-4; bf16 dr/dk/dv one ulp
+                relative and 4 x the fp32 kernels' error on the same inputs;
+                dw and du 1e-4; each launch twice, the same bits; times
+                against the plain backward and the bound (no library call
+                computes it); the reduce kernel alone against its plain
+                version, each kernel timed and bound on its own. Then
                 internvl2-2b at 2 of its 24 layers, full width: loss and every
-                gradient, kernel path vs plain path (relative L2 1e-2); then
+                gradient, kernel path vs plain path (relative L2 1e-2), and
+                rwkv6-1.6b at 2 of its 24 layers with the model in fp32
+                (relative L2 1e-4; in bf16 the loss at 1e-2 and the
+                gradients recorded); then
                 the main path, internvl2-2b whole (1.89 B params, bf16, AdamW
                 moments fp32) for 4 steps of ``make_train_step`` on 2 x (256
                 image embeddings, a seeded draw at scale 0.02, + 2,048
@@ -255,21 +273,31 @@ Phases, one or more lines each:
                 losses and grad norms, exactly 24 forward, 24 dq and 24 dk/dv
                 launches a step and nothing else, every backward launch on
                 the tensor-core route; first and steady step ms,
-                tokens/s, peak memory. ``launch.train``'s ``train`` and
+                tokens/s, peak memory. The RWKV main path, rwkv6-1.6b whole
+                (1.6 B params, bf16, AdamW moments fp32, no remat) for 4
+                steps on 2 x 2,048 ``TokenPipeline`` tokens: finite losses
+                and grad norms, exactly 24 WKV6 forward, 24 backward block
+                sums and 24 reduce launches a step and nothing else, no
+                plain WKV version
+                called; first and steady step ms, tokens/s, peak memory.
+                ``launch.train``'s ``train`` and
                 ``train_federated`` on mini, card against CPU from the same
                 params (losses 1e-4; tau, steps, syncs equal; fp32, so
                 every backward launch on the FMA route);
-                ``examples.train_lm_federated`` at a cut size; an RWKV train
-                step on the card refuses (``NotImplementedError``: WKV6 has no
-                backward yet) and, with ``rwkv_chunk``, trains on the plain
-                chunked scan.
+                ``examples.train_lm_federated`` at a cut size;
+                ``launch.train`` on rwkv6-1.6b's smoke configuration, card
+                against CPU from the same params (losses 1e-4; exactly one
+                launch of each WKV6 kernel per layer a step); an RWKV
+                forward in grad mode that wants no gradient (``rwkv_chunk``
+                16) launches the forward kernel alone.
 The SpMM's launch counter is set to 0 just before phase 4 and read just
 after phase 5; every counter is set to 0 just before each ``serve`` of
 phase 8, each ``run`` of phases 10, 11, 12 and 14 (the collective counts
 too), each pipeline of phase 13 and its chaos matrix, and each example of
-phase 15, and the internvl2-2b training run of phase 16 and each of its
-other runs, and read just after it.
-``--profile`` traces one steady internvl2-2b train step in phase 16, a
+phase 15, and the internvl2-2b and rwkv6-1.6b training runs of phase 16
+and each of its other runs, and read just after it.
+``--profile`` traces one steady internvl2-2b and one rwkv6-1.6b train step
+in phase 16, a
 second traffic run after phase 6, one prefill + 4 decode steps of each LM
 in phase 9, one steady training round replayed from its CUDA graph in phase
 10 and one stepwise in phase 12 (the host's kernel and graph launches, the
@@ -279,7 +307,8 @@ run of phase 13's spmm pipeline (host calls per replayed chunk), and one
 replayed pod-sharded round in phase 14 (graph launches, the NCCL kernels'
 device time, the busy share).
 Before the last line it prints a ``{"kernels": [...]}`` line (the three
-forward kernels and flash attention's two backward kernels). The last
+forward kernels, flash attention's two backward kernels on each route and
+the WKV6 backward). The last
 line is ``{"ok": true, "device": {...}}``. Any failure raises and the exit
 code is not 0; without CUDA, or outside a checkout, it prints no result
 and exits 2.
@@ -340,6 +369,14 @@ TOL_BLOCK_REL = 1e-2
 # under this share of the block's tokens; the rest of the block is held at
 # TOL_BLOCK_REL
 MAX_REROUTED_SHARE = 1e-2
+# rwkv6-1.6b at 2 layers, full width, with the model in fp32: the loss and
+# every gradient through the WKV6 kernels vs the plain path (relative L2).
+# Both compute one fp32 function with sums in another order: on an H100
+# the worst leaf reads 1.6e-5, the median 1.2e-5 (PERF.md). In bf16 the
+# same comparison is recorded, not gated: at random bf16 weights each path
+# lies 12-27% from the fp32 gradient and the two 0.6-1.7% apart, so a
+# wrong gradient would hide in that spread
+TOL_RWKV_FP32_REL = 1e-4
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 LM_ARCHS = ("rwkv6-1.6b", "gemma3-12b")
 # the Griffin and MoE families at full width, each with the layer count one
@@ -933,6 +970,219 @@ def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal
         f"{row['library_dkdv_ms']}) bound {row['bound_ms']} ms ({row['bound_by']}; dq "
         f"{row['dq_bound_ms']}, dkdv {row['dkdv_bound_ms']})"
         + ("" if e32 is None else f"; bf16 = fp32 kernels rounded: {same_bits}"))
+    return row
+
+
+def wkv6_bwd_bound(torch, B, T, H, N, dtype, with_ds=False) -> dict:
+    """{part: (bound_ms, bound_by)} of the WKV6 backward as a whole
+    ("whole") and of its two kernels ("blocks", "reduce"): each one's
+    inputs read once and outputs written once over HBM bandwidth, against
+    its operations, each over the peak for its operands' type.
+
+    whole: r, k, v, dy (dtype), w (fp32), u, the forward's stage states
+    (fp32) and ds (fp32, when given) in; dr, dk, dv (dtype), dw (fp32), du
+    out. Per step and state element: the state recomputed (w·S + k·v), dr
+    (S·dy), G's update (w·G + r·dy), dk (G·v), dv (G·k) and dw (S·G), 14
+    operations, of which the products k·v and r·dy take two inputs of the
+    given dtype (bf16 peak when they are bf16) and the other 12 the fp32
+    state (fp32 peak); per step and key row 16 more: v·dy (2), coef (3),
+    the u terms of dr, dk and du (3 each) and coef·dy (2).
+    blocks: the same in, dr, dk, dw and the fp32 scratch out (dv's N / 16
+    shares, du's per b); the 14 per state element and 11 per key row (all
+    but coef and coef·dy).
+    reduce: r, k, dy (dtype), u and the scratch in, dv (dtype) and du out;
+    per key row coef (3), the shares' N / 16 - 1 sums and coef·dy (2)."""
+    esz = torch.tensor([], dtype=dtype).element_size()
+    elems = B * T * H * N
+    n_stages = -(-T // 32)
+    rows = B * H * T
+    pair_peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    scratch = 4 * (N // 16) * elems + 4 * B * H * N
+    ins = (4 * elems * esz + 4 * elems + 4 * H * N + 4 * B * H * n_stages * N * N
+           + (4 * B * H * N * N if with_ds else 0))
+    state_ops = rows * 12.0 * N * N / PEAK_FP32_FLOPS + rows * 2.0 * N * N / pair_peak
+    parts = {
+        "whole": (ins + 3 * elems * esz + 4 * elems + 4 * H * N,
+                  state_ops + rows * 16.0 * N / PEAK_FP32_FLOPS),
+        "blocks": (ins + 2 * elems * esz + 4 * elems + scratch,
+                   state_ops + rows * 11.0 * N / PEAK_FP32_FLOPS),
+        "reduce": (3 * elems * esz + 4 * H * N + scratch + elems * esz + 4 * H * N,
+                   rows * (N // 16 + 4.0) * N / PEAK_FP32_FLOPS),
+    }
+    out = {}
+    for part, (nbytes, t_ops) in parts.items():
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        out[part] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def wkv6_grads_fp64(torch, r, k, v, w, u, dy, ds):
+    """(dr, dk, dv, dw, du) in fp64: autograd through the recurrence written
+    out in fp64 (independent of both the kernels and ``wkv6_bwd_ref``), the
+    answer both fp32 versions round towards."""
+    ins = [t.double().requires_grad_(True) for t in (r, k, v, w, u)]
+    rd, kd, vd, wd, ud = ins
+    B, T, H, N = r.shape
+    S = torch.zeros((B, H, N, N), dtype=torch.float64, device=r.device)
+    ys = []
+    with torch.enable_grad():
+        for t in range(T):
+            rt, kt, vt, wt = rd[:, t], kd[:, t], vd[:, t], wd[:, t]
+            coef = (rt * ud * kt).sum(-1, keepdim=True)
+            ys.append(coef * vt + torch.einsum("bhn,bhnm->bhm", rt, S))
+            S = wt[..., None] * S + kt[..., None] * vt[..., None, :]
+        outs, cots = [torch.stack(ys, 1)], [dy.double()]
+        if ds is not None:
+            outs.append(S)
+            cots.append(ds.double())
+        return torch.autograd.grad(outs, ins, cots)
+
+
+def check_wkv6_bwd(torch, ops, ref, timer, gen, name, B, T, H, N, dtype, w_value, with_ds,
+                   reps, plain_reps, fp64=False):
+    """One WKV6 shape of the training path. The training forward (the kernel
+    writing its stage states) against the serving forward on the same
+    inputs, y and S bit for bit (its states against the plain version's
+    recorded); then the backward kernels against ``wkv6_bwd_ref`` on the
+    same (r, k, v, w, u, dy, ds): fp32 dr, dk, dv atol = rtol = 1e-4; bf16
+    dr, dk, dv rtol 2^-7 (one ulp) and an atol of 4 x the max abs error the
+    fp32 kernels make on the same inputs widened to fp32 (held at 1e-4
+    themselves); dw and du, fp32 sums of the same widened inputs, 1e-4 in
+    both dtypes. Each backward launch is made twice and must give the same
+    bits. w is drawn as the model draws it (exp(-exp(.))) or is
+    ``w_value`` everywhere. With ``fp64`` (fp32 only: w near 1, where the
+    state carries its rounding over ~1,000 steps and two fp32 versions
+    part by more than 1e-4 on terms of ~10^3) both are also held against
+    ``wkv6_grads_fp64``: the kernels' max abs error against it must be at
+    most twice the plain version's (or 1e-4), and the kernels against the
+    plain version take an atol of twice the plain version's own error
+    against fp64 where that is above 1e-4. The reduce kernel alone against
+    ``wkv6_bwd_reduce_ref`` on the block sums' scratch: du and fp32 dv
+    1e-4, bf16 dv one ulp relative (atol 1e-4). Then the times: the
+    backward pair and each of its kernels, the forward with and without its
+    stage states, the plain backward (given the states, as the kernels
+    are) and the plain reduce, and the bounds of the whole and of each
+    kernel."""
+    dev = gen.device
+    r, k, v = ((torch.randn((B, T, H, N), generator=gen, device=dev) * 0.5).to(dtype)
+               for _ in range(3))
+    if w_value is None:
+        w = torch.exp(-torch.exp(torch.randn((B, T, H, N), generator=gen, device=dev) - 2.0))
+    else:
+        w = torch.full((B, T, H, N), w_value, device=dev)
+    u = torch.randn((H, N), generator=gen, device=dev) * 0.5
+    dy = torch.randn((B, T, H, N), generator=gen, device=dev).to(dtype)
+    ds = torch.randn((B, H, N, N), generator=gen, device=dev) if with_ds else None
+    cfg = ops.CONFIG[N]
+    y, s, states = ops.launch(r, k, v, w, u, *cfg, stage_states=True)
+    y0, s0 = ops.wkv6(r, k, v, w, u)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, y0) and torch.equal(s, s0)):
+        raise AssertionError(f"wkv6 bwd {name}: the training forward's y / S differ in their "
+                             "bits from the serving forward's")
+    states_want = ref.wkv6_ref(r, k, v, w, u, stage_states=True)[2]
+    states_err = float((states - states_want).abs().max())
+    got = ops.wkv6_bwd(r, k, v, w, u, dy, ds, states)
+    again = ops.wkv6_bwd(r, k, v, w, u, dy, ds, states)
+    want = ref.wkv6_bwd_ref(r, k, v, w, u, dy, ds)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"wkv6 bwd {name}: a second launch gave other bits")
+    names = ("dr", "dk", "dv", "dw", "du")
+    fails = []
+
+    def hold(outs, exps, atol, rtol, which, tag, keys=names):
+        errs = {}
+        for gname, a, b in zip(keys, outs, exps):
+            if gname not in which:
+                continue
+            if a.shape != b.shape or a.dtype != b.dtype or not torch.isfinite(a.float()).all():
+                fails.append(f"{tag}{gname}: shape {tuple(a.shape)} {a.dtype} or non-finite")
+                continue
+            errs[gname] = float((a.float() - b.float()).abs().max())
+            if not torch.allclose(a.float(), b.float(), atol=atol, rtol=rtol):
+                bad = ((a.float() - b.float()).abs() > atol + rtol * b.float().abs())
+                fails.append(f"{tag}{gname}: max abs err {errs[gname]} beyond atol {atol} rtol "
+                             f"{rtol} at {int(bad.sum())} of {bad.numel()}")
+        return errs
+
+    e32 = None
+    fp64_errs = None
+    if dtype == torch.float32:
+        atol = rtol = TOL_GRAD
+        if fp64:
+            exact = wkv6_grads_fp64(torch, r, k, v, w, u, dy, ds)
+            fp64_errs = {n: {"kernel": float((a.double() - x).abs().max()),
+                             "plain": float((b.double() - x).abs().max())}
+                         for n, a, b, x in zip(names, got, want, exact)}
+            del exact
+            for gname, e in fp64_errs.items():
+                if e["kernel"] > max(2 * e["plain"], TOL_GRAD):
+                    fails.append(f"{gname}: the kernels' max abs error against fp64 "
+                                 f"{e['kernel']} beyond twice the plain version's {e['plain']}")
+            errs = {}
+            for gname in names:
+                errs.update(hold(got, want, max(TOL_GRAD, 2 * fp64_errs[gname]["plain"]),
+                                 rtol, [gname], ""))
+        else:
+            errs = hold(got, want, atol, rtol, names, "")
+    else:
+        wide = [t.float() for t in (r, k, v)]
+        states32 = ops.launch(*wide, w, u, *cfg, stage_states=True)[2]
+        g32 = ops.wkv6_bwd(*wide, w, u, dy.float(), ds, states32)
+        r32 = ref.wkv6_bwd_ref(*wide, w, u, dy.float(), ds)
+        fp32_errs = hold(g32, r32, TOL_GRAD, TOL_GRAD, names, "fp32 on the widened inputs: ")
+        e32 = max(fp32_errs.get(n, 0.0) for n in names[:3])
+        atol, rtol = 4 * e32, RTOL_BF16
+        errs = hold(got, want, atol, rtol, names[:3], "")
+        errs.update(hold(got, want, TOL_GRAD, TOL_GRAD, names[3:], ""))
+        del g32, r32, states32, wide
+    # the reduce kernel alone against its plain version on the block sums'
+    # scratch: du and fp32 dv 1e-4; bf16 dv one ulp relative (one rounding)
+    uf = u.float().contiguous()
+    scratch = ops.wkv6_bwd_blocks(r, k, v, w, uf, dy, ds, states)[3:]
+    red = ops.wkv6_bwd_reduce(r, k, uf, dy, *scratch)
+    red_want = ref.wkv6_bwd_reduce_ref(r, k, uf, dy, *scratch)
+    red_rtol = TOL_GRAD if dtype == torch.float32 else RTOL_BF16
+    red_errs = hold(red, red_want, TOL_GRAD, red_rtol, ["dv"], "reduce: ", ("dv", "du"))
+    red_errs.update(hold(red, red_want, TOL_GRAD, TOL_GRAD, ["du"], "reduce: ", ("dv", "du")))
+    if fails:
+        raise AssertionError(f"wkv6 bwd {name} B={B} T={T} H={H} N={N} {dtype} w {w_value} ds "
+                             f"{with_ds}: " + "; ".join(fails))
+    bounds = wkv6_bwd_bound(torch, B, T, H, N, dtype, with_ds)
+    bound_ms, bound_by = bounds["whole"]
+    row = {"shape": name, "B": B, "T": T, "H": H, "N": N, "dtype": str(dtype),
+           "w": "model" if w_value is None else w_value, "ds": with_ds,
+           "atol": atol, "rtol": rtol, "dw_du_tol": TOL_GRAD,
+           "fp32_max_abs_err_same_inputs": e32, "stage_states_max_abs_err": states_err,
+           "max_abs_err_against_fp64": fp64_errs,
+           "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+           "ms": timer(lambda: ops.wkv6_bwd(r, k, v, w, u, dy, ds, states), reps),
+           "blocks_ms": timer(lambda: ops.wkv6_bwd_blocks(r, k, v, w, uf, dy, ds, states),
+                              reps),
+           "reduce_ms": timer(lambda: ops.wkv6_bwd_reduce(r, k, uf, dy, *scratch), reps),
+           "plain_reduce_ms": timer(lambda: ref.wkv6_bwd_reduce_ref(r, k, uf, dy, *scratch),
+                                    reps),
+           "reduce_max_abs_err": max(red_errs.values()),
+           "blocks_bound_ms": bounds["blocks"][0], "blocks_bound_by": bounds["blocks"][1],
+           "reduce_bound_ms": bounds["reduce"][0], "reduce_bound_by": bounds["reduce"][1],
+           "fwd_states_ms": timer(lambda: ops.launch(r, k, v, w, u, *cfg, stage_states=True),
+                                  reps),
+           "fwd_ms": timer(lambda: ops.launch(r, k, v, w, u, *cfg), reps),
+           "plain_ms": timer(lambda: ref.wkv6_bwd_ref(r, k, v, w, u, dy, ds, states=states),
+                             plain_reps),
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"phase 16 lm-train: wkv6 bwd {name} B={B} T={T} H={H} N={N} {dtype} w {row['w']} "
+        f"ds {with_ds}: training forward = serving forward (bits), stage states max abs err "
+        f"{states_err}; max abs err {json.dumps(errs)} (atol {atol} rtol {rtol}; dw, du "
+        f"{TOL_GRAD}); reduce alone vs plain {json.dumps(red_errs)}; deterministic; "
+        f"backward {row['ms']} ms (block sums {row['blocks_ms']}, bound "
+        f"{row['blocks_bound_ms']} ({row['blocks_bound_by']}); reduce {row['reduce_ms']}, "
+        f"bound {row['reduce_bound_ms']} ({row['reduce_bound_by']}), plain "
+        f"{row['plain_reduce_ms']}), forward with states "
+        f"{row['fwd_states_ms']} ms (without {row['fwd_ms']}), plain backward "
+        f"{row['plain_ms']} ms, library none exists, bound {bound_ms} ms ({bound_by})"
+        + ("" if fp64_errs is None else f"; max abs err against fp64 {json.dumps(fp64_errs)}"))
     return row
 
 
@@ -2747,6 +2997,10 @@ def examples_phase(torch, counters, dev, tag) -> tuple[dict, int]:
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_TEXT, TRAIN_STEPS, TRAIN_LR = "internvl2-2b", 2, 2048, 4, 3e-4
 TRAIN_CHECK_LAYERS = 2
 ZERO_IMAGE_LAYERS = 8
+# rwkv6-1.6b whole at the same batch and text length (attention-free: no
+# image tokens), and launch.train on its smoke configuration
+RWKV_ARCH = "rwkv6-1.6b"
+RWKV_SMOKE_TRAIN = dict(steps=4, batch=2, seq_len=64)
 MINI_TRAIN = dict(steps=4, batch=2, seq_len=64)
 MINI_FED = dict(steps=8, batch=2, seq_len=64, clients=2, tau0=2)
 TOL_MINI = 1e-4
@@ -2807,6 +3061,31 @@ def flash_bwd_shapes(torch, fops, fref, timer, gen) -> list:
     return rows
 
 
+def wkv6_bwd_shapes(torch, wops, wref, timer, gen) -> list:
+    """Phase 16's WKV6 rows: the training forward and the backward kernels
+    at rwkv6-1.6b's training shape (B 2, T 2,048, H 32, N 64; d 2,048) in
+    bf16 and fp32, with an incoming gradient of S, at a ragged T (2,047
+    and 37), at N 32 and 128 at the same width, and with w near 1 (0.999)
+    and near 0 (1e-6)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ("rwkv6_train_bf16", 2, 2048, 32, 64, bf16, None, False, 10, 1),
+        ("rwkv6_train_fp32", 2, 2048, 32, 64, f32, None, False, 10, 1),
+        ("rwkv6_train_ds_bf16", 2, 2048, 32, 64, bf16, None, True, 5, 1),
+        ("ragged_t2047_bf16", 2, 2047, 32, 64, bf16, None, False, 5, 1),
+        ("ragged_t37_fp32", 2, 37, 32, 64, f32, None, True, 10, 2),
+        ("n32_bf16", 2, 2048, 64, 32, bf16, None, False, 5, 1),
+        ("n128_bf16", 2, 2048, 16, 128, bf16, None, True, 5, 1),
+        ("w_near1_fp32", 2, 2048, 32, 64, f32, 0.999, False, 5, 1, True),
+        ("w_near0_fp32", 2, 2048, 32, 64, f32, 1e-6, True, 5, 1),
+    ]
+    rows = []
+    for c in cases:
+        rows.append(check_wkv6_bwd(torch, wops, wref, timer, gen, *c))
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _grad_leaves(tree, prefix=""):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _grad_leaves(tree[k], f"{prefix}/{k}")]
@@ -2838,6 +3117,59 @@ def train_kernel_vs_plain(torch, lm, cfg, dev, batch, tag) -> dict:
         f"({worst}), median {sorted(errs.values())[len(errs) // 2]}")
     return {"layers": cfg.n_layers, "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
             "loss_rel_err": loss_err, "grad_rel_l2": errs}
+
+
+def rwkv_kernel_vs_plain(torch, lm, cfg, dev, batch, tag) -> dict:
+    """rwkv6-1.6b at ``TRAIN_CHECK_LAYERS`` layers, full width: one batch's
+    loss and every param's gradient through the WKV6 kernels against the
+    plain path (``use_kernel=False``: autograd through ``wkv_scan``), on
+    the same params (drawn in bf16), twice: with the model in fp32 (the
+    params widened, ``cfg.dtype`` float32; the kernels take fp32 r/k/v),
+    loss and gradients within ``TOL_RWKV_FP32_REL``; and in bf16, the
+    model's own type, the loss within ``TOL_BLOCK_REL`` and the gradients
+    recorded beside each bf16 path's distance to the fp32 plain path."""
+    import dataclasses
+
+    from repro_torch.utils.tree import tree_map
+
+    params = lm.init_lm(torch.Generator(device=dev).manual_seed(1), cfg, dev)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    wide = tree_map(lambda t: t.float(), params)
+    runs = {}
+    for kind, c, p in (("fp32", cfg32, wide), ("bf16", cfg, params)):
+        for path, use in (("kernel", True), ("plain", False)):
+            loss, _, g = lm.loss_and_grads(p, c, batch, use_kernel=use)
+            runs[kind, path] = (float(loss), dict(_grad_leaves(g)))
+    torch.cuda.synchronize()
+
+    def compare(a, b):
+        (la, ga), (lb, gb) = runs[a], runs[b]
+        errs = {n: rel_err(torch, ga[n], gb[n]) for n in gb}
+        worst = max(errs, key=errs.get)
+        return {"loss": [la, lb], "loss_rel_err": abs(la - lb) / abs(lb), "grad_rel_l2": errs,
+                "worst": [worst, errs[worst]], "median": sorted(errs.values())[len(errs) // 2]}
+
+    out = {"layers": cfg.n_layers, "tol_fp32": TOL_RWKV_FP32_REL,
+           "fp32": compare(("fp32", "kernel"), ("fp32", "plain")),
+           "bf16": compare(("bf16", "kernel"), ("bf16", "plain"))}
+    for path in ("kernel", "plain"):
+        c = compare(("bf16", path), ("fp32", "plain"))
+        out[f"bf16_{path}_to_fp32_plain"] = {k: c[k] for k in ("worst", "median")}
+    f32, b16 = out["fp32"], out["bf16"]
+    if (f32["loss_rel_err"] > TOL_RWKV_FP32_REL or f32["worst"][1] > TOL_RWKV_FP32_REL
+            or b16["loss_rel_err"] > TOL_BLOCK_REL):
+        raise AssertionError(f"lm-train {cfg.arch_id} kernel vs plain: fp32 loss relative "
+                             f"error {f32['loss_rel_err']}, worst gradient {f32['worst']} (limit "
+                             f"{TOL_RWKV_FP32_REL}); bf16 loss relative error "
+                             f"{b16['loss_rel_err']} (limit {TOL_BLOCK_REL})")
+    log(f"phase 16 lm-train: {tag}: {cfg.arch_id} at {cfg.n_layers} layers, full width, "
+        f"kernel path vs plain path: fp32 loss relative error {f32['loss_rel_err']}, "
+        f"{len(f32['grad_rel_l2'])} gradients, worst relative L2 {f32['worst']}, median "
+        f"{f32['median']} (limit {TOL_RWKV_FP32_REL}); bf16 (recorded) loss relative error "
+        f"{b16['loss_rel_err']}, worst {b16['worst']}, median {b16['median']}; bf16 to the "
+        f"fp32 plain path: kernel path worst {out['bf16_kernel_to_fp32_plain']['worst']}, "
+        f"plain path worst {out['bf16_plain_to_fp32_plain']['worst']}")
+    return out
 
 
 def mini_card_vs_cpu(torch, counters, dev, tag) -> dict:
@@ -2897,7 +3229,9 @@ def mini_card_vs_cpu(torch, counters, dev, tag) -> dict:
                     or not all(v for k, v in same.items() if k != "picks")
                     or got["flash_bwd_dq"] != want_bwd or got["flash_bwd_dkdv"] != want_bwd
                     or card["routes"] != want_routes
-                    or got["flash_attention"] < want_bwd or got["wkv6"] or got["spmm"]
+                    or got["flash_attention"] < want_bwd or got["wkv6"]
+                    or got["wkv6_bwd_blocks"] or got["wkv6_bwd_reduce"]
+                    or got["spmm"]
                     or any(cpu["launches"].values())):
                 raise AssertionError(f"lm-train mini {name}: card vs CPU max loss diff {err}, "
                                      f"same {same}, card launches {got} (want {want_bwd} of "
@@ -2917,23 +3251,183 @@ def mini_card_vs_cpu(torch, counters, dev, tag) -> dict:
     return out
 
 
+class PlainCalls:
+    """Counts calls of the WKV plain versions (``wkv6_ref``, ``wkv6_bwd_ref``
+    as the kernels' wrapper reaches them, ``wkv_scan``, ``wkv_chunked_scan``
+    as the RWKV block does) while it is entered: the card's main path must
+    make none."""
+
+    def __init__(self):
+        from repro_torch.kernels.wkv6 import ops as wops
+        from repro_torch.models import rwkv as rwkv_mod
+
+        self.slots = [(wops, "wkv6_ref"), (wops, "wkv6_bwd_ref"), (rwkv_mod, "wkv_scan"),
+                      (rwkv_mod, "wkv_chunked_scan")]
+        self.calls = {name: 0 for _, name in self.slots}
+
+    def __enter__(self):
+        self.real = [getattr(mod, name) for mod, name in self.slots]
+        for (mod, name), fn in zip(self.slots, self.real):
+            def counted(*a, _fn=fn, _name=name, **kw):
+                self.calls[_name] += 1
+                return _fn(*a, **kw)
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.slots, self.real):
+            setattr(mod, name, fn)
+
+
+def rwkv_train_whole(torch, lm, counters, get_config, dev, tag, profile) -> tuple[dict, dict]:
+    """The RWKV main path: rwkv6-1.6b whole (24 layers, d 2,048, 32 heads of
+    64, vocab 65,536, bf16, AdamW moments fp32) for ``TRAIN_STEPS`` steps of
+    ``make_train_step`` on ``TRAIN_BATCH`` x ``TRAIN_TEXT`` ``TokenPipeline``
+    tokens, the counts from 0: finite losses and grad norms, exactly one
+    launch of each WKV6 kernel (the forward, the backward's block sums and
+    its reduce) per layer a step and nothing else, no plain WKV version called; first and steady step ms, tokens/s,
+    peak memory (no remat). Returns (record, launches)."""
+    from repro_torch.data import TokenPipeline, make_lm_batch
+    from repro_torch.optim import linear_warmup_cosine
+
+    cfg = get_config(RWKV_ARCH)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_TEXT, TRAIN_BATCH, seed=0)
+    t0 = time.perf_counter()
+    params, opt = lm.init_train_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                                      torch.float32, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = lm.make_train_step(cfg, linear_warmup_cosine(TRAIN_LR, TRAIN_STEPS // 10 + 1,
+                                                        TRAIN_STEPS))
+    layers = cfg.n_layers
+    want = {n: 0 for n in counters}
+    want.update(wkv6=layers, wkv6_bwd_blocks=layers, wkv6_bwd_reduce=layers)
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    steps = []
+    with PlainCalls() as plain:
+        for i in range(TRAIN_STEPS):
+            batch = make_lm_batch(pipe, i, dev)
+            before = _counts(counters)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            got = {n: c - before[n] for n, c in _counts(counters).items()}
+            row = {"step": i, "ms": ms, "loss": float(m["loss"]), "grad_norm":
+                   float(m["grad_norm"]), "lr": m["lr"], "launches": got}
+            steps.append(row)
+            if (got != want or not math.isfinite(row["loss"])
+                    or not (math.isfinite(row["grad_norm"]) and row["grad_norm"] > 0)):
+                raise AssertionError(f"lm-train {RWKV_ARCH} step {i}: {row}; want launches "
+                                     f"{want}")
+    launches = _counts(counters)
+    if any(plain.calls.values()):
+        raise AssertionError(f"lm-train {RWKV_ARCH}: the main path called a plain WKV "
+                             f"version: {plain.calls}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steady = sorted(r["ms"] for r in steps[1:])[len(steps[1:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_TEXT
+    rec = {"arch": RWKV_ARCH, "params": cfg.param_count(), "dtype": cfg.dtype,
+           "moments": "float32", "remat": cfg.remat, "batch": TRAIN_BATCH,
+           "text_tokens": TRAIN_TEXT, "init_s": init_s, "steps": steps,
+           "first_step_ms": steps[0]["ms"], "steady_step_ms": steady,
+           "tokens_per_s": tokens / (steady / 1e3), "peak_memory_gb": peak_gb,
+           "launches": launches, "plain_calls": plain.calls}
+    log(f"phase 16 lm-train: {tag}: {RWKV_ARCH} whole ({cfg.param_count():,} params, "
+        f"{cfg.dtype}, AdamW moments fp32, remat {cfg.remat}) batch {TRAIN_BATCH} x "
+        f"{TRAIN_TEXT} tokens, {TRAIN_STEPS} steps: losses {[r['loss'] for r in steps]} grad "
+        f"norms {[r['grad_norm'] for r in steps]}; first step {steps[0]['ms']:.1f} ms, steady "
+        f"{steady:.1f} ms ({rec['tokens_per_s']:.0f} tokens/s); peak memory {peak_gb:.2f} "
+        f"GB; launches a step {json.dumps(want)}, in all {json.dumps(launches)}; plain WKV "
+        f"calls {json.dumps(plain.calls)}; init {init_s:.1f} s")
+    if profile:
+        batch = make_lm_batch(pipe, TRAIN_STEPS, dev)
+        (params, opt, _), prof = _trace(torch, lambda: step(params, opt, batch), 16)
+        rec["profile"] = prof
+        log(f"profile: {tag}: {RWKV_ARCH} one steady train step: wall {prof['wall_ms']} ms, "
+            f"device busy {prof['device_busy_ms']} ms (share {prof['device_busy_share']}); "
+            f"host calls {json.dumps(prof['api_calls'])}")
+        for e in prof["top_device"]:
+            log(f"profile: device {e['device_ms']} ms x{e['count']} {e['name']}")
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def rwkv_train_card_vs_cpu(torch, counters, dev, tag) -> dict:
+    """``launch.train.train`` on rwkv6-1.6b's smoke configuration (fp32, 2
+    layers, N 32), on the card and on the CPU from the same initial params:
+    losses within ``TOL_MINI``, the same steps; on the card exactly one
+    launch of each WKV6 kernel per layer a step and nothing else, on the CPU
+    none."""
+    import argparse as ap
+
+    import numpy as np
+
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import lm
+
+    cfg = train_mod.get_train_config(RWKV_ARCH)
+    host = lm_params_to_numpy(lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu"))
+    real = train_mod._init_params
+    train_mod._init_params = lambda cfg, seed, device: lm_params_from_numpy(host, cfg, device)
+    args = dict(arch=RWKV_ARCH, lr=3e-4, seed=0, log_every=1000, ckpt_dir=None,
+                ckpt_every=1000, fed=False, clients=2, tau0=2, **RWKV_SMOKE_TRAIN)
+    runs = {}
+    try:
+        for where in (str(dev), "cpu"):
+            _zero(counters)
+            t0 = time.perf_counter()
+            runs[where] = train_mod.train(ap.Namespace(**args, device=where))
+            torch.cuda.synchronize()
+            runs[where]["seconds"] = time.perf_counter() - t0
+            runs[where]["launches"] = _counts(counters)
+    finally:
+        train_mod._init_params = real
+    card, cpu = runs[str(dev)], runs["cpu"]
+    a, b = np.asarray(card["losses"]), np.asarray(cpu["losses"])
+    err = float(np.abs(a - b).max()) if a.shape == b.shape else math.inf
+    want = {n: 0 for n in counters}
+    want.update(wkv6=RWKV_SMOKE_TRAIN["steps"] * cfg.n_layers,
+                wkv6_bwd_blocks=RWKV_SMOKE_TRAIN["steps"] * cfg.n_layers,
+                wkv6_bwd_reduce=RWKV_SMOKE_TRAIN["steps"] * cfg.n_layers)
+    if (len(a) != RWKV_SMOKE_TRAIN["steps"] or a.shape != b.shape or not np.isfinite(a).all()
+            or err > TOL_MINI or card["launches"] != want or any(cpu["launches"].values())):
+        raise AssertionError(f"lm-train {RWKV_ARCH} launch.train card vs CPU: max loss diff "
+                             f"{err}, card launches {card['launches']} (want {want}), CPU "
+                             f"{cpu['launches']}, losses {a.tolist()} vs {b.tolist()}")
+    log(f"phase 16 lm-train: {tag}: launch.train --arch {RWKV_ARCH} (smoke config) "
+        f"{json.dumps(RWKV_SMOKE_TRAIN)}: card vs CPU max loss diff {err}; card launches "
+        f"{json.dumps(card['launches'])}; {card['seconds']:.2f} s on the card, "
+        f"{cpu['seconds']:.2f} s on the CPU")
+    return {"max_loss_diff": err, "launches": card["launches"], "card_s": card["seconds"],
+            "cpu_s": cpu["seconds"], "losses_card": a.tolist(), "losses_cpu": b.tolist()}
+
+
 def lm_train_phase(torch, counters, get_config, get_smoke_config, dev, tag,
                    profile) -> tuple[dict, dict]:
-    """Phase 16: LM training on the card. Returns (record, the main path's
-    launches)."""
+    """Phase 16: LM training on the card. Returns (record, {main path: its
+    launches}) for internvl2-2b's and rwkv6-1.6b's."""
     import dataclasses
 
     from repro_torch.data import TokenPipeline, make_lm_batch
     from repro_torch.examples import train_lm_federated
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.wkv6 import ops as wops
+    from repro_torch.kernels.wkv6 import ref as wref
     from repro_torch.models import lm
-    from repro_torch.optim import adamw_init, constant, linear_warmup_cosine
+    from repro_torch.optim import linear_warmup_cosine
 
     rec = {}
     timer = Timer(torch)
     gen = torch.Generator(device=dev).manual_seed(16)
     rec["flash_bwd_shapes"] = flash_bwd_shapes(torch, fops, fref, timer, gen)
+    rec["wkv6_bwd_shapes"] = wkv6_bwd_shapes(torch, wops, wref, timer, gen)
     del timer
     torch.cuda.empty_cache()
 
@@ -2956,6 +3450,15 @@ def lm_train_phase(torch, counters, get_config, get_smoke_config, dev, tag,
     cut, reduced = full_width(get_config, TRAIN_ARCH, TRAIN_CHECK_LAYERS)
     rec["kernel_vs_plain"] = train_kernel_vs_plain(torch, lm, cut, dev, batch_at(0), tag)
     rec["kernel_vs_plain"]["reduced"] = reduced
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same for rwkv6-1.6b: WKV6's forward and backward kernels against
+    # autograd through the plain scan
+    rcut, rreduced = full_width(get_config, RWKV_ARCH, TRAIN_CHECK_LAYERS)
+    rbatch = make_lm_batch(TokenPipeline(rcut.vocab_size, TRAIN_TEXT, TRAIN_BATCH, seed=0), 0,
+                           dev)
+    rec["rwkv_kernel_vs_plain"] = rwkv_kernel_vs_plain(torch, lm, rcut, dev, rbatch, tag)
+    rec["rwkv_kernel_vs_plain"]["reduced"] = rreduced
     gc.collect()
     torch.cuda.empty_cache()
     # recorded: the largest |d loss / d image embedding| with drawn and with
@@ -3054,6 +3557,10 @@ def lm_train_phase(torch, counters, get_config, get_smoke_config, dev, tag,
     gc.collect()
     torch.cuda.empty_cache()
 
+    # the RWKV main path: rwkv6-1.6b whole (counts from 0)
+    rec["rwkv_train_full"], rwkv_launches = rwkv_train_whole(torch, lm, counters, get_config,
+                                                             dev, tag, profile)
+
     rec["mini"] = mini_card_vs_cpu(torch, counters, dev, tag)
 
     # the example at a cut size
@@ -3070,7 +3577,9 @@ def lm_train_phase(torch, counters, get_config, get_smoke_config, dev, tag,
     rec["routes"]["example"] = _routes_since(counters, routes0)
     losses = [ex["centralized"]["final_loss"], ex["federated"]["final_loss"]]
     if (not all(math.isfinite(x) for x in losses) or got["flash_bwd_dq"] <= 0
-            or got["flash_bwd_dq"] != got["flash_bwd_dkdv"] or got["wkv6"] or got["spmm"]):
+            or got["flash_bwd_dq"] != got["flash_bwd_dkdv"] or got["wkv6"]
+            or got["wkv6_bwd_blocks"] or got["wkv6_bwd_reduce"]
+            or got["spmm"]):
         raise AssertionError(f"lm-train example: final losses {losses}, launches {got}")
     rec["example"] = {"final_losses": losses, "sync_events": ex["federated"]["sync_events"],
                       "launches": got, "routes": rec["routes"]["example"],
@@ -3079,38 +3588,24 @@ def lm_train_phase(torch, counters, get_config, get_smoke_config, dev, tag,
         f"--seq-len 64 --clients 2: final losses {losses}, "
         f"{ex['federated']['sync_events']} syncs, launches {json.dumps(got)}")
 
-    # RWKV refuses: the WKV6 kernel has no backward yet, and use_kernel wins
-    # over rwkv_chunk as in the reference, so the chunk does not route round it
-    rcfg = get_smoke_config("rwkv6-1.6b")
+    # launch.train on rwkv6-1.6b's smoke configuration, card against CPU
+    rec["rwkv_launch_train"] = rwkv_train_card_vs_cpu(torch, counters, dev, tag)
+    # a forward in grad mode that wants no gradient takes the serving path:
+    # the forward kernel alone, without its stage states
+    rcfg = dataclasses.replace(get_smoke_config(RWKV_ARCH), rwkv_chunk=16)
     rparams = lm.init_lm(torch.Generator(device=dev).manual_seed(0), rcfg, dev)
-    rbatch = make_lm_batch(TokenPipeline(rcfg.vocab_size, 32, 2, seed=0), 0, dev)
-    refusals = {}
-    for chunk in (0, 16):
-        ccfg = dataclasses.replace(rcfg, rwkv_chunk=chunk)
-        _zero(counters)
-        try:
-            lm.make_train_step(ccfg, constant(1e-3))(rparams, adamw_init(rparams), rbatch)
-        except NotImplementedError as e:
-            refusals[chunk] = str(e)
-        else:
-            raise AssertionError(f"lm-train: an RWKV train step (rwkv_chunk {chunk}) on the "
-                                 "card did not refuse")
-        if "A8.2b" not in refusals[chunk] or _counts(counters)["wkv6"]:
-            raise AssertionError(f"lm-train: RWKV refusal (rwkv_chunk {chunk}) "
-                                 f"{refusals[chunk]!r}, launches {_counts(counters)}")
-    # a forward in grad mode that wants no gradient still launches the kernel
+    tokens = make_lm_batch(TokenPipeline(rcfg.vocab_size, 32, 2, seed=0), 0, dev)["tokens"]
     _zero(counters)
-    logits, _ = lm.lm_forward(rparams, dataclasses.replace(rcfg, rwkv_chunk=16),
-                              rbatch["tokens"])
+    logits, _ = lm.lm_forward(rparams, rcfg, tokens)
     torch.cuda.synchronize()
-    if _counts(counters)["wkv6"] != rcfg.n_layers or not torch.isfinite(logits.float()).all():
+    want = {n: 0 for n in counters}
+    want["wkv6"] = rcfg.n_layers
+    if _counts(counters) != want or not torch.isfinite(logits.float()).all():
         raise AssertionError(f"lm-train: RWKV forward with rwkv_chunk and no gradient: "
-                             f"launches {_counts(counters)}")
-    rec["rwkv_refusal"] = refusals[0]
-    log(f"phase 16 lm-train: {tag}: rwkv6-1.6b smoke train step on the card refuses with "
-        f"rwkv_chunk 0 and 16, no WKV6 launch: NotImplementedError({refusals[0]!r}); a "
-        f"forward in grad mode with no gradient wanted launched WKV6 {rcfg.n_layers} times")
-    return rec, main_launches
+                             f"launches {_counts(counters)}, want {want}")
+    log(f"phase 16 lm-train: {tag}: rwkv6-1.6b smoke forward in grad mode with no gradient "
+        f"wanted (rwkv_chunk 16): WKV6 forward launched {rcfg.n_layers} times, no backward")
+    return rec, {f"{TRAIN_ARCH} train": main_launches, f"{RWKV_ARCH} train": rwkv_launches}
 
 
 def main(argv=None) -> int:
@@ -3244,6 +3739,19 @@ def main(argv=None) -> int:
     if len(wkv_fns) != 18 or any(r["stack_bytes"] != 0 or r["local_bytes"] != 0
                                  for r in wkv_fns.values()):
         raise AssertionError(f"build: wkv6 kernel instances spill or are missing: {wkv_fns}")
+    # the backward's instances (the block sums and the reduce, 3 head sizes
+    # x 2 types): G, S and the sub-stage boundaries in registers, no spill
+    bwd_fns = {n: {"registers": r.get("REG"), "stack_bytes": r.get("STACK"),
+                   "local_bytes": r.get("LOCAL")}
+               for n, r in res_usage(build, "wkv6").items() if "wkv6_bwd" in n}
+    for n, r in sorted(bwd_fns.items()):
+        log(f"phase 2 build: wkv6: {n}: {r['registers']} registers, stack "
+            f"{r['stack_bytes']} B, local {r['local_bytes']} B")
+    if len(bwd_fns) != 12 or any(r["stack_bytes"] != 0 or r["local_bytes"] != 0
+                                 for r in bwd_fns.values()):
+        raise AssertionError(f"build: wkv6 backward instances spill or are missing: "
+                             f"{bwd_fns}")
+    wkv_fns.update(bwd_fns)
     record["wkv6_build"] = wkv_fns
     # every instance of the SpMM kernel (4 column widths x 16-byte or 4-byte
     # loads of X) keeps its sums and its batch of A in registers
@@ -3555,6 +4063,7 @@ def main(argv=None) -> int:
 
     # -- phase 8: lm-serve (the LM main paths; counts from 0 before each) ------
     counters = {"spmm": ops.block_spmm, "wkv6": wops.wkv6,
+                "wkv6_bwd_blocks": wops.wkv6_bwd_blocks, "wkv6_bwd_reduce": wops.wkv6_bwd_reduce,
                 "flash_attention": fops.flash_attention, "flash_bwd_dq": fops.flash_bwd_dq,
                 "flash_bwd_dkdv": fops.flash_bwd_dkdv}
     tag = f"{kind}, {smi}"
@@ -3660,8 +4169,8 @@ def main(argv=None) -> int:
              "flash_attention")):
         main_row = rows[0]
         by_path = {arch: c[counter] for arch, c in lm_counts.items() if c[counter]}
-        if train_lm_launches[counter]:
-            by_path[f"{TRAIN_ARCH} train"] = train_lm_launches[counter]
+        by_path.update({path: c[counter] for path, c in train_lm_launches.items()
+                        if c[counter]})
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3698,6 +4207,29 @@ def main(argv=None) -> int:
                 "library_ms": main_row[f"library_{key}_ms"], "timed_shape": main_row["shape"],
                 "shapes": [{k: v for k, v in r.items() if k != "max_abs_err_by_grad"}
                            for r in rows]})
+    # the WKV6 backward's two kernels at rwkv6-1.6b's bf16 training shape,
+    # each with its own time, bound and launches (from the RWKV main path);
+    # the block sums' plain version is the whole of wkv6_bwd_ref (it
+    # computes all but dv's last sum and coef·dy), checked through the pair
+    wrows = record["lm_train"]["wkv6_bwd_shapes"]
+    main_row = next(r for r in wrows if r["shape"] == "rwkv6_train_bf16")
+    for part, err, plain_ms in (("blocks", "max_abs_err", "plain_ms"),
+                                ("reduce", "reduce_max_abs_err", "plain_reduce_ms")):
+        name = f"wkv6_bwd_{part}"
+        by_path = {path: c[name] for path, c in train_lm_launches.items() if c[name]}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+            "replaces": ("src/repro/models/rwkv.py:105 (wkv_scan's jnp autodiff; no Pallas "
+                         "kernel)"),
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(r[err] for r in wrows),
+            "ms": main_row[f"{part}_ms"], "plain_ms": main_row[plain_ms],
+            "bound_ms": main_row[f"{part}_bound_ms"], "bound_by": main_row[f"{part}_bound_by"],
+            "library_ms": None, "timed_shape": main_row["shape"],
+            "pair_ms": main_row["ms"], "pair_bound_ms": main_row["bound_ms"],
+            "shapes": [{k: v for k, v in r.items() if k != "max_abs_err_by_grad"}
+                       for r in wrows]})
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     if args.out:

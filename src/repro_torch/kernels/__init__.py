@@ -14,7 +14,9 @@ Kernels (every TPU kernel of ``repro`` has its counterpart here):
     spmm             block-sparse Y = A @ X with dead-tile skipping (replaces
                      src/repro/kernels/spmm/spmm.py::spmm_pallas)
     wkv6             RWKV6 recurrence, the N x N state resident in registers
-                     (replaces src/repro/kernels/wkv6/wkv6.py::wkv6_pallas)
+                     (replaces src/repro/kernels/wkv6/wkv6.py::wkv6_pallas),
+                     and its backward (``WKV6``; replaces the reference's
+                     jnp autodiff of src/repro/models/rwkv.py::wkv_scan)
     flash_attention  causal / sliding-window GQA attention, online softmax in
                      fp32, dead KV tiles skipped (replaces
                      src/repro/kernels/flash_attention/flash_attention.py::

@@ -274,8 +274,8 @@ template <typename T, int N, int CV>
 __global__ void __launch_bounds__(kMaxThreads + kHelpers, 1) wkv6_kernel(
     const __grid_constant__ CUtensorMap tr, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUtensorMap tv,
-    const float* __restrict__ u, T* __restrict__ y, float* __restrict__ s_out, int T_len,
-    int H, int splits) {
+    const float* __restrict__ u, T* __restrict__ y, float* __restrict__ s_out,
+    float* __restrict__ states, int T_len, int H, int splits) {
   constexpr int KT = N / kRK;                 // threads per value column
   constexpr int esz = sizeof(T);
   constexpr bool kWiden = esz == 2;
@@ -326,6 +326,12 @@ __global__ void __launch_bounds__(kMaxThreads + kHelpers, 1) wkv6_kernel(
       const float *rs, *ks, *ws, *vs;
       rows(s, rs, ks, ws, vs);
       float* part = reinterpret_cast<float*>(smem + L.part + (s & 1) * L.part_bytes);
+      if (states != nullptr) {
+        // the training forward: S at the start of the stage, for the backward
+        float* so = states + ((long long)bh * n_stages + s) * N * N + col0 + ct * CV;
+#pragma unroll
+        for (int i = 0; i < kRK; ++i) store_cols<CV>(so + (q * kRK + i) * N, S[i]);
+      }
       bar_sync(kReady + (s & 1), ALL);
       mbar_wait(bar0 + 8 * (s % kStages), (s / kStages) & 1);  // w, observed landed
       // a whole stage unrolled, so every shared address is an immediate
@@ -505,8 +511,8 @@ cudaError_t encode(CUtensorMap* map, const void* ptr, int esz, int B, int T_len,
 
 template <typename T, int N, int CV>
 cudaError_t launch_cfg(const void* r, const void* k, const void* v, const float* w,
-                       const float* u, void* y, float* s, int B, int T_len, int H, int splits,
-                       cudaStream_t st) {
+                       const float* u, void* y, float* s, float* states, int B, int T_len,
+                       int H, int splits, cudaStream_t st) {
   const int CG = N / splits;
   const int esz = sizeof(T);
   const Layout L = layout(N, CG, esz);
@@ -532,31 +538,418 @@ cudaError_t launch_cfg(const void* r, const void* k, const void* v, const float*
     if (e != cudaSuccess) return e;
     if (dev < kMaxDevices) attr_set[dev] = true;
   }
-  kern<<<B * H * splits, nt, L.total, st>>>(tr, tk, tw, tv, u, static_cast<T*>(y), s, T_len,
-                                            H, splits);
+  kern<<<B * H * splits, nt, L.total, st>>>(tr, tk, tw, tv, u, static_cast<T*>(y), s, states,
+                                            T_len, H, splits);
   return cudaGetLastError();
 }
 
 template <typename T, int N>
 cudaError_t launch_n(const void* r, const void* k, const void* v, const float* w,
-                     const float* u, void* y, float* s, int B, int T_len, int H, int cv,
-                     int splits, cudaStream_t st) {
+                     const float* u, void* y, float* s, float* states, int B, int T_len, int H,
+                     int cv, int splits, cudaStream_t st) {
   switch (cv) {
-    case 1: return launch_cfg<T, N, 1>(r, k, v, w, u, y, s, B, T_len, H, splits, st);
-    case 2: return launch_cfg<T, N, 2>(r, k, v, w, u, y, s, B, T_len, H, splits, st);
-    case 4: return launch_cfg<T, N, 4>(r, k, v, w, u, y, s, B, T_len, H, splits, st);
+    case 1: return launch_cfg<T, N, 1>(r, k, v, w, u, y, s, states, B, T_len, H, splits, st);
+    case 2: return launch_cfg<T, N, 2>(r, k, v, w, u, y, s, states, B, T_len, H, splits, st);
+    case 4: return launch_cfg<T, N, 4>(r, k, v, w, u, y, s, states, B, T_len, H, splits, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* r, const void* k, const void* v, const float* w,
-                   const float* u, void* y, float* s, int B, int T_len, int H, int N, int cv,
-                   int splits, cudaStream_t st) {
+                   const float* u, void* y, float* s, float* states, int B, int T_len, int H,
+                   int N, int cv, int splits, cudaStream_t st) {
   switch (N) {
-    case 32: return launch_n<T, 32>(r, k, v, w, u, y, s, B, T_len, H, cv, splits, st);
-    case 64: return launch_n<T, 64>(r, k, v, w, u, y, s, B, T_len, H, cv, splits, st);
-    case 128: return launch_n<T, 128>(r, k, v, w, u, y, s, B, T_len, H, cv, splits, st);
+    case 32: return launch_n<T, 32>(r, k, v, w, u, y, s, states, B, T_len, H, cv, splits, st);
+    case 64: return launch_n<T, 64>(r, k, v, w, u, y, s, states, B, T_len, H, cv, splits, st);
+    case 128:
+      return launch_n<T, 128>(r, k, v, w, u, y, s, states, B, T_len, H, cv, splits, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The backward: the gradient of the recurrence above from a zero state.
+//
+// Replaces no Pallas kernel: the reference differentiates wkv_scan
+// (src/repro/models/rwkv.py:105, or wkv_chunked_scan :76) with jnp's
+// autodiff. Per (b, h), with S_t the state after step t and G_t = dL/dS_t
+// (G_T = ds, the gradient of the returned S):
+//     G_{t-1} = diag(w_t) G_t + r_t^T dy_t
+//     dr_t = S_{t-1} dy_t + u * k_t (v_t . dy_t)
+//     dk_t = G_t v_t + u * r_t (v_t . dy_t)
+//     dv_t = G_t^T k_t + coef_t dy_t
+//     dw_t[n] = sum_m S_{t-1}[n][m] G_t[n][m]
+//     du = sum_{b,t} r_t * k_t (v_t . dy_t)
+//
+// What bounds it on an H100: per step and state element about 14 fp32
+// operations (the state recomputed, dr, G's update, dk, dv, dw), against
+// r, k, v, dy in r's type, w, the stage states and dw in fp32: at B=2,
+// T=2048, H=32, N=64 in bf16 the operations (0.11 ms at the fp32 peak),
+// not the 0.25 GB (0.075 ms). A first design, simple and right; its speed
+// is later work:
+//
+// * The forward (wkv6_kernel with `states`) saves S at the start of every
+//   kTS-step stage. Key rows are independent in the recurrence (S[n][:]
+//   needs only w[n], k[n] and v), so a block takes kRG = 16 key rows of one
+//   (b, h) with all N value columns; dr, dk, dw and du (sums over value
+//   columns, or over t) are then whole in the block, and only dv (a sum
+//   over key rows) is partial: each block writes its kRG rows' share to a
+//   scratch buffer, and a second launch (wkv6_bwd_reduce_kernel, entry
+//   wkv6_bwd_reduce) sums the N / kRG shares in a fixed order and adds
+//   coef_t dy_t. No atomics, so two launches give the same bits.
+// * The block walks the stages in reverse. For each: its rows of r, k, w
+//   and all of v and dy, widened to fp32 in shared memory; v . dy once per
+//   step; then the stage forward from its saved state, keeping S at the
+//   start of each kSub-step sub-stage in registers. For each sub-stage in
+//   reverse: (A) its states S_{t-1} recomputed into shared memory; (B) the
+//   sub-stage walked backward with G in registers, each G_t written to
+//   shared memory; (C) the sums, one output each thread, in a fixed order:
+//   dr, dw, dk (and du's term) over the N value columns of a row, and dv's
+//   share over the block's kRG rows; du's terms summed a sub-stage, then a
+//   stage, at a time. Each thread holds 1 key row by kCC
+//   value columns (strided by N / kCC, so neighbouring threads touch
+//   neighbouring words); rows of S and G in shared memory are padded to
+//   N + 4 floats, so the row sums' 16-byte loads meet no bank conflict.
+// * The recompute takes the forward's own instruction (fmaf(w, S, k * v)),
+//   so the states inside a stage are the forward's bit for bit.
+// tests/test_torch_wkv6_bwd.py emulates this order on the CPU.
+
+constexpr int kRG = 16;   // key rows per backward block
+constexpr int kSub = 8;   // steps per sub-stage (states kept in shared memory)
+constexpr int kCC = 4;    // value columns per backward thread
+
+struct BwdLayout {
+  int ss, gg, r, k, w, v, dy, vdy, dut, total;
+};
+
+// Shared memory of the backward block, in bytes: S_{t-1} and G_t of a
+// sub-stage [kSub][kRG][N + 4]; the stage's rows of r, k, w [kTS][kRG] and
+// all of v, dy [kTS][N], in fp32; v . dy [kTS]; du's terms [kSub][kRG].
+// Every offset is a multiple of 16.
+__host__ __device__ inline BwdLayout bwd_layout(int N) {
+  BwdLayout L;
+  const int rows = kSub * kRG * (N + 4) * 4;
+  L.ss = 0;
+  L.gg = rows;
+  L.r = 2 * rows;
+  L.k = L.r + kTS * kRG * 4;
+  L.w = L.k + kTS * kRG * 4;
+  L.v = L.w + kTS * kRG * 4;
+  L.dy = L.v + kTS * N * 4;
+  L.vdy = L.dy + kTS * N * 4;
+  L.dut = L.vdy + kTS * 4;
+  L.total = L.dut + kSub * kRG * 4;
+  return L;
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// One block: key rows [n0, n0 + kRG) of one (b, h) row, all N value
+// columns, over all of T in reverse. Thread tid holds row i = tid / CT and
+// columns ch + j * CT (j < kCC), CT = N / kCC. (Up to 128 registers a
+// thread, as many blocks as shared memory lets an SM hold: left to itself
+// ptxas capped the N = 64 instances at 64 and spilled.)
+template <typename T, int N>
+__global__ void __launch_bounds__(kRG * N / kCC, 65536 / (kRG * N / kCC * 128))
+    wkv6_bwd_kernel(
+    const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ w, const float* __restrict__ u, const T* __restrict__ dy,
+    const float* __restrict__ ds, const float* __restrict__ states, T* __restrict__ dr,
+    T* __restrict__ dk, float* __restrict__ dw, float* __restrict__ dv_part,
+    float* __restrict__ du_part, int B, int T_len, int H) {
+  constexpr int P = N + 4;        // padded row of S and G in shared memory
+  constexpr int CT = N / kCC;     // threads per key row
+  constexpr int NT = kRG * CT;    // threads per block
+  constexpr int splits = N / kRG;
+  extern __shared__ __align__(128) unsigned char bsmem[];
+  const BwdLayout L = bwd_layout(N);
+  float* SS = reinterpret_cast<float*>(bsmem + L.ss);
+  float* GG = reinterpret_cast<float*>(bsmem + L.gg);
+  float* rs = reinterpret_cast<float*>(bsmem + L.r);
+  float* ks = reinterpret_cast<float*>(bsmem + L.k);
+  float* ws = reinterpret_cast<float*>(bsmem + L.w);
+  float* vs = reinterpret_cast<float*>(bsmem + L.v);
+  float* dys = reinterpret_cast<float*>(bsmem + L.dy);
+  float* vdys = reinterpret_cast<float*>(bsmem + L.vdy);
+  float* dut = reinterpret_cast<float*>(bsmem + L.dut);
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x / splits, g = blockIdx.x % splits;
+  const int b = bh / H, h = bh % H;
+  const int n0 = g * kRG;
+  const int i = tid / CT, ch = tid % CT;
+  const int n_stages = (T_len + kTS - 1) / kTS;
+  const long long t_stride = (long long)H * N;
+  const long long base = (long long)b * T_len * t_stride + (long long)h * N;
+  const long long total = (long long)B * T_len * t_stride;
+  float* dvp = dv_part + (long long)g * total;
+
+  float G[kCC];
+#pragma unroll
+  for (int j = 0; j < kCC; ++j)
+    G[j] = ds != nullptr ? ds[((long long)bh * N + n0 + i) * N + ch + j * CT] : 0.f;
+  // row n0 + tid's du, for tid < kRG: the terms of a sub-stage summed, its
+  // sub-stages' sums into the stage's, the stages' into this (fewer
+  // roundings at the size of the whole than one sum over T)
+  float du_acc = 0.f;
+
+  for (int s = n_stages - 1; s >= 0; --s) {
+    const int t0 = s * kTS;
+    const int steps = min(kTS, T_len - t0);
+    float du_stage = 0.f;
+    // the stage's rows in fp32 (the previous stage's sums are done with them)
+    for (int x = tid; x < steps * kRG; x += NT) {
+      const int tt = x / kRG, ii = x % kRG;
+      const long long o = base + (long long)(t0 + tt) * t_stride + n0 + ii;
+      rs[x] = to_f(r[o]);
+      ks[x] = to_f(k[o]);
+      ws[x] = w[o];
+    }
+    for (int x = tid; x < steps * N; x += NT) {
+      const int tt = x / N, m = x % N;
+      const long long o = base + (long long)(t0 + tt) * t_stride + m;
+      vs[x] = to_f(v[o]);
+      dys[x] = to_f(dy[o]);
+    }
+    __syncthreads();
+    // v . dy per step: a warp a step, each lane over m = lane + 32 j (j
+    // ascending), then an xor tree over the lanes
+    for (int tt = tid / 32; tt < steps; tt += NT / 32) {
+      const int lane = tid % 32;
+      float a = 0.f;
+#pragma unroll
+      for (int j = 0; j < N / 32; ++j)
+        a = fmaf(vs[tt * N + lane + 32 * j], dys[tt * N + lane + 32 * j], a);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
+      if (lane == 0) vdys[tt] = a;
+    }
+    // the stage forward from its saved state; S at each sub-stage's start
+    const int nsub = (steps + kSub - 1) / kSub;
+    const int last = (nsub - 1) * kSub;
+    float S[kCC], Sb[kTS / kSub][kCC];
+    const float* st = states + (((long long)bh * n_stages + s) * N + n0 + i) * N + ch;
+#pragma unroll
+    for (int j = 0; j < kCC; ++j) S[j] = st[j * CT];
+#pragma unroll
+    for (int tt = 0; tt < kTS; ++tt) {
+      if (tt <= last) {
+        if (tt % kSub == 0) {
+#pragma unroll
+          for (int j = 0; j < kCC; ++j) Sb[tt / kSub][j] = S[j];
+        }
+        if (tt < last) {
+          const float wv = ws[tt * kRG + i], kv = ks[tt * kRG + i];
+#pragma unroll
+          for (int j = 0; j < kCC; ++j) S[j] = fmaf(wv, S[j], kv * vs[tt * N + ch + j * CT]);
+        }
+      }
+    }
+#pragma unroll
+    for (int js = kTS / kSub - 1; js >= 0; --js) {
+      if (js >= nsub) continue;
+      const int a = js * kSub;
+      const int len = min(kSub, steps - a);
+      // (A) S_{t-1} of each step of the sub-stage into shared memory
+#pragma unroll
+      for (int j = 0; j < kCC; ++j) S[j] = Sb[js][j];
+#pragma unroll
+      for (int tt = 0; tt < kSub; ++tt) {
+        if (tt < len) {
+          float* row = SS + (tt * kRG + i) * P + ch;
+#pragma unroll
+          for (int j = 0; j < kCC; ++j) row[j * CT] = S[j];
+          const float wv = ws[(a + tt) * kRG + i], kv = ks[(a + tt) * kRG + i];
+#pragma unroll
+          for (int j = 0; j < kCC; ++j)
+            S[j] = fmaf(wv, S[j], kv * vs[(a + tt) * N + ch + j * CT]);
+        }
+      }
+      // (B) backward through the sub-stage: G_t into shared memory, then G_{t-1}
+#pragma unroll
+      for (int tt = kSub - 1; tt >= 0; --tt) {
+        if (tt < len) {
+          float* row = GG + (tt * kRG + i) * P + ch;
+#pragma unroll
+          for (int j = 0; j < kCC; ++j) row[j * CT] = G[j];
+          const float wv = ws[(a + tt) * kRG + i], rv = rs[(a + tt) * kRG + i];
+#pragma unroll
+          for (int j = 0; j < kCC; ++j)
+            G[j] = fmaf(wv, G[j], rv * dys[(a + tt) * N + ch + j * CT]);
+        }
+      }
+      __syncthreads();
+      // (C) the sums: first a row's dr, dw, dk and du term per (step, row),
+      // then dv's share per (step, value column)
+      for (int x = tid; x < len * (kRG + N); x += NT) {
+        if (x < len * kRG) {
+          const int tt = x / kRG, ii = x % kRG;
+          const float* srow = SS + (tt * kRG + ii) * P;
+          const float* grow = GG + (tt * kRG + ii) * P;
+          const float* dyr = dys + (a + tt) * N;
+          const float* vr = vs + (a + tt) * N;
+          float ar = 0.f, aw = 0.f, ak = 0.f;
+#pragma unroll 4
+          for (int m = 0; m < N; m += 4) {
+            const float4 sv = *reinterpret_cast<const float4*>(srow + m);
+            const float4 gv = *reinterpret_cast<const float4*>(grow + m);
+            const float4 dv4 = *reinterpret_cast<const float4*>(dyr + m);
+            const float4 vv = *reinterpret_cast<const float4*>(vr + m);
+            ar = fmaf(sv.x, dv4.x, ar); aw = fmaf(sv.x, gv.x, aw); ak = fmaf(gv.x, vv.x, ak);
+            ar = fmaf(sv.y, dv4.y, ar); aw = fmaf(sv.y, gv.y, aw); ak = fmaf(gv.y, vv.y, ak);
+            ar = fmaf(sv.z, dv4.z, ar); aw = fmaf(sv.z, gv.z, aw); ak = fmaf(gv.z, vv.z, ak);
+            ar = fmaf(sv.w, dv4.w, ar); aw = fmaf(sv.w, gv.w, aw); ak = fmaf(gv.w, vv.w, ak);
+          }
+          const int nn = n0 + ii;
+          const float rv = rs[(a + tt) * kRG + ii], kv = ks[(a + tt) * kRG + ii];
+          const float uu = u[h * N + nn], vd = vdys[a + tt];
+          const long long o = base + (long long)(t0 + a + tt) * t_stride + nn;
+          dr[o] = from_f<T>(fmaf(uu * kv, vd, ar));
+          dk[o] = from_f<T>(fmaf(uu * rv, vd, ak));
+          dw[o] = aw;
+          dut[tt * kRG + ii] = (rv * kv) * vd;
+        } else {
+          const int y = x - len * kRG;
+          const int tt = y / N, m = y % N;
+          float acc = 0.f;
+#pragma unroll
+          for (int ii = 0; ii < kRG; ++ii)
+            acc = fmaf(GG[(tt * kRG + ii) * P + m], ks[(a + tt) * kRG + ii], acc);
+          dvp[base + (long long)(t0 + a + tt) * t_stride + m] = acc;
+        }
+      }
+      __syncthreads();
+      if (tid < kRG) {
+        float sub = 0.f;
+        for (int tt = len - 1; tt >= 0; --tt) sub += dut[tt * kRG + tid];
+        du_stage += sub;
+      }
+    }
+    du_acc += du_stage;
+  }
+  if (tid < kRG) du_part[(long long)bh * N + n0 + tid] = du_acc;
+}
+
+// dv = the N / kRG shares in order + coef_t dy_t, one warp per (b, t, h)
+// row: coef_t = sum_n r u k, each lane over n = lane + 32 j (j ascending),
+// then an xor tree over the lanes (every lane ends with the same bits).
+// The first H * N threads also sum du's shares over b in order.
+template <typename T, int N>
+__global__ void __launch_bounds__(256) wkv6_bwd_reduce_kernel(
+    const T* __restrict__ r, const T* __restrict__ k, const float* __restrict__ u,
+    const T* __restrict__ dy, const float* __restrict__ dv_part,
+    const float* __restrict__ du_part, T* __restrict__ dv, float* __restrict__ du,
+    long long rows, int B, int H) {
+  constexpr int splits = N / kRG;
+  constexpr int J = N / 32;
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long row = gid / 32;
+  const int lane = threadIdx.x % 32;
+  if (row < rows) {
+    const int h = static_cast<int>(row % H);
+    const long long o = row * N;
+    const long long total = rows * N;
+    float c = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int nn = lane + 32 * j;
+      c = fmaf(to_f(r[o + nn]) * u[h * N + nn], to_f(k[o + nn]), c);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) c += __shfl_xor_sync(0xffffffffu, c, off);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const long long e = o + lane + 32 * j;
+      float acc = dv_part[e];
+#pragma unroll
+      for (int gg = 1; gg < splits; ++gg) acc += dv_part[gg * total + e];
+      dv[e] = from_f<T>(fmaf(c, to_f(dy[e]), acc));
+    }
+  }
+  if (gid < (long long)H * N) {
+    float a = du_part[gid];
+    for (int bb = 1; bb < B; ++bb) a += du_part[(long long)bb * H * N + gid];
+    du[gid] = a;
+  }
+}
+
+template <typename T, int N>
+cudaError_t launch_bwd(const void* r, const void* k, const void* v, const float* w,
+                       const float* u, const void* dy, const float* ds, const float* states,
+                       void* dr, void* dk, float* dw, float* dv_part, float* du_part, int B,
+                       int T_len, int H, cudaStream_t st) {
+  const BwdLayout L = bwd_layout(N);
+  auto kern = wkv6_bwd_kernel<T, N>;
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices || !attr_set[dev]) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+    if (e != cudaSuccess) return e;
+    if (dev < kMaxDevices) attr_set[dev] = true;
+  }
+  kern<<<B * H * (N / kRG), kRG * N / kCC, L.total, st>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v), w, u,
+      static_cast<const T*>(dy), ds, states, static_cast<T*>(dr), static_cast<T*>(dk), dw,
+      dv_part, du_part, B, T_len, H);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_n(const void* r, const void* k, const void* v, const float* w,
+                         const float* u, const void* dy, const float* ds, const float* states,
+                         void* dr, void* dk, float* dw, float* dv_part, float* du_part, int B,
+                         int T_len, int H, int N, cudaStream_t st) {
+  switch (N) {
+    case 32:
+      return launch_bwd<T, 32>(r, k, v, w, u, dy, ds, states, dr, dk, dw, dv_part, du_part, B,
+                               T_len, H, st);
+    case 64:
+      return launch_bwd<T, 64>(r, k, v, w, u, dy, ds, states, dr, dk, dw, dv_part, du_part, B,
+                               T_len, H, st);
+    case 128:
+      return launch_bwd<T, 128>(r, k, v, w, u, dy, ds, states, dr, dk, dw, dv_part, du_part, B,
+                                T_len, H, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int N>
+cudaError_t launch_bwd_reduce(const void* r, const void* k, const float* u, const void* dy,
+                              const float* dv_part, const float* du_part, void* dv, float* du,
+                              int B, int T_len, int H, cudaStream_t st) {
+  const long long rows = (long long)B * T_len * H;
+  const long long threads = rows * 32 > (long long)H * N ? rows * 32 : (long long)H * N;
+  const long long blocks = (threads + 255) / 256;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  wkv6_bwd_reduce_kernel<T, N><<<(unsigned)blocks, 256, 0, st>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k), u, static_cast<const T*>(dy), dv_part,
+      du_part, static_cast<T*>(dv), du, rows, B, H);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_reduce_n(const void* r, const void* k, const float* u, const void* dy,
+                                const float* dv_part, const float* du_part, void* dv,
+                                float* du, int B, int T_len, int H, int N, cudaStream_t st) {
+  switch (N) {
+    case 32:
+      return launch_bwd_reduce<T, 32>(r, k, u, dy, dv_part, du_part, dv, du, B, T_len, H, st);
+    case 64:
+      return launch_bwd_reduce<T, 64>(r, k, u, dy, dv_part, du_part, dv, du, B, T_len, H, st);
+    case 128:
+      return launch_bwd_reduce<T, 128>(r, k, u, dy, dv_part, du_part, dv, du, B, T_len, H, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -570,13 +963,16 @@ extern "C" {
 // y (B, T, H, N; r's type), s (B, H, N, N; fp32) from r, k, v (B, T, H, N;
 // fp32 when dtype == 0, bf16 when dtype == 1), w (B, T, H, N; fp32) and
 // u (H, N; fp32), all contiguous, r/k/v/w/y on 16-byte aligned bases.
+// `states`, when not null, receives the state at the start of each kTS-step
+// stage, (B, H, ceil(T / kTS), N, N) fp32 (the training forward; null gives
+// the same y and s, bit for bit, and writes nothing more).
 // `cols` value columns per thread (1, 2 or 4) and `splits` blocks per
 // (b, h) row pick the launch (kernels/wkv6/ops.py::configs lists those
 // taken).
 // Launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() (cudaErrorInvalidValue for a launch it does not take).
 int wkv6_fwd(const void* r, const void* k, const void* v, const float* w,
-             const float* u, void* y, float* s, int B, int T_len, int H, int N,
+             const float* u, void* y, float* s, float* states, int B, int T_len, int H, int N,
              int dtype, int cols, int splits, void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (B < 0 || T_len < 0 || H < 0 || splits < 1 ||
@@ -588,8 +984,51 @@ int wkv6_fwd(const void* r, const void* k, const void* v, const float* w,
   if (B == 0 || H == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(r, k, v, w, u, y, s, B, T_len, H, N, cols, splits, st);
-  return (int)launch<__nv_bfloat16>(r, k, v, w, u, y, s, B, T_len, H, N, cols, splits, st);
+    return (int)launch<float>(r, k, v, w, u, y, s, states, B, T_len, H, N, cols, splits, st);
+  return (int)launch<__nv_bfloat16>(r, k, v, w, u, y, s, states, B, T_len, H, N, cols, splits,
+                                    st);
+}
+
+// The backward of wkv6_fwd, first launch (wkv6_bwd_kernel): dr, dk (B, T,
+// H, N; r's type) and dw (B, T, H, N; fp32), and into fp32 scratch dv's
+// shares dv_part (N / 16, B, T, H, N) and du's du_part (B, H, N), from r,
+// k, v, dy (r's type: fp32 when dtype == 0, bf16 when dtype == 1), w
+// (fp32), u (H, N; fp32), ds (B, H, N, N; fp32, the gradient of the
+// returned S, or null for 0) and `states` (B, H, ceil(T / kTS), N, N;
+// fp32), which wkv6_fwd wrote. All contiguous, T >= 1. Launches on
+// `stream`, does not synchronise, and returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape it does not take).
+int wkv6_bwd_blocks(const void* r, const void* k, const void* v, const float* w,
+                    const float* u, const void* dy, const float* ds, const float* states,
+                    void* dr, void* dk, float* dw, float* dv_part, float* du_part, int B,
+                    int T_len, int H, int N, int dtype, void* stream) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (B < 1 || T_len < 1 || H < 1 || (long long)B * H * (N / kRG) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_bwd_n<float>(r, k, v, w, u, dy, ds, states, dr, dk, dw, dv_part,
+                                    du_part, B, T_len, H, N, st);
+  return (int)launch_bwd_n<__nv_bfloat16>(r, k, v, w, u, dy, ds, states, dr, dk, dw, dv_part,
+                                          du_part, B, T_len, H, N, st);
+}
+
+// The backward's second launch (wkv6_bwd_reduce_kernel), after
+// wkv6_bwd_blocks on the same operands: dv (B, T, H, N; r's type) = the
+// N / 16 shares of dv_part in order + coef_t dy_t, and du (H, N; fp32) =
+// du_part summed over b in order. Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError().
+int wkv6_bwd_reduce(const void* r, const void* k, const float* u, const void* dy,
+                    const float* dv_part, const float* du_part, void* dv, float* du, int B,
+                    int T_len, int H, int N, int dtype, void* stream) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (B < 1 || T_len < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_bwd_reduce_n<float>(r, k, u, dy, dv_part, du_part, dv, du, B, T_len, H,
+                                           N, st);
+  return (int)launch_bwd_reduce_n<__nv_bfloat16>(r, k, u, dy, dv_part, du_part, dv, du, B,
+                                                 T_len, H, N, st);
 }
 
 const char* wkv6_error_string(int code) {

@@ -1,4 +1,4 @@
-"""Public wrapper for the WKV6 recurrence kernel.
+"""Public wrappers for the WKV6 recurrence kernels.
 
 ``wkv6(r, k, v, w, u)`` returns ``(y, S)`` from a zero state, in the
 (B, T, H, N) layout of ``models/rwkv.py``. On CUDA tensors it launches the
@@ -20,15 +20,21 @@ and blocks per (b, h) row. ``configs`` lists every launch the kernel takes
 of them, which ``chip_smoke.py`` uses to time the ones ``CONFIG`` did not
 pick.
 
-The kernel has no backward yet (ROADMAP A8.2b brings it). On CUDA
-tensors a call that needs a gradient (grad mode on, any input requiring
-one) raises ``NotImplementedError``: an output filled through ctypes has
-no ``grad_fn``, and returning it would drop the gradient of every weight
-before it. The serving path (no gradient) is unchanged; on CPU tensors the
-plain version is differentiable.
+Training: when a gradient is wanted (grad mode on, any input requiring
+one) ``wkv6`` goes through ``WKV6``, on any device. Its forward is the
+same kernel writing also the state at the start of each
+``STAGE_STEPS``-step stage (the same y and S, bit for bit); its backward
+is ``wkv6_bwd``, the hand-written backward kernels on CUDA tensors
+(``wkv6_bwd_blocks`` launching ``csrc/wkv6.cu::wkv6_bwd_kernel``, then
+``wkv6_bwd_reduce`` launching ``wkv6_bwd_reduce_kernel``; they replace the
+reference's jnp autodiff of ``wkv_scan``) and the plain pair
+(``ref.wkv6_ref`` with its stage states, then ``ref.wkv6_bwd_ref``) on CPU
+tensors. A call with no gradient wanted takes the serving path unchanged.
 
-``wkv6.launches`` counts kernel launches (a plain integer; the CPU path
-never moves it), so a run can show that it went through the kernel.
+``wkv6.launches``, ``wkv6_bwd_blocks.launches`` and
+``wkv6_bwd_reduce.launches`` count the launches of the three kernels;
+plain integers the CPU path never moves, so a run can show that it went
+through the kernels.
 """
 from __future__ import annotations
 
@@ -37,15 +43,18 @@ import functools
 
 import torch
 
-from repro_torch.kernels.wkv6.ref import wkv6_ref
+from repro_torch.kernels.wkv6.ref import STAGE_STEPS, wkv6_bwd_ref, wkv6_ref
 
 HEAD_SIZES = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel's constants (csrc/wkv6.cu): key rows per thread, steps per
-# stage of the input ring, stages, state threads per block, shared memory
+# the kernel's constants (csrc/wkv6.cu): key rows per thread, stages of
+# the input ring (of STAGE_STEPS steps each, kTS), state threads per
+# block, shared memory
 ROWS_PER_THREAD = 8
-STAGE_STEPS = 32
 STAGES = 2
+# the backward's key rows per block (csrc/wkv6.cu::kRG: dv comes in
+# N / BWD_ROWS shares, summed by the second launch)
+BWD_ROWS = 16
 MAX_THREADS = 256
 MAX_SMEM = 232448
 # head size -> (value columns per thread, blocks per (b, h) row): the
@@ -97,30 +106,28 @@ def _kernel():
 
         lib = build.load("wkv6")
         fn = lib.wkv6_fwd
-        # r, k, v, w, u, y, s; B, T, H, N, dtype, cols, splits; stream
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        # r, k, v, w, u, y, s, states; B, T, H, N, dtype, cols, splits; stream
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        blocks = lib.wkv6_bwd_blocks
+        # r, k, v, w, u, dy, ds, states, dr, dk, dw, dv_part, du_part;
+        # B, T, H, N, dtype; stream
+        blocks.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        blocks.restype = ctypes.c_int
+        reduce = lib.wkv6_bwd_reduce
+        # r, k, u, dy, dv_part, du_part, dv, du; B, T, H, N, dtype; stream
+        reduce.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        reduce.restype = ctypes.c_int
         lib.wkv6_error_string.argtypes = [ctypes.c_int]
         lib.wkv6_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.wkv6_error_string)
+        _fn = (fn, lib.wkv6_error_string, blocks, reduce)
     return _fn
 
 
-def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-         u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """r,k,v (B, T, H, N) fp32 or bf16, w (B, T, H, N) fp32, u (H, N).
-    Returns (y (B, T, H, N) in r's dtype, S (B, H, N, N) fp32).
-
-    On CUDA the outputs are allocated with ``torch.empty`` and the kernel
-    runs on the current stream, without a synchronise.
-    """
+def _check(r, k, v, w, u) -> None:
+    """The kernel's operands: one CUDA device, fp32/bf16 r/k/v, fp32 w,
+    one (B, T, H, N) shape, u (H, N), N in ``HEAD_SIZES``, contiguous."""
     tensors = (r, k, v, w, u)
-    if all(t.device.type == "cpu" for t in tensors):
-        return wkv6_ref(r, k, v, w, u)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "wkv6: the CUDA kernel has no backward yet (ROADMAP A8.2b, the WKV6 backward "
-            "kernel); call it without gradients (torch.no_grad) or train RWKV on the CPU")
     dev = r.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("wkv6: r, k, v, w, u must all be on one CUDA device "
@@ -140,6 +147,29 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"wkv6 kernel takes head sizes {HEAD_SIZES}, got {N}")
     if not all(t.is_contiguous() for t in (r, k, v, w)):
         raise ValueError("wkv6: r, k, v, w must be contiguous")
+
+
+def _all_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """r,k,v (B, T, H, N) fp32 or bf16, w (B, T, H, N) fp32, u (H, N).
+    Returns (y (B, T, H, N) in r's dtype, S (B, H, N, N) fp32),
+    differentiable in r, k, v, w and u (through ``WKV6`` when a gradient is
+    wanted).
+
+    On CUDA the outputs are allocated with ``torch.empty`` and the kernel
+    runs on the current stream, without a synchronise.
+    """
+    tensors = (r, k, v, w, u)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return WKV6.apply(*tensors)
+    if _all_cpu(*tensors):
+        return wkv6_ref(r, k, v, w, u)
+    _check(*tensors)
+    B, T, H, N = r.shape
     return launch(r, k, v, w, u, *CONFIG[N])
 
 
@@ -147,11 +177,13 @@ wkv6.launches = 0
 
 
 def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-           u: torch.Tensor, cols: int, splits: int) -> tuple[torch.Tensor, torch.Tensor]:
+           u: torch.Tensor, cols: int, splits: int, stage_states: bool = False) -> tuple:
     """Launch the kernel with ``cols`` value columns per thread and
     ``splits`` blocks per (b, h) row on checked contiguous CUDA operands.
     ``wkv6`` picks them from ``CONFIG``; ``chip_smoke.py`` calls this
-    directly to time the other ``configs``."""
+    directly to time the other ``configs``. With ``stage_states`` it also
+    returns the state at the start of each stage, (B, H, ceil(T /
+    STAGE_STEPS), N, N) fp32, which the kernel writes beside y and S."""
     B, T, H, N = r.shape
     if (cols, splits) not in configs(N, r.dtype):
         raise ValueError(f"wkv6 kernel takes (cols, splits) in {configs(N, r.dtype)} at "
@@ -160,14 +192,123 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     u = u.float().contiguous()
     y = torch.empty_like(r)
     s = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    states = (torch.empty((B, H, -(-T // STAGE_STEPS), N, N), dtype=torch.float32,
+                          device=r.device) if stage_states else None)
+    out = (y, s, states) if stage_states else (y, s)
     if B * H == 0:
-        return y, s
-    fn, err_str = _kernel()
+        return out
+    fn, err_str, *_ = _kernel()
     rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-            y.data_ptr(), s.data_ptr(), B, T, H, N, _DTYPES[r.dtype], cols, splits,
+            y.data_ptr(), s.data_ptr(), None if states is None else states.data_ptr(),
+            B, T, H, N, _DTYPES[r.dtype], cols, splits,
             torch.cuda.current_stream(r.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wkv6_fwd launch failed: {err_str(rc).decode()} "
                            f"(cudaError {rc})")
     wkv6.launches += 1
-    return y, s
+    return out
+
+
+def wkv6_bwd(r, k, v, w, u, dy, ds, states) -> tuple:
+    """(dr, dk, dv in r's dtype, dw fp32, du in u's dtype): the gradient of
+    ``wkv6`` from dy (B, T, H, N), ds (B, H, N, N) fp32 or None (the
+    gradient of the returned S) and ``states``, the forward's stage states.
+    The backward kernels on CUDA operands (``wkv6_bwd_blocks``, then
+    ``wkv6_bwd_reduce``), ``ref.wkv6_bwd_ref`` on CPU ones."""
+    if _all_cpu(r, k, v, w, u, dy):
+        return wkv6_bwd_ref(r, k, v, w, u, dy, ds, states=states)
+    _check(r, k, v, w, u)
+    B, T, H, N = r.shape
+    dy = dy.contiguous()
+    if dy.shape != r.shape or dy.dtype != r.dtype or dy.device != r.device:
+        raise ValueError(f"wkv6 backward: dy must be {tuple(r.shape)} {r.dtype} on "
+                         f"{r.device}, got {tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    n_stages = -(-T // STAGE_STEPS)
+    if (tuple(states.shape) != (B, H, n_stages, N, N) or states.dtype != torch.float32
+            or states.device != r.device or not states.is_contiguous()):
+        raise ValueError(f"wkv6 backward: states must be contiguous fp32 "
+                         f"{(B, H, n_stages, N, N)}, got {tuple(states.shape)} {states.dtype}")
+    if ds is not None:
+        ds = ds.float().contiguous()
+        if tuple(ds.shape) != (B, H, N, N) or ds.device != r.device:
+            raise ValueError(f"wkv6 backward: ds must be {(B, H, N, N)} on {r.device}, got "
+                             f"{tuple(ds.shape)} on {ds.device}")
+    if B * T * H == 0:
+        return (torch.zeros_like(r), torch.zeros_like(k), torch.zeros_like(v),
+                torch.zeros_like(w), torch.zeros_like(u))
+    uf = u.float().contiguous()
+    dr, dk, dw, dv_part, du_part = wkv6_bwd_blocks(r, k, v, w, uf, dy, ds, states)
+    dv, du = wkv6_bwd_reduce(r, k, uf, dy, dv_part, du_part)
+    return dr, dk, dv, dw, du.to(u.dtype)
+
+
+def wkv6_bwd_blocks(r, k, v, w, uf, dy, ds, states) -> tuple:
+    """The backward's first kernel on operands ``wkv6_bwd`` checked (uf:
+    u in fp32, T >= 1): (dr, dk in r's dtype, dw fp32, dv_part (N /
+    BWD_ROWS, B, T, H, N) fp32, dv's share of each block of key rows,
+    du_part (B, H, N) fp32, du's per b)."""
+    B, T, H, N = r.shape
+    dr, dk = torch.empty_like(r), torch.empty_like(k)
+    dw = torch.empty_like(w)
+    dv_part = torch.empty((N // BWD_ROWS, B, T, H, N), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
+    _, err_str, fn, _ = _kernel()
+    rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), uf.data_ptr(),
+            dy.data_ptr(), None if ds is None else ds.data_ptr(), states.data_ptr(),
+            dr.data_ptr(), dk.data_ptr(), dw.data_ptr(), dv_part.data_ptr(), du_part.data_ptr(),
+            B, T, H, N, _DTYPES[r.dtype], torch.cuda.current_stream(r.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wkv6_bwd_blocks launch failed: {err_str(rc).decode()} "
+                           f"(cudaError {rc})")
+    wkv6_bwd_blocks.launches += 1
+    return dr, dk, dw, dv_part, du_part
+
+
+wkv6_bwd_blocks.launches = 0
+
+
+def wkv6_bwd_reduce(r, k, uf, dy, dv_part, du_part) -> tuple:
+    """The backward's second kernel on ``wkv6_bwd_blocks``'s operands and
+    scratch: (dv in r's dtype = dv_part's shares in order + coef·dy, du (H,
+    N) fp32 = du_part summed over b in order)."""
+    B, T, H, N = r.shape
+    dv = torch.empty_like(r)
+    du = torch.empty((H, N), dtype=torch.float32, device=r.device)
+    _, err_str, _, fn = _kernel()
+    rc = fn(r.data_ptr(), k.data_ptr(), uf.data_ptr(), dy.data_ptr(), dv_part.data_ptr(),
+            du_part.data_ptr(), dv.data_ptr(), du.data_ptr(), B, T, H, N, _DTYPES[r.dtype],
+            torch.cuda.current_stream(r.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wkv6_bwd_reduce launch failed: {err_str(rc).decode()} "
+                           f"(cudaError {rc})")
+    wkv6_bwd_reduce.launches += 1
+    return dv, du
+
+
+wkv6_bwd_reduce.launches = 0
+
+
+class WKV6(torch.autograd.Function):
+    """WKV6 with the kernels' backward: the forward saves (r, k, v, w, u)
+    and the state at the start of each stage; the backward recomputes the
+    states inside a stage from them. An unused S gives no gradient (None),
+    so nothing of (B, H, N, N) zeros is made for it."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.set_materialize_grads(False)
+        if _all_cpu(r, k, v, w, u):
+            y, s, states = wkv6_ref(r, k, v, w, u, stage_states=True)
+        else:
+            _check(r, k, v, w, u)
+            y, s, states = launch(r, k, v, w, u, *CONFIG[r.shape[-1]], stage_states=True)
+        ctx.save_for_backward(r, k, v, w, u, states)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        r, k, v, w, u, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        grads = wkv6_bwd(r, k, v, w, u, dy, ds, states)
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))

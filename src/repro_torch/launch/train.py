@@ -14,8 +14,8 @@ Two modes:
 
 Everything runs on ``--device`` (default ``cuda:0``; ``cpu`` runs the
 kernels' plain versions). On the card attention trains through the flash
-kernels' forward and backward; an RWKV config is refused there (the WKV6
-kernel has no backward yet, ROADMAP A8.2b).
+kernels' forward and backward, and RWKV through the WKV6 kernel's
+(``--arch rwkv6-1.6b``).
 
 A checkpoint holds the params and the AdamW state (its moments and step),
 so a resumed run continues the uninterrupted run's losses; the reference
@@ -25,6 +25,7 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch mini --steps 200
     PYTHONPATH=src python -m repro_torch.launch.train --arch mini --steps 20 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch mini --steps 200 --fed --clients 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b --steps 20
 """
 from __future__ import annotations
 

@@ -30,9 +30,10 @@ same numbers, without gemma3-12b's 4 GB of logits at B=4, S=2048).
 
 Training (``lm_loss``, ``make_train_step``) differentiates the same
 forward with autograd: the flash attention kernel carries gradients
-through its own backward kernels (``kernels/flash_attention/ops.py``); the
-WKV6 kernel has no backward yet and refuses on the card, ``rwkv_chunk``
-or not (``use_kernel=False`` trains RWKV through the plain scans). Under ``cfg.remat`` each repeated unit runs under
+through its own backward kernels (``kernels/flash_attention/ops.py``), and
+the WKV6 kernel through its own (``kernels/wkv6/ops.py::WKV6``), ``rwkv_chunk``
+or not (``use_kernel=False`` trains RWKV through the plain scans). Under
+``cfg.remat`` each repeated unit runs under
 ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` does.
 
 Entry points:

@@ -8,14 +8,14 @@ plain version); ``use_kernel=False`` takes the plain sequential scan
 against the plain path. The single-token decode is plain PyTorch, as the
 reference computes it in ``jnp``.
 
-Training: the kernel has no backward yet (ROADMAP A8.2b), so on CUDA a
-block that runs the kernel and needs gradients raises
-``NotImplementedError`` (from ``wkv6``), ``cfg.rwkv_chunk`` or not:
+Training: on CUDA a block that runs the kernel and needs gradients trains
+through ``wkv_ops.WKV6`` (the forward kernel saving its stage states, then
+the hand-written backward kernels), ``cfg.rwkv_chunk`` or not:
 ``use_kernel`` wins over the chunk, as in the reference's
 ``rwkv_block_apply``. ``wkv_chunked_scan`` (plain PyTorch, checkpointed at
 chunk boundaries) runs when ``cfg.rwkv_chunk`` is set and gradients are
 wanted, with ``use_kernel=False`` or on CPU tensors, where the kernel's
-wrapper would run the plain scan anyway.
+wrapper would run the plain versions anyway.
 """
 from __future__ import annotations
 
@@ -145,7 +145,7 @@ def rwkv_block_apply(p, cfg, x, use_kernel: bool = True, collect_state: bool = F
     wants_grad = torch.is_grad_enabled() and any(t.requires_grad for t in wkv_in)
     chunk = cfg.rwkv_chunk if wants_grad else 0
     if use_kernel and (r.device.type != "cpu" or not chunk):
-        y, S = wkv_ops.wkv6(*wkv_in)          # on CUDA, refuses a gradient
+        y, S = wkv_ops.wkv6(*wkv_in)          # through WKV6 when a gradient is wanted
     elif chunk:
         y, S = wkv_chunked_scan(*wkv_in, chunk=chunk)
     else:

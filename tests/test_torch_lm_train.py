@@ -6,7 +6,8 @@ function. For one smoke configuration of each family the training path
 reaches (``mini``; internvl2-2b's image tokens; gemma3-12b's local
 attention; recurrentgemma-2b's ``rec`` blocks; dbrx-132b's MoE aux loss;
 whisper-large-v3's encoder frames and cross attention; rwkv6-1.6b with
-``rwkv_chunk`` set, its chunked scan), ``lm_loss`` and every leaf's
+``rwkv_chunk`` set, its chunked scan, and with ``rwkv_chunk`` 0, the WKV6
+kernels' autograd function ``WKV6`` on its plain pair), ``lm_loss`` and every leaf's
 gradient against ``jax.value_and_grad`` of the reference's ``lm_loss``:
 loss rtol 1e-5, gradients atol 1e-5 and rtol 1e-4. RWKV's gradients are
 ill-conditioned in fp32: one-ulp noise in the params moves the
@@ -14,8 +15,21 @@ reference's own gradients by 4.7e-5 of each leaf's largest |g| (which
 reaches 12), and the port's differ from the reference's by 6.9e-5 of it,
 chunked or not; its leaves are held at an atol of 1e-4 x the leaf's
 largest |g| (about twice that spread), rtol 1e-4. Then three
-``make_train_step`` steps against the reference's (params within the same
-tolerance), and ``cfg.remat`` (each unit under ``torch.utils.checkpoint``)
+``make_train_step`` steps against the reference's: the loss at 1e-5 and
+the grad norm at rtol 1e-5 each step, the params after them at the
+gradients' tier. RWKV's grad norm is held at rtol 1e-2 (one-ulp noise in
+the params moves the reference's own grad norm over its three steps by up
+to 4.5e-4, 2.3e-5 and 3.6e-3 of it, and the port's, chunked or through
+``WKV6``, differs from the reference's by 2.1e-4, 4.6e-5 and 1.7e-3), and
+in place of its params, each leaf's update over the three steps (after
+minus before) at a relative L2 of 5e-2 against the reference's update:
+AdamW moves an element by about lr a step whatever the size of its
+gradient, so where fp32 noise flips the sign of a near-zero gradient the
+params part by up to 2 x lr a step, as large as the update itself. The
+same one-ulp noise moves the reference's own update by up to 3.0e-2 of a
+leaf (median 1.3e-2); the port's differs from the reference's by up to
+7.7e-3 (median 1.2e-3); a missing update gives 1 and a sign-flipped one 2.
+Last, ``cfg.remat`` (each unit under ``torch.utils.checkpoint``)
 against no remat.
 """
 import dataclasses
@@ -42,10 +56,12 @@ LOSS_TOL = 1e-5
 GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
 B, S = 2, 16
 ARCHS = ["mini", "internvl2-2b", "gemma3-12b", "recurrentgemma-2b", "dbrx-132b",
-         "whisper-large-v3", "rwkv6-1.6b"]
-# small overrides: mini at 2 layers; RWKV through its chunked scan
+         "whisper-large-v3", "rwkv6-1.6b", "rwkv6-1.6b/chunk0"]
+# small overrides: mini at 2 layers; RWKV through its chunked scan, and
+# ("/chunk0") through WKV6 (the kernels' autograd function; its plain pair
+# on CPU tensors)
 OVERRIDES = {"mini": {"n_layers": 2, "d_model": 128, "d_ff": 256, "vocab_size": 512},
-             "rwkv6-1.6b": {"rwkv_chunk": 8}}
+             "rwkv6-1.6b": {"rwkv_chunk": 8}, "rwkv6-1.6b/chunk0": {"rwkv_chunk": 0}}
 
 
 @pytest.fixture(autouse=True)
@@ -57,8 +73,9 @@ def _one_thread():
 
 
 def _configs(arch):
-    jc, tc = ((jax_mini_config(), mini_config()) if arch == "mini"
-              else (jax_smoke_config(arch), get_smoke_config(arch)))
+    base = arch.split("/")[0]
+    jc, tc = ((jax_mini_config(), mini_config()) if base == "mini"
+              else (jax_smoke_config(base), get_smoke_config(base)))
     over = OVERRIDES.get(arch, {})
     return dataclasses.replace(jc, **over), dataclasses.replace(tc, **over)
 
@@ -112,19 +129,28 @@ def _leaves(tree, prefix=""):
     return {prefix: np.asarray(tree)}
 
 
-# the per-leaf atol as a share of the leaf's largest |g|, where fp32 noise
-# is that large (see the module's docstring)
-SCALED_ATOL = {"rwkv6-1.6b": 1e-4}
+@dataclasses.dataclass(frozen=True)
+class NoisyTol:
+    """Where fp32 noise is larger than the tiers (see the module's
+    docstring): each leaf's gradient atol as a share of its largest |g|,
+    the train step's grad norm rtol, and the relative L2 of each leaf's
+    update over the three train steps against the reference's."""
+    grad_atol_share: float
+    grad_norm_rtol: float
+    update_rel_l2: float
 
 
-def _assert_grads_close(got_tree, want_tree, arch=None):
+# by base arch (the part before "/")
+NOISY = {"rwkv6-1.6b": NoisyTol(grad_atol_share=1e-4, grad_norm_rtol=1e-2, update_rel_l2=5e-2)}
+
+
+def _assert_grads_close(got_tree, want_tree, tol=None):
     got = _leaves(lm_params_to_numpy(got_tree))
     want = _leaves(jax.tree_util.tree_map(np.asarray, want_tree))
     assert got.keys() == want.keys()
     for path in sorted(want):
-        atol = GRAD_ATOL
-        if arch in SCALED_ATOL:
-            atol = SCALED_ATOL[arch] * float(np.abs(want[path]).max())
+        atol = (GRAD_ATOL if tol is None
+                else tol.grad_atol_share * float(np.abs(want[path]).max()))
         np.testing.assert_allclose(got[path], want[path], atol=atol, rtol=GRAD_RTOL,
                                    err_msg=path)
 
@@ -140,12 +166,14 @@ def test_loss_and_every_gradient_match_reference(arch, models):
     np.testing.assert_allclose(float(metrics["aux"]), float(jmetrics["aux"]), rtol=LOSS_TOL,
                                atol=LOSS_TOL)
     assert (float(metrics["aux"]) > 0) == bool(tc.n_experts)
-    _assert_grads_close(grads, jgrads, arch)
+    _assert_grads_close(grads, jgrads, NOISY.get(arch.split("/")[0]))
 
 
-@pytest.mark.parametrize("arch", ["mini", "gemma3-12b"])
+@pytest.mark.parametrize("arch", ["mini", "gemma3-12b", "rwkv6-1.6b/chunk0"])
 def test_three_train_steps_match_reference(arch, models):
     jc, tc, jp, tp = models(arch)
+    tol = NOISY.get(arch.split("/")[0])
+    jp0, tp0 = _leaves(jax.tree_util.tree_map(np.asarray, jp)), _leaves(lm_params_to_numpy(tp))
     jstep = jax.jit(jlm.make_train_step(jc, jconstant(1e-4)))
     tstep = tlm.make_train_step(tc, constant(1e-4))
     jopt, topt = jadamw_init(jp), adamw_init(tp)
@@ -155,10 +183,21 @@ def test_three_train_steps_match_reference(arch, models):
         tp, topt, tm = tstep(tp, topt, _torch_batch(b))
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=LOSS_TOL,
                                    atol=LOSS_TOL)
-        np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]), rtol=1e-5)
+        np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]),
+                                   rtol=1e-5 if tol is None else tol.grad_norm_rtol)
         assert tm["lr"] == float(np.asarray(jm["lr"]))
     assert topt.step == int(jopt.step) == 3
-    _assert_grads_close(tp, jp)
+    if tol is None:
+        _assert_grads_close(tp, jp)
+        return
+    jp1, tp1 = _leaves(jax.tree_util.tree_map(np.asarray, jp)), _leaves(lm_params_to_numpy(tp))
+    assert jp1.keys() == tp1.keys()
+    for path in sorted(jp1):
+        want = jp1[path].astype(np.float64) - jp0[path]
+        got = tp1[path].astype(np.float64) - tp0[path]
+        assert np.linalg.norm(want) > 0, path
+        err = np.linalg.norm(got - want) / np.linalg.norm(want)
+        assert err <= tol.update_rel_l2, f"{path}: update relative L2 {err}"
 
 
 @pytest.mark.parametrize("arch", ["mini", "whisper-large-v3"])

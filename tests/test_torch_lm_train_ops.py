@@ -2,11 +2,11 @@
 tensors: ``softmax_xent`` (with and without a mask), the three lr
 schedules (bit-equal in fp32), ``TokenPipeline`` batches (bit-equal),
 AdamW over a nested tree with fp32 and bf16 moments, and
-``wkv_chunked_scan``'s values and gradients. Also: the WKV6 kernel's
-wrapper refuses a call that needs a gradient on a non-CPU tensor, and the
-RWKV block picks its WKV as the reference does (``use_kernel`` over
-``rwkv_chunk``), so the chunk never routes a device tensor round the
-refusal.
+``wkv_chunked_scan``'s values and gradients. Also: on a device tensor
+that needs a gradient the WKV6 kernel's wrapper goes through ``WKV6`` (the
+kernels' autograd function) and its launch checks, and the RWKV block
+picks its WKV as the reference does (``use_kernel`` over ``rwkv_chunk``),
+so on a device the chunk never routes round the kernels.
 """
 import jax
 import jax.numpy as jnp
@@ -171,21 +171,37 @@ def test_wkv_chunked_scan_values_and_grads(T, chunk, with_state):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
-def test_wkv6_wrapper_refuses_a_gradient_off_the_cpu():
-    """A device tensor (meta here: no card on the CPU) that needs a
-    gradient is refused before any launch; the CPU's plain version is
-    differentiable."""
+def test_wkv6_wrapper_refuses_a_gradient_off_the_cpu(monkeypatch):
+    """A device tensor that needs a gradient (meta here: no card on the CPU)
+    goes through ``WKV6`` and reaches the kernel's launch checks, which
+    refuse a device that is not CUDA before any launch, with or without a
+    gradient; the CPU's plain pair is differentiable."""
     r, k, v, w = (torch.empty((1, 4, 2, 32), device="meta", requires_grad=True)
                   for _ in range(4))
     u = torch.empty((2, 32), device="meta")
-    with pytest.raises(NotImplementedError, match="A8.2b"):
+    reached = []
+    real = wkv_ops.WKV6.forward
+
+    def spy(ctx, *a):
+        reached.append(a[0].device.type)
+        return real(ctx, *a)
+
+    monkeypatch.setattr(wkv_ops.WKV6, "forward", staticmethod(spy))
+    launches = (wkv_ops.wkv6.launches, wkv_ops.wkv6_bwd_blocks.launches,
+                wkv_ops.wkv6_bwd_reduce.launches)
+    with pytest.raises(ValueError, match="CUDA"):
         wkv_ops.wkv6(r, k, v, w, u)
+    assert reached == ["meta"]
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         wkv_ops.wkv6(r, k, v, w, u)
+    assert reached == ["meta"]
+    assert (wkv_ops.wkv6.launches, wkv_ops.wkv6_bwd_blocks.launches,
+                wkv_ops.wkv6_bwd_reduce.launches) == launches
     cpu = [torch.rand((1, 4, 2, 32), requires_grad=True) for _ in range(4)]
     y, s = wkv_ops.wkv6(*cpu, torch.rand((2, 32)))
     (y.sum() + s.sum()).backward()
     assert all(t.grad is not None for t in cpu)
+    assert reached == ["meta", "cpu"]
 
 
 def _rwkv_block(chunk):
@@ -225,14 +241,22 @@ def test_rwkv_block_picks_its_wkv(monkeypatch, use_kernel, chunk, grad):
 
 
 @pytest.mark.parametrize("chunk", [0, 8])
-def test_rwkv_block_with_the_kernel_refuses_a_gradient_off_the_cpu(chunk):
+def test_rwkv_block_with_the_kernel_refuses_a_gradient_off_the_cpu(monkeypatch, chunk):
     """On a device tensor (meta here) a block that runs the kernel and
-    needs gradients is refused, ``rwkv_chunk`` or not; without a gradient
-    it reaches the wrapper's launch checks."""
+    needs gradients goes through ``WKV6``, ``rwkv_chunk`` or not, and
+    reaches the wrapper's launch checks (which refuse a device that is not
+    CUDA), not a ``NotImplementedError``; without a gradient it reaches the
+    same checks without ``WKV6``."""
     cfg, params = _rwkv_block(chunk)
     params = tree_map(lambda t: t.to("meta").requires_grad_(True), params)
     x = torch.empty((2, 16, cfg.d_model), device="meta")
-    with pytest.raises(NotImplementedError, match="A8.2b"):
+    reached = []
+    real = wkv_ops.WKV6.apply
+    monkeypatch.setattr(wkv_ops.WKV6, "apply",
+                        lambda *a: reached.append(len(a)) or real(*a))
+    with pytest.raises(ValueError, match="CUDA"):
         trwkv.rwkv_block_apply(params, cfg, x)
+    assert reached == [5]
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         trwkv.rwkv_block_apply(params, cfg, x)
+    assert reached == [5]
