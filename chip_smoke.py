@@ -66,10 +66,9 @@ Phases, one or more lines each:
                 tensor-core backward's four (dq and dk/dv at hd 64 and 128)
                 have no spill load or store among their HGMMA, and its SASS
                 holds HGMMA (wgmma) instructions, counted; each of
-                the 18 wkv6 forward instances', the 12 wkv6 backward
-                instances' (the block sums and the reduce, 3 head sizes x 2
-                types) and the 8 SpMM instances' registers, and none
-                spills;
+                the 18 wkv6 forward instances', the 6 wkv6 backward
+                instances' (3 head sizes x 2 types) and the 8 SpMM
+                instances' registers, and none spills;
   3 kernels     the SpMM against its plain version at the serving path's
                 shapes, a ragged one, one with two windows of mask columns
                 and two column slabs, a dense one and an all-dead one
@@ -250,15 +249,15 @@ Phases, one or more lines each:
                 bound. The WKV6 training forward (the kernel writing the
                 state at the start of each 32-step stage) against the
                 serving forward, y and S bit for bit, and the WKV6 backward
-                kernels against ``wkv6_bwd_ref`` at rwkv6-1.6b's training
+                kernel against ``wkv6_bwd_ref`` at rwkv6-1.6b's training
                 shape (B 2, T 2,048, H 32, N 64) in bf16 and fp32 and with
                 an incoming gradient of S, at T 2,047 and 37, at N 32 and
                 128, with w 0.999 and 1e-6: fp32 1e-4; bf16 dr/dk/dv one ulp
                 relative and 4 x the fp32 kernels' error on the same inputs;
-                dw and du 1e-4; each launch twice, the same bits; times
-                against the plain backward and the bound (no library call
-                computes it); the reduce kernel alone against its plain
-                version, each kernel timed and bound on its own. Then
+                dw and du 1e-4; each launch twice, the same bits; no scratch
+                beyond du's B shares; times, with and without the timer's
+                device-side wait, against the plain backward and the bound
+                (no library call computes it). Then
                 internvl2-2b at 2 of its 24 layers, full width: loss and every
                 gradient, kernel path vs plain path (relative L2 1e-2), and
                 rwkv6-1.6b at 2 of its 24 layers with the model in fp32
@@ -276,9 +275,8 @@ Phases, one or more lines each:
                 tokens/s, peak memory. The RWKV main path, rwkv6-1.6b whole
                 (1.6 B params, bf16, AdamW moments fp32, no remat) for 4
                 steps on 2 x 2,048 ``TokenPipeline`` tokens: finite losses
-                and grad norms, exactly 24 WKV6 forward, 24 backward block
-                sums and 24 reduce launches a step and nothing else, no
-                plain WKV version
+                and grad norms, exactly 24 WKV6 forward and 24 backward
+                launches a step and nothing else, no plain WKV version
                 called; first and steady step ms, tokens/s, peak memory.
                 ``launch.train``'s ``train`` and
                 ``train_federated`` on mini, card against CPU from the same
@@ -347,6 +345,10 @@ TOL_ATTN = 2e-5
 # the per-op gradient tier of the backward kernels (ROADMAP) in fp32
 TOL_LSE = 1e-5
 TOL_GRAD = 1e-4
+# what a WKV6 backward call may allocate beyond its outputs: du's B shares
+# and the tickets (17 KB at rwkv6-1.6b's training shape), never an fp32
+# scratch of dv (134 MB there)
+WKV6_BWD_SCRATCH = 2**20
 # bf16 outputs: both versions round an fp32 value to bf16, so they land at
 # most one bf16 ulp apart (2^-7 of the value); the atol covers outputs near
 # 0, where the fp32 values differ by their own rounding: about 1e-6 for
@@ -418,6 +420,11 @@ API_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cudaG
              "cudaMemcpyAsync", "cudaStreamSynchronize")
 
 
+# the timer's device-side wait before its start event: ~1 ms at the H100's
+# 1.98 GHz boost clock, several times a kernel wrapper's host call
+WAIT_CYCLES = 2_000_000
+
+
 def log(*parts) -> None:
     print(*parts, flush=True)
 
@@ -425,18 +432,25 @@ def log(*parts) -> None:
 class Timer:
     """Median device time of a callable over ``reps`` launches with CUDA
     events, the 50 MB L2 flushed before each (the serving path meets its
-    operands cold)."""
+    operands cold). Between the flush and the start event the stream waits
+    on the device (``torch.cuda._sleep`` for ``WAIT_CYCLES``, ~1 ms, longer
+    than a wrapper's host call), so the callable's launches are enqueued
+    when the device reaches the start event and a short kernel's reading
+    holds no host time; ``wait=False`` takes the reading without the wait,
+    where a host call longer than the flush shows in it."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
 
-    def __call__(self, fn, reps: int) -> float:
+    def __call__(self, fn, reps: int, wait: bool = True) -> float:
         torch = self.torch
         fn()
         times = []
         for _ in range(reps):
             self.flush.zero_()
+            if wait:
+                torch.cuda._sleep(WAIT_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -974,10 +988,10 @@ def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal
 
 
 def wkv6_bwd_bound(torch, B, T, H, N, dtype, with_ds=False) -> dict:
-    """{part: (bound_ms, bound_by)} of the WKV6 backward as a whole
-    ("whole") and of its two kernels ("blocks", "reduce"): each one's
-    inputs read once and outputs written once over HBM bandwidth, against
-    its operations, each over the peak for its operands' type.
+    """{part: (bound_ms, bound_by)} of the WKV6 backward: the function
+    ("whole", the yardstick) and the kernel as it runs ("kernel"): inputs
+    read once and outputs written once over HBM bandwidth, against the
+    operations, each over the peak for its operands' type.
 
     whole: r, k, v, dy (dtype), w (fp32), u, the forward's stage states
     (fp32) and ds (fp32, when given) in; dr, dk, dv (dtype), dw (fp32), du
@@ -987,30 +1001,25 @@ def wkv6_bwd_bound(torch, B, T, H, N, dtype, with_ds=False) -> dict:
     given dtype (bf16 peak when they are bf16) and the other 12 the fp32
     state (fp32 peak); per step and key row 16 more: v·dy (2), coef (3),
     the u terms of dr, dk and du (3 each) and coef·dy (2).
-    blocks: the same in, dr, dk, dw and the fp32 scratch out (dv's N / 16
-    shares, du's per b); the 14 per state element and 11 per key row (all
-    but coef and coef·dy).
-    reduce: r, k, dy (dtype), u and the scratch in, dv (dtype) and du out;
-    per key row coef (3), the shares' N / 16 - 1 sums and coef·dy (2)."""
+    kernel: the same, and du's B shares (fp32) written and read back by the
+    ticket's last block, and the tickets (written by a memset, counted
+    once); dv's sums cross the cluster in distributed shared memory, which
+    is not HBM."""
     esz = torch.tensor([], dtype=dtype).element_size()
     elems = B * T * H * N
     n_stages = -(-T // 32)
     rows = B * H * T
     pair_peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    scratch = 4 * (N // 16) * elems + 4 * B * H * N
     ins = (4 * elems * esz + 4 * elems + 4 * H * N + 4 * B * H * n_stages * N * N
            + (4 * B * H * N * N if with_ds else 0))
-    state_ops = rows * 12.0 * N * N / PEAK_FP32_FLOPS + rows * 2.0 * N * N / pair_peak
-    parts = {
-        "whole": (ins + 3 * elems * esz + 4 * elems + 4 * H * N,
-                  state_ops + rows * 16.0 * N / PEAK_FP32_FLOPS),
-        "blocks": (ins + 2 * elems * esz + 4 * elems + scratch,
-                   state_ops + rows * 11.0 * N / PEAK_FP32_FLOPS),
-        "reduce": (3 * elems * esz + 4 * H * N + scratch + elems * esz + 4 * H * N,
-                   rows * (N // 16 + 4.0) * N / PEAK_FP32_FLOPS),
-    }
+    outs = 3 * elems * esz + 4 * elems + 4 * H * N
+    from repro_torch.kernels.wkv6.ops import bwd_rows
+
+    scratch = 2 * 4 * B * H * N + 4 * H * (N // bwd_rows(N))
+    t_ops = (rows * 12.0 * N * N / PEAK_FP32_FLOPS + rows * 2.0 * N * N / pair_peak
+             + rows * 16.0 * N / PEAK_FP32_FLOPS)
     out = {}
-    for part, (nbytes, t_ops) in parts.items():
+    for part, nbytes in (("whole", ins + outs), ("kernel", ins + outs + scratch)):
         t_bytes = nbytes / PEAK_BYTES_PER_S
         out[part] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
     return out
@@ -1043,7 +1052,7 @@ def check_wkv6_bwd(torch, ops, ref, timer, gen, name, B, T, H, N, dtype, w_value
     """One WKV6 shape of the training path. The training forward (the kernel
     writing its stage states) against the serving forward on the same
     inputs, y and S bit for bit (its states against the plain version's
-    recorded); then the backward kernels against ``wkv6_bwd_ref`` on the
+    recorded); then the backward kernel against ``wkv6_bwd_ref`` on the
     same (r, k, v, w, u, dy, ds): fp32 dr, dk, dv atol = rtol = 1e-4; bf16
     dr, dk, dv rtol 2^-7 (one ulp) and an atol of 4 x the max abs error the
     fp32 kernels make on the same inputs widened to fp32 (held at 1e-4
@@ -1056,13 +1065,13 @@ def check_wkv6_bwd(torch, ops, ref, timer, gen, name, B, T, H, N, dtype, w_value
     ``wkv6_grads_fp64``: the kernels' max abs error against it must be at
     most twice the plain version's (or 1e-4), and the kernels against the
     plain version take an atol of twice the plain version's own error
-    against fp64 where that is above 1e-4. The reduce kernel alone against
-    ``wkv6_bwd_reduce_ref`` on the block sums' scratch: du and fp32 dv
-    1e-4, bf16 dv one ulp relative (atol 1e-4). Then the times: the
-    backward pair and each of its kernels, the forward with and without its
-    stage states, the plain backward (given the states, as the kernels
-    are) and the plain reduce, and the bounds of the whole and of each
-    kernel."""
+    against fp64 where that is above 1e-4. The memory a backward call takes
+    beyond its outputs (du's B shares and the tickets) must stay under
+    ``WKV6_BWD_SCRATCH``: no fp32 scratch of dv. Then the times, each with
+    and without the timer's device-side wait: the backward kernel, the
+    forward with and without its stage states; the plain backward (given
+    the states, as the kernel is); the bounds of the function and of the
+    kernel as it runs."""
     dev = gen.device
     r, k, v = ((torch.randn((B, T, H, N), generator=gen, device=dev) * 0.5).to(dtype)
                for _ in range(3))
@@ -1082,7 +1091,13 @@ def check_wkv6_bwd(torch, ops, ref, timer, gen, name, B, T, H, N, dtype, w_value
                              "bits from the serving forward's")
     states_want = ref.wkv6_ref(r, k, v, w, u, stage_states=True)[2]
     states_err = float((states - states_want).abs().max())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     got = ops.wkv6_bwd(r, k, v, w, u, dy, ds, states)
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - held - sum(
+        t.numel() * t.element_size() for t in got)
     again = ops.wkv6_bwd(r, k, v, w, u, dy, ds, states)
     want = ref.wkv6_bwd_ref(r, k, v, w, u, dy, ds)
     torch.cuda.synchronize()
@@ -1090,6 +1105,9 @@ def check_wkv6_bwd(torch, ops, ref, timer, gen, name, B, T, H, N, dtype, w_value
         raise AssertionError(f"wkv6 bwd {name}: a second launch gave other bits")
     names = ("dr", "dk", "dv", "dw", "du")
     fails = []
+    if scratch > WKV6_BWD_SCRATCH:
+        fails.append(f"the backward took {scratch} bytes beyond its outputs (at most "
+                     f"{WKV6_BWD_SCRATCH})")
 
     def hold(outs, exps, atol, rtol, which, tag, keys=names):
         errs = {}
@@ -1137,50 +1155,37 @@ def check_wkv6_bwd(torch, ops, ref, timer, gen, name, B, T, H, N, dtype, w_value
         errs = hold(got, want, atol, rtol, names[:3], "")
         errs.update(hold(got, want, TOL_GRAD, TOL_GRAD, names[3:], ""))
         del g32, r32, states32, wide
-    # the reduce kernel alone against its plain version on the block sums'
-    # scratch: du and fp32 dv 1e-4; bf16 dv one ulp relative (one rounding)
-    uf = u.float().contiguous()
-    scratch = ops.wkv6_bwd_blocks(r, k, v, w, uf, dy, ds, states)[3:]
-    red = ops.wkv6_bwd_reduce(r, k, uf, dy, *scratch)
-    red_want = ref.wkv6_bwd_reduce_ref(r, k, uf, dy, *scratch)
-    red_rtol = TOL_GRAD if dtype == torch.float32 else RTOL_BF16
-    red_errs = hold(red, red_want, TOL_GRAD, red_rtol, ["dv"], "reduce: ", ("dv", "du"))
-    red_errs.update(hold(red, red_want, TOL_GRAD, TOL_GRAD, ["du"], "reduce: ", ("dv", "du")))
     if fails:
         raise AssertionError(f"wkv6 bwd {name} B={B} T={T} H={H} N={N} {dtype} w {w_value} ds "
                              f"{with_ds}: " + "; ".join(fails))
     bounds = wkv6_bwd_bound(torch, B, T, H, N, dtype, with_ds)
     bound_ms, bound_by = bounds["whole"]
+    bwd = lambda: ops.wkv6_bwd(r, k, v, w, u, dy, ds, states)
+    fwd_states = lambda: ops.launch(r, k, v, w, u, *cfg, stage_states=True)
+    fwd = lambda: ops.launch(r, k, v, w, u, *cfg)
     row = {"shape": name, "B": B, "T": T, "H": H, "N": N, "dtype": str(dtype),
            "w": "model" if w_value is None else w_value, "ds": with_ds,
            "atol": atol, "rtol": rtol, "dw_du_tol": TOL_GRAD,
            "fp32_max_abs_err_same_inputs": e32, "stage_states_max_abs_err": states_err,
            "max_abs_err_against_fp64": fp64_errs,
            "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
-           "ms": timer(lambda: ops.wkv6_bwd(r, k, v, w, u, dy, ds, states), reps),
-           "blocks_ms": timer(lambda: ops.wkv6_bwd_blocks(r, k, v, w, uf, dy, ds, states),
-                              reps),
-           "reduce_ms": timer(lambda: ops.wkv6_bwd_reduce(r, k, uf, dy, *scratch), reps),
-           "plain_reduce_ms": timer(lambda: ref.wkv6_bwd_reduce_ref(r, k, uf, dy, *scratch),
-                                    reps),
-           "reduce_max_abs_err": max(red_errs.values()),
-           "blocks_bound_ms": bounds["blocks"][0], "blocks_bound_by": bounds["blocks"][1],
-           "reduce_bound_ms": bounds["reduce"][0], "reduce_bound_by": bounds["reduce"][1],
-           "fwd_states_ms": timer(lambda: ops.launch(r, k, v, w, u, *cfg, stage_states=True),
-                                  reps),
-           "fwd_ms": timer(lambda: ops.launch(r, k, v, w, u, *cfg), reps),
+           "scratch_bytes": scratch,
+           "ms": timer(bwd, reps), "ms_no_wait": timer(bwd, reps, wait=False),
+           "fwd_states_ms": timer(fwd_states, reps),
+           "fwd_states_ms_no_wait": timer(fwd_states, reps, wait=False),
+           "fwd_ms": timer(fwd, reps), "fwd_ms_no_wait": timer(fwd, reps, wait=False),
            "plain_ms": timer(lambda: ref.wkv6_bwd_ref(r, k, v, w, u, dy, ds, states=states),
                              plain_reps),
-           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+           "kernel_bound_ms": bounds["kernel"][0], "kernel_bound_by": bounds["kernel"][1]}
     log(f"phase 16 lm-train: wkv6 bwd {name} B={B} T={T} H={H} N={N} {dtype} w {row['w']} "
         f"ds {with_ds}: training forward = serving forward (bits), stage states max abs err "
         f"{states_err}; max abs err {json.dumps(errs)} (atol {atol} rtol {rtol}; dw, du "
-        f"{TOL_GRAD}); reduce alone vs plain {json.dumps(red_errs)}; deterministic; "
-        f"backward {row['ms']} ms (block sums {row['blocks_ms']}, bound "
-        f"{row['blocks_bound_ms']} ({row['blocks_bound_by']}); reduce {row['reduce_ms']}, "
-        f"bound {row['reduce_bound_ms']} ({row['reduce_bound_by']}), plain "
-        f"{row['plain_reduce_ms']}), forward with states "
-        f"{row['fwd_states_ms']} ms (without {row['fwd_ms']}), plain backward "
+        f"{TOL_GRAD}); deterministic; scratch {scratch} bytes; backward {row['ms']} ms "
+        f"(without the timer's wait {row['ms_no_wait']}; kernel bound "
+        f"{row['kernel_bound_ms']} ({row['kernel_bound_by']})), forward with states "
+        f"{row['fwd_states_ms']} ms (without {row['fwd_ms']}; no wait "
+        f"{row['fwd_states_ms_no_wait']}, {row['fwd_ms_no_wait']}), plain backward "
         f"{row['plain_ms']} ms, library none exists, bound {bound_ms} ms ({bound_by})"
         + ("" if fp64_errs is None else f"; max abs err against fp64 {json.dumps(fp64_errs)}"))
     return row
@@ -3230,8 +3235,7 @@ def mini_card_vs_cpu(torch, counters, dev, tag) -> dict:
                     or got["flash_bwd_dq"] != want_bwd or got["flash_bwd_dkdv"] != want_bwd
                     or card["routes"] != want_routes
                     or got["flash_attention"] < want_bwd or got["wkv6"]
-                    or got["wkv6_bwd_blocks"] or got["wkv6_bwd_reduce"]
-                    or got["spmm"]
+                    or got["wkv6_bwd"] or got["spmm"]
                     or any(cpu["launches"].values())):
                 raise AssertionError(f"lm-train mini {name}: card vs CPU max loss diff {err}, "
                                      f"same {same}, card launches {got} (want {want_bwd} of "
@@ -3284,9 +3288,9 @@ def rwkv_train_whole(torch, lm, counters, get_config, dev, tag, profile) -> tupl
     64, vocab 65,536, bf16, AdamW moments fp32) for ``TRAIN_STEPS`` steps of
     ``make_train_step`` on ``TRAIN_BATCH`` x ``TRAIN_TEXT`` ``TokenPipeline``
     tokens, the counts from 0: finite losses and grad norms, exactly one
-    launch of each WKV6 kernel (the forward, the backward's block sums and
-    its reduce) per layer a step and nothing else, no plain WKV version called; first and steady step ms, tokens/s,
-    peak memory (no remat). Returns (record, launches)."""
+    launch of each WKV6 kernel (the forward, the backward) per layer a step
+    and nothing else, no plain WKV version called; first and steady step
+    ms, tokens/s, peak memory (no remat). Returns (record, launches)."""
     from repro_torch.data import TokenPipeline, make_lm_batch
     from repro_torch.optim import linear_warmup_cosine
 
@@ -3301,7 +3305,7 @@ def rwkv_train_whole(torch, lm, counters, get_config, dev, tag, profile) -> tupl
                                                         TRAIN_STEPS))
     layers = cfg.n_layers
     want = {n: 0 for n in counters}
-    want.update(wkv6=layers, wkv6_bwd_blocks=layers, wkv6_bwd_reduce=layers)
+    want.update(wkv6=layers, wkv6_bwd=layers)
     torch.cuda.reset_peak_memory_stats()
     _zero(counters)
     steps = []
@@ -3393,8 +3397,7 @@ def rwkv_train_card_vs_cpu(torch, counters, dev, tag) -> dict:
     err = float(np.abs(a - b).max()) if a.shape == b.shape else math.inf
     want = {n: 0 for n in counters}
     want.update(wkv6=RWKV_SMOKE_TRAIN["steps"] * cfg.n_layers,
-                wkv6_bwd_blocks=RWKV_SMOKE_TRAIN["steps"] * cfg.n_layers,
-                wkv6_bwd_reduce=RWKV_SMOKE_TRAIN["steps"] * cfg.n_layers)
+                wkv6_bwd=RWKV_SMOKE_TRAIN["steps"] * cfg.n_layers)
     if (len(a) != RWKV_SMOKE_TRAIN["steps"] or a.shape != b.shape or not np.isfinite(a).all()
             or err > TOL_MINI or card["launches"] != want or any(cpu["launches"].values())):
         raise AssertionError(f"lm-train {RWKV_ARCH} launch.train card vs CPU: max loss diff "
@@ -3578,8 +3581,7 @@ def lm_train_phase(torch, counters, get_config, get_smoke_config, dev, tag,
     losses = [ex["centralized"]["final_loss"], ex["federated"]["final_loss"]]
     if (not all(math.isfinite(x) for x in losses) or got["flash_bwd_dq"] <= 0
             or got["flash_bwd_dq"] != got["flash_bwd_dkdv"] or got["wkv6"]
-            or got["wkv6_bwd_blocks"] or got["wkv6_bwd_reduce"]
-            or got["spmm"]):
+            or got["wkv6_bwd"] or got["spmm"]):
         raise AssertionError(f"lm-train example: final losses {losses}, launches {got}")
     rec["example"] = {"final_losses": losses, "sync_events": ex["federated"]["sync_events"],
                       "launches": got, "routes": rec["routes"]["example"],
@@ -3739,15 +3741,15 @@ def main(argv=None) -> int:
     if len(wkv_fns) != 18 or any(r["stack_bytes"] != 0 or r["local_bytes"] != 0
                                  for r in wkv_fns.values()):
         raise AssertionError(f"build: wkv6 kernel instances spill or are missing: {wkv_fns}")
-    # the backward's instances (the block sums and the reduce, 3 head sizes
-    # x 2 types): G, S and the sub-stage boundaries in registers, no spill
+    # the backward's instances (3 head sizes x 2 types): a sub-stage's S, G
+    # and the row sums in registers, no spill
     bwd_fns = {n: {"registers": r.get("REG"), "stack_bytes": r.get("STACK"),
                    "local_bytes": r.get("LOCAL")}
                for n, r in res_usage(build, "wkv6").items() if "wkv6_bwd" in n}
     for n, r in sorted(bwd_fns.items()):
         log(f"phase 2 build: wkv6: {n}: {r['registers']} registers, stack "
             f"{r['stack_bytes']} B, local {r['local_bytes']} B")
-    if len(bwd_fns) != 12 or any(r["stack_bytes"] != 0 or r["local_bytes"] != 0
+    if len(bwd_fns) != 6 or any(r["stack_bytes"] != 0 or r["local_bytes"] != 0
                                  for r in bwd_fns.values()):
         raise AssertionError(f"build: wkv6 backward instances spill or are missing: "
                              f"{bwd_fns}")
@@ -4063,7 +4065,7 @@ def main(argv=None) -> int:
 
     # -- phase 8: lm-serve (the LM main paths; counts from 0 before each) ------
     counters = {"spmm": ops.block_spmm, "wkv6": wops.wkv6,
-                "wkv6_bwd_blocks": wops.wkv6_bwd_blocks, "wkv6_bwd_reduce": wops.wkv6_bwd_reduce,
+                "wkv6_bwd": wops.wkv6_bwd,
                 "flash_attention": fops.flash_attention, "flash_bwd_dq": fops.flash_bwd_dq,
                 "flash_bwd_dkdv": fops.flash_bwd_dkdv}
     tag = f"{kind}, {smi}"
@@ -4207,29 +4209,25 @@ def main(argv=None) -> int:
                 "library_ms": main_row[f"library_{key}_ms"], "timed_shape": main_row["shape"],
                 "shapes": [{k: v for k, v in r.items() if k != "max_abs_err_by_grad"}
                            for r in rows]})
-    # the WKV6 backward's two kernels at rwkv6-1.6b's bf16 training shape,
-    # each with its own time, bound and launches (from the RWKV main path);
-    # the block sums' plain version is the whole of wkv6_bwd_ref (it
-    # computes all but dv's last sum and coef·dy), checked through the pair
+    # the WKV6 backward at rwkv6-1.6b's bf16 training shape: its time (with
+    # the timer's wait; the reading without it beside), the bound of the
+    # function, the plain backward, launches from the RWKV main paths
     wrows = record["lm_train"]["wkv6_bwd_shapes"]
     main_row = next(r for r in wrows if r["shape"] == "rwkv6_train_bf16")
-    for part, err, plain_ms in (("blocks", "max_abs_err", "plain_ms"),
-                                ("reduce", "reduce_max_abs_err", "plain_reduce_ms")):
-        name = f"wkv6_bwd_{part}"
-        by_path = {path: c[name] for path, c in train_lm_launches.items() if c[name]}
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
-            "replaces": ("src/repro/models/rwkv.py:105 (wkv_scan's jnp autodiff; no Pallas "
-                         "kernel)"),
-            "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": max(r[err] for r in wrows),
-            "ms": main_row[f"{part}_ms"], "plain_ms": main_row[plain_ms],
-            "bound_ms": main_row[f"{part}_bound_ms"], "bound_by": main_row[f"{part}_bound_by"],
-            "library_ms": None, "timed_shape": main_row["shape"],
-            "pair_ms": main_row["ms"], "pair_bound_ms": main_row["bound_ms"],
-            "shapes": [{k: v for k, v in r.items() if k != "max_abs_err_by_grad"}
-                       for r in wrows]})
+    by_path = {path: c["wkv6_bwd"] for path, c in train_lm_launches.items() if c["wkv6_bwd"]}
+    kernels.append({
+        "name": "wkv6_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+        "replaces": ("src/repro/models/rwkv.py:105 (wkv_scan's jnp autodiff; no Pallas "
+                     "kernel)"),
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in wrows),
+        "ms": main_row["ms"], "ms_no_wait": main_row["ms_no_wait"],
+        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"], "library_ms": None,
+        "timed_shape": main_row["shape"],
+        "shapes": [{k: v for k, v in r.items() if k != "max_abs_err_by_grad"}
+                   for r in wrows]})
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     if args.out:

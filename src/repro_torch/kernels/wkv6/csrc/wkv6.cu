@@ -582,65 +582,113 @@ cudaError_t launch(const void* r, const void* k, const void* v, const float* w,
 //     dw_t[n] = sum_m S_{t-1}[n][m] G_t[n][m]
 //     du = sum_{b,t} r_t * k_t (v_t . dy_t)
 //
-// What bounds it on an H100: per step and state element about 14 fp32
-// operations (the state recomputed, dr, G's update, dk, dv, dw), against
-// r, k, v, dy in r's type, w, the stage states and dw in fp32: at B=2,
-// T=2048, H=32, N=64 in bf16 the operations (0.11 ms at the fp32 peak),
-// not the 0.25 GB (0.075 ms). A first design, simple and right; its speed
-// is later work:
+// What bounds it on an H100: per step and state element 14 fp32 operations
+// (the state recomputed, dr, G's update, dk, dv, dw) against r, k, v, dy in
+// r's type, w, the stage states and dw in fp32: at B=2, T=2048, H=32, N=64
+// in bf16 the operations (0.10 ms at the fp32 peak), not the 0.25 GB of
+// traffic (0.075 ms). The kernel issues 9.25 fp32 instructions per state
+// element and step (the backward's 6; the recompute's multiply and FMA,
+// 1.625 times over) and about as many others (loads, bf16 widening, the
+// row sums' shuffles, dv's shares). One launch:
 //
-// * The forward (wkv6_kernel with `states`) saves S at the start of every
-//   kTS-step stage. Key rows are independent in the recurrence (S[n][:]
-//   needs only w[n], k[n] and v), so a block takes kRG = 16 key rows of one
-//   (b, h) with all N value columns; dr, dk, dw and du (sums over value
-//   columns, or over t) are then whole in the block, and only dv (a sum
-//   over key rows) is partial: each block writes its kRG rows' share to a
-//   scratch buffer, and a second launch (wkv6_bwd_reduce_kernel, entry
-//   wkv6_bwd_reduce) sums the N / kRG shares in a fixed order and adds
-//   coef_t dy_t. No atomics, so two launches give the same bits.
-// * The block walks the stages in reverse. For each: its rows of r, k, w
-//   and all of v and dy, widened to fp32 in shared memory; v . dy once per
-//   step; then the stage forward from its saved state, keeping S at the
-//   start of each kSub-step sub-stage in registers. For each sub-stage in
-//   reverse: (A) its states S_{t-1} recomputed into shared memory; (B) the
-//   sub-stage walked backward with G in registers, each G_t written to
-//   shared memory; (C) the sums, one output each thread, in a fixed order:
-//   dr, dw, dk (and du's term) over the N value columns of a row, and dv's
-//   share over the block's kRG rows; du's terms summed a sub-stage, then a
-//   stage, at a time. Each thread holds 1 key row by kCC
-//   value columns (strided by N / kCC, so neighbouring threads touch
-//   neighbouring words); rows of S and G in shared memory are padded to
-//   N + 4 floats, so the row sums' 16-byte loads meet no bank conflict.
-// * The recompute takes the forward's own instruction (fmaf(w, S, k * v)),
-//   so the states inside a stage are the forward's bit for bit.
+// * A block takes kRG key rows (32, or 16 at N = 128) of one (b, h) with
+//   all N value columns (key rows are independent in the recurrence:
+//   S[n][:] needs only w[n], k[n] and v), and the N / kRG blocks of a
+//   (b, h) form a thread-block cluster. dr, dk and dw (sums over value
+//   columns) are whole in a block; dv (a sum over key rows) is summed in
+//   the block, then across the cluster through distributed shared memory;
+//   du (a sum over t and b) is whole for a (b, h) in a block, and the B
+//   blocks of one (h, key rows) hand their shares over through an atomic
+//   ticket: the last to finish sums them in b order. No atomic takes part
+//   in a sum and every sum has a fixed order, so two launches give the
+//   same bits; nothing but du's B shares goes through HBM.
+// * The state in registers. A thread holds kBR = 2 key rows by kBC = 4
+//   adjacent value columns of S and G; the N / kBC threads of a key row are
+//   adjacent lanes of one warp. The block walks the stages in reverse, each
+//   from the forward's saved state; the walk leaves each kSub-step
+//   sub-stage's start in shared memory (each thread its own tile); a
+//   sub-stage then recomputes its S_{t-1} into registers (kSub x 8 floats)
+//   from its start with the forward's own instruction (fmaf(w, S, k * v)),
+//   so the states are the forward's bit for bit, and walks back through it
+//   with G in registers, each step's operands loaded a step ahead.
+// * Row sums in registers. Each step sums dr's, dw's and dk's terms over the
+//   thread's 4 columns (FMAs, columns ascending) into 3 x kBR values; at the
+//   sub-stage's end the lanes of a row reduce all 3 x kBR x kSub of them
+//   with a reduce-scatter butterfly (each __shfl_xor_sync level halves what
+//   a lane carries; lanes fold l + L/2 onto l, then L/4, ..., 1), and each
+//   value's owner writes dr, dk, dw.
+// * dv without scratch. Each step a thread writes its row pair's share of
+//   dv (fmaf(G[1], k1, G[0] * k0)) to shared memory; at the sub-stage's end
+//   the block adds its kRG / 2 row pairs in order and sends each column's
+//   sum, with its coef share, to the block owning the column: st.async
+//   into that block's shared memory, completing on its mbarrier, which its
+//   wait then observes (no fence). A block sums its value columns over the
+//   cluster's blocks in rank order and adds coef_t dy_t (coef_t likewise:
+//   each block's rows, then the ranks in order) one sub-stage later, while
+//   the next is computed. A relaxed cluster barrier guards the
+//   double-buffered receipts (a release there waited on the block's memory
+//   traffic every sub-stage).
+// * The stage loads overlap the arithmetic: one thread issues TMA boxes (r,
+//   k, w of the block's rows, v and dy of all columns) and a bulk copy of
+//   the saved state into a 2-slot ring completed on mbarriers, the next
+//   stage while this one runs.
+// * Occupancy and placement: the recurrence leaves B x H x N^2 / 8 threads
+//   in all (8 elements each): at rwkv6-1.6b's training shape 128 blocks of
+//   32 key rows (8 warps), one an SM, in clusters of 2, all at once. With
+//   16 rows a block in clusters of 4, the scheduler left SMs idle and
+//   stacked three blocks on others, and the kernel ran at their pace.
 // tests/test_torch_wkv6_bwd.py emulates this order on the CPU.
 
-constexpr int kRG = 16;   // key rows per backward block
-constexpr int kSub = 8;   // steps per sub-stage (states kept in shared memory)
-constexpr int kCC = 4;    // value columns per backward thread
+constexpr int kSub = 8;                // steps per sub-stage (its S_{t-1} in registers)
+constexpr int kNSub = kTS / kSub;      // sub-stages per stage
+constexpr int kBR = 2;                 // key rows per thread
+constexpr int kBC = 4;                 // value columns per thread
+constexpr int kVals = 3 * kBR * kSub;  // row sums a thread carries into the butterfly
 
+// key rows per block (kRG); N / kRG blocks a cluster: 32 rows (8 warps at N
+// 64) up to N = 64, 16 at N = 128, where 32 rows' stages would not fit
+__host__ __device__ constexpr int rows_per_block(int N) { return N == 128 ? 16 : 32; }
+
+// Shared memory of a backward block, in bytes: the ring's 2 mbarriers,
+// the 2 receiving dv's sums, the du ticket (the first 128 bytes); a 2-slot
+// ring of stages (r, k [kTS][kRG] in r's type, w [kTS][kRG] fp32, v, dy
+// [kTS][N] in r's type, the saved state's rows [kRG][N] fp32: one TMA box
+// or bulk copy each); v . dy and coef's block share [2][kTS]; the
+// sub-stage starts [kNSub - 1][kRG][N]; dv's row-pair shares
+// [2][kPairs][kSub][N]; what the cluster's blocks send for this block's
+// kRG value columns: their sums [2][N / kRG][kSub][kRG] and coef shares
+// [2][N / kRG][kSub]; du's sub-stage sums [kNSub][kRG]. Every offset is a
+// multiple of 64.
 struct BwdLayout {
-  int ss, gg, r, k, w, v, dy, vdy, dut, total;
+  int r, k, w, v, dy, st, slot, ring, vdy, coef, ckpt, pair, rb, rc, dsub, total;
 };
 
-// Shared memory of the backward block, in bytes: S_{t-1} and G_t of a
-// sub-stage [kSub][kRG][N + 4]; the stage's rows of r, k, w [kTS][kRG] and
-// all of v, dy [kTS][N], in fp32; v . dy [kTS]; du's terms [kSub][kRG].
-// Every offset is a multiple of 16.
-__host__ __device__ inline BwdLayout bwd_layout(int N) {
+__host__ __device__ inline BwdLayout bwd_layout(int N, int esz) {
+  const int kRG = rows_per_block(N), kPairs = kRG / kBR;
   BwdLayout L;
-  const int rows = kSub * kRG * (N + 4) * 4;
-  L.ss = 0;
-  L.gg = rows;
-  L.r = 2 * rows;
-  L.k = L.r + kTS * kRG * 4;
-  L.w = L.k + kTS * kRG * 4;
+  L.r = 0;
+  L.k = kTS * kRG * esz;
+  L.w = 2 * kTS * kRG * esz;
   L.v = L.w + kTS * kRG * 4;
-  L.dy = L.v + kTS * N * 4;
-  L.vdy = L.dy + kTS * N * 4;
-  L.dut = L.vdy + kTS * 4;
-  L.total = L.dut + kSub * kRG * 4;
+  L.dy = L.v + kTS * N * esz;
+  L.st = L.dy + kTS * N * esz;
+  L.slot = L.st + kRG * N * 4;
+  L.ring = 128;
+  L.vdy = L.ring + 2 * L.slot;
+  L.coef = L.vdy + 2 * kTS * 4;
+  L.ckpt = L.coef + 2 * kTS * 4;
+  L.pair = L.ckpt + (kNSub - 1) * kRG * N * 4;
+  L.rb = L.pair + 2 * kPairs * kSub * N * 4;
+  L.rc = L.rb + 2 * (N / kRG) * kSub * kRG * 4;
+  L.dsub = L.rc + 2 * (N / kRG) * kSub * 4;
+  L.total = L.dsub + kNSub * kRG * 4;
   return L;
+}
+
+// values a lane keeps after the butterfly over `lanes` lanes: halved at
+// each level while their number is even
+__host__ __device__ constexpr int fold_count(int lanes, int nv) {
+  return lanes <= 1 ? nv : fold_count(lanes / 2, nv % 2 == 0 ? nv / 2 : nv);
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -654,302 +702,606 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// One block: key rows [n0, n0 + kRG) of one (b, h) row, all N value
-// columns, over all of T in reverse. Thread tid holds row i = tid / CT and
-// columns ch + j * CT (j < kCC), CT = N / kCC. (Up to 128 registers a
-// thread, as many blocks as shared memory lets an SM hold: left to itself
-// ptxas capped the N = 64 instances at 64 and spilled.)
-template <typename T, int N>
-__global__ void __launch_bounds__(kRG * N / kCC, 65536 / (kRG * N / kCC * 128))
-    wkv6_bwd_kernel(
-    const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ w, const float* __restrict__ u, const T* __restrict__ dy,
-    const float* __restrict__ ds, const float* __restrict__ states, T* __restrict__ dr,
-    T* __restrict__ dk, float* __restrict__ dw, float* __restrict__ dv_part,
-    float* __restrict__ du_part, int B, int T_len, int H) {
-  constexpr int P = N + 4;        // padded row of S and G in shared memory
-  constexpr int CT = N / kCC;     // threads per key row
-  constexpr int NT = kRG * CT;    // threads per block
-  constexpr int splits = N / kRG;
-  extern __shared__ __align__(128) unsigned char bsmem[];
-  const BwdLayout L = bwd_layout(N);
-  float* SS = reinterpret_cast<float*>(bsmem + L.ss);
-  float* GG = reinterpret_cast<float*>(bsmem + L.gg);
-  float* rs = reinterpret_cast<float*>(bsmem + L.r);
-  float* ks = reinterpret_cast<float*>(bsmem + L.k);
-  float* ws = reinterpret_cast<float*>(bsmem + L.w);
-  float* vs = reinterpret_cast<float*>(bsmem + L.v);
-  float* dys = reinterpret_cast<float*>(bsmem + L.dy);
-  float* vdys = reinterpret_cast<float*>(bsmem + L.vdy);
-  float* dut = reinterpret_cast<float*>(bsmem + L.dut);
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x / splits, g = blockIdx.x % splits;
-  const int b = bh / H, h = bh % H;
-  const int n0 = g * kRG;
-  const int i = tid / CT, ch = tid % CT;
-  const int n_stages = (T_len + kTS - 1) / kTS;
-  const long long t_stride = (long long)H * N;
-  const long long base = (long long)b * T_len * t_stride + (long long)h * N;
-  const long long total = (long long)B * T_len * t_stride;
-  float* dvp = dv_part + (long long)g * total;
-
-  float G[kCC];
-#pragma unroll
-  for (int j = 0; j < kCC; ++j)
-    G[j] = ds != nullptr ? ds[((long long)bh * N + n0 + i) * N + ch + j * CT] : 0.f;
-  // row n0 + tid's du, for tid < kRG: the terms of a sub-stage summed, its
-  // sub-stages' sums into the stage's, the stages' into this (fewer
-  // roundings at the size of the whole than one sum over T)
-  float du_acc = 0.f;
-
-  for (int s = n_stages - 1; s >= 0; --s) {
-    const int t0 = s * kTS;
-    const int steps = min(kTS, T_len - t0);
-    float du_stage = 0.f;
-    // the stage's rows in fp32 (the previous stage's sums are done with them)
-    for (int x = tid; x < steps * kRG; x += NT) {
-      const int tt = x / kRG, ii = x % kRG;
-      const long long o = base + (long long)(t0 + tt) * t_stride + n0 + ii;
-      rs[x] = to_f(r[o]);
-      ks[x] = to_f(k[o]);
-      ws[x] = w[o];
-    }
-    for (int x = tid; x < steps * N; x += NT) {
-      const int tt = x / N, m = x % N;
-      const long long o = base + (long long)(t0 + tt) * t_stride + m;
-      vs[x] = to_f(v[o]);
-      dys[x] = to_f(dy[o]);
-    }
-    __syncthreads();
-    // v . dy per step: a warp a step, each lane over m = lane + 32 j (j
-    // ascending), then an xor tree over the lanes
-    for (int tt = tid / 32; tt < steps; tt += NT / 32) {
-      const int lane = tid % 32;
-      float a = 0.f;
-#pragma unroll
-      for (int j = 0; j < N / 32; ++j)
-        a = fmaf(vs[tt * N + lane + 32 * j], dys[tt * N + lane + 32 * j], a);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
-      if (lane == 0) vdys[tt] = a;
-    }
-    // the stage forward from its saved state; S at each sub-stage's start
-    const int nsub = (steps + kSub - 1) / kSub;
-    const int last = (nsub - 1) * kSub;
-    float S[kCC], Sb[kTS / kSub][kCC];
-    const float* st = states + (((long long)bh * n_stages + s) * N + n0 + i) * N + ch;
-#pragma unroll
-    for (int j = 0; j < kCC; ++j) S[j] = st[j * CT];
-#pragma unroll
-    for (int tt = 0; tt < kTS; ++tt) {
-      if (tt <= last) {
-        if (tt % kSub == 0) {
-#pragma unroll
-          for (int j = 0; j < kCC; ++j) Sb[tt / kSub][j] = S[j];
-        }
-        if (tt < last) {
-          const float wv = ws[tt * kRG + i], kv = ks[tt * kRG + i];
-#pragma unroll
-          for (int j = 0; j < kCC; ++j) S[j] = fmaf(wv, S[j], kv * vs[tt * N + ch + j * CT]);
-        }
-      }
-    }
-#pragma unroll
-    for (int js = kTS / kSub - 1; js >= 0; --js) {
-      if (js >= nsub) continue;
-      const int a = js * kSub;
-      const int len = min(kSub, steps - a);
-      // (A) S_{t-1} of each step of the sub-stage into shared memory
-#pragma unroll
-      for (int j = 0; j < kCC; ++j) S[j] = Sb[js][j];
-#pragma unroll
-      for (int tt = 0; tt < kSub; ++tt) {
-        if (tt < len) {
-          float* row = SS + (tt * kRG + i) * P + ch;
-#pragma unroll
-          for (int j = 0; j < kCC; ++j) row[j * CT] = S[j];
-          const float wv = ws[(a + tt) * kRG + i], kv = ks[(a + tt) * kRG + i];
-#pragma unroll
-          for (int j = 0; j < kCC; ++j)
-            S[j] = fmaf(wv, S[j], kv * vs[(a + tt) * N + ch + j * CT]);
-        }
-      }
-      // (B) backward through the sub-stage: G_t into shared memory, then G_{t-1}
-#pragma unroll
-      for (int tt = kSub - 1; tt >= 0; --tt) {
-        if (tt < len) {
-          float* row = GG + (tt * kRG + i) * P + ch;
-#pragma unroll
-          for (int j = 0; j < kCC; ++j) row[j * CT] = G[j];
-          const float wv = ws[(a + tt) * kRG + i], rv = rs[(a + tt) * kRG + i];
-#pragma unroll
-          for (int j = 0; j < kCC; ++j)
-            G[j] = fmaf(wv, G[j], rv * dys[(a + tt) * N + ch + j * CT]);
-        }
-      }
-      __syncthreads();
-      // (C) the sums: first a row's dr, dw, dk and du term per (step, row),
-      // then dv's share per (step, value column)
-      for (int x = tid; x < len * (kRG + N); x += NT) {
-        if (x < len * kRG) {
-          const int tt = x / kRG, ii = x % kRG;
-          const float* srow = SS + (tt * kRG + ii) * P;
-          const float* grow = GG + (tt * kRG + ii) * P;
-          const float* dyr = dys + (a + tt) * N;
-          const float* vr = vs + (a + tt) * N;
-          float ar = 0.f, aw = 0.f, ak = 0.f;
-#pragma unroll 4
-          for (int m = 0; m < N; m += 4) {
-            const float4 sv = *reinterpret_cast<const float4*>(srow + m);
-            const float4 gv = *reinterpret_cast<const float4*>(grow + m);
-            const float4 dv4 = *reinterpret_cast<const float4*>(dyr + m);
-            const float4 vv = *reinterpret_cast<const float4*>(vr + m);
-            ar = fmaf(sv.x, dv4.x, ar); aw = fmaf(sv.x, gv.x, aw); ak = fmaf(gv.x, vv.x, ak);
-            ar = fmaf(sv.y, dv4.y, ar); aw = fmaf(sv.y, gv.y, aw); ak = fmaf(gv.y, vv.y, ak);
-            ar = fmaf(sv.z, dv4.z, ar); aw = fmaf(sv.z, gv.z, aw); ak = fmaf(gv.z, vv.z, ak);
-            ar = fmaf(sv.w, dv4.w, ar); aw = fmaf(sv.w, gv.w, aw); ak = fmaf(gv.w, vv.w, ak);
-          }
-          const int nn = n0 + ii;
-          const float rv = rs[(a + tt) * kRG + ii], kv = ks[(a + tt) * kRG + ii];
-          const float uu = u[h * N + nn], vd = vdys[a + tt];
-          const long long o = base + (long long)(t0 + a + tt) * t_stride + nn;
-          dr[o] = from_f<T>(fmaf(uu * kv, vd, ar));
-          dk[o] = from_f<T>(fmaf(uu * rv, vd, ak));
-          dw[o] = aw;
-          dut[tt * kRG + ii] = (rv * kv) * vd;
-        } else {
-          const int y = x - len * kRG;
-          const int tt = y / N, m = y % N;
-          float acc = 0.f;
-#pragma unroll
-          for (int ii = 0; ii < kRG; ++ii)
-            acc = fmaf(GG[(tt * kRG + ii) * P + m], ks[(a + tt) * kRG + ii], acc);
-          dvp[base + (long long)(t0 + a + tt) * t_stride + m] = acc;
-        }
-      }
-      __syncthreads();
-      if (tid < kRG) {
-        float sub = 0.f;
-        for (int tt = len - 1; tt >= 0; --tt) sub += dut[tt * kRG + tid];
-        du_stage += sub;
-      }
-    }
-    du_acc += du_stage;
-  }
-  if (tid < kRG) du_part[(long long)bh * N + n0 + tid] = du_acc;
+// two adjacent elements (key rows i, i + 1) and four (value columns) of a
+// stage row in shared memory, in fp32
+__device__ __forceinline__ void ld2(const float* p, float& a, float& b) {
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  a = x.x;
+  b = x.y;
+}
+__device__ __forceinline__ void ld2(const __nv_bfloat16* p, float& a, float& b) {
+  const uint32_t x = *reinterpret_cast<const uint32_t*>(p);
+  a = __uint_as_float(x << 16);
+  b = __uint_as_float(x & 0xffff0000u);
+}
+__device__ __forceinline__ void ld4(const float* p, float (&o)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
+}
+__device__ __forceinline__ void ld4(const __nv_bfloat16* p, float (&o)[4]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  o[0] = __uint_as_float(x.x << 16);
+  o[1] = __uint_as_float(x.x & 0xffff0000u);
+  o[2] = __uint_as_float(x.y << 16);
+  o[3] = __uint_as_float(x.y & 0xffff0000u);
 }
 
-// dv = the N / kRG shares in order + coef_t dy_t, one warp per (b, t, h)
-// row: coef_t = sum_n r u k, each lane over n = lane + 32 j (j ascending),
-// then an xor tree over the lanes (every lane ends with the same bits).
-// The first H * N threads also sum du's shares over b in order.
-template <typename T, int N>
-__global__ void __launch_bounds__(256) wkv6_bwd_reduce_kernel(
-    const T* __restrict__ r, const T* __restrict__ k, const float* __restrict__ u,
-    const T* __restrict__ dy, const float* __restrict__ dv_part,
-    const float* __restrict__ du_part, T* __restrict__ dv, float* __restrict__ du,
-    long long rows, int B, int H) {
-  constexpr int splits = N / kRG;
-  constexpr int J = N / 32;
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long row = gid / 32;
-  const int lane = threadIdx.x % 32;
-  if (row < rows) {
-    const int h = static_cast<int>(row % H);
-    const long long o = row * N;
-    const long long total = rows * N;
-    float c = 0.f;
+// the cluster barrier, split: arrive (relaxed: it orders no memory, and a
+// release here waits on the block's memory traffic) and wait (acquire)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// p's shared-memory address in block `rank` of the cluster
+__device__ __forceinline__ uint32_t at_rank(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+// 16, 8 or 4 bytes into a cluster block's shared memory, counted on that
+// block's mbarrier `bar` (its wait then sees them: no fence)
+__device__ __forceinline__ void st_async4(uint32_t a, float x, float y, float z, float w,
+                                          uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(a),
+      "r"(__float_as_uint(x)), "r"(__float_as_uint(y)), "r"(__float_as_uint(z)),
+      "r"(__float_as_uint(w)), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async2(uint32_t a, float x, float y, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n"
+      ::"r"(a), "r"(__float_as_uint(x)), "r"(__float_as_uint(y)), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async1(uint32_t a, float x, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+               ::"r"(a), "r"(__float_as_uint(x)), "r"(bar)
+               : "memory");
+}
+
+// `bytes` of global memory into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// a 16-byte shared-memory store as a volatile asm without a memory
+// clobber: it keeps its place against the barriers, and the compiler may
+// still move later loads ahead of it (they never read what it writes
+// before the next barrier)
+__device__ __forceinline__ void sts4(float* p, float a, float b, float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(smem_u32(p)), "f"(a), "f"(b),
+               "f"(c), "f"(d));
+}
+
+// CB (2 or 4) adjacent floats of shared memory
+template <int CB>
+__device__ __forceinline__ void ld_cols(const float* p, float (&o)[4]) {
+  if constexpr (CB == 4) {
+    ld4(p, o);
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    o[0] = x.x;
+    o[1] = x.y;
+  }
+}
+
+// The reduce-scatter butterfly over lanes, from lane offset O down to 1, on
+// the first NV values of a: while they are even in number a lane keeps one
+// half (the upper one if its O bit is set) and adds its partner's copy of
+// it; values left odd in number are added whole on both lanes. Either way a
+// level adds x[l] and x[l ^ O], so each sum folds lane l + 2 O onto l, then
+// l + O, ..., l + 1: the xor tree. The lane then holds values
+// [(l / share) * keep, + keep) of the NV (keep = fold_count, share the
+// lanes holding the same ones).
+template <int O, int NV, int SZ>
+__device__ __forceinline__ void fold(float (&a)[SZ], int lane) {
+  if constexpr (O >= 1) {
+    if constexpr (NV % 2 == 0) {
+      constexpr int HV = NV / 2;
+      const bool up = (lane & O) != 0;
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int nn = lane + 32 * j;
-      c = fmaf(to_f(r[o + nn]) * u[h * N + nn], to_f(k[o + nn]), c);
-    }
+      for (int i = 0; i < HV; ++i) {
+        const float send = up ? a[i] : a[i + HV];
+        const float keep = up ? a[i + HV] : a[i];
+        a[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      fold<O / 2, HV>(a, lane);
+    } else {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) c += __shfl_xor_sync(0xffffffffu, c, off);
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const long long e = o + lane + 32 * j;
-      float acc = dv_part[e];
-#pragma unroll
-      for (int gg = 1; gg < splits; ++gg) acc += dv_part[gg * total + e];
-      dv[e] = from_f<T>(fmaf(c, to_f(dy[e]), acc));
+      for (int i = 0; i < NV; ++i) a[i] += __shfl_xor_sync(0xffffffffu, a[i], O);
+      fold<O / 2, NV>(a, lane);
     }
   }
-  if (gid < (long long)H * N) {
-    float a = du_part[gid];
-    for (int bb = 1; bb < B; ++bb) a += du_part[(long long)bb * H * N + gid];
-    du[gid] = a;
+}
+
+// a step's operands in fp32: r, k, w of the thread's two key rows, v and
+// dy of its four value columns
+struct StepIn {
+  float r0, r1, k0, k1, w0, w1, v[kBC], d[kBC];
+};
+template <typename T, int N>
+__device__ __forceinline__ void load_step(StepIn& x, const T* rs, const T* ks, const float* ws,
+                                          const T* vs, const T* dys, int t, int i0, int c0) {
+  constexpr int kRG = rows_per_block(N);
+  ld2(rs + t * kRG + i0, x.r0, x.r1);
+  ld2(ks + t * kRG + i0, x.k0, x.k1);
+  ld2(ws + t * kRG + i0, x.w0, x.w1);
+  ld4(vs + t * N + c0, x.v);
+  ld4(dys + t * N + c0, x.d);
+}
+
+// One block: key rows [n0, n0 + kRG) of one (b, h) row, n0 = kRG x its
+// cluster rank, all N value columns, over all of T in reverse. Thread tid
+// holds rows i0, i0 + 1 (i0 = 2 x its row pair) and columns c0 .. c0 + 3
+// (c0 = 4 x its lane in the row's N / 4 lanes). (kRG x N / 8 threads, one
+// block an SM.)
+template <typename T, int N>
+__global__ void __launch_bounds__(rows_per_block(N) * N / 8, 1) wkv6_bwd_kernel(
+    const __grid_constant__ CUtensorMap tr, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdy, const float* __restrict__ u,
+    const float* __restrict__ ds, const float* __restrict__ states, T* __restrict__ dr,
+    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dw, float* __restrict__ du,
+    float* __restrict__ du_part, int* __restrict__ tickets, int B, int T_len, int H) {
+  constexpr int kRG = rows_per_block(N);        // key rows per block
+  constexpr int kPairs = kRG / kBR;             // row pairs per block
+  constexpr int LN = N / kBC;                   // lanes of a key row
+  constexpr int LR = 32 / LN;                   // key rows' lane groups in a warp
+  constexpr int NT = kPairs * LN;               // threads per block
+  constexpr int NW = NT / 32;                   // warps per block
+  constexpr int splits = N / kRG;               // blocks per (b, h): the cluster
+  constexpr int esz = sizeof(T);
+  constexpr int kKeep = fold_count(LN, kVals);  // row sums a lane ends with
+  constexpr int kShare = LN * kKeep / kVals;    // lanes that end with the same ones
+  constexpr int kOut = (kSub * kRG + NT - 1) / NT;  // dv outputs a thread finishes
+  constexpr int kVdy = kTS / NW;                // steps of v . dy a warp sums
+  constexpr int kCoef = kTS * kRG / NT;         // steps of coef a half-warp sums
+  // bytes the cluster's blocks send a block for a sub-stage: their sums of
+  // its kRG columns and their coef shares
+  constexpr uint32_t kRecv = splits * kSub * (kRG + 1) * 4;
+  constexpr int CB = kSub * N / NT;             // columns of the block's sum a thread takes
+  static_assert(CB * NT == kSub * N && (CB == 2 || CB == 4), "the block's sum");
+  static_assert(kSub * splits <= NT, "a thread sends one coef share");
+  extern __shared__ __align__(128) unsigned char bsmem[];
+  const BwdLayout L = bwd_layout(N, esz);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lc = lane % LN;
+  const int pair = warp * LR + lane / LN;
+  const int i0 = kBR * pair, c0 = kBC * lc;
+  const int bh = blockIdx.x / splits, g = blockIdx.x % splits;  // g: the cluster rank
+  const int b = bh / H, h = bh % H;
+  const int n0 = g * kRG;
+  const int n_stages = (T_len + kTS - 1) / kTS;
+  // sub-stages in all: kNSub a stage, fewer in the last (ragged) one
+  const int n_subs = (n_stages - 1) * kNSub + (T_len - (n_stages - 1) * kTS + kSub - 1) / kSub;
+  const long long t_stride = (long long)H * N;
+  const long long base = (long long)b * T_len * t_stride + (long long)h * N;
+  const uint32_t bar0 = smem_u32(bsmem);       // the ring's 2 mbarriers
+  const uint32_t rbar0 = bar0 + 16;            // the 2 receiving dv's sums
+  int* ticket = reinterpret_cast<int*>(bsmem + 32);
+  float* vdys = reinterpret_cast<float*>(bsmem + L.vdy);    // [2][kTS]
+  float* coefs = reinterpret_cast<float*>(bsmem + L.coef);  // [2][kTS], this block's rows
+  float* ckpt = reinterpret_cast<float*>(bsmem + L.ckpt);
+  float* pairs = reinterpret_cast<float*>(bsmem + L.pair);
+  float* dsubs = reinterpret_cast<float*>(bsmem + L.dsub);
+  const float* rb = reinterpret_cast<const float*>(bsmem + L.rb);
+  const float* rc = reinterpret_cast<const float*>(bsmem + L.rc);
+  auto slot = [&](int s) { return bsmem + L.ring + (s & 1) * L.slot; };
+
+  // one thread: stage s's boxes and saved state into its slot
+  auto issue = [&](int s) {
+    const uint32_t st = smem_u32(slot(s));
+    const uint32_t bar = bar0 + 8 * (s & 1);
+    mbar_expect_tx(bar, L.slot);
+    tma_load(st + L.r, &tr, bar, n0, h, s * kTS, b);
+    tma_load(st + L.k, &tk, bar, n0, h, s * kTS, b);
+    tma_load(st + L.w, &tw, bar, n0, h, s * kTS, b);
+    tma_load(st + L.v, &tv, bar, 0, h, s * kTS, b);
+    tma_load(st + L.dy, &tdy, bar, 0, h, s * kTS, b);
+    bulk_load(st + L.st, states + (((long long)bh * n_stages + s) * N + n0) * N, kRG * N * 4,
+              bar);
+  };
+
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    mbar_init(rbar0, 1);
+    mbar_init(rbar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    issue(n_stages - 1);
+    if (n_stages > 1) issue(n_stages - 2);
+    // the first two sub-stages' receipts
+    mbar_expect_tx(rbar0, kRecv);
+    if (n_subs > 1) mbar_expect_tx(rbar0 + 8, kRecv);
+  }
+  // every block's barriers are set before any block sends to them
+  cluster_arrive();
+  cluster_wait();
+
+  float G[kBR][kBC];
+#pragma unroll
+  for (int p = 0; p < kBR; ++p) {
+    if (ds != nullptr) {
+      ld4(ds + ((long long)bh * N + n0 + i0 + p) * N + c0, G[p]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kBC; ++c) G[p][c] = 0.f;
+    }
+  }
+  const float u0 = u[h * N + n0 + i0], u1 = u[h * N + n0 + i0 + 1];
+  const float uc = u[h * N + n0 + tid % kRG];  // coef's row in the stage prologue
+  // the rows' du: a sub-stage's terms summed, the sub-stages' sums into the
+  // stage's, the stages' into these (each in reverse)
+  float du0 = 0.f, du1 = 0.f;
+
+  // dv of a finished sub-stage, once the cluster's blocks have sent their
+  // sums of this block's kRG value columns: the blocks' sums in rank order,
+  // plus coef_t (the blocks' shares in rank order) dy_t; dy read before the
+  // slot can be refilled
+  float xd[kOut];
+  auto read_dy = [&](int s, int a) {
+    const T* dys = reinterpret_cast<const T*>(slot(s) + L.dy);
+#pragma unroll
+    for (int e = 0; e < kOut; ++e) {
+      const int o = tid + e * NT;
+      if (o < kSub * kRG) xd[e] = to_f(dys[(a + o / kRG) * N + n0 + o % kRG]);
+    }
+  };
+  auto finish = [&](int s, int a, int len, int buf) {
+#pragma unroll
+    for (int e = 0; e < kOut; ++e) {
+      const int o = tid + e * NT;
+      const int q = o / kRG, c = o % kRG;
+      if (o < kSub * kRG) {
+        float acc = rb[((buf * splits) * kSub + q) * kRG + c];
+        float cq = rc[(buf * splits) * kSub + q];
+#pragma unroll
+        for (int rk = 1; rk < splits; ++rk) {
+          acc += rb[((buf * splits + rk) * kSub + q) * kRG + c];
+          cq += rc[(buf * splits + rk) * kSub + q];
+        }
+        if (q < len)
+          dv[base + (long long)(s * kTS + a + q) * t_stride + n0 + c] =
+              from_f<T>(fmaf(cq, xd[e], acc));
+      }
+    }
+  };
+
+  int j = 0;                        // sub-stages done
+  int p_s = 0, p_a = 0, p_len = 0;  // the last one: its stage, first step, length
+  for (int s = n_stages - 1; s >= 0; --s) {
+    const int steps = min(kTS, T_len - s * kTS);
+    const int nsub = (steps + kSub - 1) / kSub;
+    unsigned char* sl = slot(s);
+    const T* rs = reinterpret_cast<const T*>(sl + L.r);
+    const T* ks = reinterpret_cast<const T*>(sl + L.k);
+    float* ws = reinterpret_cast<float*>(sl + L.w);
+    const T* vs = reinterpret_cast<const T*>(sl + L.v);
+    const T* dys = reinterpret_cast<const T*>(sl + L.dy);
+    const float* sts = reinterpret_cast<const float*>(sl + L.st);
+    float* vdy = vdys + (s & 1) * kTS;
+    float* cf = coefs + (s & 1) * kTS;
+    mbar_wait(bar0 + 8 * (s & 1), ((n_stages - 1 - s) >> 1) & 1);
+
+    // v . dy per step: a warp takes steps warp + NW i, each lane over m =
+    // lane + 32 j (j ascending), then the xor tree over the lanes (as a
+    // reduce-scatter over its steps); coef's share of the block's rows: a
+    // half-warp takes steps, (r u) k per row, then the xor tree over its 16
+    // lanes. Over all kTS steps (rows past T arrive as zeros), so whole
+    // warps meet at every shuffle.
+    {
+      float x[kVdy];
+#pragma unroll
+      for (int it = 0; it < kVdy; ++it) {
+        const int t = warp + it * NW;
+        x[it] = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < N / 32; ++jj)
+          x[it] = fmaf(to_f(vs[t * N + lane + 32 * jj]), to_f(dys[t * N + lane + 32 * jj]),
+                       x[it]);
+      }
+      fold<16, kVdy>(x, lane);
+      constexpr int keep = fold_count(32, kVdy), share = 32 * keep / kVdy;
+      if (lane % share == 0) {
+#pragma unroll
+        for (int e = 0; e < keep; ++e) vdy[warp + ((lane / share) * keep + e) * NW] = x[e];
+      }
+    }
+    {
+      const int i = tid % kRG;
+      float x[kCoef];
+#pragma unroll
+      for (int it = 0; it < kCoef; ++it) {
+        const int t = tid / kRG + it * (NT / kRG);
+        x[it] = (to_f(rs[t * kRG + i]) * uc) * to_f(ks[t * kRG + i]);
+      }
+      fold<kRG / 2, kCoef>(x, i);
+      constexpr int keep = fold_count(kRG, kCoef), share = kRG * keep / kCoef;
+      if (i % share == 0) {
+#pragma unroll
+        for (int e = 0; e < keep; ++e)
+          cf[tid / kRG + ((i / share) * keep + e) * (NT / kRG)] = x[e];
+      }
+    }
+    // rows past T (zeros) become identity steps: w = 1 with r = k = 0 keeps
+    // S and G as they are, so every sub-stage runs all kSub steps (a later
+    // TMA box refills the slot: order these writes before it)
+    if (steps < kTS) {
+      for (int x = steps * kRG + tid; x < kTS * kRG; x += NT) ws[x] = 1.f;
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+
+    __syncthreads();  // v . dy
+    // du's terms (r k)(v . dy) of a row summed over a sub-stage, in reverse
+    // (0 past T): one thread a (row, sub-stage)
+    if (tid < kNSub * kRG && tid / kRG < nsub) {
+      const int row = tid % kRG, js = tid / kRG;
+      float sub = 0.f;
+#pragma unroll
+      for (int q = kSub - 1; q >= 0; --q) {
+        const int t = js * kSub + q;
+        sub += (to_f(rs[t * kRG + row]) * to_f(ks[t * kRG + row])) * vdy[t];
+      }
+      dsubs[js * kRG + row] = sub;
+    }
+
+    // S at step t + 1 from S at step t (the forward's instruction)
+    auto advance = [&](const float (&X)[kBR][kBC], float (&Y)[kBR][kBC], int t) {
+      float k0, k1, w0, w1, vq[kBC];
+      ld2(ks + t * kRG + i0, k0, k1);
+      ld2(ws + t * kRG + i0, w0, w1);
+      ld4(vs + t * N + c0, vq);
+#pragma unroll
+      for (int c = 0; c < kBC; ++c) {
+        Y[0][c] = fmaf(w0, X[0][c], k0 * vq[c]);
+        Y[1][c] = fmaf(w1, X[1][c], k1 * vq[c]);
+      }
+    };
+    // the walk from the stage's saved state to its sub-stage starts
+    {
+      float S[kBR][kBC];
+#pragma unroll
+      for (int p = 0; p < kBR; ++p) ld4(sts + (i0 + p) * N + c0, S[p]);
+#pragma unroll 1
+      for (int js = 1; js < nsub; ++js) {
+#pragma unroll
+        for (int q = 0; q < kSub; ++q) advance(S, S, (js - 1) * kSub + q);
+#pragma unroll
+        for (int p = 0; p < kBR; ++p)
+          sts4(ckpt + ((js - 1) * kRG + i0 + p) * N + c0, S[p][0], S[p][1], S[p][2], S[p][3]);
+      }
+    }
+    __syncthreads();  // coef, the identity steps, du's sub-stage sums
+    // the rows' du: the sub-stages' sums into the stage's, in reverse
+    {
+      float ds0 = 0.f, ds1 = 0.f;
+      for (int js = nsub - 1; js >= 0; --js) {
+        ds0 += dsubs[js * kRG + i0];
+        ds1 += dsubs[js * kRG + i0 + 1];
+      }
+      du0 += ds0;
+      du1 += ds1;
+    }
+#pragma unroll 1
+    for (int js = nsub - 1; js >= 0; --js) {
+      const int a = js * kSub;
+      const int len = min(kSub, steps - a);
+      const int buf = j & 1;
+      // (A) S_{t-1} of each step of the sub-stage, from its start
+      float Sp[kSub][kBR][kBC];
+      const float* st0 = js == 0 ? sts : ckpt + (js - 1) * kRG * N;
+#pragma unroll
+      for (int p = 0; p < kBR; ++p) ld4(st0 + (i0 + p) * N + c0, Sp[0][p]);
+#pragma unroll
+      for (int q = 1; q < kSub; ++q) advance(Sp[q - 1], Sp[q], a + q - 1);
+      // (B) back through the sub-stage, each step's operands loaded a step
+      // ahead: dv's row-pair share into shared memory, the row sums' terms,
+      // then G_{t-1}
+      float vals[kVals];
+      float* pr = pairs + (buf * kPairs + pair) * kSub * N + c0;
+      StepIn cur, nxt;
+      load_step<T, N>(cur, rs, ks, ws, vs, dys, a + kSub - 1, i0, c0);
+#pragma unroll
+      for (int q = kSub - 1; q >= 0; --q) {
+        if (q > 0) load_step<T, N>(nxt, rs, ks, ws, vs, dys, a + q - 1, i0, c0);
+        sts4(pr + q * N, fmaf(G[1][0], cur.k1, G[0][0] * cur.k0),
+             fmaf(G[1][1], cur.k1, G[0][1] * cur.k0), fmaf(G[1][2], cur.k1, G[0][2] * cur.k0),
+             fmaf(G[1][3], cur.k1, G[0][3] * cur.k0));
+#pragma unroll
+        for (int p = 0; p < kBR; ++p) {
+          float ar = Sp[q][p][0] * cur.d[0], aw = Sp[q][p][0] * G[p][0];
+          float ak = G[p][0] * cur.v[0];
+#pragma unroll
+          for (int c = 1; c < kBC; ++c) {
+            ar = fmaf(Sp[q][p][c], cur.d[c], ar);
+            aw = fmaf(Sp[q][p][c], G[p][c], aw);
+            ak = fmaf(G[p][c], cur.v[c], ak);
+          }
+          vals[(q * kBR + p) * 3] = ar;
+          vals[(q * kBR + p) * 3 + 1] = aw;
+          vals[(q * kBR + p) * 3 + 2] = ak;
+        }
+#pragma unroll
+        for (int c = 0; c < kBC; ++c) {
+          G[0][c] = fmaf(cur.w0, G[0][c], cur.r0 * cur.d[c]);
+          G[1][c] = fmaf(cur.w1, G[1][c], cur.r1 * cur.d[c]);
+        }
+        if (q > 0) cur = nxt;
+      }
+      // (C) the row sums across the row's lanes
+      fold<LN / 2, kVals>(vals, lc);
+      if (j > 0) read_dy(p_s, p_a);
+      __syncthreads();  // this sub-stage's row-pair shares; the last slot read
+      // stage s - 1 into the slot of stage s + 1, whose last reader was read_dy
+      if (tid == 0 && js == nsub - 1 && s + 1 < n_stages && s >= 1) issue(s - 1);
+      // (D) the block's sum of its row pairs' shares, in order, CB columns
+      // a thread; each sum and coef share goes to the block owning its
+      // columns, once every block has finished the sub-stage before last
+      // (whose buffer it refills)
+      {
+        const int q = tid / (N / CB), m = (tid % (N / CB)) * CB;
+        const float* src = pairs + buf * kPairs * kSub * N + q * N + m;
+        float acc[4];
+        ld_cols<CB>(src, acc);
+#pragma unroll
+        for (int pp = 1; pp < kPairs; ++pp) {
+          float x[4];
+          ld_cols<CB>(src + pp * kSub * N, x);
+#pragma unroll
+          for (int c = 0; c < CB; ++c) acc[c] += x[c];
+        }
+        if (j > 0) cluster_wait();
+        const int to = m / kRG;
+        const uint32_t at = at_rank(rb + ((buf * splits + g) * kSub + q) * kRG + m % kRG, to);
+        const uint32_t bar = at_rank(bsmem + 16 + 8 * buf, to);
+        if constexpr (CB == 4)
+          st_async4(at, acc[0], acc[1], acc[2], acc[3], bar);
+        else
+          st_async2(at, acc[0], acc[1], bar);
+        if (tid < kSub * splits) {
+          const int cto = tid / kSub, cq = tid % kSub;
+          st_async1(at_rank(rc + (buf * splits + g) * kSub + cq, cto), cf[a + cq],
+                    at_rank(bsmem + 16 + 8 * buf, cto));
+        }
+      }
+      // (E) the row sums' owners write dr, dw, dk of their (step, row)
+      if (lc % kShare == 0) {
+#pragma unroll
+        for (int x = 0; x < kKeep / 3; ++x) {
+          const int gi = (lc / kShare) * (kKeep / 3) + x;
+          const int q = gi / kBR, p = gi % kBR;
+          if (q < len) {
+            const int t = a + q, i = i0 + p;
+            const float vd = vdy[t];
+            const float uu = p == 0 ? u0 : u1;
+            const long long o = base + (long long)(s * kTS + t) * t_stride + n0 + i;
+            dr[o] = from_f<T>(fmaf(uu * to_f(ks[t * kRG + i]), vd, vals[3 * x]));
+            dw[o] = vals[3 * x + 1];
+            dk[o] = from_f<T>(fmaf(uu * to_f(rs[t * kRG + i]), vd, vals[3 * x + 2]));
+          }
+        }
+      }
+      // (F) dv of the sub-stage before, once the blocks' sends have landed;
+      // then this sub-stage's receipts are expected on the freed barrier
+      if (j > 0) {
+        mbar_wait(rbar0 + 8 * (buf ^ 1), ((j - 1) >> 1) & 1);
+        finish(p_s, p_a, p_len, buf ^ 1);
+        if (tid == 0 && j + 1 < n_subs) mbar_expect_tx(rbar0 + 8 * (buf ^ 1), kRecv);
+      }
+      // the buffers read in (F) may be refilled once every block arrives:
+      // each thread has added up every value it read (a data dependence),
+      // so its reads are done when it arrives
+      cluster_arrive();
+      p_s = s;
+      p_a = a;
+      p_len = len;
+      ++j;
+    }
+  }
+  cluster_wait();
+  read_dy(p_s, p_a);
+  mbar_wait(rbar0 + 8 * ((j - 1) & 1), ((j - 1) >> 1) & 1);
+  finish(p_s, p_a, p_len, (j - 1) & 1);
+  cluster_arrive();  // no block leaves while another may still send to it
+  cluster_wait();
+
+  // du: this b's share of the block's rows; the last of the B blocks of
+  // (h, rows) to finish sums the shares in b order
+  if (lc == 0) {
+    float* dp = du_part + ((long long)b * H + h) * N + n0 + i0;
+    dp[0] = du0;
+    dp[1] = du1;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *ticket = atomicAdd(tickets + h * splits + g, 1);
+  __syncthreads();
+  if (*ticket == B - 1 && tid < kRG) {
+    __threadfence();
+    float x = __ldcg(du_part + (long long)h * N + n0 + tid);
+    for (int bb = 1; bb < B; ++bb) x += __ldcg(du_part + ((long long)bb * H + h) * N + n0 + tid);
+    du[h * N + n0 + tid] = x;
   }
 }
 
 template <typename T, int N>
 cudaError_t launch_bwd(const void* r, const void* k, const void* v, const float* w,
                        const float* u, const void* dy, const float* ds, const float* states,
-                       void* dr, void* dk, float* dw, float* dv_part, float* du_part, int B,
-                       int T_len, int H, cudaStream_t st) {
-  const BwdLayout L = bwd_layout(N);
+                       void* dr, void* dk, void* dv, float* dw, float* du, float* du_part,
+                       int* tickets, int B, int T_len, int H, cudaStream_t st) {
+  constexpr int esz = sizeof(T), kRG = rows_per_block(N);
+  const BwdLayout L = bwd_layout(N, esz);
+  // one block an SM: left to pair two blocks on an SM, the cluster
+  // scheduler did so on some while others idled, and the kernel waited on
+  // those (PERF.md)
+  const int smem = L.total > kMaxSmem / 2 ? L.total : kMaxSmem / 2 + 1024;
+  CUtensorMap tr{}, tk{}, tw{}, tv{}, tdy{};
+  cudaError_t e = encode(&tr, r, esz, B, T_len, H, N, kRG);
+  if (e == cudaSuccess) e = encode(&tk, k, esz, B, T_len, H, N, kRG);
+  if (e == cudaSuccess) e = encode(&tw, w, 4, B, T_len, H, N, kRG);
+  if (e == cudaSuccess) e = encode(&tv, v, esz, B, T_len, H, N, N);
+  if (e == cudaSuccess) e = encode(&tdy, dy, esz, B, T_len, H, N, N);
+  if (e != cudaSuccess) return e;
   auto kern = wkv6_bwd_kernel<T, N>;
   static bool attr_set[kMaxDevices] = {};
   int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= kMaxDevices || !attr_set[dev]) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     if (dev < kMaxDevices) attr_set[dev] = true;
   }
-  kern<<<B * H * (N / kRG), kRG * N / kCC, L.total, st>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v), w, u,
-      static_cast<const T*>(dy), ds, states, static_cast<T*>(dr), static_cast<T*>(dk), dw,
-      dv_part, du_part, B, T_len, H);
+  e = cudaMemsetAsync(tickets, 0, sizeof(int) * H * (N / kRG), st);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * H * (N / kRG));
+  cfg.blockDim = dim3(kRG * N / (kBR * kBC));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = N / kRG;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, tr, tk, tw, tv, tdy, u, ds, states, static_cast<T*>(dr),
+                         static_cast<T*>(dk), static_cast<T*>(dv), dw, du, du_part, tickets, B,
+                         T_len, H);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_bwd_n(const void* r, const void* k, const void* v, const float* w,
                          const float* u, const void* dy, const float* ds, const float* states,
-                         void* dr, void* dk, float* dw, float* dv_part, float* du_part, int B,
-                         int T_len, int H, int N, cudaStream_t st) {
+                         void* dr, void* dk, void* dv, float* dw, float* du, float* du_part,
+                         int* tickets, int B, int T_len, int H, int N, cudaStream_t st) {
   switch (N) {
     case 32:
-      return launch_bwd<T, 32>(r, k, v, w, u, dy, ds, states, dr, dk, dw, dv_part, du_part, B,
-                               T_len, H, st);
+      return launch_bwd<T, 32>(r, k, v, w, u, dy, ds, states, dr, dk, dv, dw, du, du_part,
+                               tickets, B, T_len, H, st);
     case 64:
-      return launch_bwd<T, 64>(r, k, v, w, u, dy, ds, states, dr, dk, dw, dv_part, du_part, B,
-                               T_len, H, st);
+      return launch_bwd<T, 64>(r, k, v, w, u, dy, ds, states, dr, dk, dv, dw, du, du_part,
+                               tickets, B, T_len, H, st);
     case 128:
-      return launch_bwd<T, 128>(r, k, v, w, u, dy, ds, states, dr, dk, dw, dv_part, du_part, B,
-                                T_len, H, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T, int N>
-cudaError_t launch_bwd_reduce(const void* r, const void* k, const float* u, const void* dy,
-                              const float* dv_part, const float* du_part, void* dv, float* du,
-                              int B, int T_len, int H, cudaStream_t st) {
-  const long long rows = (long long)B * T_len * H;
-  const long long threads = rows * 32 > (long long)H * N ? rows * 32 : (long long)H * N;
-  const long long blocks = (threads + 255) / 256;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  wkv6_bwd_reduce_kernel<T, N><<<(unsigned)blocks, 256, 0, st>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k), u, static_cast<const T*>(dy), dv_part,
-      du_part, static_cast<T*>(dv), du, rows, B, H);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_bwd_reduce_n(const void* r, const void* k, const float* u, const void* dy,
-                                const float* dv_part, const float* du_part, void* dv,
-                                float* du, int B, int T_len, int H, int N, cudaStream_t st) {
-  switch (N) {
-    case 32:
-      return launch_bwd_reduce<T, 32>(r, k, u, dy, dv_part, du_part, dv, du, B, T_len, H, st);
-    case 64:
-      return launch_bwd_reduce<T, 64>(r, k, u, dy, dv_part, du_part, dv, du, B, T_len, H, st);
-    case 128:
-      return launch_bwd_reduce<T, 128>(r, k, u, dy, dv_part, du_part, dv, du, B, T_len, H, st);
+      return launch_bwd<T, 128>(r, k, v, w, u, dy, ds, states, dr, dk, dv, dw, du, du_part,
+                                tickets, B, T_len, H, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -989,46 +1341,33 @@ int wkv6_fwd(const void* r, const void* k, const void* v, const float* w,
                                     st);
 }
 
-// The backward of wkv6_fwd, first launch (wkv6_bwd_kernel): dr, dk (B, T,
-// H, N; r's type) and dw (B, T, H, N; fp32), and into fp32 scratch dv's
-// shares dv_part (N / 16, B, T, H, N) and du's du_part (B, H, N), from r,
-// k, v, dy (r's type: fp32 when dtype == 0, bf16 when dtype == 1), w
-// (fp32), u (H, N; fp32), ds (B, H, N, N; fp32, the gradient of the
-// returned S, or null for 0) and `states` (B, H, ceil(T / kTS), N, N;
-// fp32), which wkv6_fwd wrote. All contiguous, T >= 1. Launches on
-// `stream`, does not synchronise, and returns cudaGetLastError()
+// The backward of wkv6_fwd (wkv6_bwd_kernel): dr, dk, dv (B, T, H, N; r's
+// type), dw (B, T, H, N; fp32) and du (H, N; fp32) from r, k, v, dy (r's
+// type: fp32 when dtype == 0, bf16 when dtype == 1), w (fp32), u (H, N;
+// fp32), ds (B, H, N, N; fp32, the gradient of the returned S, or null for
+// 0) and `states` (B, H, ceil(T / kTS), N, N; fp32), which wkv6_fwd wrote.
+// du_part (B, H, N) fp32 and tickets (H * N / 16) int32 are scratch: du's
+// share per b, and the counters that pick the block summing them (zeroed
+// here on `stream` first). All contiguous, r/k/v/w/dy/ds/states on 16-byte
+// aligned bases, T >= 1. Launches on `stream` (a cluster of N / 16 blocks
+// per (b, h)), does not synchronise, and returns cudaGetLastError()
 // (cudaErrorInvalidValue for a shape it does not take).
-int wkv6_bwd_blocks(const void* r, const void* k, const void* v, const float* w,
-                    const float* u, const void* dy, const float* ds, const float* states,
-                    void* dr, void* dk, float* dw, float* dv_part, float* du_part, int B,
-                    int T_len, int H, int N, int dtype, void* stream) {
+int wkv6_bwd(const void* r, const void* k, const void* v, const float* w, const float* u,
+             const void* dy, const float* ds, const float* states, void* dr, void* dk,
+             void* dv, float* dw, float* du, float* du_part, int* tickets, int B, int T_len,
+             int H, int N, int dtype, void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  if (B < 1 || T_len < 1 || H < 1 || (long long)B * H * (N / kRG) > 0x7fffffffLL)
+  if (B < 1 || T_len < 1 || H < 1 || (long long)B * H * N > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  if (!aligned16(r) || !aligned16(k) || !aligned16(v) || !aligned16(w) || !aligned16(dy) ||
+      !aligned16(states) || (ds != nullptr && !aligned16(ds)))
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_bwd_n<float>(r, k, v, w, u, dy, ds, states, dr, dk, dw, dv_part,
-                                    du_part, B, T_len, H, N, st);
-  return (int)launch_bwd_n<__nv_bfloat16>(r, k, v, w, u, dy, ds, states, dr, dk, dw, dv_part,
-                                          du_part, B, T_len, H, N, st);
-}
-
-// The backward's second launch (wkv6_bwd_reduce_kernel), after
-// wkv6_bwd_blocks on the same operands: dv (B, T, H, N; r's type) = the
-// N / 16 shares of dv_part in order + coef_t dy_t, and du (H, N; fp32) =
-// du_part summed over b in order. Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError().
-int wkv6_bwd_reduce(const void* r, const void* k, const float* u, const void* dy,
-                    const float* dv_part, const float* du_part, void* dv, float* du, int B,
-                    int T_len, int H, int N, int dtype, void* stream) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  if (B < 1 || T_len < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_bwd_reduce_n<float>(r, k, u, dy, dv_part, du_part, dv, du, B, T_len, H,
-                                           N, st);
-  return (int)launch_bwd_reduce_n<__nv_bfloat16>(r, k, u, dy, dv_part, du_part, dv, du, B,
-                                                 T_len, H, N, st);
+    return (int)launch_bwd_n<float>(r, k, v, w, u, dy, ds, states, dr, dk, dv, dw, du, du_part,
+                                    tickets, B, T_len, H, N, st);
+  return (int)launch_bwd_n<__nv_bfloat16>(r, k, v, w, u, dy, ds, states, dr, dk, dv, dw, du,
+                                          du_part, tickets, B, T_len, H, N, st);
 }
 
 const char* wkv6_error_string(int code) {

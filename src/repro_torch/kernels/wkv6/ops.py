@@ -24,17 +24,16 @@ Training: when a gradient is wanted (grad mode on, any input requiring
 one) ``wkv6`` goes through ``WKV6``, on any device. Its forward is the
 same kernel writing also the state at the start of each
 ``STAGE_STEPS``-step stage (the same y and S, bit for bit); its backward
-is ``wkv6_bwd``, the hand-written backward kernels on CUDA tensors
-(``wkv6_bwd_blocks`` launching ``csrc/wkv6.cu::wkv6_bwd_kernel``, then
-``wkv6_bwd_reduce`` launching ``wkv6_bwd_reduce_kernel``; they replace the
-reference's jnp autodiff of ``wkv_scan``) and the plain pair
-(``ref.wkv6_ref`` with its stage states, then ``ref.wkv6_bwd_ref``) on CPU
-tensors. A call with no gradient wanted takes the serving path unchanged.
+is ``wkv6_bwd``: on CUDA tensors one launch of the hand-written backward
+kernel (``csrc/wkv6.cu::wkv6_bwd_kernel``, a thread-block cluster of
+``N / bwd_rows(N)`` blocks per (b, h); it replaces the reference's jnp
+autodiff of ``wkv_scan``), on CPU tensors the plain pair (``ref.wkv6_ref``
+with its stage states, then ``ref.wkv6_bwd_ref``). A call with no gradient
+wanted takes the serving path unchanged.
 
-``wkv6.launches``, ``wkv6_bwd_blocks.launches`` and
-``wkv6_bwd_reduce.launches`` count the launches of the three kernels;
-plain integers the CPU path never moves, so a run can show that it went
-through the kernels.
+``wkv6.launches`` and ``wkv6_bwd.launches`` count the launches of the two
+kernels; plain integers the CPU path never moves, so a run can show that it
+went through the kernels.
 """
 from __future__ import annotations
 
@@ -52,9 +51,6 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # block, shared memory
 ROWS_PER_THREAD = 8
 STAGES = 2
-# the backward's key rows per block (csrc/wkv6.cu::kRG: dv comes in
-# N / BWD_ROWS shares, summed by the second launch)
-BWD_ROWS = 16
 MAX_THREADS = 256
 MAX_SMEM = 232448
 # head size -> (value columns per thread, blocks per (b, h) row): the
@@ -63,6 +59,13 @@ MAX_SMEM = 232448
 CONFIG = {32: (1, 1), 64: (2, 1), 128: (2, 8)}
 
 _fn = None
+
+
+def bwd_rows(n: int) -> int:
+    """The backward's key rows per block at head size ``n``
+    (``csrc/wkv6.cu::rows_per_block``): a cluster of n / bwd_rows(n) blocks
+    per (b, h) sums dv over its blocks' rows."""
+    return 16 if n == 128 else 32
 
 
 def smem_bytes(n: int, esz: int, splits: int) -> int:
@@ -109,18 +112,14 @@ def _kernel():
         # r, k, v, w, u, y, s, states; B, T, H, N, dtype, cols, splits; stream
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        blocks = lib.wkv6_bwd_blocks
-        # r, k, v, w, u, dy, ds, states, dr, dk, dw, dv_part, du_part;
-        # B, T, H, N, dtype; stream
-        blocks.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        blocks.restype = ctypes.c_int
-        reduce = lib.wkv6_bwd_reduce
-        # r, k, u, dy, dv_part, du_part, dv, du; B, T, H, N, dtype; stream
-        reduce.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        reduce.restype = ctypes.c_int
+        bwd = lib.wkv6_bwd
+        # r, k, v, w, u, dy, ds, states, dr, dk, dv, dw, du, du_part,
+        # tickets; B, T, H, N, dtype; stream
+        bwd.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        bwd.restype = ctypes.c_int
         lib.wkv6_error_string.argtypes = [ctypes.c_int]
         lib.wkv6_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.wkv6_error_string, blocks, reduce)
+        _fn = (fn, lib.wkv6_error_string, bwd)
     return _fn
 
 
@@ -213,8 +212,9 @@ def wkv6_bwd(r, k, v, w, u, dy, ds, states) -> tuple:
     """(dr, dk, dv in r's dtype, dw fp32, du in u's dtype): the gradient of
     ``wkv6`` from dy (B, T, H, N), ds (B, H, N, N) fp32 or None (the
     gradient of the returned S) and ``states``, the forward's stage states.
-    The backward kernels on CUDA operands (``wkv6_bwd_blocks``, then
-    ``wkv6_bwd_reduce``), ``ref.wkv6_bwd_ref`` on CPU ones."""
+    One launch of the backward kernel on CUDA operands (its scratch: du's
+    share per b, (B, H, N) fp32, and the (H, N / bwd_rows(N)) int32 tickets
+    that pick the block summing them), ``ref.wkv6_bwd_ref`` on CPU ones."""
     if _all_cpu(r, k, v, w, u, dy):
         return wkv6_bwd_ref(r, k, v, w, u, dy, ds, states=states)
     _check(r, k, v, w, u)
@@ -236,56 +236,30 @@ def wkv6_bwd(r, k, v, w, u, dy, ds, states) -> tuple:
     if B * T * H == 0:
         return (torch.zeros_like(r), torch.zeros_like(k), torch.zeros_like(v),
                 torch.zeros_like(w), torch.zeros_like(u))
+    # TMA reads r, k, v, w, dy from 16-byte aligned bases
+    r, k, v, w, dy, states = (t if t.data_ptr() % 16 == 0 else t.clone()
+                              for t in (r, k, v, w, dy, states))
+    if ds is not None and ds.data_ptr() % 16:
+        ds = ds.clone()
     uf = u.float().contiguous()
-    dr, dk, dw, dv_part, du_part = wkv6_bwd_blocks(r, k, v, w, uf, dy, ds, states)
-    dv, du = wkv6_bwd_reduce(r, k, uf, dy, dv_part, du_part)
+    dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
+    dw = torch.empty_like(w)
+    du = torch.empty((H, N), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
+    tickets = torch.empty((H, N // bwd_rows(N)), dtype=torch.int32, device=r.device)
+    _, err_str, fn = _kernel()
+    rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), uf.data_ptr(),
+            dy.data_ptr(), None if ds is None else ds.data_ptr(), states.data_ptr(),
+            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+            du_part.data_ptr(), tickets.data_ptr(), B, T, H, N, _DTYPES[r.dtype],
+            torch.cuda.current_stream(r.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wkv6_bwd launch failed: {err_str(rc).decode()} (cudaError {rc})")
+    wkv6_bwd.launches += 1
     return dr, dk, dv, dw, du.to(u.dtype)
 
 
-def wkv6_bwd_blocks(r, k, v, w, uf, dy, ds, states) -> tuple:
-    """The backward's first kernel on operands ``wkv6_bwd`` checked (uf:
-    u in fp32, T >= 1): (dr, dk in r's dtype, dw fp32, dv_part (N /
-    BWD_ROWS, B, T, H, N) fp32, dv's share of each block of key rows,
-    du_part (B, H, N) fp32, du's per b)."""
-    B, T, H, N = r.shape
-    dr, dk = torch.empty_like(r), torch.empty_like(k)
-    dw = torch.empty_like(w)
-    dv_part = torch.empty((N // BWD_ROWS, B, T, H, N), dtype=torch.float32, device=r.device)
-    du_part = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
-    _, err_str, fn, _ = _kernel()
-    rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), uf.data_ptr(),
-            dy.data_ptr(), None if ds is None else ds.data_ptr(), states.data_ptr(),
-            dr.data_ptr(), dk.data_ptr(), dw.data_ptr(), dv_part.data_ptr(), du_part.data_ptr(),
-            B, T, H, N, _DTYPES[r.dtype], torch.cuda.current_stream(r.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"wkv6_bwd_blocks launch failed: {err_str(rc).decode()} "
-                           f"(cudaError {rc})")
-    wkv6_bwd_blocks.launches += 1
-    return dr, dk, dw, dv_part, du_part
-
-
-wkv6_bwd_blocks.launches = 0
-
-
-def wkv6_bwd_reduce(r, k, uf, dy, dv_part, du_part) -> tuple:
-    """The backward's second kernel on ``wkv6_bwd_blocks``'s operands and
-    scratch: (dv in r's dtype = dv_part's shares in order + coef·dy, du (H,
-    N) fp32 = du_part summed over b in order)."""
-    B, T, H, N = r.shape
-    dv = torch.empty_like(r)
-    du = torch.empty((H, N), dtype=torch.float32, device=r.device)
-    _, err_str, _, fn = _kernel()
-    rc = fn(r.data_ptr(), k.data_ptr(), uf.data_ptr(), dy.data_ptr(), dv_part.data_ptr(),
-            du_part.data_ptr(), dv.data_ptr(), du.data_ptr(), B, T, H, N, _DTYPES[r.dtype],
-            torch.cuda.current_stream(r.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"wkv6_bwd_reduce launch failed: {err_str(rc).decode()} "
-                           f"(cudaError {rc})")
-    wkv6_bwd_reduce.launches += 1
-    return dv, du
-
-
-wkv6_bwd_reduce.launches = 0
+wkv6_bwd.launches = 0
 
 
 class WKV6(torch.autograd.Function):

@@ -88,11 +88,3 @@ def wkv6_bwd_ref(r, k, v, w, u, dy, ds=None, states=None):
     du = (rf * kf * vdy).sum((0, 1))
     return dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du.to(u.dtype)
 
-
-def wkv6_bwd_reduce_ref(r, k, u, dy, dv_part, du_part):
-    """The backward's second kernel (``csrc/wkv6.cu::wkv6_bwd_reduce_kernel``)
-    in plain torch: dv in r's dtype = the shares of dv_part (S, B, T, H, N)
-    summed + coef_t dy_t, and du (H, N) fp32 = du_part (B, H, N) summed
-    over b, in fp32."""
-    coef = (r.float() * u.float() * k.float()).sum(-1, keepdim=True)
-    return (dv_part.sum(0) + coef * dy.float()).to(r.dtype), du_part.sum(0)

@@ -187,16 +187,14 @@ def test_wkv6_wrapper_refuses_a_gradient_off_the_cpu(monkeypatch):
         return real(ctx, *a)
 
     monkeypatch.setattr(wkv_ops.WKV6, "forward", staticmethod(spy))
-    launches = (wkv_ops.wkv6.launches, wkv_ops.wkv6_bwd_blocks.launches,
-                wkv_ops.wkv6_bwd_reduce.launches)
+    launches = (wkv_ops.wkv6.launches, wkv_ops.wkv6_bwd.launches)
     with pytest.raises(ValueError, match="CUDA"):
         wkv_ops.wkv6(r, k, v, w, u)
     assert reached == ["meta"]
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         wkv_ops.wkv6(r, k, v, w, u)
     assert reached == ["meta"]
-    assert (wkv_ops.wkv6.launches, wkv_ops.wkv6_bwd_blocks.launches,
-                wkv_ops.wkv6_bwd_reduce.launches) == launches
+    assert (wkv_ops.wkv6.launches, wkv_ops.wkv6_bwd.launches) == launches
     cpu = [torch.rand((1, 4, 2, 32), requires_grad=True) for _ in range(4)]
     y, s = wkv_ops.wkv6(*cpu, torch.rand((2, 32)))
     (y.sum() + s.sum()).backward()

@@ -4,28 +4,30 @@ CPU.
 The reference differentiates ``wkv_scan`` (and the oracle ``wkv6_ref``)
 with jnp's autodiff; the port computes the gradient itself: the plain
 ``ref.wkv6_bwd_ref`` (what ``WKV6`` runs on CPU tensors) and, on the card,
-the backward kernels of ``csrc/wkv6.cu``. Here, at the reference's grad
+the backward kernel of ``csrc/wkv6.cu``. Here, at the reference's grad
 tier (rtol 1e-4, atol 1e-5), on inputs from numpy with a seed, at a ragged
 T, N of 32, 64 and 128, w drawn as the model draws it (exp(-exp(.))), near
 0 (1e-6) and near 1 (0.999), with and without an incoming gradient of S:
 
 * ``wkv6_bwd_ref`` against ``jax.vjp`` of ``repro.kernels.wkv6.ref.wkv6_ref``
   and of ``repro.models.rwkv.wkv_scan``;
-* ``WKV6.apply`` on CPU tensors (its plain pair) against the same, the
+* ``WKV6.apply`` on CPU tensors (its plain pair) against the same, and the
   stage states its forward saves against the states the reference's scan
-  passes through, and ``wkv6_bwd_reduce_ref`` (the plain version of the
-  backward's second kernel) completing the reference's dv and du from
-  their shares;
-* a plain-torch emulation of the backward kernels' order of arithmetic
-  (``kernel_bwd_order``) against the same. The kernels sum in another
-  order than the plain version: per (step, key row) dr, dw and dk over the
-  value columns in order, dv over 16 key rows a block and then the N / 16
-  blocks' shares in order, v·dy and coef over 32 lanes and an xor tree,
-  du over sub-stages, stages and then b. In bf16 the emulation is held at
-  ``chip_smoke.py``'s gate (rtol 2^-7, atol 4 x the fp32 emulation's error
-  on the same inputs widened), so the gate is known to hold before the
-  card. An FMA is emulated as the product and sum in fp64 rounded once to
-  fp32.
+  passes through;
+* a plain-torch emulation of the backward kernel's order of arithmetic
+  (``kernel_bwd_order``) against the same. The kernel sums in another
+  order than the plain version: per (step, key row) dr, dw and dk over 4
+  value columns a lane (FMAs), then folded over the row's N / 4 lanes (the
+  butterfly); dv per row pair (an FMA), the pairs of a block (32 key rows
+  up to N = 64, 16 at 128) in order, then the cluster's N / 32 or N / 16
+  blocks in rank order; coef per block (folded over its rows' lanes), then
+  the blocks in order; v·dy over
+  32 lanes and an xor tree; du over sub-stages, stages and then b. dv's
+  and du's orders are also held alone, on the reference's G. In bf16 the
+  emulation is held at ``chip_smoke.py``'s gate (rtol 2^-7, atol 4 x the
+  fp32 emulation's error on the same inputs widened), so the gate is known
+  to hold before the card. An FMA is emulated as the product and sum in
+  fp64 rounded once to fp32.
 """
 import jax
 import jax.numpy as jnp
@@ -40,9 +42,11 @@ from repro_torch.kernels.wkv6 import ref as tref
 
 RTOL, ATOL = 1e-4, 1e-5
 RTOL_BF16 = 2.0 ** -7
-# csrc/wkv6.cu's kTS, kRG and kSub: steps per stage, key rows per backward
-# block, steps per sub-stage (the states it holds in shared memory at once)
-TS, RG, SUB = tref.STAGE_STEPS, ops.BWD_ROWS, 8
+# csrc/wkv6.cu's kTS, kSub and kBC: steps per stage, steps per sub-stage
+# (the states it holds in registers at once), value columns per thread (a
+# key row's lanes are N / kBC); its key rows per backward block are
+# ops.bwd_rows(N)
+TS, SUB, COLS = tref.STAGE_STEPS, 8, 4
 
 # (B, T, H, N, w, incoming gradient of S): T ragged against the 32-step
 # stage (and the kernel's 8-step sub-stage) in every case
@@ -114,7 +118,7 @@ def test_bwd_ref_matches_jax_vjp(name, want):
 
 
 def _launches():
-    return ops.wkv6.launches, ops.wkv6_bwd_blocks.launches, ops.wkv6_bwd_reduce.launches
+    return ops.wkv6.launches, ops.wkv6_bwd.launches
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -131,27 +135,6 @@ def test_wkv6_autograd_on_the_cpu_matches_jax_vjp(name, want):
     got = torch.autograd.grad(outs, ts, cot)
     assert _launches() == before
     _close(got, want(name)[0], "WKV6")
-
-
-@pytest.mark.parametrize("name", ["n32_ragged", "w_near0_ds"])
-def test_reduce_ref_completes_the_reference_gradient(name, want):
-    """``wkv6_bwd_reduce_ref``, the plain version of the backward's second
-    kernel: from dv's N / 16 shares (any split of the reference's
-    Σ_n G_t[n] k_t[n]) and du per b (the reference's du of each b alone)
-    it gives the reference's dv and du."""
-    ins, dy, ds = _inputs(name)
-    r, k, _, _, u = ins
-    B, T, H, N = r.shape
-    dv, du = want(name)[0][2], want(name)[0][4]
-    rest = dv - (r * u * k).sum(-1, keepdims=True) * dy
-    shares = np.random.default_rng(0).standard_normal((N // RG - 1, B, T, H, N))
-    dv_part = np.concatenate([shares, (rest - shares.sum(0))[None]]).astype(np.float32)
-    du_part = np.stack([
-        _jax_vjp(jref.wkv6_ref, [a[b:b + 1] for a in ins[:4]] + [u], dy[b:b + 1],
-                 None if ds is None else ds[b:b + 1])[4] for b in range(B)])
-    got = tref.wkv6_bwd_reduce_ref(*map(torch.from_numpy, (r, k, u, dy, dv_part, du_part)))
-    np.testing.assert_allclose(got[0].numpy(), dv, rtol=RTOL, atol=ATOL)
-    np.testing.assert_allclose(got[1].numpy(), du, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("name", ["n32_ragged", "n128_ds", "w_near1"])
@@ -212,28 +195,94 @@ def _lanes_then_tree(x, y):
     return acc[..., 0]
 
 
+def _fold(acc):
+    """Sum the last axis as a butterfly over lanes does: lane l + L/2 onto
+    l, then L/4, ..., 1 (L a power of 2)."""
+    while acc.shape[-1] > 1:
+        h = acc.shape[-1] // 2
+        acc = acc[..., :h] + acc[..., h:]
+    return acc[..., 0]
+
+
+def _row_sum(x, y):
+    """Σ_m x·y over a key row as the kernel sums it: lane l of the row's
+    N / 4 lanes takes columns 4l .. 4l + 3 (FMAs, columns ascending), then
+    the lanes fold (``_fold``). x, y broadcast to (..., N)."""
+    x, y = torch.broadcast_tensors(x, y)
+    lead, N = x.shape[:-1], x.shape[-1]
+    xl = x.reshape(*lead, N // COLS, COLS)
+    yl = y.reshape(*lead, N // COLS, COLS)
+    acc = torch.zeros((*lead, N // COLS))
+    for c in range(COLS):
+        acc = fma(xl[..., c], yl[..., c], acc)
+    return _fold(acc)
+
+
+def _in_order(parts):
+    """((p0 + p1) + p2) + ...: a sum over blocks (or b) in order."""
+    tot = parts[0]
+    for p in parts[1:]:
+        tot = tot + p
+    return tot
+
+
+def _coef(r, u, k):
+    """coef = Σ_n r·u·k as the kernel sums it: (r·u)·k per key row, folded
+    over each block's rows (one lane each), then the blocks in rank order.
+    r, k (..., N), u broadcast to them."""
+    x = (r * u) * k
+    N = x.shape[-1]
+    rg = ops.bwd_rows(N)
+    return _in_order([_fold(x[..., g * rg:(g + 1) * rg]) for g in range(N // rg)])
+
+
+def _dv_sum(G, k):
+    """Σ_n G[n][m]·k[n] as the cluster sums it: per row pair fmaf(G[1], k1,
+    G[0]·k0), the pairs of a block in order, then the blocks in rank order.
+    G (..., N, N), k (..., N); returns (..., N)."""
+    N = G.shape[-1]
+    pairs = fma(G[..., 1::2, :], k[..., 1::2, None], G[..., 0::2, :] * k[..., 0::2, None])
+    rg = ops.bwd_rows(N)
+    per = rg // 2
+    return _in_order([_in_order([pairs[..., p, :] for p in range(g * per, (g + 1) * per)])
+                      for g in range(N // rg)])
+
+
+def _du_sum(terms, T):
+    """du over t as the kernel sums a row's terms ((r·k)·(v·dy), one per
+    step; ``terms[t]`` (B, H, N)): each 8-step sub-stage's in reverse, the
+    sub-stages' sums into the stage's, the stages' into the total, each in
+    reverse; then the B shares in b order."""
+    du = torch.zeros_like(terms[0])
+    for t0 in reversed(range(0, T, TS)):
+        stage = torch.zeros_like(du)
+        for a in reversed(range(t0, min(t0 + TS, T), SUB)):
+            sub = torch.zeros_like(du)
+            for t in reversed(range(a, min(a + SUB, T))):
+                sub = sub + terms[t]
+            stage = stage + sub
+        du = du + stage
+    return _in_order(list(du))
+
+
 def kernel_bwd_order(r, k, v, w, u, dy, ds=None):
-    """``csrc/wkv6.cu``'s forward state updates and its backward pair, in
+    """``csrc/wkv6.cu``'s forward state updates and its backward kernel, in
     their order, on r, k, v, dy (B, T, H, N) fp32 or bf16, w fp32, u (H, N),
     ds (B, H, N, N) or None. Returns (dr, dk, dv in r's dtype, dw, du fp32).
 
     The states: S = fmaf(w, S, k·v), the forward kernel's instruction (the
     backward recomputes a stage from the forward's saved state with the
     same one, so these are its states bit for bit). G = fmaf(w, G, r·dy).
-    Per (step, key row): dr, dw, dk summed over the value columns in order
-    (FMAs), then dr = fmaf(u·k, v·dy, ·), dk = fmaf(u·r, v·dy, ·), and du's
-    term (r·k)·(v·dy); a row's du sums its terms over each 8-step
-    sub-stage, those sums over the stage and the stages' sums over T, each
-    in reverse. dv: per
-    block of 16 key rows a share (FMAs over its rows in order), the shares
-    added in block order, then fmaf(coef, dy, ·); du's shares over b in
-    order."""
+    Per (step, key row): dr, dw, dk summed as ``_row_sum``, then dr =
+    fmaf(u·k, v·dy, ·), dk = fmaf(u·r, v·dy, ·), and du's term (r·k)·(v·dy),
+    summed as ``_du_sum``; dv = fmaf(coef, dy, ``_dv_sum``) with coef as
+    ``_coef``; v·dy over 32 lanes and an xor tree."""
     B, T, H, N = r.shape
     rf, kf, vf, dyf = (a.float().transpose(1, 2) for a in (r, k, v, dy))   # (B, H, T, N)
     wf = w.float().transpose(1, 2)
     uf = u.float()[None]                                                    # (1, H, N)
     vdy = _lanes_then_tree(vf, dyf)                                         # (B, H, T)
-    coef = _lanes_then_tree(rf * uf[:, :, None], kf)                        # (B, H, T)
+    coef = _coef(rf, uf[:, :, None], kf)                                    # (B, H, T)
     S = torch.zeros((B, H, N, N))
     before = []
     for t in range(T):
@@ -244,45 +293,19 @@ def kernel_bwd_order(r, k, v, w, u, dy, ds=None):
     terms = [None] * T
     for t in reversed(range(T)):
         Sp = before[t]
-        ar, aw, ak = (torch.zeros((B, H, N)) for _ in range(3))
-        for m in range(N):
-            ar = fma(Sp[..., m], dyf[:, :, t, None, m], ar)
-            aw = fma(Sp[..., m], G[..., m], aw)
-            ak = fma(G[..., m], vf[:, :, t, None, m], ak)
         vd = vdy[:, :, t, None]
-        dr[:, :, t] = fma(uf * kf[:, :, t], vd, ar)
-        dk[:, :, t] = fma(uf * rf[:, :, t], vd, ak)
-        dw[:, :, t] = aw
+        dr[:, :, t] = fma(uf * kf[:, :, t], vd, _row_sum(Sp, dyf[:, :, t, None, :]))
+        dk[:, :, t] = fma(uf * rf[:, :, t], vd, _row_sum(G, vf[:, :, t, None, :]))
+        dw[:, :, t] = _row_sum(Sp, G)
         terms[t] = (rf[:, :, t] * kf[:, :, t]) * vd
-        shares = []
-        for g in range(N // RG):
-            acc = torch.zeros((B, H, N))
-            for ii in range(g * RG, (g + 1) * RG):
-                acc = fma(G[:, :, ii, :], kf[:, :, t, ii, None], acc)
-            shares.append(acc)
-        tot = shares[0]
-        for sh in shares[1:]:
-            tot = tot + sh
-        dv[:, :, t] = fma(coef[:, :, t, None], dyf[:, :, t], tot)
+        dv[:, :, t] = fma(coef[:, :, t, None], dyf[:, :, t], _dv_sum(G, kf[:, :, t]))
         G = fma(wf[:, :, t, :, None], G, rf[:, :, t, :, None] * dyf[:, :, t, None, :])
-    du = torch.zeros((B, H, N))
-    for t0 in reversed(range(0, T, TS)):
-        stage = torch.zeros((B, H, N))
-        for a in reversed(range(t0, min(t0 + TS, T), SUB)):
-            sub = torch.zeros((B, H, N))
-            for t in reversed(range(a, min(a + SUB, T))):
-                sub = sub + terms[t]
-            stage = stage + sub
-        du = du + stage
-    du_sum = du[0]
-    for b in range(1, B):
-        du_sum = du_sum + du[b]
     back = lambda a, dt: a.transpose(1, 2).to(dt)
     return (back(dr, r.dtype), back(dk, r.dtype), back(dv, r.dtype), back(dw, torch.float32),
-            du_sum)
+            _du_sum(terms, T))
 
 
-@pytest.mark.parametrize("name", ["n32_ragged", "n64_ds", "w_near0_ds", "w_near1"])
+@pytest.mark.parametrize("name", ["n32_ragged", "n64_ds", "n128_ds", "w_near0_ds", "w_near1"])
 def test_kernel_order_matches_jax_vjp(name, want):
     ins, dy, ds = _inputs(name)
     got = kernel_bwd_order(*map(torch.from_numpy, ins), torch.from_numpy(dy),
@@ -314,3 +337,41 @@ def test_kernel_order_in_bf16_holds_the_chip_gate(name):
                                    msg=lambda m: f"{gname}: {m}")
     for g, p in zip(got[3:], plain[3:]):
         torch.testing.assert_close(g, p.float(), rtol=1e-4, atol=1e-4)
+
+
+def _g_states(ins, dy, ds):
+    """G_t = dL/dS_t for every t, (B, H, T, N, N), from the recurrence in
+    fp64 (independent of both the kernel's order and the plain version's)."""
+    r, w = (np.asarray(a, np.float64).transpose(0, 2, 1, 3) for a in (ins[0], ins[3]))
+    B, H, T, N = r.shape
+    dyt = np.asarray(dy, np.float64).transpose(0, 2, 1, 3)
+    G = np.zeros((B, H, N, N)) if ds is None else np.asarray(ds, np.float64).copy()
+    out = np.zeros((B, H, T, N, N))
+    for t in reversed(range(T)):
+        out[:, :, t] = G
+        G = w[:, :, t, :, None] * G + r[:, :, t, :, None] * dyt[:, :, t, None, :]
+    return out
+
+
+@pytest.mark.parametrize("name", ["n32_ragged", "n64_ds", "n128_ds"])
+def test_cluster_dv_and_ticket_du_orders_match_jax_vjp(name, want):
+    """dv and du alone in the kernel's order, on the reference's G_t: dv_t
+    = fmaf(coef_t, dy_t, Σ_n G_t[n] k_t[n]) with the row pairs, the blocks
+    and the cluster's ranks (1, 2, 8 at N 32, 64, 128) summed in order and
+    coef likewise; du's terms over sub-stages, stages and then b in order
+    (the ticket's last block)."""
+    ins, dy, ds = _inputs(name)
+    r, k, v = (torch.from_numpy(a).transpose(1, 2) for a in ins[:3])
+    u = torch.from_numpy(ins[4])
+    dyt = torch.from_numpy(dy).transpose(1, 2)
+    B, H, T, N = r.shape
+    G = torch.from_numpy(_g_states(ins, dy, ds)).float()
+    coef = _coef(r, u[None, :, None], k)
+    dv = torch.stack([fma(coef[:, :, t, None], dyt[:, :, t], _dv_sum(G[:, :, t], k[:, :, t]))
+                      for t in range(T)], 2)
+    vdy = _lanes_then_tree(v, dyt)
+    du = _du_sum([(r[:, :, t] * k[:, :, t]) * vdy[:, :, t, None] for t in range(T)], T)
+    np.testing.assert_allclose(dv.transpose(1, 2).numpy(), want(name)[0][2], rtol=RTOL,
+                               atol=ATOL, err_msg="dv")
+    np.testing.assert_allclose(du.numpy(), want(name)[0][4], rtol=RTOL, atol=ATOL,
+                               err_msg="du")
