@@ -237,16 +237,20 @@ Phases, one or more lines each:
                 (``attention_bwd_ref``, ``attention_ref(return_lse=True)``)
                 at the training path's shapes: internvl2-2b's (B 2, S 2,304,
                 H 16/8, hd 128, causal) in bf16 and fp32, mini's, gemma3-12b's
-                local block (hd 240, window 1,024), whisper-large-v3's cross
-                attention and encoder, causal Sq != Sk both ways (rows with
-                no live key), an hd of 80 under a window; lse 1e-5, fp32
+                local block (hd 240, window 1,024) in bf16, in fp32 and in
+                bf16 off TMA's 16-byte alignment, its global block (causal),
+                recurrentgemma-2b's local attention (H 10/1, hd 256, window
+                2,048), whisper-large-v3's cross attention and encoder,
+                causal Sq != Sk both ways (rows with no live key), an hd of
+                80 under a window and a ragged hd 136; lse 1e-5, fp32
                 gradients 1e-4, bf16 one ulp relative and 4 x the fp32
                 kernels' error on the same inputs; each row on the route it
-                must take (the tensor-core kernels for bf16 at hd <= 128,
-                the FMA kernels for fp32 and hd 240, from the wrappers'
-                route counts); each launch twice, the same bits; times
-                against the plain backward, SDPA's autograd backward and the
-                bound. The WKV6 training forward (the kernel writing the
+                must take (the tensor-core kernels for bf16 at any hd up to
+                256 in a TMA layout, the FMA kernels for fp32 and the
+                unaligned bf16 row, from the wrappers' route counts); each
+                launch twice, the same bits; times against the plain
+                backward, SDPA's autograd backward and the bound. The WKV6
+                training forward (the kernel writing the
                 state at the start of each 32-step stage) against the
                 serving forward, y and S bit for bit, and the WKV6 backward
                 kernel against ``wkv6_bwd_ref`` at rwkv6-1.6b's training
@@ -272,7 +276,14 @@ Phases, one or more lines each:
                 losses and grad norms, exactly 24 forward, 24 dq and 24 dk/dv
                 launches a step and nothing else, every backward launch on
                 the tensor-core route; first and steady step ms,
-                tokens/s, peak memory. The RWKV main path, rwkv6-1.6b whole
+                tokens/s, peak memory. gemma3-12b at full width, 2 of its
+                48 layers (both local) kernel path vs plain path as
+                internvl2's, then 6 layers (one 5:1 local:global unit; one
+                card cannot hold the whole model's training state) for 4
+                steps on 2 x 2,048 ``TokenPipeline`` tokens: exactly 6
+                forward, 6 dq and 6 dk/dv launches a step and nothing else,
+                every backward launch on the tensor-core route (hd 240);
+                the same records. The RWKV main path, rwkv6-1.6b whole
                 (1.6 B params, bf16, AdamW moments fp32, no remat) for 4
                 steps on 2 x 2,048 ``TokenPipeline`` tokens: finite losses
                 and grad norms, exactly 24 WKV6 forward and 24 backward
@@ -292,10 +303,10 @@ The SpMM's launch counter is set to 0 just before phase 4 and read just
 after phase 5; every counter is set to 0 just before each ``serve`` of
 phase 8, each ``run`` of phases 10, 11, 12 and 14 (the collective counts
 too), each pipeline of phase 13 and its chaos matrix, and each example of
-phase 15, and the internvl2-2b and rwkv6-1.6b training runs of phase 16
-and each of its other runs, and read just after it.
-``--profile`` traces one steady internvl2-2b and one rwkv6-1.6b train step
-in phase 16, a
+phase 15, and the internvl2-2b, gemma3-12b and rwkv6-1.6b training runs of
+phase 16 and each of its other runs, and read just after it.
+``--profile`` traces one steady internvl2-2b, gemma3-12b and rwkv6-1.6b
+train step in phase 16, a
 second traffic run after phase 6, one prefill + 4 decode steps of each LM
 in phase 9, one steady training round replayed from its CUDA graph in phase
 10 and one stepwise in phase 12 (the host's kernel and graph launches, the
@@ -681,6 +692,24 @@ def spills_among_hgmma(build, name: str, pattern: str) -> dict:
     return out
 
 
+def ptxas_spills(log: str) -> dict:
+    """{mangled function: {"stack_frame": bytes, "spill_stores": bytes,
+    "spill_loads": bytes}} from ``ptxas -v``'s report in a build log."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if fn and m:
+            out[fn] = dict(zip(("stack_frame", "spill_stores", "spill_loads"),
+                               map(int, m.groups())))
+            fn = None
+    return out
+
+
 def res_usage(build, name: str) -> dict:
     """{mangled function: {"REG": n, "STACK": bytes, "LOCAL": bytes, ...}} from
     ``cuobjdump -res-usage``. A spill goes to the stack frame, so STACK and
@@ -870,7 +899,7 @@ def flash_bwd_bound(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype, product
 
 
 def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal, window,
-                    dtype, reps, want_route, Sk=None):
+                    dtype, reps, want_route, Sk=None, unaligned=False):
     """One attention shape of the training path: the forward's lse against
     the plain lse (1e-5), then the backward kernels against
     ``attention_bwd_ref`` on the same (q, k, v, o, lse, dO): fp32 atol =
@@ -884,15 +913,26 @@ def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal
     Then the times and bounds, each of the whole backward and of each
     kernel alone: the kernels', their plain versions' (the two halves of
     ``attention_bwd_ref``) and the library's (autograd's backward of one
-    SDPA call, for all of q, k, v; for q alone; for k and v alone)."""
+    SDPA call, for all of q, k, v; for q alone; for k and v alone).
+    ``unaligned`` puts q, k, v and dO one element past a 16-byte boundary
+    (contiguous views), a layout TMA cannot take."""
     import torch.nn.functional as F
 
     dev = gen.device
     Sk = Sk or Sq
-    q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(dtype)
-    k, v = (torch.randn((B, Sk, Hkv, hd), generator=gen, device=dev).to(dtype)
-            for _ in range(2))
-    do = torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(dtype)
+
+    def draw(shape):
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        if not unaligned:
+            return x
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+        view = flat[1:].view(shape)
+        view.copy_(x)
+        return view
+
+    q = draw((B, Sq, H, hd))
+    k, v = (draw((B, Sk, Hkv, hd)) for _ in range(2))
+    do = draw((B, Sq, H, hd))
     kw = {"causal": causal, "window": window}
     o, lse = ops.flash_attention_lse(q, k, v, **kw)
     lse_want = ref.attention_ref(q, k, v, return_lse=True, **kw)[1]
@@ -953,6 +993,7 @@ def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal
                                                                retain_graph=True), reps)
     row = {"shape": name, "B": B, "S": Sq, "Sk": Sk, "H": H, "Hkv": Hkv, "hd": hd,
            "causal": causal, "window": window, "dtype": str(dtype), "route": want_route,
+           "unaligned": unaligned,
            "atol": atol, "rtol": rtol, "fp32_max_abs_err_same_inputs": e32,
            "lse_max_abs_err": lse_err,
            "dead_rows": dead, "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
@@ -3001,6 +3042,11 @@ def examples_phase(torch, counters, dev, tag) -> tuple[dict, int]:
 # against the CPU; the example at a cut size
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_TEXT, TRAIN_STEPS, TRAIN_LR = "internvl2-2b", 2, 2048, 4, 3e-4
 TRAIN_CHECK_LAYERS = 2
+# gemma3-12b at full width, one 5:1 local:global unit of its 48 layers (one
+# card cannot hold the whole model's training state: 11.6 B params x 12
+# bytes), at the same batch and schedule; its first 2 (local) blocks in the
+# kernel-vs-plain check
+GEMMA_ARCH, GEMMA_TRAIN_LAYERS = "gemma3-12b", 6
 ZERO_IMAGE_LAYERS = 8
 # rwkv6-1.6b whole at the same batch and text length (attention-free: no
 # image tokens), and launch.train on its smoke configuration
@@ -3036,7 +3082,10 @@ def _zero(counters) -> None:
 def flash_bwd_shapes(torch, fops, fref, timer, gen) -> list:
     """Phase 16's per-op rows: the backward kernels (and the forward's lse)
     at the training path's shapes, each with the route it must run: the
-    tensor cores for bf16 at hd <= 128, the FMA kernels for fp32 and hd 240."""
+    tensor cores for bf16 at any hd up to 256 in a layout TMA can take
+    (gemma3-12b's hd 240 and recurrentgemma-2b's hd 256 at 256, the dq
+    kernel's key tiles split between its consumers), the FMA kernels for
+    fp32 and for bf16 one element off a 16-byte boundary."""
     bf16, f32 = torch.bfloat16, torch.float32
     tc, fma = "tensor_core", "fma"
     cases = [
@@ -3045,7 +3094,7 @@ def flash_bwd_shapes(torch, fops, fref, timer, gen) -> list:
         ("internvl2_train_fp32", 2, 2304, 16, 8, 128, True, None, f32, 3, fma),
         ("mini_fp32", 8, 256, 6, 2, 64, True, None, f32, 10, fma),
         # gemma3-12b's local block (hd 240 runs at 256)
-        ("gemma3_local_bf16", 2, 2048, 16, 8, 240, True, 1024, bf16, 5, fma),
+        ("gemma3_local_bf16", 2, 2048, 16, 8, 240, True, 1024, bf16, 5, tc),
         # whisper-large-v3's cross attention and encoder, unmasked
         ("whisper_cross_bf16", 2, 224, 20, 20, 64, False, None, bf16, 10, tc, 1500),
         ("whisper_enc_bf16", 2, 1500, 20, 20, 64, False, None, bf16, 5, tc),
@@ -3057,11 +3106,26 @@ def flash_bwd_shapes(torch, fops, fref, timer, gen) -> list:
         # an hd between the widths (80 runs at 128; TMA zero-fills the
         # columns past hd), windowed, ragged S
         ("ragged_hd80_window_bf16", 1, 300, 4, 2, 80, True, 100, bf16, 10, tc),
+        # (the rows draw their inputs in turn from one generator: a row
+        # added at the end leaves every other row's inputs as they were)
+        # gemma3-12b's global block; recurrentgemma-2b's local attention,
+        # MQA 10/1 at hd 256
+        ("gemma3_global_bf16", 2, 2048, 16, 8, 240, True, None, bf16, 5, tc),
+        ("recurrentgemma_local_bf16", 2, 2048, 10, 1, 256, True, 2048, bf16, 5, tc),
+        # hd 136 runs at 256: TMA zero-fills the columns past hd, most of
+        # the third panel and all of the fourth; ragged S
+        ("ragged_hd136_bf16", 1, 300, 4, 2, 136, True, None, bf16, 10, tc),
+        # gemma3-12b's local block in fp32, and in bf16 one element off a
+        # 16-byte boundary: the FMA pair (the route bf16 took there before)
+        ("gemma3_local_fp32", 2, 2048, 16, 8, 240, True, 1024, f32, 3, fma),
+        ("gemma3_local_bf16_unaligned", 2, 2048, 16, 8, 240, True, 1024, bf16, 3, fma,
+         None, True),
     ]
     rows = []
     for c in cases:
         rows.append(check_flash_bwd(torch, fops, fref, timer, gen, *c[:11],
-                                    **({"Sk": c[11]} if len(c) > 11 else {})))
+                                    Sk=c[11] if len(c) > 11 else None,
+                                    unaligned=len(c) > 12 and c[12]))
         torch.cuda.empty_cache()
     return rows
 
@@ -3411,10 +3475,91 @@ def rwkv_train_card_vs_cpu(torch, counters, dev, tag) -> dict:
             "cpu_s": cpu["seconds"], "losses_card": a.tolist(), "losses_cpu": b.tolist()}
 
 
+def flash_train_whole(torch, lm, counters, cfg, batch_at, dev, tag, profile) -> tuple:
+    """An attention LM's training main path: ``cfg`` (bf16, AdamW moments
+    fp32) for ``TRAIN_STEPS`` steps of ``make_train_step`` under
+    ``linear_warmup_cosine``, ``batch_at(i)`` the i-th batch, the counts from
+    0: finite losses and grad norms > 0, exactly one forward, one dq and
+    one dk/dv flash launch a layer a step and nothing else, every backward
+    launch on the tensor-core route; first and steady step ms, tokens/s,
+    peak memory; with ``profile`` one more step traced. Returns (record,
+    launches)."""
+    from repro_torch.optim import linear_warmup_cosine
+
+    t0 = time.perf_counter()
+    params, opt = lm.init_train_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                                      torch.float32, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = lm.make_train_step(cfg, linear_warmup_cosine(TRAIN_LR, TRAIN_STEPS // 10 + 1,
+                                                        TRAIN_STEPS))
+    layers = cfg.n_layers
+    want = {n: 0 for n in counters}
+    want.update(flash_attention=layers, flash_bwd_dq=layers, flash_bwd_dkdv=layers)
+    want_routes = {n: {"tensor_core": layers, "fma": 0} for n in BWD_KERNELS}
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    routes0 = _routes(counters)
+    steps = []
+    for i in range(TRAIN_STEPS):
+        batch = batch_at(i)
+        before, before_routes = _counts(counters), _routes(counters)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        got = {n: c - before[n] for n, c in _counts(counters).items()}
+        routes = _routes_since(counters, before_routes)
+        row = {"step": i, "ms": ms, "loss": float(m["loss"]), "xent": float(m["xent"]),
+               "grad_norm": float(m["grad_norm"]), "lr": m["lr"], "launches": got,
+               "routes": routes}
+        steps.append(row)
+        if (got != want or routes != want_routes or not math.isfinite(row["loss"])
+                or not (math.isfinite(row["grad_norm"]) and row["grad_norm"] > 0)):
+            raise AssertionError(f"lm-train {cfg.arch_id} step {i}: {row}; want launches "
+                                 f"{want}, routes {want_routes}")
+    launches = _counts(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steady = sorted(r["ms"] for r in steps[1:])[len(steps[1:]) // 2]
+    text = TRAIN_BATCH * TRAIN_TEXT
+    rec = {"arch": cfg.arch_id, "layers": layers, "params": cfg.param_count(),
+           "dtype": cfg.dtype, "moments": "float32", "batch": TRAIN_BATCH,
+           "image_tokens": cfg.n_image_tokens, "text_tokens": TRAIN_TEXT, "init_s": init_s,
+           "steps": steps, "first_step_ms": steps[0]["ms"], "steady_step_ms": steady,
+           "text_tokens_per_s": text / (steady / 1e3),
+           "all_tokens_per_s": TRAIN_BATCH * (TRAIN_TEXT + cfg.n_image_tokens) / (steady / 1e3),
+           "peak_memory_gb": peak_gb, "launches": launches,
+           "routes": _routes_since(counters, routes0)}
+    image = f"{cfg.n_image_tokens} image + " if cfg.n_image_tokens else ""
+    log(f"phase 16 lm-train: {tag}: {cfg.arch_id} at {layers} layers ({cfg.param_count():,} "
+        f"params, {cfg.dtype}, AdamW moments fp32) batch {TRAIN_BATCH} x ({image}"
+        f"{TRAIN_TEXT} text) tokens, {TRAIN_STEPS} steps: losses "
+        f"{[r['loss'] for r in steps]} grad norms {[r['grad_norm'] for r in steps]} lr "
+        f"{[r['lr'] for r in steps]}; first step {steps[0]['ms']:.1f} ms, steady "
+        f"{steady:.1f} ms ({rec['text_tokens_per_s']:.0f} text tokens/s); peak "
+        f"memory {peak_gb:.2f} GB; launches a step {json.dumps(want)}, in all "
+        f"{json.dumps(launches)}, every backward launch on the tensor-core route "
+        f"{json.dumps(rec['routes'])}; init {init_s:.1f} s")
+    if profile:
+        batch = batch_at(TRAIN_STEPS)
+        (params, opt, _), prof = _trace(torch, lambda: step(params, opt, batch), 16)
+        rec["profile"] = prof
+        log(f"profile: {tag}: {cfg.arch_id} one steady train step: wall {prof['wall_ms']} ms, "
+            f"device busy {prof['device_busy_ms']} ms (share {prof['device_busy_share']}); "
+            f"host calls {json.dumps(prof['api_calls'])}")
+        for e in prof["top_device"]:
+            log(f"profile: device {e['device_ms']} ms x{e['count']} {e['name']}")
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
 def lm_train_phase(torch, counters, get_config, get_smoke_config, dev, tag,
                    profile) -> tuple[dict, dict]:
     """Phase 16: LM training on the card. Returns (record, {main path: its
-    launches}) for internvl2-2b's and rwkv6-1.6b's."""
+    launches}) for internvl2-2b's, gemma3-12b's and rwkv6-1.6b's."""
     import dataclasses
 
     from repro_torch.data import TokenPipeline, make_lm_batch
@@ -3424,7 +3569,6 @@ def lm_train_phase(torch, counters, get_config, get_smoke_config, dev, tag,
     from repro_torch.kernels.wkv6 import ops as wops
     from repro_torch.kernels.wkv6 import ref as wref
     from repro_torch.models import lm
-    from repro_torch.optim import linear_warmup_cosine
 
     rec = {}
     timer = Timer(torch)
@@ -3490,75 +3634,27 @@ def lm_train_phase(torch, counters, get_config, get_smoke_config, dev, tag,
     torch.cuda.empty_cache()
 
     # the main path: internvl2-2b whole, 4 steps (counts from 0)
-    t0 = time.perf_counter()
-    params, opt = lm.init_train_state(torch.Generator(device=dev).manual_seed(0), cfg,
-                                      torch.float32, dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    step = lm.make_train_step(cfg, linear_warmup_cosine(TRAIN_LR, TRAIN_STEPS // 10 + 1,
-                                                        TRAIN_STEPS))
-    layers = cfg.n_layers
-    want = {n: 0 for n in counters}
-    want.update(flash_attention=layers, flash_bwd_dq=layers, flash_bwd_dkdv=layers)
-    # every backward launch of a step on the tensor-core route (bf16, hd 128)
-    want_routes = {n: {"tensor_core": layers, "fma": 0} for n in BWD_KERNELS}
-    torch.cuda.reset_peak_memory_stats()
-    _zero(counters)
-    routes0 = _routes(counters)
-    steps = []
-    for i in range(TRAIN_STEPS):
-        batch = batch_at(i)
-        before, before_routes = _counts(counters), _routes(counters)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        params, opt, m = step(params, opt, batch)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t1) * 1e3
-        got = {n: c - before[n] for n, c in _counts(counters).items()}
-        routes = _routes_since(counters, before_routes)
-        row = {"step": i, "ms": ms, "loss": float(m["loss"]), "xent": float(m["xent"]),
-               "grad_norm": float(m["grad_norm"]), "lr": m["lr"], "launches": got,
-               "routes": routes}
-        steps.append(row)
-        if (got != want or routes != want_routes or not math.isfinite(row["loss"])
-                or not (math.isfinite(row["grad_norm"]) and row["grad_norm"] > 0)):
-            raise AssertionError(f"lm-train {TRAIN_ARCH} step {i}: {row}; want launches {want}, "
-                                 f"routes {want_routes}")
-    main_launches = _counts(counters)
-    rec["routes"] = {f"{TRAIN_ARCH} train": _routes_since(counters, routes0)}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    steady = sorted(r["ms"] for r in steps[1:])[len(steps[1:]) // 2]
-    text_tokens = TRAIN_BATCH * TRAIN_TEXT
-    rec["train_full"] = {
-        "arch": TRAIN_ARCH, "params": cfg.param_count(), "dtype": cfg.dtype,
-        "moments": "float32", "batch": TRAIN_BATCH, "image_tokens": cfg.n_image_tokens,
-        "text_tokens": TRAIN_TEXT, "init_s": init_s, "steps": steps,
-        "first_step_ms": steps[0]["ms"], "steady_step_ms": steady,
-        "text_tokens_per_s": text_tokens / (steady / 1e3),
-        "all_tokens_per_s": TRAIN_BATCH * (TRAIN_TEXT + cfg.n_image_tokens) / (steady / 1e3),
-        "peak_memory_gb": peak_gb, "launches": main_launches,
-        "routes": rec["routes"][f"{TRAIN_ARCH} train"]}
-    log(f"phase 16 lm-train: {tag}: {TRAIN_ARCH} whole ({cfg.param_count():,} params, "
-        f"{cfg.dtype}, AdamW moments fp32) batch {TRAIN_BATCH} x ({cfg.n_image_tokens} image "
-        f"+ {TRAIN_TEXT} text) tokens, {TRAIN_STEPS} steps: losses "
-        f"{[r['loss'] for r in steps]} grad norms {[r['grad_norm'] for r in steps]} lr "
-        f"{[r['lr'] for r in steps]}; first step {steps[0]['ms']:.1f} ms, steady "
-        f"{steady:.1f} ms ({rec['train_full']['text_tokens_per_s']:.0f} text tokens/s); peak "
-        f"memory {peak_gb:.2f} GB; launches a step {json.dumps(want)}, in all "
-        f"{json.dumps(main_launches)}, every backward launch on the tensor-core route "
-        f"{json.dumps(rec['routes'])}; init {init_s:.1f} s")
+    rec["train_full"], main_launches = flash_train_whole(torch, lm, counters, cfg, batch_at,
+                                                         dev, tag, profile)
+    rec["routes"] = {f"{TRAIN_ARCH} train": rec["train_full"]["routes"]}
     if profile:
-        batch = batch_at(TRAIN_STEPS)
-        (params, opt, _), prof = _trace(torch, lambda: step(params, opt, batch), 16)
-        rec["profile"] = prof
-        log(f"profile: {tag}: {TRAIN_ARCH} one steady train step: wall {prof['wall_ms']} ms, "
-            f"device busy {prof['device_busy_ms']} ms (share {prof['device_busy_share']}); "
-            f"host calls {json.dumps(prof['api_calls'])}")
-        for e in prof["top_device"]:
-            log(f"profile: device {e['device_ms']} ms x{e['count']} {e['name']}")
-    del params, opt, step
+        rec["profile"] = rec["train_full"].pop("profile")
+
+    # gemma3-12b at full width, one 5:1 unit (6 of 48 layers): hd 240 on the
+    # tensor-core backward. Its kernel path against the plain path at 2
+    # local blocks, then 4 steps (counts from 0)
+    gcut, greduced = full_width(get_config, GEMMA_ARCH, TRAIN_CHECK_LAYERS)
+    gpipe = TokenPipeline(gcut.vocab_size, TRAIN_TEXT, TRAIN_BATCH, seed=0)
+    rec["gemma_kernel_vs_plain"] = train_kernel_vs_plain(torch, lm, gcut, dev,
+                                                         make_lm_batch(gpipe, 0, dev), tag)
+    rec["gemma_kernel_vs_plain"]["reduced"] = greduced
     gc.collect()
     torch.cuda.empty_cache()
+    gcfg, greduced = full_width(get_config, GEMMA_ARCH, GEMMA_TRAIN_LAYERS)
+    rec["gemma_train"], gemma_launches = flash_train_whole(
+        torch, lm, counters, gcfg, lambda i: make_lm_batch(gpipe, i, dev), dev, tag, profile)
+    rec["gemma_train"]["reduced"] = greduced
+    rec["routes"][f"{GEMMA_ARCH} train"] = rec["gemma_train"]["routes"]
 
     # the RWKV main path: rwkv6-1.6b whole (counts from 0)
     rec["rwkv_train_full"], rwkv_launches = rwkv_train_whole(torch, lm, counters, get_config,
@@ -3607,7 +3703,8 @@ def lm_train_phase(torch, counters, get_config, get_smoke_config, dev, tag,
                              f"launches {_counts(counters)}, want {want}")
     log(f"phase 16 lm-train: {tag}: rwkv6-1.6b smoke forward in grad mode with no gradient "
         f"wanted (rwkv_chunk 16): WKV6 forward launched {rcfg.n_layers} times, no backward")
-    return rec, {f"{TRAIN_ARCH} train": main_launches, f"{RWKV_ARCH} train": rwkv_launches}
+    return rec, {f"{TRAIN_ARCH} train": main_launches, f"{GEMMA_ARCH} train": gemma_launches,
+                 f"{RWKV_ARCH} train": rwkv_launches}
 
 
 def main(argv=None) -> int:
@@ -3706,25 +3803,34 @@ def main(argv=None) -> int:
     for n, c in among.items():
         m = re.match(r"(\w+)ILi(\d+)E", n)
         tc_fns[f"{m.group(1)}<{m.group(2)}>"]["spill_ops_among_hgmma"] = c
+    # ptxas's own spill report, where this run built the library
+    for n, r in ptxas_spills(build.build_log.get("flash_attention", "")).items():
+        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkdv)_tc_kernel)ILi(\d+)E", n)
+        if m:
+            tc_fns[f"{m.group(1)}<{m.group(2)}>"].update(r)
     for n, r in sorted(tc_fns.items()):
         log(f"phase 2 build: flash_attention: {n}: {r['registers']} registers a thread "
             f"as ptxas allocated them, stack {r['stack_bytes']} B, local "
             f"{r['local_bytes']} B"
             + (f", {r['spill_ops_among_hgmma']} spill loads and stores among its HGMMA"
-               if "spill_ops_among_hgmma" in r else ""))
+               if "spill_ops_among_hgmma" in r else "")
+            + (f", ptxas: {r['spill_stores']} B of spill stores, {r['spill_loads']} B of "
+               f"spill loads" if "spill_stores" in r else ""))
     log(f"phase 2 build: flash_attention: {hgmma} HGMMA instructions in the library's "
         f"SASS; {len(tc_fns)} tensor-core kernel instances")
     if hgmma == 0:
         raise AssertionError("build: no HGMMA in the flash attention library: the bf16 "
                              "kernel does not run on the tensor cores")
     # the forward at three widths (64, 128, 256), none with a stack frame or
-    # local memory; each backward kernel at two (64, 128), with no spill
-    # traffic among its tensor-core instructions (what ptxas spills of the
-    # consumers' 240 registers lies before or after the loop's products)
+    # local memory; each backward kernel at three (64, 128, 256), with no
+    # spill traffic among its tensor-core instructions (what ptxas spills of
+    # the consumers' 240 registers at 64 and 128 lies before or after the
+    # loop's products), and at 256 with no stack frame at all
     fwd = [r for n, r in tc_fns.items() if n.startswith("flash_fwd")]
     bwd = [r for n, r in tc_fns.items() if not n.startswith("flash_fwd")]
-    if (len(fwd) != 3 or len(bwd) != 4
-            or any(r["stack_bytes"] != 0 or r["local_bytes"] != 0 for r in fwd)
+    wide = [r for n, r in tc_fns.items() if n.endswith("<256>")]
+    if (len(fwd) != 3 or len(bwd) != 6
+            or any(r["stack_bytes"] != 0 or r["local_bytes"] != 0 for r in fwd + wide)
             or any(r["local_bytes"] != 0 or r.get("spill_ops_among_hgmma") != 0
                    for r in bwd)):
         raise AssertionError(f"build: the bf16 flash kernels' instances spill or are "

@@ -81,8 +81,8 @@
 // Both forward kernels also write each query row's fp32 log-sum-exp of its
 // scaled scores, lse (B, H, Sq), when the caller gives a buffer for it (null
 // leaves the launch as it was); a row with no live key gets +inf. The
-// backward's kernels (below: on the tensor cores for bf16 up to hd 128, on
-// the FMA pipes otherwise) recompute the probabilities from it.
+// backward's kernels (below: on the tensor cores for bf16 in a layout TMA
+// can take, on the FMA pipes otherwise) recompute the probabilities from it.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (repro_torch/kernels/build.py). Entry points have
@@ -816,11 +816,12 @@ constexpr int kTerms = 3;   // bf16 terms of p and dS in the backward's products
 constexpr int kTileCols = 64;
 
 // Shared memory of the two backward kernels, in bytes from a 1024-aligned
-// base: two resident tiles of RES rows (dq: Q and dO, 128 rows; dk/dv: K
-// and V, 64), then a ring of kStages pairs of streamed tiles of kBK rows
-// (dq: K and V; dk/dv: Q and dO), each NP 128-byte swizzled panels of 64
-// columns as in Layout; then the streamed query tiles' lse (base 2) and
-// delta, kBK fp32 each a stage (dk/dv); then the barriers.
+// base: two resident tiles of RES rows (dq: Q and dO, dq_rows: 128, or 64
+// at HDP 256; dk/dv: K and V, 64), then a ring of kStages pairs of
+// streamed tiles of kBK rows (dq: K and V; dk/dv: Q and dO), each NP
+// 128-byte swizzled panels of 64 columns as in Layout; then the streamed
+// query tiles' lse (base 2) and delta, kBK fp32 each a stage (dk/dv); then
+// the barriers.
 template <int HDP, int RES>
 struct BwdLayout {
   static constexpr int NP = HDP / 64;
@@ -833,19 +834,19 @@ struct BwdLayout {
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-// acc (the 64 x HDP fp32 fragment of rows r0, r0 + 8) += A B, A (64 x 64)
+// acc (the 64 x OC fp32 fragment of rows r0, r0 + 8) += A B, A (64 x 64)
 // as kTerms bf16 terms in registers (the S-shaped fragment, 16 registers a
-// term), B (64 x HDP) MN-major from shared memory at `b` in panels of 64
+// term), B (64 x OC) MN-major from shared memory at `b` in panels of 64
 // columns `panel` bytes apart. kTileCols columns at a time are summed on
 // the tensor cores into a zeroed accumulator (4 steps of 16 rows of B for
 // each term), then added to acc in fp32, so that a sum on the tensor cores
 // spans one tile.
-template <int HDP>
+template <int OC>
 __device__ __forceinline__ void add_tile_product(float* acc, uint32_t* a, uint32_t b,
                                                  uint32_t panel) {
-  constexpr int NC = HDP < kTileCols ? HDP : kTileCols;
+  constexpr int NC = OC < kTileCols ? OC : kTileCols;
 #pragma unroll
-  for (int part = 0; part < HDP / NC; ++part) {
+  for (int part = 0; part < OC / NC; ++part) {
     float tile[NC / 2];
 #pragma unroll
     for (int j = 0; j < NC / 2; ++j) tile[j] = 0.f;
@@ -865,6 +866,18 @@ __device__ __forceinline__ void add_tile_product(float* acc, uint32_t* a, uint32
 #pragma unroll
     for (int j = 0; j < NC / 2; ++j) acc[NC / 2 * part + j] += tile[j];
   }
+}
+
+// x, opaque to the compiler. At HDP 256 the backward kernels take their
+// block's coordinates through this after setmaxnreg, in each warp role, so
+// that nothing derived from them is formed before the roles part (a value
+// live across setmaxnreg.dec must fit the producer's registers, and ptxas
+// spilled such values to local memory), and the dq kernel takes its
+// epilogue's block and row through it, so that what the stores need is
+// formed after the tile loop, not kept through it
+__device__ __forceinline__ int fresh(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 
 // 2^x as one MUFU.EX2 (ex2.approx.ftz; 2^-inf is +0): exp2f adds range
@@ -915,10 +928,22 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long stride,
   }
 }
 
-// dQ of 128 query rows of one (b, h), and their delta = sum dO.O (written to
-// `delta` for the dK/dV kernel). Warpgroups 0 and 1 consume, 64 rows each;
-// the producer warp's first lane loads Q and dO once and streams the live K
-// and V tiles through the ring.
+// The dq kernel's block up to HDP 128: 128 query rows, 64 a consumer, each
+// consumer summing all HDP columns of its rows. At HDP 256 (the note
+// below): 64 rows, both consumers forming S, dP and dS of every live tile
+// of them, consumer w summing dq's columns 128 w to 128 w + 127.
+template <int HDP>
+__host__ __device__ constexpr int dq_rows() { return HDP <= 128 ? kBQ : 64; }
+// columns of an output a consumer sums (dq here; dk or dv in the dK/dV
+// kernel, whose grid takes the halves at HDP 256)
+template <int HDP>
+__host__ __device__ constexpr int out_cols() { return HDP <= 128 ? HDP : 128; }
+
+// dQ of dq_rows query rows of one (b, h), and their delta = sum dO.O
+// (written to `delta` for the dK/dV kernel). Warpgroups 0 and 1 consume
+// (64 rows each, all columns; at HDP 256 the same 64 rows, half the columns
+// each); the producer warp's first lane loads Q and dO once and streams the
+// live K and V tiles through the ring.
 template <int HDP>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_tc_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
@@ -926,7 +951,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_tc_kernel(
     const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
     int Sq, int Sk, int H, int Hkv, int hd, int causal, int window, float scale) {
-  using L = BwdLayout<HDP, kBQ>;
+  constexpr int BQ = dq_rows<HDP>(), OC = out_cols<HDP>();
+  constexpr bool kShared = BQ == 64;   // both consumers on the same rows
+  using L = BwdLayout<HDP, BQ>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base, sdo = base + L::kRes;
@@ -937,15 +964,25 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_tc_kernel(
   auto empty = [&](int s) { return res_full + 8 * (1 + kStages + s); };
 
   const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / (H / Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest (last) tiles first
-  const int q_last = min(q0 + kBQ, Sq) - 1;
-  int kt_lo = 0, kt_hi = (Sk - 1) / kBK;
-  if (causal) {
-    kt_hi = min(q_last, Sk - 1) / kBK;
-    if (window > 0) kt_lo = max(0, q0 - window + 1) / kBK;
-  }
-  const int n_tiles = kt_hi - kt_lo + 1;   // <= 0 when a window lies wholly past Sk
+  // the block's (b, h), first query row and live key tiles, kt_lo on; n_tiles
+  // <= 0 when a window lies wholly past Sk. Formed before the roles part up
+  // to HDP 128, in each role at HDP 256 (fresh)
+  int bh, b, h, q0, kt_lo, n_tiles;
+  auto block = [&](int bx, int by) {
+    bh = bx;
+    b = bh / H;
+    h = bh % H;
+    q0 = (gridDim.y - 1 - by) * BQ;  // heaviest (last) tiles first
+    const int q_last = min(q0 + BQ, Sq) - 1;
+    int kt_hi = (Sk - 1) / kBK;
+    kt_lo = 0;
+    if (causal) {
+      kt_hi = min(q_last, Sk - 1) / kBK;
+      if (window > 0) kt_lo = max(0, q0 - window + 1) / kBK;
+    }
+    n_tiles = kt_hi - kt_lo + 1;
+  };
+  if constexpr (!kShared) block(blockIdx.x, blockIdx.y);
 
   if (threadIdx.x == 0) {
     mbar_init(res_full, 1);
@@ -961,6 +998,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_tc_kernel(
     // ---- producer: Q and dO once, then the K/V ring ---------------------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tw == 0) {
+      if constexpr (kShared) block(fresh(blockIdx.x), fresh(blockIdx.y));
+      const int hk = h / (H / Hkv);
       mbar_expect_tx(res_full, 2 * L::kRes);
       for (int p = 0; p < L::NP; ++p) {
         tma_load(sq + p * L::kResPanel, &tq, res_full, p * 64, h, q0, b);
@@ -980,26 +1019,31 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_tc_kernel(
   } else {
     // ---- consumers: 64 query rows each ---------------------------------------
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    if constexpr (kShared) block(fresh(blockIdx.x), fresh(blockIdx.y));
     const int lane = tw % 32;
-    const int r0 = wg * 64 + (tw / 32) * 16 + lane / 4;   // rows r0 and r0 + 8 of the tile
+    const int row0 = kShared ? 0 : wg * 64;   // the warpgroup's first row in the block
+    const int col0 = kShared ? wg * OC : 0;   // and its first column of dq
+    const int r0 = row0 + (tw / 32) * 16 + lane / 4;   // rows r0 and r0 + 8 of the block
     const int qp0 = q0 + r0, qp1 = qp0 + 8;
-    const int w_first = q0 + wg * 64, w_last = min(w_first + 63, Sq - 1);
+    const int w_first = q0 + row0, w_last = min(w_first + 63, Sq - 1);
     const long long q_stride = (long long)H * hd;
     const long long q_base = (long long)b * Sq * q_stride + (long long)h * hd;
     // delta of rows qp0 and qp1: the quad's four threads take every fourth
-    // 16-byte chunk of the row, then sum over the quad (the same bits in all four)
-    const long long row0 = q_base + qp0 * q_stride, row1 = q_base + qp1 * q_stride;
+    // 16-byte chunk of the row, then sum over the quad (the same bits in all
+    // four, and in both warpgroups where they share the rows; warpgroup 0
+    // writes it)
+    const long long row_0 = q_base + qp0 * q_stride, row_1 = q_base + qp1 * q_stride;
     float d0 = 0.f, d1 = 0.f;
     for (int c = (lane % 4) * 8; c < hd; c += 32) {
-      if (qp0 < Sq) d0 = dot8(dout + row0 + c, o + row0 + c, d0);
-      if (qp1 < Sq) d1 = dot8(dout + row1 + c, o + row1 + c, d1);
+      if (qp0 < Sq) d0 = dot8(dout + row_0 + c, o + row_0 + c, d0);
+      if (qp1 < Sq) d1 = dot8(dout + row_1 + c, o + row_1 + c, d1);
     }
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
       d0 += __shfl_xor_sync(0xffffffffu, d0, off);
       d1 += __shfl_xor_sync(0xffffffffu, d1, off);
     }
-    if (lane % 4 == 0) {
+    if (lane % 4 == 0 && (!kShared || wg == 0)) {
       if (qp0 < Sq) delta[(long long)bh * Sq + qp0] = d0;
       if (qp1 < Sq) delta[(long long)bh * Sq + qp1] = d1;
     }
@@ -1008,9 +1052,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_tc_kernel(
     const float l0 = qp0 < Sq ? lrow[qp0] * kLog2e : INFINITY;
     const float l1 = qp1 < Sq ? lrow[qp1] * kLog2e : INFINITY;
     const float scale_log2 = scale * kLog2e;
-    float acc[HDP / 2];
+    float acc[OC / 2];
 #pragma unroll
-    for (int j = 0; j < HDP / 2; ++j) acc[j] = 0.f;
+    for (int j = 0; j < OC / 2; ++j) acc[j] = 0.f;
     mbar_wait(res_full, 0);
 
     for (int it = 0; it < n_tiles; ++it) {
@@ -1029,7 +1073,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_tc_kernel(
         for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
         pin<32>(sc);
         pin<32>(dp);
-        const uint32_t qa = sq + wg * 64 * 128, da = sdo + wg * 64 * 128;
+        const uint32_t qa = sq + row0 * 128, da = sdo + row0 * 128;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < HDP / 16; ++kk) {
@@ -1078,19 +1122,26 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_tc_kernel(
           ds_terms(std::true_type{});
         else
           ds_terms(std::false_type{});
-        // dQ += this tile's dS K (K as the MN-major B)
-        add_tile_product<HDP>(acc, dst, sk(s), L::kStrPanel);
+        // dQ (this warpgroup's columns) += this tile's dS K (K as the
+        // MN-major B, from its column col0 on)
+        add_tile_product<OC>(acc, dst, sk(s) + (col0 / 64) * L::kStrPanel, L::kStrPanel);
       }
       mbar_arrive(empty(s));
     }
-    store_rows<HDP>(dq + (long long)b * Sq * q_stride + (long long)h * hd, q_stride, qp0, Sq,
-                    hd, lane, acc);
+    if constexpr (kShared) {
+      const int bx = fresh(blockIdx.x);
+      const long long row_base = (long long)(bx / H) * Sq * q_stride + (long long)(bx % H) * hd;
+      store_rows<OC>(dq + row_base + col0, q_stride, fresh(qp0), Sq, hd - col0, lane, acc);
+    } else {
+      store_rows<OC>(dq + q_base, q_stride, qp0, Sq, hd, lane, acc);
+    }
   }
 }
 
-// dK and dV of 64 keys of one (b, kv head). Warpgroup 0 forms dV and
-// warpgroup 1 dK, each for all 64 keys, each held in registers over the
-// whole loop; the producer warp's first lane loads K and V once and
+// dK and dV of 64 keys of one (b, kv head), out_cols of their columns (all
+// up to HDP 128; at HDP 256 the half blockIdx.z names). Warpgroup 0 forms
+// dV and warpgroup 1 dK, each for all 64 keys, each held in registers over
+// the whole loop; the producer warp's first lane loads K and V once and
 // streams, for each query head of the group and each query tile some key
 // of the block leaves live, the Q and dO tiles, and the warp copies that
 // tile's lse (base 2) and delta into the ring beside them.
@@ -1101,6 +1152,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_tc_kernel(
     const float* __restrict__ lse, const float* __restrict__ delta,
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int H,
     int Hkv, int hd, int causal, int window, float scale) {
+  constexpr int OC = out_cols<HDP>();
   using L = BwdLayout<HDP, kBK>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -1115,17 +1167,29 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_tc_kernel(
   auto full = [&](int s) { return res_full + 8 * (1 + s); };
   auto empty = [&](int s) { return res_full + 8 * (1 + kStages + s); };
 
+  constexpr bool kWide = HDP > 128;
   const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
-  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv, R = H / Hkv;
-  const int k0 = blockIdx.y * kBK;   // causal: the lowest keys, the heaviest blocks, first
-  const int k_last = min(k0 + kBK, Sk) - 1;
-  // the query tiles some key of this block leaves live, ascending
-  int qt_lo = 0, qt_hi = (Sq - 1) / kBK;
-  if (causal) {
-    qt_lo = k0 / kBK;
-    if (window > 0) qt_hi = min(Sq - 1, k_last + window - 1) / kBK;
-  }
-  const int n_q = max(0, qt_hi - qt_lo + 1), n_tiles = R * n_q;
+  const int R = H / Hkv;
+  // the block's (b, kv head), first key, first column of dk and dv, and
+  // the query tiles some key of it leaves live, qt_lo on, n_q of them for
+  // each query head. Formed before the roles part up to HDP 128, in each
+  // role at HDP 256 (fresh)
+  int b, hk, k0, col0, k_last, qt_lo, n_q;
+  auto block = [&](int bx, int by, int bz) {
+    b = bx / Hkv;
+    hk = bx % Hkv;
+    k0 = by * kBK;   // causal: the lowest keys, the heaviest blocks, first
+    col0 = kWide ? bz * OC : 0;
+    k_last = min(k0 + kBK, Sk) - 1;
+    int qt_hi = (Sq - 1) / kBK;
+    qt_lo = 0;
+    if (causal) {
+      qt_lo = k0 / kBK;
+      if (window > 0) qt_hi = min(Sq - 1, k_last + window - 1) / kBK;
+    }
+    n_q = max(0, qt_hi - qt_lo + 1);
+  };
+  if constexpr (!kWide) block(blockIdx.x, blockIdx.y, blockIdx.z);
 
   if (threadIdx.x == 0) {
     mbar_init(res_full, 1);
@@ -1141,8 +1205,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_tc_kernel(
     // ---- producer: K and V once, then the Q/dO ring; thread 0 issues the TMA
     // loads, warp 0 copies each tile's lse (base 2) and delta (a query past
     // Sq: lse +inf, so p = 0, and delta 0) ----------------------------------------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    // at HDP 256 the producer warp walks its tiles in 32 registers (in 24
+    // ptxas spilled), and each consumer keeps 232 of the block's 64,512
+    if constexpr (kWide)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n");
+    else
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tw >= 32) return;
+    if constexpr (kWide) block(fresh(blockIdx.x), fresh(blockIdx.y), fresh(blockIdx.z));
     if (tw == 0) {
       mbar_expect_tx(res_full, 2 * L::kRes);
       for (int p = 0; p < L::NP; ++p) {
@@ -1173,16 +1243,21 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_tc_kernel(
     }
   } else {
     // ---- consumers: warpgroup 0 dV, warpgroup 1 dK, of the block's 64 keys ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    if constexpr (kWide)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    else
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    if constexpr (kWide) block(fresh(blockIdx.x), fresh(blockIdx.y), fresh(blockIdx.z));
+    const int n_tiles = R * n_q;
     const int lane = tw % 32;
     const int kr0 = k0 + (tw / 32) * 16 + lane / 4, kr1 = kr0 + 8;
     const float scale_log2 = scale * kLog2e;
     // one body for each output, so that no wgmma sits on a branch
     auto consume = [&](auto dk_tag) {
       constexpr bool kDK = decltype(dk_tag)::value;
-      float g[HDP / 2];   // dV or dK of rows kr0, kr1
+      float g[OC / 2];   // dV or dK of rows kr0, kr1, the block's columns
 #pragma unroll
-      for (int j = 0; j < HDP / 2; ++j) g[j] = 0.f;
+      for (int j = 0; j < OC / 2; ++j) g[j] = 0.f;
       mbar_wait(res_full, 0);
 
       for (int it = 0; it < n_tiles; ++it) {
@@ -1250,17 +1325,19 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_tc_kernel(
             p_or_ds(std::true_type{});
           else
             p_or_ds(std::false_type{});
-          // g += this tile's p^T dO or dS^T Q (dO or Q as the MN-major B)
+          // g += this tile's p^T dO or dS^T Q (dO or Q as the MN-major B,
+          // from column col0 on)
           uint32_t t[16 * kTerms];
 #pragma unroll
           for (int i = 0; i < 16; ++i) split_bf16<kTerms>(st[2 * i], st[2 * i + 1], t + i, 16);
-          add_tile_product<HDP>(g, t, kDK ? sq(s) : sdo(s), L::kStrPanel);
+          add_tile_product<OC>(g, t, (kDK ? sq(s) : sdo(s)) + (col0 / 64) * L::kStrPanel,
+                               L::kStrPanel);
         }
         mbar_arrive(empty(s));
       }
       const long long kv_stride = (long long)Hkv * hd;
       const long long kv_base = (long long)b * Sk * kv_stride + (long long)hk * hd;
-      store_rows<HDP>((kDK ? dk : dv) + kv_base, kv_stride, kr0, Sk, hd, lane, g);
+      store_rows<OC>((kDK ? dk : dv) + kv_base + col0, kv_stride, kr0, Sk, hd - col0, lane, g);
     };
     if (wg == 0)
       consume(std::false_type{});
@@ -1269,12 +1346,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_tc_kernel(
   }
 }
 
-// The backward's route: the tensor-core kernels take bf16 at hd <= 128 in a
-// layout TMA can take, dO (and o, which the dq kernel reads in 16-byte loads,
-// when given) 16-byte aligned too; the rest runs the FMA kernels.
+// The backward's route: the tensor-core kernels take bf16 (any hd up to 256)
+// in a layout TMA can take, dO (and o, which the dq kernel reads in 16-byte
+// loads, when given) 16-byte aligned too; the rest runs the FMA kernels.
 bool bwd_tensor_cores(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, int hd, int dtype) {
-  return dtype == 1 && hd <= 128 && tma_layout(q, k, v, hd) &&
+  return dtype == 1 && hd <= 256 && tma_layout(q, k, v, hd) &&
          ((reinterpret_cast<uintptr_t>(o) | reinterpret_cast<uintptr_t>(dout)) % 16) == 0;
 }
 
@@ -1283,7 +1360,8 @@ cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const voi
                           const float* lse, const void* dout, void* dq, float* delta, int B,
                           int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
                           float scale, cudaStream_t st) {
-  constexpr int bytes = BwdLayout<HDP, kBQ>::kBytes;
+  constexpr int BQ = dq_rows<HDP>();
+  constexpr int bytes = BwdLayout<HDP, BQ>::kBytes;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<HDP>,
@@ -1292,12 +1370,13 @@ cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const voi
     attr_set = true;
   }
   CUtensorMap tq, tdo, tk, tv;
-  cudaError_t e = encode(&tq, q, B, Sq, H, hd, kBQ);
-  if (e == cudaSuccess) e = encode(&tdo, dout, B, Sq, H, hd, kBQ);
+  if ((long long)Sq > 65535LL * BQ) return cudaErrorInvalidValue;
+  cudaError_t e = encode(&tq, q, B, Sq, H, hd, BQ);
+  if (e == cudaSuccess) e = encode(&tdo, dout, B, Sq, H, hd, BQ);
   if (e == cudaSuccess) e = encode(&tk, k, B, Sk, Hkv, hd, kBK);
   if (e == cudaSuccess) e = encode(&tv, v, B, Sk, Hkv, hd, kBK);
   if (e != cudaSuccess) return e;
-  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
+  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   flash_bwd_dq_tc_kernel<HDP><<<grid, kThreads, bytes, st>>>(
       tq, tdo, tk, tv, static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), lse, static_cast<__nv_bfloat16*>(dq), delta, Sq,
@@ -1324,7 +1403,7 @@ cudaError_t launch_bwd_dkdv(const void* q, const void* k, const void* v, const f
   if (e == cudaSuccess) e = encode(&tq, q, B, Sq, H, hd, kBK);
   if (e == cudaSuccess) e = encode(&tdo, dout, B, Sq, H, hd, kBK);
   if (e != cudaSuccess) return e;
-  const dim3 grid(B * Hkv, (Sk + kBK - 1) / kBK);
+  const dim3 grid(B * Hkv, (Sk + kBK - 1) / kBK, HDP / out_cols<HDP>());
   flash_bwd_dkdv_tc_kernel<HDP><<<grid, kThreads, bytes, st>>>(
       tk, tv, tq, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), Sq, Sk, H, Hkv, hd, causal, window, scale);
@@ -1335,11 +1414,13 @@ cudaError_t dispatch_bwd_dq(const void* q, const void* k, const void* v, const v
                             const float* lse, const void* dout, void* dq, float* delta, int B,
                             int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
                             float scale, cudaStream_t st) {
-  if ((long long)Sq > 65535LL * kBQ) return cudaErrorInvalidValue;
   if (hd <= 64)
     return launch_bwd_dq<64>(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H, Hkv, hd, causal,
                              window, scale, st);
-  return launch_bwd_dq<128>(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H, Hkv, hd, causal,
+  if (hd <= 128)
+    return launch_bwd_dq<128>(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H, Hkv, hd, causal,
+                              window, scale, st);
+  return launch_bwd_dq<256>(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H, Hkv, hd, causal,
                             window, scale, st);
 }
 
@@ -1351,7 +1432,10 @@ cudaError_t dispatch_bwd_dkdv(const void* q, const void* k, const void* v, const
   if (hd <= 64)
     return launch_bwd_dkdv<64>(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk, H, Hkv, hd,
                                causal, window, scale, st);
-  return launch_bwd_dkdv<128>(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk, H, Hkv, hd,
+  if (hd <= 128)
+    return launch_bwd_dkdv<128>(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk, H, Hkv, hd,
+                                causal, window, scale, st);
+  return launch_bwd_dkdv<256>(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk, H, Hkv, hd,
                               causal, window, scale, st);
 }
 
@@ -1386,7 +1470,8 @@ cudaError_t dispatch_bwd_dkdv(const void* q, const void* k, const void* v, const
 // 0.11 TFLOP against 0.11 GB, so operations. Each kernel recomputes s and
 // dp, so the pair executes more: two routes (flash_attention_bwd_route).
 //
-// bf16, hd <= 128, a layout TMA can take: tc::flash_bwd_dq_tc_kernel and
+// bf16 at any hd up to 256 (it runs at 64, 128 or 256, TMA zero-filling the
+// columns past hd), a layout TMA can take: tc::flash_bwd_dq_tc_kernel and
 // tc::flash_bwd_dkdv_tc_kernel, every product on the tensor cores (wgmma,
 // bf16 in, fp32 accumulate), warp-specialised as flash_fwd_tc_kernel (384
 // threads; setmaxnreg gives the two consumer warpgroups 240 registers each,
@@ -1398,6 +1483,13 @@ cudaError_t dispatch_bwd_dkdv(const void* q, const void* k, const void* v, const
 //   and dP = dO V^T (m64n64k16 from shared memory, K-major both), p and dS
 //   in fp32 registers, the tile's dS K with dS as the A operand from
 //   registers and K as the MN-major B operand (the forward's P V form).
+//   At HDP 256 Q and dO of 128 rows (128 KB) beside the 128 KB ring would
+//   pass the 227 KB a block gets, so a block owns 64 rows, and (see
+//   Registers below) both consumers form S, dP and dS of every live tile
+//   of them; consumer w sums dq's columns 128 w to 128 w + 127, so an
+//   element's sum runs in the same order as at HDP 128.
+//   The grid doubles (1,024 blocks at gemma3-12b's training shape on 132
+//   SMs), and S, dP and the elementwise work are done twice.
 // * dk/dv: a block owns 64 keys of one (b, kv head), K and V loaded once;
 //   consumer 0 forms dV, consumer 1 dK, each for all 64 keys. The producer
 //   streams, for each query head of the group and each 64-query tile some
@@ -1407,7 +1499,21 @@ cudaError_t dispatch_bwd_dkdv(const void* q, const void* k, const void* v, const
 //   (and dS^T) in registers, then the tile's p^T dO (or dS^T Q). With one
 //   output a warpgroup, a thread's registers hold that output (64 fp32 at
 //   hd 128), a tile's sum and the A operand's terms; the price is S^T
-//   formed twice.
+//   formed twice. At HDP 256 K, V and a two-stage Q/dO ring take 192 KB,
+//   and the grid's third dimension takes the two halves of dk's and dv's
+//   columns: a block forms S^T and dP^T over all 256 and sums 128 columns
+//   of its output, so S^T and dP^T are formed twice as often.
+// * Registers at HDP 256: 64 rows of all 256 fp32 output columns would be
+//   128 registers a thread, which beside S and dP (64), the terms (48), a
+//   tile's sum (32), some 24 scalars and the wgmma register blocks the
+//   compiler lays out do not fit the consumers' 240: ptxas put about a
+//   third of the output in local memory, inside the loop, in both
+//   kernels. With 128 columns a consumer holds what it holds at HDP 128.
+//   Outside the loop, values formed before setmaxnreg (kept through the
+//   producer's 24 registers), dq's epilogue base and the dK/dV producer
+//   warp's loop state would still spill a few words: fresh() and, in the
+//   dK/dV kernel, 32 registers for the producer (232 for each consumer)
+//   keep both 256 instances free of any stack frame.
 // * Each tile's product goes into a zeroed accumulator and is then added
 //   to the running fp32 sum (add_tile_product; dq, dk and dv stay in
 //   registers across the whole loop and are written once at the end).
@@ -1423,8 +1529,10 @@ cudaError_t dispatch_bwd_dkdv(const void* q, const void* k, const void* v, const
 //   (tests/test_torch_flash_attention_bwd_tc.py). That makes fourteen
 //   products executed a live pair (dq: s, dp, 3 x dq; dk/dv: s twice, dp,
 //   3 x dv, 3 x dk) against the bound's five, so the tensor-core floor is
-//   about 2.8 times the bound. Dead tiles are skipped (per warpgroup in the
-//   dq kernel).
+//   about 2.8 times the bound; at HDP 256, with s and dp formed for each
+//   half of the columns, nineteen (dq: s and dp twice; dk/dv: s four
+//   times, dp twice), 3.8 times. Dead tiles are skipped (per warpgroup in
+//   the dq kernel).
 // * Besides the products, a consumer issues its tile's elementwise work
 //   itself (p, dS, their terms, the tile's sum): with a mask test and a
 //   branch for every element the kernels were bound by that issue (1.8x
@@ -1433,11 +1541,11 @@ cudaError_t dispatch_bwd_dkdv(const void* q, const void* k, const void* v, const
 //   uniform branch around branch-free code, and 2^x is one MUFU.EX2
 //   (exp2_ftz).
 //
-// fp32 (which holds the reference's 1e-4 tier), hd > 128 (gemma3's 240,
-// where a 64-row output of 256 columns and a tile's sum, 256 fp32 a
-// thread, do not fit in a consumer's registers) and layouts TMA
-// cannot take: flash_bwd_dq_kernel and flash_bwd_dkdv_kernel, on the FMA
-// pipes, the inputs widened to fp32 in shared memory:
+// fp32 (which holds the reference's 1e-4 tier) and bf16 in layouts TMA
+// cannot take (hd not a multiple of 8, a base not 16-byte aligned; no
+// configuration of the repo has one): flash_bwd_dq_kernel and
+// flash_bwd_dkdv_kernel, on the FMA pipes, the inputs widened to fp32 in
+// shared memory:
 // * flash_bwd_dq_kernel: a block owns 64 query rows of one (b, h), 256
 //   threads as 16 x 16 as in flash_fwd_kernel (thread (ty, tx): 4 rows,
 //   keys tx and tx + 16 of each 32-key tile, dq columns tx + 16 i). It
@@ -1618,8 +1726,9 @@ __global__ void __launch_bounds__(kNT) flash_bwd_dq_kernel(
   }
 }
 
-// keys per block of the dK/dV kernel: 64, or 32 at hd 256 (dk and dv, KB x
-// HDP fp32 each, are held by the block's 256 threads in registers)
+// keys per block of the FMA dK/dV kernel: 64, or 32 at hd 256 (dk and dv, KB
+// x HDP fp32 each, are held by the block's 256 threads in registers); at
+// hd 256 that kernel now serves fp32 and the layouts TMA cannot take
 template <int HDP>
 __host__ __device__ constexpr int dkdv_keys() { return HDP <= 128 ? 64 : 32; }
 
@@ -1907,8 +2016,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, fl
 
 // The backward's route for these operands: 1 when flash_attention_bwd_dq
 // (given o) or flash_attention_bwd_dkdv (o null) launches the tensor-core
-// kernel (bf16, hd <= 128, every base 16-byte aligned, hd a multiple of 8),
-// 0 when it launches the FMA kernel.
+// kernel (bf16, every base 16-byte aligned, hd a multiple of 8), 0 when it
+// launches the FMA kernel.
 int flash_attention_bwd_route(const void* q, const void* k, const void* v, const void* o,
                               const void* dout, int hd, int dtype) {
   return tc::bwd_tensor_cores(q, k, v, o, dout, hd, dtype) ? 1 : 0;

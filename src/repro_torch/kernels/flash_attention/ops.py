@@ -24,12 +24,13 @@ kernel with the rows' log-sum-exp as a second output and saves (q, k, v,
 o, lse); its backward launches the dq kernel (dq, and delta = Σ dO·O per
 row into a scratch) and then the dk/dv kernel (dk, dv), the card's form of
 the reference's ``_flash_bwd`` (there is no Pallas backward). The library's
-routing rule picks each pair: bf16 at hd <= 128 in a layout TMA can take
-runs ``tc::flash_bwd_dq_tc_kernel`` and ``tc::flash_bwd_dkdv_tc_kernel``
+routing rule picks each pair: bf16 at any hd up to 256 in a layout TMA can
+take runs ``tc::flash_bwd_dq_tc_kernel`` and ``tc::flash_bwd_dkdv_tc_kernel``
 (every product on the tensor cores with ``wgmma``, operands fed by TMA, p
 and dS as three bf16 terms each, all 24 bits of the fp32 values, so the
-gradients stay within one bf16 ulp of fp32 ones); fp32, hd > 128 and the
-layouts TMA cannot take run ``flash_bwd_dq_kernel`` and
+gradients stay within one bf16 ulp of fp32 ones; above hd 128 the dq
+kernel's two consumers split a block's key tiles, even and odd); fp32 and
+the layouts TMA cannot take run ``flash_bwd_dq_kernel`` and
 ``flash_bwd_dkdv_kernel`` (fp32 FMA, which holds the reference's 1e-4).
 On CPU tensors it runs the plain versions (``ref.attention_ref`` with
 ``return_lse``, ``ref.attention_bwd_dq_ref`` and

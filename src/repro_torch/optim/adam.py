@@ -8,7 +8,11 @@ keeps large models' moments at half the bytes), the math is fp32 whatever
 the storage types, as the reference's ``m32.astype(m.dtype)`` does, and
 the update is done without autograd. The step count is a host integer (the
 LocalUpdate re-initialises the state on every call, the LM train step
-reads it for the lr schedule, so it never leaves the host).
+reads it for the lr schedule, so it never leaves the host). A leaf of more
+than ``UPDATE_CHUNK`` elements is updated a slice of its elements at a
+time: the update's fp32 temporaries, about ten leaf-sized ones, would hold
+some 40 GB for gemma3-12b's tied embedding (1.0 B elements); each element
+takes the same arithmetic either way, so the bits are the same.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ import torch
 from repro_torch.utils.tree import tree_map
 
 PyTree = Any
+
+UPDATE_CHUNK = 1 << 26   # elements of a leaf updated at once
 
 
 class AdamState(NamedTuple):
@@ -46,7 +52,7 @@ def adamw_update(grads: PyTree, state: AdamState, params: PyTree, lr: float, *,
     b1c = float(one - np.float32(b1) ** t)
     b2c = float(one - np.float32(b2) ** t)
 
-    def upd(g, m, v, p):
+    def upd_all(g, m, v, p):
         g32 = g.to(torch.float32)
         m32 = m.to(torch.float32) * b1 + g32 * (1.0 - b1)
         v32 = v.to(torch.float32) * b2 + torch.square(g32) * (1.0 - b2)
@@ -55,6 +61,18 @@ def adamw_update(grads: PyTree, state: AdamState, params: PyTree, lr: float, *,
         p32 = p.detach().to(torch.float32)
         newp = p32 - lr * (mhat / (torch.sqrt(vhat) + eps) + weight_decay * p32)
         return newp.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
+
+    def upd(g, m, v, p):
+        if p.numel() <= UPDATE_CHUNK:
+            return upd_all(g, m, v, p)
+        outs = tuple(torch.empty(p.shape, dtype=t.dtype, device=t.device) for t in (p, m, v))
+        flat_in = [t.reshape(-1) for t in (g, m, v, p.detach())]
+        flat_out = [t.view(-1) for t in outs]
+        for i in range(0, p.numel(), UPDATE_CHUNK):
+            part = upd_all(*(t[i:i + UPDATE_CHUNK] for t in flat_in))
+            for dst, src in zip(flat_out, part):
+                dst[i:i + UPDATE_CHUNK].copy_(src)
+        return outs
 
     out = tree_map(upd, grads, state.mu, state.nu, params)
     new_p, new_m, new_v = (tree_map(lambda p, o: o[i], params, out) for i in range(3))

@@ -19,6 +19,9 @@ version against an fp64 evaluation on the same inputs. The order:
   keys) and then added to the running sum, the tiles in ascending order;
   dk and dv likewise over 64-query tiles, for each query head of the KV
   head's group in turn; each gradient is rounded to bf16 once at the end.
+  At hd > 128 (run at 256, the columns past hd zero) the kernels split
+  each output's columns in two halves, each summed by its own warpgroup
+  or block in the same order, so the order is the same at every hd.
 
 ``terms=1`` rounds p and ds to bf16 once instead (what FlashAttention and
 SDPA do), ``terms=2`` keeps hi + lo (the forward kernel's split); the test
@@ -28,7 +31,8 @@ whisper-large-v3's unmasked shapes is about 1e-7 (smaller than the fp32
 plain version's error against fp64 here): two terms put outputs beyond
 that, three none, so the kernels take three.
 The emulation is also held against ``jax.vjp`` of the JAX package's flash
-attention at a small shape. Inputs come from numpy with a seed.
+attention at small shapes (hd 64, and gemma3-12b's hd 240). Inputs come
+from numpy with a seed.
 """
 import jax
 import jax.numpy as jnp
@@ -74,14 +78,15 @@ def _terms(x, n):
     return out
 
 
-def tc_bwd_emulate(q, k, v, o, lse, do, *, causal, window=None, terms=3):
+def tc_bwd_emulate(q, k, v, o, lse, do, *, causal, window=None, terms=3, scale_hd=None):
     """(dq, dk, dv) in bf16 from bf16 q (B, Sq, H, hd), k, v (B, Sk, Hkv,
     hd), o, do (B, Sq, H, hd) and fp32 lse (B, H, Sq), in the kernels'
-    order of arithmetic."""
+    order of arithmetic; the softmax scale is ``scale_hd ** -0.5`` (hd's
+    when None)."""
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
-    scale = np.float32(hd ** -0.5)
+    scale = np.float32((scale_hd or hd) ** -0.5)
     scale_log2 = np.float32(scale * LOG2E)
     qf, of, dof = (t.float().transpose(1, 2) for t in (q, o, do))           # (B, H, Sq, hd)
     kf, vf = (t.float().transpose(1, 2).repeat_interleave(rep, 1) for t in (k, v))
@@ -165,6 +170,11 @@ CASES = {
     "whisper_cross_cut": (1, 224, 500, 4, 4, 64, False, None, None),  # unmasked, Sq != Sk
     # whisper's cross attention at the atol the card's gate takes there
     "whisper_cross_card_atol": (1, 224, 1500, 4, 4, 64, False, None, 1e-7),
+    # hd > 128: gemma3-12b's hd 240 (at 256, dq's tiles split even / odd),
+    # local and global; recurrentgemma-2b's hd 256 under MQA, ragged S
+    "hd240_window_gqa": (1, 768, 768, 4, 2, 240, True, 200, None),
+    "hd240_causal": (1, 640, 640, 4, 2, 240, True, None, None),
+    "hd256_mqa_ragged": (1, 333, 333, 10, 1, 256, True, 300, None),
 }
 
 
@@ -210,6 +220,44 @@ def test_emulation_against_the_reference_vjp():
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.float().numpy(), np.asarray(w), rtol=2e-2,
                                        atol=2e-3)
+
+
+def test_hd240_emulation_against_the_reference_vjp():
+    """gemma3-12b's head width (hd 240) in the dq kernel's split order,
+    against ``jax.vjp`` of the JAX package's ``_chunked_attention``:
+    causal and a local window, GQA 2, a ragged S."""
+    B, S, H, Hkv, hd, window = 1, 150, 4, 2, 240, 40
+    q, k, v, do = _inputs(11, B, S, S, H, Hkv, hd)
+    for kind, win in (("causal", None), ("local", window)):
+        o, lse = attention_ref(q.float(), k.float(), v.float(), return_lse=True, causal=True,
+                               window=win)
+        got = tc_bwd_emulate(q, k, v, o, lse, do, causal=True, window=win)
+
+        def f(q_, k_, v_):
+            return jattn._chunked_attention(q_, k_, v_, kind=kind, window=window, chunk=64)
+
+        ins = [jnp.asarray(t.float().numpy()) for t in (q, k, v)]
+        _, vjp = jax.vjp(f, *ins)
+        want = vjp(jnp.asarray(do.float().numpy()))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.float().numpy(), np.asarray(w), rtol=2e-2,
+                                       atol=2e-3)
+
+
+def test_zero_padded_columns_change_nothing():
+    """hd 240 runs at 256 with the columns past hd zero (TMA fills them):
+    the emulation on inputs padded with 16 zero columns gives exactly zero
+    gradients in the pad and the unpadded gradients within one bf16 ulp
+    (the CPU's products sum 256 terms in other blocks than 240)."""
+    q, k, v, do = _inputs(5, 1, 200, 200, 4, 2, 240)
+    o, lse = attention_ref(q, k, v, return_lse=True, causal=True, window=64)
+    got = tc_bwd_emulate(q, k, v, o, lse, do, causal=True, window=64)
+    pad = [torch.nn.functional.pad(t, (0, 16)) for t in (q, k, v, o, do)]
+    # the padded call keeps hd 240's softmax scale, as the kernels do
+    padded = tc_bwd_emulate(*pad[:4], lse, pad[4], causal=True, window=64, scale_hd=240)
+    for g, w in zip(padded, got):
+        torch.testing.assert_close(g[..., :240].float(), w.float(), rtol=RTOL, atol=1e-6)
+        assert not g[..., 240:].any()
 
 
 def test_cpu_backward_moves_no_route_count():

@@ -137,6 +137,30 @@ def test_tree_adamw_matches_reference(state_dtype):
         np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=tol, atol=1e-12)
 
 
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
+def test_adamw_in_slices_gives_the_same_bits(monkeypatch, state_dtype):
+    """A leaf larger than ``UPDATE_CHUNK`` is updated a slice at a time;
+    every element takes the same arithmetic, so params and moments equal
+    the whole-leaf update's to the bit (bf16 params, fp32 or bf16
+    moments, a transposed grad, a leaf of a size the slice does not
+    divide)."""
+    from repro_torch.optim import adam
+
+    rng = np.random.default_rng(4)
+    params = {"embed": torch.from_numpy(rng.standard_normal((37, 11), dtype=np.float32))
+              .bfloat16(), "ln": torch.from_numpy(rng.standard_normal(5, dtype=np.float32))}
+    grads = {"embed": torch.from_numpy(rng.standard_normal((11, 37), dtype=np.float32))
+             .bfloat16().t(), "ln": torch.from_numpy(rng.standard_normal(5, dtype=np.float32))}
+    state = adamw_init(params, state_dtype)
+    whole = adamw_update(grads, state, params, 3e-2)
+    monkeypatch.setattr(adam, "UPDATE_CHUNK", 64)
+    sliced = adamw_update(grads, state, params, 3e-2)
+    for a, b in zip(tree_leaves(whole[0]) + tree_leaves(whole[1].mu) + tree_leaves(whole[1].nu),
+                    tree_leaves(sliced[0]) + tree_leaves(sliced[1].mu)
+                    + tree_leaves(sliced[1].nu)):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
 def _wkv_inputs(seed, B, T, H, N):
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((B, T, H, N), dtype=np.float32) * 0.5 for _ in range(3))
