@@ -65,7 +65,10 @@ Phases, one or more lines each:
                 the bf16 forward's three instances spill nothing, the
                 tensor-core backward's four (dq and dk/dv at hd 64 and 128)
                 have no spill load or store among their HGMMA, and its SASS
-                holds HGMMA (wgmma) instructions, counted; each of
+                holds HGMMA (wgmma) instructions, counted; the fp32
+                tensor-core backward's six (``x3``: dq and dk/dv at hd 64,
+                128 and 256) exist with 0 B of stack and local memory,
+                their registers recorded; each of
                 the 18 wkv6 forward instances', the 6 wkv6 backward
                 instances' (3 head sizes x 2 types) and the 8 SpMM
                 instances' registers, and none spills;
@@ -238,18 +241,29 @@ Phases, one or more lines each:
                 at the training path's shapes: internvl2-2b's (B 2, S 2,304,
                 H 16/8, hd 128, causal) in bf16 and fp32, mini's, gemma3-12b's
                 local block (hd 240, window 1,024) in bf16, in fp32 and in
-                bf16 off TMA's 16-byte alignment, its global block (causal),
+                bf16 off TMA's 16-byte alignment, its global block (causal)
+                in bf16 and fp32,
                 recurrentgemma-2b's local attention (H 10/1, hd 256, window
                 2,048), whisper-large-v3's cross attention and encoder,
                 causal Sq != Sk both ways (rows with no live key), an hd of
                 80 under a window and a ragged hd 136; lse 1e-5, fp32
-                gradients 1e-4, bf16 one ulp relative and 4 x the fp32
-                kernels' error on the same inputs; each row on the route it
-                must take (the tensor-core kernels for bf16 at any hd up to
-                256 in a TMA layout, the FMA kernels for fp32 and the
-                unaligned bf16 row, from the wrappers' route counts); each
+                gradients 1e-4, bf16 one ulp relative and 4 x the fp32 FMA
+                kernels' error on the same inputs (the widened copies off a
+                16-byte boundary, so the FMA pair, asserted; the 3xTF32
+                pair's error on them recorded beside); each row on the
+                route it must take (the bf16 tensor-core kernels for bf16
+                at any hd up to 256 in a TMA layout, the 3xTF32 kernels for
+                fp32 in such a layout, the FMA kernels for the rows off a
+                16-byte boundary, from the wrappers' route counts); each
                 launch twice, the same bits; times against the plain
-                backward, SDPA's autograd backward and the bound. The WKV6
+                backward, SDPA's autograd backward and the bound (fp32 at
+                3xTF32's rate, the FMA pipes' beside; the 3xTF32 pair's
+                floor); appended, gemma3-12b's global block in fp32 and
+                internvl2-2b's fp32 shape off a 16-byte boundary (the FMA
+                pair, timed). Then ROADMAP C7's probe, recorded:
+                whisper_enc_bf16's shape over 16 draws of its own generator,
+                the elements beyond the gate and the worst excess over atol
+                per draw. The WKV6
                 training forward (the kernel writing the
                 state at the start of each 32-step stage) against the
                 serving forward, y and S bit for bit, and the WKV6 backward
@@ -292,7 +306,7 @@ Phases, one or more lines each:
                 ``launch.train``'s ``train`` and
                 ``train_federated`` on mini, card against CPU from the same
                 params (losses 1e-4; tau, steps, syncs equal; fp32, so
-                every backward launch on the FMA route);
+                every backward launch on the 3xTF32 route);
                 ``examples.train_lm_federated`` at a cut size;
                 ``launch.train`` on rwkv6-1.6b's smoke configuration, card
                 against CPU from the same params (losses 1e-4; exactly one
@@ -316,8 +330,8 @@ run of phase 13's spmm pipeline (host calls per replayed chunk), and one
 replayed pod-sharded round in phase 14 (graph launches, the NCCL kernels'
 device time, the busy share).
 Before the last line it prints a ``{"kernels": [...]}`` line (the three
-forward kernels, flash attention's two backward kernels on each route and
-the WKV6 backward). The last
+forward kernels, flash attention's two backward kernels on each of their
+three routes and the WKV6 backward). The last
 line is ``{"ok": true, "device": {...}}``. Any failure raises and the exit
 code is not 0; without CUDA, or outside a checkout, it prints no result
 and exits 2.
@@ -339,11 +353,17 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): fp32 outside the
-# tensor cores, bf16 on them, and HBM3 bandwidth. The bound of a kernel is
-# the larger of its bytes over the bandwidth and its operations over the
-# peak for their operands' type.
+# tensor cores, bf16 and TF32 on them, and HBM3 bandwidth. The bound of a
+# kernel is the larger of its bytes over the bandwidth and its operations
+# over the peak for their operands' type. fp32-accurate products also run
+# on the tensor cores as three TF32 products each (big.big + big.small +
+# small.big, x = big + small): PEAK_TF32_FLOPS / 3, faster than the FMA
+# pipes, so flash attention's fp32 bounds take the faster of the two
+# (FP32_MM_FLOPS) and keep the FMA one beside.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12
+FP32_MM_FLOPS = max(PEAK_FP32_FLOPS, PEAK_TF32_FLOPS / 3)
 PEAK_BYTES_PER_S = 3.35e12
 TOL_KERNEL = 1e-5
 TOL_LOGITS = 1e-4
@@ -593,15 +613,17 @@ def live_pairs(Sq, Sk, causal, window):
     return sum(max(0, min(i, Sk - 1) - max(0, i - w + 1) + 1) for i in range(Sq))
 
 
-def flash_bound(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype):
+def flash_bound(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype, fp32_peak=FP32_MM_FLOPS):
     """(bound_ms, bound_by): q, k, v read once and o written once over HBM
     bandwidth, against 4·hd operations (q·k and p·v) per live pair over the
     peak for the inputs' type: bf16 inputs and output leave both products
-    to the tensor cores (989 TFLOP/s), fp32 ones to the FMA pipes (67)."""
+    to the tensor cores (989 TFLOP/s), fp32 ones to ``fp32_peak`` (3×TF32
+    on the tensor cores, 164.9; ``PEAK_FP32_FLOPS`` gives the FMA pipes'
+    bound, 67)."""
     esz = torch.tensor([], dtype=dtype).element_size()
     nbytes = esz * (2 * B * Sq * H * hd + 2 * B * Sk * Hkv * hd)
     flops = 4.0 * hd * B * H * live_pairs(Sq, Sk, causal, window)
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else fp32_peak
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -852,6 +874,8 @@ def check_flash(torch, ops, ref, timer, gen, name, B, S, H, Hkv, hd, causal, win
     else:
         kw["is_causal"] = causal
     bound_ms, bound_by = flash_bound(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype)
+    bound_fma_ms = flash_bound(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype,
+                               PEAK_FP32_FLOPS)[0]
     floor_ms = flash_floor(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype)
     row = {"shape": name, "B": B, "S": Sq, "Sk": Sk, "H": H, "Hkv": Hkv, "hd": hd,
            "causal": causal,
@@ -863,25 +887,27 @@ def check_flash(torch, ops, ref, timer, gen, name, B, S, H, Hkv, hd, causal, win
                                                        window=window), reps),
            "library_ms": timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
                                reps),
-           "bound_ms": bound_ms, "bound_by": bound_by, "floor_ms": floor_ms}
+           "bound_ms": bound_ms, "bound_by": bound_by, "bound_fma_ms": bound_fma_ms,
+           "floor_ms": floor_ms}
     log(f"phase 7 lm-kernels: flash {name} B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} hd={hd} causal "
         f"{causal} window {window} {dtype}: max abs err {err} (atol {atol} rtol {rtol}); "
         f"kernel "
         f"{row['ms']} ms plain {row['plain_ms']} ms sdpa {row['library_ms']} ms bound "
-        f"{bound_ms} ms ({bound_by}) floor {floor_ms} ms")
+        f"{bound_ms} ms ({bound_by}; at the FMA peak {bound_fma_ms}) floor {floor_ms} ms")
     return row
 
 
 def flash_bwd_bound(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype, products=5,
-                    reads_o=True):
+                    reads_o=True, fp32_peak=FP32_MM_FLOPS):
     """(bound_ms, bound_by) of the attention backward: q, k, v, o, dO (in
     their type) and lse (fp32) read once, dq, dk, dv written once, over HBM
     bandwidth, against ``products`` products of 2·hd operations per live
     pair (the backward as a whole needs five: s, dp, dv, dq, dk) over the
-    peak for the inputs' type. Per kernel: the dq kernel's work is three
-    products (s, dp, dq) reading o and writing dq and delta; the dK/dV
-    kernel's four (s, dp, dv, dk) reading delta in o's place and writing
-    dk and dv."""
+    peak for the inputs' type (fp32: ``fp32_peak``, 3×TF32 on the tensor
+    cores; ``PEAK_FP32_FLOPS`` for the FMA pipes' bound). Per kernel: the
+    dq kernel's work is three products (s, dp, dq) reading o and writing dq
+    and delta; the dK/dV kernel's four (s, dp, dv, dk) reading delta in o's
+    place and writing dk and dv."""
     esz = torch.tensor([], dtype=dtype).element_size()
     q_elems, kv_elems = B * Sq * H * hd, B * Sk * Hkv * hd
     rows = B * H * Sq
@@ -893,9 +919,52 @@ def flash_bwd_bound(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype, product
     else:
         nbytes += -esz * q_elems + 4 * rows + esz * 2 * kv_elems  # delta for o; dk, dv
     flops = products * 2.0 * hd * B * H * live_pairs(Sq, Sk, causal, window)
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else fp32_peak
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+# rows of a streamed tile of the fp32 tensor-core pair (``x3::kTileRows``):
+# keys of the dq kernel's K/V tiles, queries of the dK/dV kernel's Q/dO tiles
+X3_TILE_ROWS = 32
+
+
+def flash_bwd_x3_floor(B, Sq, Sk, H, Hkv, hd, causal, window) -> dict:
+    """{"dq", "dkdv", "pair": ms}: the fp32 tensor-core pair's own floor,
+    the TF32 products it executes over ``PEAK_TF32_FLOPS``. It counts the
+    tiles each kernel computes, masked parts and the padded hd (64, 128 or
+    256) included: the dq kernel, per 64-row query block and each T-key
+    tile from the first to the last some row of it leaves live, three
+    products (S, dP, dQ) of 64 x T x hd; the dK/dV kernel, per 64-key block,
+    query head of its group and T-query tile some key of it leaves live,
+    four (S^T, dP^T, dV, dK); each product as three TF32 products. (At hd
+    256 a cluster pair splits each product's hd between its two blocks.)"""
+    hdp = 64 if hd <= 64 else 128 if hd <= 128 else 256
+    T = X3_TILE_ROWS
+    win = window if (causal and window) else 0
+    dq_tiles = 0
+    for q0 in range(0, Sq, 64):
+        q_last = min(q0 + 64, Sq) - 1
+        lo, hi = 0, (Sk - 1) // T
+        if causal:
+            hi = min(q_last, Sk - 1) // T
+            if win:
+                lo = max(0, q0 - win + 1) // T
+        dq_tiles += max(0, hi - lo + 1)
+    kv_tiles = 0
+    for k0 in range(0, Sk, 64):
+        k_last = min(k0 + 64, Sk) - 1
+        lo, hi = 0, (Sq - 1) // T
+        if causal:
+            lo = k0 // T
+            if win:
+                hi = min(Sq - 1, k_last + win - 1) // T
+        kv_tiles += max(0, hi - lo + 1)
+    per_tile = 3 * 2.0 * 64 * T * hdp   # one product as three TF32 products
+    out = {"dq": 3 * per_tile * dq_tiles * B * H / PEAK_TF32_FLOPS * 1e3,
+           "dkdv": 4 * per_tile * kv_tiles * B * H / PEAK_TF32_FLOPS * 1e3}
+    out["pair"] = out["dq"] + out["dkdv"]
+    return out
 
 
 def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal, window,
@@ -904,18 +973,22 @@ def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal
     the plain lse (1e-5), then the backward kernels against
     ``attention_bwd_ref`` on the same (q, k, v, o, lse, dO): fp32 atol =
     rtol = 1e-4; bf16 rtol 2^-7 (one ulp) and an atol of 4 x the max abs
-    error the fp32 kernels make on the same inputs widened to fp32 (the FMA
-    route's bf16 instance runs the same fp32 arithmetic and rounds once at
-    the end; the tensor-core route forms s and dp in fp32 from the bf16
-    operands and takes p and dS as three bf16 terms). Both kernels must
-    run ``want_route`` (the wrappers' route counts, from the library's own
-    rule). Each backward launch is made twice and must give the same bits.
-    Then the times and bounds, each of the whole backward and of each
-    kernel alone: the kernels', their plain versions' (the two halves of
-    ``attention_bwd_ref``) and the library's (autograd's backward of one
-    SDPA call, for all of q, k, v; for q alone; for k and v alone).
-    ``unaligned`` puts q, k, v and dO one element past a 16-byte boundary
-    (contiguous views), a layout TMA cannot take."""
+    error the fp32 FMA kernels make on the same inputs widened to fp32 (the
+    FMA route's bf16 instance runs the same fp32 arithmetic and rounds once
+    at the end; the tensor-core route forms s and dp in fp32 from the bf16
+    operands and takes p and dS as three bf16 terms). That yardstick is
+    pinned to the FMA pair: the widened copies lie one element off a
+    16-byte boundary, which the route rule sends there (asserted); the
+    3×TF32 pair's error on the aligned widened copies is recorded beside.
+    Both kernels must run ``want_route`` (the wrappers' route counts, from
+    the library's own rule). Each backward launch is made twice and must
+    give the same bits. Then the times and bounds, each of the whole
+    backward and of each kernel alone: the kernels', their plain versions'
+    (the two halves of ``attention_bwd_ref``) and the library's (autograd's
+    backward of one SDPA call, for all of q, k, v; for q alone; for k and v
+    alone); fp32 bounds at 3×TF32's rate and at the FMA pipes' beside, and
+    the 3×TF32 pair's floor. ``unaligned`` puts q, k, v and dO one element
+    past a 16-byte boundary (contiguous views), a layout TMA cannot take."""
     import torch.nn.functional as F
 
     dev = gen.device
@@ -923,12 +996,7 @@ def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal
 
     def draw(shape):
         x = torch.randn(shape, generator=gen, device=dev).to(dtype)
-        if not unaligned:
-            return x
-        flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
-        view = flat[1:].view(shape)
-        view.copy_(x)
-        return view
+        return off_boundary(torch, x) if unaligned else x
 
     q = draw((B, Sq, H, hd))
     k, v = (draw((B, Sk, Hkv, hd)) for _ in range(2))
@@ -954,15 +1022,13 @@ def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal
     lse_err = float((lse - lse_want)[torch.isfinite(lse_want)].abs().max())
     if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
         raise AssertionError(f"flash bwd {name}: a second launch gave other bits")
+    e_x3 = None
     if dtype == torch.float32:
         atol = rtol = TOL_GRAD
         e32 = None
     else:
-        w32 = [t.float() for t in (q, k, v, o)]
-        g32 = ops.flash_bwd(*w32, lse, do.float(), **kw)
-        r32 = ref.attention_bwd_ref(*w32, lse, do.float(), **kw)
-        e32 = max(float((a - b).abs().max()) for a, b in zip(g32, r32))
-        atol, rtol = 4 * e32, RTOL_BF16
+        atol, e32, e_x3, g32 = bf16_gate_atol(torch, ops, ref, q, k, v, o, lse, do, kw, name)
+        rtol = RTOL_BF16
         # recorded: the bf16 outputs are the fp32 kernels' rounded to bf16
         # (so on the FMA route; the tensor-core route rounds p and dS)
         same_bits = all(torch.equal(a, b.to(dtype)) for a, b in zip((dq, dk, dv), g32))
@@ -995,6 +1061,7 @@ def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal
            "causal": causal, "window": window, "dtype": str(dtype), "route": want_route,
            "unaligned": unaligned,
            "atol": atol, "rtol": rtol, "fp32_max_abs_err_same_inputs": e32,
+           "fp32_tf32x3_max_abs_err_same_inputs": e_x3,
            "lse_max_abs_err": lse_err,
            "dead_rows": dead, "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
            "bf16_is_fp32_rounded": None if e32 is None else same_bits,
@@ -1010,10 +1077,15 @@ def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal
            "library_ms": sdpa_grad(qt, kt, vt), "library_dq_ms": sdpa_grad(qt),
            "library_dkdv_ms": sdpa_grad(kt, vt)}
     dims = (B, Sq, Sk, H, Hkv, hd, causal, window, dtype)
-    row["bound_ms"], row["bound_by"] = flash_bwd_bound(torch, *dims)
-    row["dq_bound_ms"], row["dq_bound_by"] = flash_bwd_bound(torch, *dims, products=3)
-    row["dkdv_bound_ms"], row["dkdv_bound_by"] = flash_bwd_bound(torch, *dims, products=4,
-                                                                 reads_o=False)
+    for part, kw_b in (("", {}), ("dq_", {"products": 3}),
+                       ("dkdv_", {"products": 4, "reads_o": False})):
+        row[f"{part}bound_ms"], row[f"{part}bound_by"] = flash_bwd_bound(torch, *dims, **kw_b)
+        row[f"{part}bound_fma_ms"] = flash_bwd_bound(torch, *dims, **kw_b,
+                                                     fp32_peak=PEAK_FP32_FLOPS)[0]
+    if want_route == "tf32x3":
+        floor = flash_bwd_x3_floor(B, Sq, Sk, H, Hkv, hd, causal, window)
+        row["floor_ms"], row["dq_floor_ms"], row["dkdv_floor_ms"] = (
+            floor["pair"], floor["dq"], floor["dkdv"])
     del qt, kt, vt, out_t
     log(f"phase 16 lm-train: flash bwd {name} B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} hd={hd} "
         f"causal {causal} window {window} {dtype}, {want_route} route: lse max abs err "
@@ -1023,9 +1095,47 @@ def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal
         f"plain {row['plain_ms']} ms (dq {row['plain_dq_ms']}, dkdv {row['plain_dkdv_ms']}) "
         f"sdpa backward {row['library_ms']} ms (q alone {row['library_dq_ms']}, k and v "
         f"{row['library_dkdv_ms']}) bound {row['bound_ms']} ms ({row['bound_by']}; dq "
-        f"{row['dq_bound_ms']}, dkdv {row['dkdv_bound_ms']})"
-        + ("" if e32 is None else f"; bf16 = fp32 kernels rounded: {same_bits}"))
+        f"{row['dq_bound_ms']}, dkdv {row['dkdv_bound_ms']}; at the FMA peak "
+        f"{row['bound_fma_ms']})"
+        + (f" floor {row['floor_ms']} ms (dq {row['dq_floor_ms']}, dkdv "
+           f"{row['dkdv_floor_ms']})" if "floor_ms" in row else "")
+        + ("" if e32 is None else f"; bf16 = fp32 kernels rounded: {same_bits}; the 3xTF32 "
+           f"pair's fp32 error on the same inputs {e_x3} (the FMA pair's {e32})"))
     return row
+
+
+def off_boundary(torch, x):
+    """A contiguous copy of ``x`` one element past a 16-byte boundary: a
+    layout TMA cannot take, so the backward's route rule sends it to the
+    FMA pair."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def bf16_gate_atol(torch, ops, ref, q, k, v, o, lse, do, kw, name) -> tuple:
+    """(atol, e32, e_x3, g32) of a bf16 row's gate: atol = 4 x e32, the max
+    abs error of the fp32 FMA pair against ``attention_bwd_ref`` on the
+    inputs widened to fp32, the widened copies placed off a 16-byte
+    boundary so that the route rule sends them to the FMA pair (asserted;
+    the yardstick the bf16 gate has always taken); e_x3 the 3×TF32 pair's
+    error on the aligned widened copies, recorded; g32 the FMA pair's
+    gradients."""
+    w32 = [t.float() for t in (q, k, v, o, do)]
+    r32 = ref.attention_bwd_ref(*w32[:4], lse, w32[4], **kw)
+    before = {n: dict(getattr(ops, n).routes) for n in BWD_KERNELS}
+    g32 = ops.flash_bwd(*(off_boundary(torch, t) for t in w32[:4]), lse,
+                        off_boundary(torch, w32[4]), **kw)
+    moved = {n: [r for r, c in getattr(ops, n).routes.items() if c != before[n][r]]
+             for n in BWD_KERNELS}
+    if any(r != ["fma"] for r in moved.values()):
+        raise AssertionError(f"flash bwd {name}: the bf16 gate's fp32 yardstick ran {moved}, "
+                             "not the FMA pair")
+    x3 = ops.flash_bwd(*w32[:4], lse, w32[4], **kw)
+    e32 = max(float((a - b).abs().max()) for a, b in zip(g32, r32))
+    e_x3 = max(float((a - b).abs().max()) for a, b in zip(x3, r32))
+    return 4 * e32, e32, e_x3, g32
 
 
 def wkv6_bwd_bound(torch, B, T, H, N, dtype, with_ds=False) -> dict:
@@ -3082,26 +3192,26 @@ def _zero(counters) -> None:
 def flash_bwd_shapes(torch, fops, fref, timer, gen) -> list:
     """Phase 16's per-op rows: the backward kernels (and the forward's lse)
     at the training path's shapes, each with the route it must run: the
-    tensor cores for bf16 at any hd up to 256 in a layout TMA can take
-    (gemma3-12b's hd 240 and recurrentgemma-2b's hd 256 at 256, the dq
-    kernel's key tiles split between its consumers), the FMA kernels for
-    fp32 and for bf16 one element off a 16-byte boundary."""
+    bf16 tensor-core pair for bf16 at any hd up to 256 in a layout TMA can
+    take (gemma3-12b's hd 240 and recurrentgemma-2b's hd 256 at 256), the
+    fp32 tensor-core pair (3×TF32) for fp32 in such a layout, the FMA
+    kernels for either type one element off a 16-byte boundary."""
     bf16, f32 = torch.bfloat16, torch.float32
-    tc, fma = "tensor_core", "fma"
+    tc, x3, fma = "tensor_core", "tf32x3", "fma"
     cases = [
         # internvl2-2b's training shape: 256 image + 2,048 text tokens
         ("internvl2_train_bf16", 2, 2304, 16, 8, 128, True, None, bf16, 5, tc),
-        ("internvl2_train_fp32", 2, 2304, 16, 8, 128, True, None, f32, 3, fma),
-        ("mini_fp32", 8, 256, 6, 2, 64, True, None, f32, 10, fma),
+        ("internvl2_train_fp32", 2, 2304, 16, 8, 128, True, None, f32, 3, x3),
+        ("mini_fp32", 8, 256, 6, 2, 64, True, None, f32, 10, x3),
         # gemma3-12b's local block (hd 240 runs at 256)
         ("gemma3_local_bf16", 2, 2048, 16, 8, 240, True, 1024, bf16, 5, tc),
         # whisper-large-v3's cross attention and encoder, unmasked
         ("whisper_cross_bf16", 2, 224, 20, 20, 64, False, None, bf16, 10, tc, 1500),
         ("whisper_enc_bf16", 2, 1500, 20, 20, 64, False, None, bf16, 5, tc),
         # causal with Sq != Sk both ways; the second's last rows keep no key
-        ("causal_cross_fp32", 2, 200, 8, 4, 64, True, None, f32, 10, fma, 333),
+        ("causal_cross_fp32", 2, 200, 8, 4, 64, True, None, f32, 10, x3, 333),
         ("causal_cross_bf16", 2, 200, 8, 4, 64, True, None, bf16, 10, tc, 333),
-        ("causal_past_sk_window_fp32", 2, 333, 8, 4, 128, True, 64, f32, 10, fma, 200),
+        ("causal_past_sk_window_fp32", 2, 333, 8, 4, 128, True, 64, f32, 10, x3, 200),
         ("causal_past_sk_window_bf16", 2, 333, 8, 4, 128, True, 64, bf16, 10, tc, 200),
         # an hd between the widths (80 runs at 128; TMA zero-fills the
         # columns past hd), windowed, ragged S
@@ -3117,8 +3227,13 @@ def flash_bwd_shapes(torch, fops, fref, timer, gen) -> list:
         ("ragged_hd136_bf16", 1, 300, 4, 2, 136, True, None, bf16, 10, tc),
         # gemma3-12b's local block in fp32, and in bf16 one element off a
         # 16-byte boundary: the FMA pair (the route bf16 took there before)
-        ("gemma3_local_fp32", 2, 2048, 16, 8, 240, True, 1024, f32, 3, fma),
+        ("gemma3_local_fp32", 2, 2048, 16, 8, 240, True, 1024, f32, 3, x3),
         ("gemma3_local_bf16_unaligned", 2, 2048, 16, 8, 240, True, 1024, bf16, 3, fma,
+         None, True),
+        # gemma3-12b's global block in fp32; internvl2-2b's fp32 shape one
+        # element off a 16-byte boundary: the FMA pair, timed
+        ("gemma3_global_fp32", 2, 2048, 16, 8, 240, True, None, f32, 3, x3),
+        ("internvl2_train_fp32_unaligned", 2, 2304, 16, 8, 128, True, None, f32, 3, fma,
          None, True),
     ]
     rows = []
@@ -3128,6 +3243,54 @@ def flash_bwd_shapes(torch, fops, fref, timer, gen) -> list:
                                     unaligned=len(c) > 12 and c[12]))
         torch.cuda.empty_cache()
     return rows
+
+
+C7_DRAWS = 16
+
+
+def c7_probe(torch, fops, fref, dev) -> dict:
+    """ROADMAP C7, recorded: whisper-large-v3's unmasked encoder shape in
+    bf16 (``whisper_enc_bf16``: B 2, S 1,500, H 20, hd 64) over
+    ``C7_DRAWS`` draws from a generator of its own (so no gated row's
+    draws move), each held to the row's gate as ``check_flash_bwd`` forms
+    it (rtol one bf16 ulp, atol 4 x the fp32 FMA pair's error on the same
+    inputs): per draw and gradient the elements beyond the gate and the
+    worst (|err| - rtol |want|) / atol (beyond the gate when > 1)."""
+    gen = torch.Generator(device=dev).manual_seed(77)
+    B, S, H, hd = 2, 1500, 20, 64
+    kw = {"causal": False, "window": None}
+    draws = []
+    for _ in range(C7_DRAWS):
+        q, k, v, do = (torch.randn((B, S, H, hd), generator=gen, device=dev).bfloat16()
+                       for _ in range(4))
+        o, lse = fops.flash_attention_lse(q, k, v, **kw)
+        got = fops.flash_bwd(q, k, v, o, lse, do, **kw)
+        want = fref.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        atol, e32, e_x3, _ = bf16_gate_atol(torch, fops, fref, q, k, v, o, lse, do, kw, "c7")
+        row = {"atol": atol, "fp32_max_abs_err": e32, "fp32_tf32x3_max_abs_err": e_x3,
+               "beyond": {}, "worst_ratio": {}}
+        for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = (g.float() - w.float()).abs()
+            excess = (err - RTOL_BF16 * w.float().abs()) / atol
+            row["beyond"][gname] = int((excess > 1).sum())
+            row["worst_ratio"][gname] = float(excess.max())
+        draws.append(row)
+        del q, k, v, do, o, lse, got, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    beyond = [sum(d["beyond"].values()) for d in draws]
+    worst = [max(d["worst_ratio"].values()) for d in draws]
+    out = {"draws": draws, "draws_beyond": sum(1 for b in beyond if b),
+           "elements_beyond": sum(beyond), "worst_ratio_max": max(worst),
+           "worst_ratio_median": sorted(worst)[len(worst) // 2],
+           "atol_min": min(d["atol"] for d in draws), "atol_max": max(d["atol"] for d in draws)}
+    log(f"phase 16 lm-train: C7 probe (recorded): whisper_enc_bf16's shape over {C7_DRAWS} "
+        f"draws of its own: {out['draws_beyond']} draws with elements beyond the gate "
+        f"({out['elements_beyond']} elements: "
+        f"{json.dumps([d['beyond'] for d in draws if sum(d['beyond'].values())])}); worst "
+        f"(|err| - rtol |want|) / atol per draw {json.dumps(worst)} (median "
+        f"{out['worst_ratio_median']}); atol {out['atol_min']} to {out['atol_max']}")
+    return out
 
 
 def wkv6_bwd_shapes(torch, wops, wref, timer, gen) -> list:
@@ -3292,8 +3455,9 @@ def mini_card_vs_cpu(torch, counters, dev, tag) -> dict:
             err = float(np.abs(a - b).max())
             got = card["launches"]
             want_bwd = steps * n_layers
-            # mini is fp32: every backward launch on the FMA route
-            want_routes = {n: {"tensor_core": 0, "fma": want_bwd} for n in BWD_KERNELS}
+            # mini is fp32: every backward launch on the 3xTF32 route
+            want_routes = {n: {"fma": 0, "tensor_core": 0, "tf32x3": want_bwd}
+                           for n in BWD_KERNELS}
             if (a.shape != b.shape or not np.isfinite(a).all() or err > TOL_MINI
                     or not all(v for k, v in same.items() if k != "picks")
                     or got["flash_bwd_dq"] != want_bwd or got["flash_bwd_dkdv"] != want_bwd
@@ -3496,7 +3660,7 @@ def flash_train_whole(torch, lm, counters, cfg, batch_at, dev, tag, profile) -> 
     layers = cfg.n_layers
     want = {n: 0 for n in counters}
     want.update(flash_attention=layers, flash_bwd_dq=layers, flash_bwd_dkdv=layers)
-    want_routes = {n: {"tensor_core": layers, "fma": 0} for n in BWD_KERNELS}
+    want_routes = {n: {"fma": 0, "tensor_core": layers, "tf32x3": 0} for n in BWD_KERNELS}
     torch.cuda.reset_peak_memory_stats()
     _zero(counters)
     routes0 = _routes(counters)
@@ -3574,6 +3738,7 @@ def lm_train_phase(torch, counters, get_config, get_smoke_config, dev, tag,
     timer = Timer(torch)
     gen = torch.Generator(device=dev).manual_seed(16)
     rec["flash_bwd_shapes"] = flash_bwd_shapes(torch, fops, fref, timer, gen)
+    rec["c7_probe"] = c7_probe(torch, fops, fref, dev)
     rec["wkv6_bwd_shapes"] = wkv6_bwd_shapes(torch, wops, wref, timer, gen)
     del timer
     torch.cuda.empty_cache()
@@ -3835,7 +4000,31 @@ def main(argv=None) -> int:
                    for r in bwd)):
         raise AssertionError(f"build: the bf16 flash kernels' instances spill or are "
                              f"missing: {tc_fns}")
-    record["flash_build"] = {"hgmma": hgmma, "tc_kernels": tc_fns}
+    # the fp32 tensor-core backward (3xTF32): dq and dk/dv at 64, 128 and 256,
+    # each with no stack frame and no local memory
+    x3_fns = {}
+    for n, r in res_usage(build, "flash_attention").items():
+        m = re.search(r"(flash_bwd_(?:dq|dkdv)_x3_kernel)ILi(\d+)E", n)
+        if m:
+            x3_fns[f"{m.group(1)}<{m.group(2)}>"] = {
+                "registers": r.get("REG"), "stack_bytes": r.get("STACK"),
+                "local_bytes": r.get("LOCAL")}
+    for n, r in ptxas_spills(build.build_log.get("flash_attention", "")).items():
+        m = re.search(r"(flash_bwd_(?:dq|dkdv)_x3_kernel)ILi(\d+)E", n)
+        if m:
+            x3_fns[f"{m.group(1)}<{m.group(2)}>"].update(r)
+    for n, r in sorted(x3_fns.items()):
+        log(f"phase 2 build: flash_attention: {n}: {r['registers']} registers a thread "
+            f"as ptxas allocated them, stack {r['stack_bytes']} B, local "
+            f"{r['local_bytes']} B"
+            + (f", ptxas: {r['spill_stores']} B of spill stores, {r['spill_loads']} B of "
+               f"spill loads" if "spill_stores" in r else ""))
+    want_x3 = {f"flash_bwd_{k}_x3_kernel<{w}>" for k in ("dq", "dkdv") for w in (64, 128, 256)}
+    if (set(x3_fns) != want_x3
+            or any(r["stack_bytes"] != 0 or r["local_bytes"] != 0 for r in x3_fns.values())):
+        raise AssertionError(f"build: the fp32 tensor-core backward's instances spill or are "
+                             f"missing: {x3_fns}")
+    record["flash_build"] = {"hgmma": hgmma, "tc_kernels": tc_fns, "x3_kernels": x3_fns}
     # every instance of the wkv6 kernel (3 head sizes x 3 column tiles x 2
     # types) keeps its state tile in registers: no stack, no local memory
     wkv_fns = {n: {"registers": r.get("REG"), "stack_bytes": r.get("STACK"),
@@ -4292,12 +4481,16 @@ def main(argv=None) -> int:
     # the backward pair on each route: each kernel's own time, bound, plain
     # version (its half of attention_bwd_ref) and library call (autograd of
     # SDPA asked for its outputs only) at internvl2-2b's training shape, in
-    # bf16 for the tensor-core kernels (the main path's) and in fp32 for the
-    # FMA ones (mini's); launches by path from the route counts
+    # bf16 for the bf16 tensor-core kernels (the main path's), in fp32 for
+    # the 3xTF32 ones (mini's) and in fp32 one element off a 16-byte
+    # boundary for the FMA ones (the layouts TMA cannot take: no main path
+    # has one, so they count no launch); launches by path from the route
+    # counts
     bwd_rows = record["lm_train"]["flash_bwd_shapes"]
     bwd_routes = record["lm_train"]["routes"]
     for route, suffix, timed in (("tensor_core", "tc", "internvl2_train_bf16"),
-                                 ("fma", "fma", "internvl2_train_fp32")):
+                                 ("tf32x3", "tf32x3", "internvl2_train_fp32"),
+                                 ("fma", "fma", "internvl2_train_fp32_unaligned")):
         rows = [r for r in bwd_rows if r["route"] == route]
         main_row = next(r for r in rows if r["shape"] == timed)
         for name, key in (("flash_bwd_dq", "dq"), ("flash_bwd_dkdv", "dkdv")):
@@ -4312,8 +4505,10 @@ def main(argv=None) -> int:
                 "ms": main_row[f"{key}_ms"], "plain_ms": main_row[f"plain_{key}_ms"],
                 "bound_ms": main_row[f"{key}_bound_ms"],
                 "bound_by": main_row[f"{key}_bound_by"],
+                "bound_fma_ms": main_row[f"{key}_bound_fma_ms"],
                 "library_ms": main_row[f"library_{key}_ms"], "timed_shape": main_row["shape"],
-                "shapes": [{k: v for k, v in r.items() if k != "max_abs_err_by_grad"}
+                "shapes": [{k: v for k, v in r.items()
+                            if k != "max_abs_err_by_grad" and not k.endswith("floor_ms")}
                            for r in rows]})
     # the WKV6 backward at rwkv6-1.6b's bf16 training shape: its time (with
     # the timer's wait; the reading without it beside), the bound of the

@@ -37,12 +37,15 @@
 // Two kernels, chosen by the input type (flash_attention_fwd):
 //
 // fp32: flash_fwd_kernel, fp32 FMA on the CUDA cores, which holds the
-//   reference's fp32 tolerance (TF32 tensor cores would not). 256 threads
+//   reference's fp32 tolerance (one TF32 product a product would not; three,
+//   of each operand's big and small TF32 terms, would: the backward's
+//   x3 kernels below take that route, this kernel not yet). 256 threads
 //   as 16 x 16: thread (ty, tx) owns 4 query rows, keys tx and tx + 16 of
 //   each 32-key tile, and columns tx + 16 i of the accumulator. The 16
 //   threads of a row group share a half-warp, so the row max and row sum
-//   are 4 shuffles each. Bound: 4 hd operations per live (query, key)
-//   pair at the fp32 FMA peak (67 TFLOP/s).
+//   are 4 shuffles each. It executes 4 hd operations per live (query, key)
+//   pair at the fp32 FMA peak (67 TFLOP/s); the bound counts them at
+//   3xTF32's 165.
 //
 // bf16: flash_fwd_tc_kernel, both products on the tensor cores (wgmma,
 //   bf16 in, fp32 accumulate; 989 TFLOP/s). What bounds it at the
@@ -81,8 +84,9 @@
 // Both forward kernels also write each query row's fp32 log-sum-exp of its
 // scaled scores, lse (B, H, Sq), when the caller gives a buffer for it (null
 // leaves the launch as it was); a row with no live key gets +inf. The
-// backward's kernels (below: on the tensor cores for bf16 in a layout TMA
-// can take, on the FMA pipes otherwise) recompute the probabilities from it.
+// backward's kernels (below: on the tensor cores for bf16 and, as 3xTF32,
+// for fp32 in a layout TMA can take, on the FMA pipes otherwise) recompute
+// the probabilities from it.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (repro_torch/kernels/build.py). Entry points have
@@ -740,22 +744,24 @@ EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// (B, S, heads, hd) bf16 as a 4-D map (hd, heads, S, B), boxes of 64 columns
-// x 1 head x `rows` positions, 128-byte swizzle, zero fill out of bounds
+// (B, S, heads, hd) bf16 (esz 2) or fp32 (esz 4) as a 4-D map (hd, heads, S,
+// B), boxes of 128 bytes of columns (64 bf16, 32 fp32) x 1 head x `rows`
+// positions, 128-byte swizzle, zero fill out of bounds
 cudaError_t encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, int hd,
-                   int rows) {
+                   int rows, int esz = 2) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
-                                 (cuuint64_t)S * heads * hd * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * esz, (cuuint64_t)heads * hd * esz,
+                                 (cuuint64_t)S * heads * hd * esz};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / esz), 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, esz == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                        4, const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -1346,9 +1352,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_tc_kernel(
   }
 }
 
-// The backward's route: the tensor-core kernels take bf16 (any hd up to 256)
-// in a layout TMA can take, dO (and o, which the dq kernel reads in 16-byte
-// loads, when given) 16-byte aligned too; the rest runs the FMA kernels.
+// The backward's route: the bf16 tensor-core kernels take bf16 (any hd up
+// to 256) in a layout TMA can take, dO (and o, which the dq kernel reads in
+// 16-byte loads, when given) 16-byte aligned too; fp32 in such a layout
+// takes x3's kernels (x3::takes); the rest runs the FMA kernels.
 bool bwd_tensor_cores(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, int hd, int dtype) {
   return dtype == 1 && hd <= 256 && tma_layout(q, k, v, hd) &&
@@ -1439,6 +1446,937 @@ cudaError_t dispatch_bwd_dkdv(const void* q, const void* k, const void* v, const
                               causal, window, scale, st);
 }
 
+// ---------------------------------------------------------------------------
+// fp32 backward on the tensor cores: dQ (and delta), then dK and dV, every
+// product as three TF32 products. The design and what bounds it are in the
+// backward's note below.
+// ---------------------------------------------------------------------------
+
+namespace x3 {
+
+// The rows of a streamed tile (keys of the dq kernel's K and V tiles,
+// queries of the dK/dV kernel's Q and dO tiles), and the ring's depth: two
+// stages up to HDP 128; at 256, where a block of a cluster pair holds 128
+// columns beside the partner's halves of the sums, one.
+constexpr int kTileRows = 32;
+template <int HDP>
+__host__ __device__ constexpr int stages() { return HDP <= 128 ? 2 : 1; }
+// setmaxnreg: the producer warpgroup splits tiles in 40 registers, each
+// consumer keeps 232 (128 x 40 + 256 x 232 = 384 x 168, the registers the
+// block is launched with)
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+// Shared memory of the dq kernel, in bytes from a 1024-aligned base: Q and
+// dO of the block's 64 query rows as loaded (fp32 in HC / 32 128-byte
+// swizzled panels of 32 columns; HC = HDP up to 128, at 256 the pair of
+// blocks of a cluster holds 128 each); a ring of stages, each K big, K
+// small, V big, V small (T key rows each, the same panels); dS big and
+// small (64 query rows of 128 bytes, T keys used); p of a tile in the S
+// fragment's order; at HDP 256 the partner block's halves of S and dP, by
+// the tile's parity; the barriers (the resident tiles', then full, ready
+// and empty of each stage, the receipts of the partner's halves).
+template <int HDP>
+struct DqLayout {
+  static constexpr bool kPair = HDP > 128;
+  static constexpr int HC = kPair ? 128 : HDP;
+  static constexpr int NP = HC / 32, T = kTileRows, NS = stages<HDP>();
+  static constexpr int kRes = 64 * HC * 4;    // Q or dO
+  static constexpr int kStr = T * HC * 4;     // one term of a K or V tile
+  static constexpr int kRing = 2 * kRes;
+  static constexpr int kDS = kRing + NS * 4 * kStr;
+  static constexpr int kP = kDS + 2 * 64 * 128;
+  static constexpr int kX = kP + 64 * T * 4;
+  static constexpr int kXPart = 64 * T * 4;   // one warpgroup's half of S or dP
+  static constexpr int kBar = kX + (kPair ? 2 * 2 * kXPart : 0);
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * NS + 4) + 1024;
+};
+
+// Shared memory of the dK/dV kernel: K and V of the block's 64 keys as
+// loaded (its HC columns: all up to HDP 128; at 256 a pair of blocks, a
+// thread-block cluster, holds 128 each); a ring of stages, each Q big, Q
+// small, dO big, dO small (T query rows, HC columns); P big, P small, dS
+// big, dS small (64 key rows of 128 bytes, T queries used); each stage's
+// lse (base 2) and delta (T fp32 each); at HDP 256 the partner block's
+// halves of S^T and dP^T, by the tile's parity; the barriers (the resident
+// tiles', full, ready and empty of each stage, the receipts of the
+// partner's halves by parity and warpgroup).
+template <int HDP>
+struct DkdvLayout {
+  static constexpr bool kPair = HDP > 128;
+  static constexpr int HC = kPair ? 128 : HDP;
+  static constexpr int NP = HC / 32, T = kTileRows, NS = stages<HDP>();
+  static constexpr int kRes = 64 * HC * 4;    // K or V
+  static constexpr int kStr = T * HC * 4;     // one term of a Q or dO tile
+  static constexpr int kRing = 2 * kRes;
+  static constexpr int kPT = kRing + NS * 4 * kStr;
+  static constexpr int kRows = kPT + 4 * 64 * 128;
+  static constexpr int kX = kRows + NS * 2 * T * 4;
+  static constexpr int kXPart = 64 * T * 4;   // one warpgroup's half of S^T or dP^T
+  static constexpr int kBar = kX + (kPair ? 2 * 2 * kXPart : 0);
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * NS + 4) + 1024;
+};
+
+// this block's rank in its cluster
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// shared address `a` of this block as seen in block `rank` of the cluster
+__device__ __forceinline__ uint32_t at_rank(uint32_t a, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+// 16 bytes into a cluster block's shared memory, counted on that block's
+// mbarrier `bar` (its wait then sees them)
+__device__ __forceinline__ void st_async4(uint32_t a, float4 x, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(a),
+      "r"(__float_as_uint(x.x)), "r"(__float_as_uint(x.y)), "r"(__float_as_uint(x.z)),
+      "r"(__float_as_uint(x.w)), "r"(bar)
+      : "memory");
+}
+
+// every thread of the cluster: arrive (release) and wait (acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// byte offset of element (r, c) of an fp32 tile of R rows held as 128-byte
+// swizzled panels of 32 columns (TMA's SWIZZLE_128B with 32-column boxes;
+// the 16-byte chunk of a row XORed with the row's index mod 8)
+template <int R>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (c >> 5) * (R * 128) + r * 128 + ((((c >> 2) & 7) ^ (r & 7)) << 4) + (c & 3) * 4;
+}
+
+// x rounded to TF32, to nearest with ties away from zero (the low 13 bits
+// 0): cvt.rna.tf32.f32's rule, as an integer add and a mask on the bits
+// (two full-rate instructions; the conversion runs at a quarter of their
+// rate, and splitting the operands is a large share of the kernels' issue)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x as big = tf32(x) and small = tf32(x - big); x - big is exact in fp32, so
+// big + small keeps 22 of x's 24 significant bits
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32(x);
+  small = tf32(x - __uint_as_float(big));
+}
+
+// wait until at most N of this warpgroup's wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 x 32, fp32) += A.B, one TF32 product: A (64 x 8) from registers in
+// the TF32 A fragment's order, B (8 x 32) K-major from shared memory
+__device__ __forceinline__ void wgmma_tf32_n32(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, fp32) += A.B, one TF32 product: A (64 x 8) from registers in
+// the TF32 A fragment's order, B (8 x 64) K-major from shared memory
+__device__ __forceinline__ void wgmma_tf32_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a, uint64_t db) {
+  if constexpr (N == 32) wgmma_tf32_n32(d, a, db);
+  else wgmma_tf32_n64(d, a, db);
+}
+
+// acc (the 64 x N fp32 fragment) += A B over K = 8 STEPS, as three TF32
+// products a step: big.big, big.small, small.big. frag(kk, big, small)
+// gives step kk's A fragment (64 x 8: a0 row r, column c; a1 row r + 8; a2
+// column c + 4; a3 both, r = 16 warp + lane / 4, c = lane % 4) as 4 big
+// and 4 small TF32 registers; bdesc(kk, term) the descriptor of B's big (0)
+// or small (1) 8 x N K-major block. A ring of kSlots register slots: step
+// kk + kAhead's fragment is loaded (and split) while step kk runs on the
+// tensor cores, into the slot whose step has completed (wait_group kSlots -
+// kAhead). All into one accumulator. (Four slots spilled the dK/dV kernel's
+// registers at HDP 128; two left its products waiting on the loads.)
+constexpr int kSlots = 3, kAhead = 2;
+template <int N, int STEPS, typename Frag, typename Desc>
+__device__ __forceinline__ void mma3(float* acc, Frag frag, Desc bdesc) {
+  uint32_t a[kSlots][8];
+  pin<N / 2>(acc);
+#pragma unroll
+  for (int kk = 0; kk < kAhead && kk < STEPS; ++kk) frag(kk, a[kk], a[kk] + 4);
+#pragma unroll
+  for (int kk = 0; kk < STEPS; ++kk) {
+    uint32_t* r = a[kk % kSlots];
+    pin<8>(r);
+    wgmma_fence();
+    wgmma_tf32<N>(acc, r, bdesc(kk, 0));
+    wgmma_tf32<N>(acc, r, bdesc(kk, 1));
+    wgmma_tf32<N>(acc, r + 4, bdesc(kk, 0));
+    wgmma_commit();
+    if (kk + kAhead < STEPS) {
+      // the slot's last step, kk + kAhead - kSlots, is done
+      if (kk + kAhead >= kSlots) wgmma_wait<kSlots - kAhead>();
+      uint32_t* nx = a[(kk + kAhead) % kSlots];
+      frag(kk + kAhead, nx, nx + 4);
+    }
+  }
+  wgmma_wait0();
+  pin<N / 2>(acc);
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i) pin<8>(a[i]);
+}
+
+// the A fragment of step kk from an fp32 tile of R rows as loaded (at
+// `tile`, generic address), rows row0 + r and + 8 (M), columns 8 kk + c
+// and + 4 (K), split here
+template <int R>
+__device__ __forceinline__ void frag_split(const uint8_t* tile, int row0, int kk, int lane,
+                                           uint32_t* big, uint32_t* small) {
+  const int r = row0 + lane / 4, c = 8 * kk + lane % 4;
+  const float x[4] = {*reinterpret_cast<const float*>(tile + swz<R>(r, c)),
+                      *reinterpret_cast<const float*>(tile + swz<R>(r + 8, c)),
+                      *reinterpret_cast<const float*>(tile + swz<R>(r, c + 4)),
+                      *reinterpret_cast<const float*>(tile + swz<R>(r + 8, c + 4))};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(x[i], big[i], small[i]);
+}
+
+// the A fragment of step kk transposed out of a split tile of R rows (big
+// at `tb`, small at `ts`): A's row m is the tile's column col0 + m, A's
+// column k the tile's row 8 kk + k
+template <int R>
+__device__ __forceinline__ void frag_t(const uint8_t* tb, const uint8_t* ts, int col0, int kk,
+                                       int lane, uint32_t* big, uint32_t* small) {
+  const int m = col0 + lane / 4, k = 8 * kk + lane % 4;
+  const uint32_t off[4] = {swz<R>(k, m), swz<R>(k, m + 8), swz<R>(k + 4, m),
+                           swz<R>(k + 4, m + 8)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    big[i] = *reinterpret_cast<const uint32_t*>(tb + off[i]);
+    small[i] = *reinterpret_cast<const uint32_t*>(ts + off[i]);
+  }
+}
+
+// descriptor of step kk's 8 x N block of a K-major tile at `t` (shared
+// address) whose N rows start there, panels `panel` bytes apart
+__device__ __forceinline__ uint64_t kdesc(uint32_t t, int kk, uint32_t panel) {
+  return sw128_desc(t + (kk / 4) * panel + (kk % 4) * 32, 16, 1024);
+}
+
+// a tile as loaded (n fp32 at `big`) into big = tf32(x) in place and small
+// beside it, by the 128 threads of the producer warpgroup
+__device__ __forceinline__ void split_tile(uint8_t* big, uint8_t* small, int n, int t) {
+#pragma unroll 4
+  for (int i = 4 * t; i < n; i += 4 * 128) {
+    const float4 x = *reinterpret_cast<const float4*>(big + 4 * i);
+    uint4 b, s;
+    split(x.x, b.x, s.x);
+    split(x.y, b.y, s.y);
+    split(x.z, b.z, s.z);
+    split(x.w, b.w, s.w);
+    *reinterpret_cast<uint4*>(big + 4 * i) = b;
+    *reinterpret_cast<uint4*>(small + 4 * i) = s;
+  }
+}
+
+// dQ of 64 query rows of one (b, h), and their delta = sum dO.O; at HDP 256
+// a cluster of two blocks (the grid's z) shares the rows, block z holding
+// Q, dO, K and V's columns 128 z to 128 z + 127 and summing those of dq
+// (the halves of S and dP cross the pair, as in the dK/dV kernel). The
+// producer warpgroup's thread 0 loads Q and dO once and the live K and V
+// tiles into the ring; its 128 threads split each tile. For each tile,
+// consumer 0 forms S = Q K^T and p, consumer 1 dP = dO V^T and, from p,
+// dS; then both add the tile's dQ^T = K^T dS^T to their rows of dQ^T (at
+// HDP 64 each its 32 queries of all 64 columns; above, each its 64 of the
+// block's columns).
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_x3_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const float* __restrict__ o, const float* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ dq, float* __restrict__ delta, int Sq, int Sk, int H, int Hkv, int hd,
+    int causal, int window, float scale) {
+  using L = DqLayout<HDP>;
+  constexpr int T = L::T, NS = L::NS, HC = L::HC;
+  constexpr bool kPair = L::kPair;
+  constexpr int NQ = HDP == 64 ? 32 : 64;  // queries of dQ^T a consumer sums (64 columns)
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gb = smem_raw + (base - raw);
+  // stage s, tensor t (0 K, 1 V), term (0 big, 1 small): offset from base
+  auto ring = [](int s, int t, int term) { return L::kRing + ((s * 2 + t) * 2 + term) * L::kStr; };
+  const uint32_t res_full = base + L::kBar;
+  auto full = [&](int s) { return res_full + 8 * (1 + s); };
+  auto ready = [&](int s) { return res_full + 8 * (1 + NS + s); };
+  auto empty = [&](int s) { return res_full + 8 * (1 + 2 * NS + s); };
+  // the partner's half of S (w 0) or dP (w 1) for tiles of parity x
+  auto xbar = [&](int x, int w) { return res_full + 8 * (1 + 3 * NS + 2 * x + w); };
+
+  const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
+  // the block's (b, h), first query row, first of its HC columns and live
+  // key tiles, formed in each role after setmaxnreg (fresh)
+  int bh, b, h, q0, col0, q_last, kt_lo, n_tiles;
+  auto block = [&]() {
+    bh = fresh(blockIdx.x);
+    col0 = kPair ? cluster_rank() * HC : 0;
+    b = bh / H;
+    h = bh % H;
+    q0 = (gridDim.y - 1 - fresh(blockIdx.y)) * 64;  // heaviest (last) tiles first
+    q_last = min(q0 + 64, Sq) - 1;
+    int kt_hi = (Sk - 1) / T;
+    kt_lo = 0;
+    if (causal) {
+      kt_hi = min(q_last, Sk - 1) / T;
+      if (window > 0) kt_lo = max(0, q0 - window + 1) / T;
+    }
+    n_tiles = kt_hi - kt_lo + 1;   // <= 0 when a window lies wholly past Sk
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(ready(s), 128);
+      mbar_init(empty(s), 256);
+    }
+    if constexpr (kPair)
+      for (int x = 0; x < 4; ++x) mbar_init(xbar(x / 2, x % 2), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // at HDP 256 the partner's barriers are set before anything is sent to it
+  if constexpr (kPair)
+    cluster_sync();
+  else
+    __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: Q and dO once; then each K/V tile loaded and split ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    block();
+    const int hk = h / (H / Hkv);
+    if (tw == 0) {
+      mbar_expect_tx(res_full, 2 * L::kRes);
+      for (int p = 0; p < L::NP; ++p) {
+        tma_load(base + p * 64 * 128, &tq, res_full, col0 + p * 32, h, q0, b);
+        tma_load(base + L::kRes + p * 64 * 128, &tdo, res_full, col0 + p * 32, h, q0, b);
+      }
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % NS;
+      if (tw == 0) {
+        const int k0 = (kt_lo + it) * T;
+        mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * L::kStr);
+        for (int p = 0; p < L::NP; ++p) {
+          tma_load(base + ring(s, 0, 0) + p * T * 128, &tk, full(s), col0 + p * 32, hk, k0,
+                   b);
+          tma_load(base + ring(s, 1, 0) + p * T * 128, &tv, full(s), col0 + p * 32, hk, k0,
+                   b);
+        }
+      }
+      mbar_wait(full(s), (it / NS) & 1);
+      split_tile(gb + ring(s, 0, 0), gb + ring(s, 0, 1), T * HC, tw);
+      split_tile(gb + ring(s, 1, 0), gb + ring(s, 1, 1), T * HC, tw);
+      fence_async_smem();
+      mbar_arrive(ready(s));
+    }
+  } else {
+    // ---- consumers ------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    block();
+    const int lane = tw % 32, warp = tw / 32;
+    const int r0 = warp * 16 + lane / 4;   // rows r0 and r0 + 8 of S and dP
+    const int qp0 = q0 + r0, qp1 = qp0 + 8;
+    const float scale_log2 = scale * kLog2e;
+    const long long q_stride = (long long)H * hd;
+    const long long q_base = (long long)b * Sq * q_stride + (long long)h * hd;
+    // consumer 1: delta of rows qp0, qp1 (the quad's four threads take every
+    // fourth 16-byte chunk of the row, then sum over the quad), written out;
+    // consumer 0: lse of the rows in base 2 (+inf past Sq, so p = 0)
+    float z0, z1;
+    if (wg == 1) {
+      z0 = z1 = 0.f;
+      for (int c = (lane % 4) * 4; c < hd; c += 16) {
+        if (qp0 < Sq) {
+          const float4 x = *reinterpret_cast<const float4*>(dout + q_base + qp0 * q_stride + c);
+          const float4 y = *reinterpret_cast<const float4*>(o + q_base + qp0 * q_stride + c);
+          z0 = fmaf(x.x, y.x, z0);
+          z0 = fmaf(x.y, y.y, z0);
+          z0 = fmaf(x.z, y.z, z0);
+          z0 = fmaf(x.w, y.w, z0);
+        }
+        if (qp1 < Sq) {
+          const float4 x = *reinterpret_cast<const float4*>(dout + q_base + qp1 * q_stride + c);
+          const float4 y = *reinterpret_cast<const float4*>(o + q_base + qp1 * q_stride + c);
+          z1 = fmaf(x.x, y.x, z1);
+          z1 = fmaf(x.y, y.y, z1);
+          z1 = fmaf(x.z, y.z, z1);
+          z1 = fmaf(x.w, y.w, z1);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        z0 += __shfl_xor_sync(0xffffffffu, z0, off);
+        z1 += __shfl_xor_sync(0xffffffffu, z1, off);
+      }
+      if (lane % 4 == 0 && col0 == 0) {
+        if (qp0 < Sq) delta[(long long)bh * Sq + qp0] = z0;
+        if (qp1 < Sq) delta[(long long)bh * Sq + qp1] = z1;
+      }
+    } else {
+      const float* lrow = lse + (long long)bh * Sq;
+      z0 = qp0 < Sq ? lrow[qp0] * kLog2e : INFINITY;
+      z1 = qp1 < Sq ? lrow[qp1] * kLog2e : INFINITY;
+    }
+    float4* const pbuf = reinterpret_cast<float4*>(gb + L::kP);
+    const uint32_t ds_b = base + L::kDS, ds_s = ds_b + 64 * 128;
+    // this consumer's dQ^T: the block's columns (M) d0 to d0 + 63, queries (N)
+    // n0 on
+    const int d0 = HDP == 64 ? 0 : wg * 64, n0 = HDP == 64 ? wg * 32 : 0;
+    float acc[NQ / 2];
+#pragma unroll
+    for (int j = 0; j < NQ / 2; ++j) acc[j] = 0.f;
+    mbar_wait(res_full, 0);
+
+    auto consume = [&](auto dp_tag) {
+      constexpr bool kDP = decltype(dp_tag)::value;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % NS;
+        const int k0 = (kt_lo + it) * T;
+        mbar_wait(ready(s), (it / NS) & 1);
+        // S = Q K^T (consumer 0) or dP = dO V^T (consumer 1), 64 x T over
+        // HC / 8 steps, Q or dO split as it is read
+        float sc[T / 2];
+#pragma unroll
+        for (int i = 0; i < T / 2; ++i) sc[i] = 0.f;
+        const uint8_t* a_tile = gb + (kDP ? L::kRes : 0);
+        const uint32_t bt = base + ring(s, kDP ? 1 : 0, 0);
+        mma3<T, HC / 8>(
+            sc, [&](int kk, uint32_t* bg, uint32_t* sm) {
+              frag_split<64>(a_tile, warp * 16, kk, lane, bg, sm);
+            },
+            [&](int kk, int term) { return kdesc(bt + term * L::kStr, kk, T * 128); });
+        if constexpr (kPair) {
+          // this block's half of the sum to the partner, the partner's half
+          // added here (a + b: both blocks hold the same bits)
+          const int x = it & 1;
+          const uint32_t part = L::kX + (x * 2 + (kDP ? 1 : 0)) * L::kXPart;
+          if (tw == 0) mbar_expect_tx(xbar(x, wg), L::kXPart);
+          const int other = cluster_rank() ^ 1;
+          const uint32_t dst = at_rank(base + part, other), bar = at_rank(xbar(x, wg), other);
+#pragma unroll
+          for (int v = 0; v < T / 8; ++v)
+            st_async4(dst + (v * 128 + tw) * 16,
+                      make_float4(sc[4 * v], sc[4 * v + 1], sc[4 * v + 2], sc[4 * v + 3]), bar);
+          mbar_wait(xbar(x, wg), (it >> 1) & 1);
+          const float4* got = reinterpret_cast<const float4*>(gb + part);
+#pragma unroll
+          for (int v = 0; v < T / 8; ++v) {
+            const float4 o = got[v * 128 + tw];
+            sc[4 * v] += o.x;
+            sc[4 * v + 1] += o.y;
+            sc[4 * v + 2] += o.z;
+            sc[4 * v + 3] += o.w;
+          }
+        }
+        if constexpr (!kDP) {
+          // p = 2^(s scale log2(e) - lse log2(e)) on live pairs; the mask only
+          // in tiles that cross Sk, the diagonal or the window's edge
+          const bool edge = k0 + T > Sk ||
+                            (causal && (k0 + T - 1 > q0 || (window > 0 && k0 <= q_last - window)));
+          auto probs = [&](auto edge_tag) {
+#pragma unroll
+            for (int i = 0; i < T / 2; ++i) {
+              const int qp = (i & 2) ? qp1 : qp0;
+              bool live = true;
+              if constexpr (decltype(edge_tag)::value) {
+                const int key = k0 + (i / 4) * 8 + (lane % 4) * 2 + (i & 1);
+                live = key < Sk && (!causal || (key <= qp && (window <= 0 || qp - key < window)));
+              }
+              const float arg = fmaf(sc[i], scale_log2, -((i & 2) ? z1 : z0));
+              sc[i] = exp2_ftz(live ? arg : -INFINITY);
+            }
+          };
+          if (edge)
+            probs(std::true_type{});
+          else
+            probs(std::false_type{});
+#pragma unroll
+          for (int v = 0; v < T / 8; ++v)
+            pbuf[v * 128 + tw] = make_float4(sc[4 * v], sc[4 * v + 1], sc[4 * v + 2], sc[4 * v + 3]);
+        }
+        bar_sync(1, 256);
+        if constexpr (kDP) {
+          // dS = p (dP - delta) scale, split, into dS's rows (the B operand of
+          // dQ^T = K^T dS^T: K-major, a query's T keys in a row)
+#pragma unroll
+          for (int v = 0; v < T / 8; ++v) {
+            const float4 p = pbuf[v * 128 + tw];
+            const float pv[4] = {p.x, p.y, p.z, p.w};
+            uint32_t bg[4], sm[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * v + e;
+              split(pv[e] * (sc[i] - ((i & 2) ? z1 : z0)) * scale, bg[e], sm[e]);
+            }
+            const int key = v * 8 + (lane % 4) * 2;
+            const uint32_t o0 = swz<64>(r0, key), o1 = swz<64>(r0 + 8, key);
+            *reinterpret_cast<uint2*>(gb + L::kDS + o0) = make_uint2(bg[0], bg[1]);
+            *reinterpret_cast<uint2*>(gb + L::kDS + o1) = make_uint2(bg[2], bg[3]);
+            *reinterpret_cast<uint2*>(gb + L::kDS + 64 * 128 + o0) = make_uint2(sm[0], sm[1]);
+            *reinterpret_cast<uint2*>(gb + L::kDS + 64 * 128 + o1) = make_uint2(sm[2], sm[3]);
+          }
+          fence_async_smem();
+        }
+        bar_sync(2, 256);
+        // dQ^T (this consumer's columns and queries) += K^T dS^T: K^T from the
+        // split K tile as the A fragment, dS from shared memory
+        const uint8_t* kb = gb + ring(s, 0, 0);
+        mma3<NQ, T / 8>(
+            acc, [&](int kk, uint32_t* bg, uint32_t* sm) {
+              frag_t<T>(kb, kb + L::kStr, d0 + warp * 16, kk, lane, bg, sm);
+            },
+            [&](int kk, int term) { return kdesc((term ? ds_s : ds_b) + n0 * 128, kk, 0); });
+        mbar_arrive(empty(s));
+      }
+    };
+    if (wg == 0)
+      consume(std::false_type{});
+    else
+      consume(std::true_type{});
+    // dq = dQ^T transposed: element j is column col0 + d0 + 16 warp + lane / 4
+    // (+ 8 when j & 2), query n0 + 8 (j / 4) + 2 (lane % 4) + j % 2
+    float* const dqb = dq + q_base;
+#pragma unroll
+    for (int j = 0; j < NQ / 2; ++j) {
+      const int d = col0 + d0 + warp * 16 + lane / 4 + ((j & 2) ? 8 : 0);
+      const int qp = q0 + n0 + (j / 4) * 8 + (lane % 4) * 2 + (j & 1);
+      if (qp < Sq && d < hd) dqb[qp * q_stride + d] = acc[j];
+    }
+  }
+}
+
+// dK and dV of 64 keys of one (b, kv head), all HDP columns up to 128; at
+// HDP 256 a cluster of two blocks (the grid's z) shares the keys, block z
+// holding K, V, Q and dO's columns 128 z to 128 z + 127 and summing those
+// of dk and dv (all 256 would be 128 fp32 of output a consumer thread,
+// which with the rest does not fit its 232 registers): each forms its
+// half of S^T and dP^T's sums over hd, sends it to the other (st.async)
+// and adds the other's, so both hold the same S^T and dP^T. The producer
+// warpgroup's
+// thread 0 loads K and V once and streams, for each query head of the group
+// and each query tile some key of the block leaves live, the Q and dO tiles;
+// its 128 threads split them and copy their lse (base 2) and delta. For each
+// tile, consumer 0 forms S^T = K Q^T, p^T and (split) P, consumer 1 dP^T =
+// V dO^T and, from P, dS; then consumer 0 adds dV^T += dO^T P and consumer 1
+// dK^T += Q^T dS, each held in registers over the whole loop.
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_x3_kernel(
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
+    float* __restrict__ dv, int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+    float scale) {
+  using L = DkdvLayout<HDP>;
+  constexpr int T = L::T, NS = L::NS, HC = L::HC;
+  constexpr bool kPair = L::kPair;
+  constexpr int MT = HC / 64;   // 64-column M tiles of dV^T or dK^T a consumer sums
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gb = smem_raw + (base - raw);
+  // stage s, tensor t (0 Q, 1 dO), term (0 big, 1 small)
+  auto ring = [](int s, int t, int term) { return L::kRing + ((s * 2 + t) * 2 + term) * L::kStr; };
+  float* const rows = reinterpret_cast<float*>(gb + L::kRows);
+  auto lse_s = [&](int s) { return rows + s * 2 * T; };
+  auto delta_s = [&](int s) { return rows + s * 2 * T + T; };
+  const uint32_t res_full = base + L::kBar;
+  auto full = [&](int s) { return res_full + 8 * (1 + s); };
+  auto ready = [&](int s) { return res_full + 8 * (1 + NS + s); };
+  auto empty = [&](int s) { return res_full + 8 * (1 + 2 * NS + s); };
+  // the partner's half of S^T (w 0) or dP^T (w 1) for tiles of parity x
+  auto xbar = [&](int x, int w) { return res_full + 8 * (1 + 3 * NS + 2 * x + w); };
+
+  const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
+  const int R = H / Hkv;
+  // the block's (b, kv head), first key, first column of dk and dv, and the
+  // query tiles some key of it leaves live, qt_lo on, n_q of them for each
+  // query head; formed in each role after setmaxnreg (fresh)
+  int b, hk, k0, col0, k_last, qt_lo, n_q;
+  auto block = [&]() {
+    const int bx = fresh(blockIdx.x);
+    b = bx / Hkv;
+    hk = bx % Hkv;
+    k0 = fresh(blockIdx.y) * 64;   // causal: the lowest keys, the heaviest blocks, first
+    col0 = kPair ? cluster_rank() * HC : 0;
+    k_last = min(k0 + 64, Sk) - 1;
+    int qt_hi = (Sq - 1) / T;
+    qt_lo = 0;
+    if (causal) {
+      qt_lo = k0 / T;
+      if (window > 0) qt_hi = min(Sq - 1, k_last + window - 1) / T;
+    }
+    n_q = max(0, qt_hi - qt_lo + 1);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(ready(s), 128);
+      mbar_init(empty(s), 256);
+    }
+    if constexpr (kPair)
+      for (int x = 0; x < 4; ++x) mbar_init(xbar(x / 2, x % 2), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // at HDP 256 the partner's barriers are set before anything is sent to it
+  if constexpr (kPair)
+    cluster_sync();
+  else
+    __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: K and V once; then each Q/dO tile loaded and split, with
+    // its lse (base 2) and delta (a query past Sq: lse +inf, so p = 0, and
+    // delta 0) -----------------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    block();
+    if (tw == 0) {
+      mbar_expect_tx(res_full, 2 * L::kRes);
+      for (int p = 0; p < L::NP; ++p) {
+        tma_load(base + p * 64 * 128, &tk, res_full, col0 + p * 32, hk, k0, b);
+        tma_load(base + L::kRes + p * 64 * 128, &tv, res_full, col0 + p * 32, hk, k0, b);
+      }
+    }
+    int it = 0;
+    for (int h = hk * R; h < hk * R + R; ++h) {
+      const long long row = ((long long)b * H + h) * Sq;
+      for (int qt = qt_lo; qt < qt_lo + n_q; ++qt, ++it) {
+        const int s = it % NS, q0 = qt * T;
+        if (tw == 0) {
+          mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
+          mbar_expect_tx(full(s), 2 * L::kStr);
+          for (int p = 0; p < L::NP; ++p) {
+            tma_load(base + ring(s, 0, 0) + p * T * 128, &tq, full(s), col0 + p * 32, h, q0,
+                     b);
+            tma_load(base + ring(s, 1, 0) + p * T * 128, &tdo, full(s), col0 + p * 32, h, q0,
+                     b);
+          }
+        }
+        mbar_wait(full(s), (it / NS) & 1);
+        split_tile(gb + ring(s, 0, 0), gb + ring(s, 0, 1), T * HC, tw);
+        split_tile(gb + ring(s, 1, 0), gb + ring(s, 1, 1), T * HC, tw);
+        if (tw < T) {
+          const int qp = q0 + tw;
+          lse_s(s)[tw] = qp < Sq ? lse[row + qp] * kLog2e : INFINITY;
+          delta_s(s)[tw] = qp < Sq ? delta[row + qp] : 0.f;
+        }
+        fence_async_smem();
+        mbar_arrive(ready(s));
+      }
+    }
+  } else {
+    // ---- consumers: 0 forms dV^T, 1 dK^T, of the block's 64 keys ---------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    block();
+    const int n_tiles = R * n_q;
+    const int lane = tw % 32, warp = tw / 32;
+    const int kr0 = warp * 16 + lane / 4;   // key rows kr0 and kr0 + 8 of the block
+    const float scale_log2 = scale * kLog2e;
+    const uint32_t pt = base + L::kPT;      // P big, P small, dS big, dS small
+    auto consume = [&](auto dk_tag) {
+      constexpr bool kDK = decltype(dk_tag)::value;
+      float g[MT][32];   // dV^T or dK^T: HC columns (M) x 64 keys (N)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < 32; ++j) g[m][j] = 0.f;
+      mbar_wait(res_full, 0);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % NS;
+        const int q0 = (qt_lo + it % n_q) * T;
+        mbar_wait(ready(s), (it / NS) & 1);
+        // S^T = K Q^T (consumer 0) or dP^T = V dO^T (consumer 1), 64 keys x T
+        // queries over HC / 8 steps, K or V split as it is read
+        float st[T / 2];
+#pragma unroll
+        for (int i = 0; i < T / 2; ++i) st[i] = 0.f;
+        const uint8_t* a_tile = gb + (kDK ? L::kRes : 0);
+        const uint32_t bt = base + ring(s, kDK ? 1 : 0, 0);
+        mma3<T, HC / 8>(
+            st, [&](int kk, uint32_t* bg, uint32_t* sm) {
+              frag_split<64>(a_tile, warp * 16, kk, lane, bg, sm);
+            },
+            [&](int kk, int term) { return kdesc(bt + term * L::kStr, kk, T * 128); });
+        if constexpr (kPair) {
+          // this block's half of the sum to the partner, the partner's half
+          // added here (a + b: both blocks hold the same bits)
+          const int x = it & 1;
+          const uint32_t part = L::kX + (x * 2 + (kDK ? 1 : 0)) * L::kXPart;
+          if (tw == 0) mbar_expect_tx(xbar(x, wg), L::kXPart);
+          const int other = cluster_rank() ^ 1;
+          const uint32_t dst = at_rank(base + part, other), bar = at_rank(xbar(x, wg), other);
+#pragma unroll
+          for (int v = 0; v < T / 8; ++v)
+            st_async4(dst + (v * 128 + tw) * 16,
+                      make_float4(st[4 * v], st[4 * v + 1], st[4 * v + 2], st[4 * v + 3]), bar);
+          mbar_wait(xbar(x, wg), (it >> 1) & 1);
+          const float4* got = reinterpret_cast<const float4*>(gb + part);
+#pragma unroll
+          for (int v = 0; v < T / 8; ++v) {
+            const float4 o = got[v * 128 + tw];
+            st[4 * v] += o.x;
+            st[4 * v + 1] += o.y;
+            st[4 * v + 2] += o.z;
+            st[4 * v + 3] += o.w;
+          }
+        }
+        // both consumers are done with the previous tile's P and dS
+        bar_sync(1, 256);
+        const bool edge =
+            q0 + T > Sq || k0 + 64 > Sk ||
+            (causal && (k0 + 63 > q0 || (window > 0 && q0 + T - 1 - k0 >= window)));
+        const float* ls = lse_s(s);
+        const float* dz = delta_s(s);
+        // element 4 v + e of the fragment: key row kr0 (+ 8 when e & 2), query
+        // column 8 v + 2 (lane % 4) + e % 2; P's and dS's rows are keys
+        if constexpr (kDK) bar_sync(2, 256);   // P is written
+#pragma unroll
+        for (int v = 0; v < T / 8; ++v) {
+          const int c = v * 8 + (lane % 4) * 2;
+          const uint32_t o0 = swz<64>(kr0, c), o1 = swz<64>(kr0 + 8, c);
+          float x[4];
+          if constexpr (!kDK) {
+            // p = 2^(s scale log2(e) - lse log2(e)) on live pairs; the mask only
+            // in tiles that cross Sq, Sk, the diagonal or the window's edge
+            const float2 lz = *reinterpret_cast<const float2*>(ls + c);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float arg = fmaf(st[4 * v + e], scale_log2, -((e & 1) ? lz.y : lz.x));
+              bool live = true;
+              if (edge) {
+                const int kp = k0 + ((e & 2) ? kr0 + 8 : kr0), qp = q0 + c + (e & 1);
+                live = kp < Sk && qp < Sq &&
+                       (!causal || (kp <= qp && (window <= 0 || qp - kp < window)));
+              }
+              x[e] = exp2_ftz(live ? arg : -INFINITY);
+            }
+          } else {
+            // dS = p (dP - delta) scale, p as consumer 0 split it (big + small)
+            const float2 dd = *reinterpret_cast<const float2*>(dz + c);
+            const float2 b0 = *reinterpret_cast<const float2*>(gb + L::kPT + o0);
+            const float2 b1 = *reinterpret_cast<const float2*>(gb + L::kPT + o1);
+            const float2 s0 = *reinterpret_cast<const float2*>(gb + L::kPT + 64 * 128 + o0);
+            const float2 s1 = *reinterpret_cast<const float2*>(gb + L::kPT + 64 * 128 + o1);
+            const float p[4] = {b0.x + s0.x, b0.y + s0.y, b1.x + s1.x, b1.y + s1.y};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              x[e] = p[e] * (st[4 * v + e] - ((e & 1) ? dd.y : dd.x)) * scale;
+          }
+          uint32_t bg[4], sm[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split(x[e], bg[e], sm[e]);
+          uint8_t* const dst = gb + L::kPT + (kDK ? 2 * 64 * 128 : 0);
+          *reinterpret_cast<uint2*>(dst + o0) = make_uint2(bg[0], bg[1]);
+          *reinterpret_cast<uint2*>(dst + o1) = make_uint2(bg[2], bg[3]);
+          *reinterpret_cast<uint2*>(dst + 64 * 128 + o0) = make_uint2(sm[0], sm[1]);
+          *reinterpret_cast<uint2*>(dst + 64 * 128 + o1) = make_uint2(sm[2], sm[3]);
+        }
+        fence_async_smem();
+        if constexpr (!kDK)
+          bar_sync(2, 256);   // P is written: consumer 1 may read it, this wgmma see it
+        else
+          bar_sync(3, 128);   // dS is written: this warpgroup's wgmma may read it
+        // g += this tile's dO^T P (dV^T) or Q^T dS (dK^T): dO or Q from the split
+        // tile as the transposed A fragment, P or dS from shared memory
+        const uint8_t* at = gb + ring(s, kDK ? 0 : 1, 0);
+        const uint32_t bt2 = pt + (kDK ? 2 * 64 * 128 : 0);
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          mma3<64, T / 8>(
+              g[m], [&](int kk, uint32_t* bg, uint32_t* sm) {
+                frag_t<T>(at, at + L::kStr, m * 64 + warp * 16, kk, lane, bg, sm);
+              },
+              [&](int kk, int term) { return kdesc(bt2 + term * 64 * 128, kk, 0); });
+        mbar_arrive(empty(s));
+      }
+      // dk or dv = g transposed: element j of M tile m is column col0 + 64 m +
+      // 16 warp + lane / 4 (+ 8 when j & 2), key k0 + 8 (j / 4) + 2 (lane % 4) + j % 2
+      const long long kv_stride = (long long)Hkv * hd;
+      float* const out = (kDK ? dk : dv) + (long long)b * Sk * kv_stride + (long long)hk * hd;
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const int d = col0 + m * 64 + warp * 16 + lane / 4 + ((j & 2) ? 8 : 0);
+          const int kp = k0 + (j / 4) * 8 + (lane % 4) * 2 + (j & 1);
+          if (kp < Sk && d < hd) out[kp * kv_stride + d] = g[m][j];
+        }
+    };
+    if (wg == 0)
+      consume(std::false_type{});
+    else
+      consume(std::true_type{});
+  }
+}
+
+// The route: fp32 at any hd up to 256 in a layout TMA can take (rows of hd
+// fp32 a multiple of 16 bytes, every base 16-byte aligned; o null for the
+// dK/dV kernel)
+bool takes(const void* q, const void* k, const void* v, const void* o, const void* dout,
+           int hd, int dtype) {
+  return dtype == 0 && hd <= 256 && hd % 4 == 0 &&
+         ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+           reinterpret_cast<uintptr_t>(dout)) % 16) == 0;
+}
+
+template <int HDP>
+cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                          const float* lse, const void* dout, void* dq, float* delta, int B,
+                          int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                          float scale, cudaStream_t st) {
+  constexpr int bytes = DqLayout<HDP>::kBytes;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_x3_kernel<HDP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  if ((long long)Sq > 65535LL * 64) return cudaErrorInvalidValue;
+  CUtensorMap tq, tdo, tk, tv;
+  cudaError_t e = encode(&tq, q, B, Sq, H, hd, 64, 4);
+  if (e == cudaSuccess) e = encode(&tdo, dout, B, Sq, H, hd, 64, 4);
+  if (e == cudaSuccess) e = encode(&tk, k, B, Sk, Hkv, hd, DqLayout<HDP>::T, 4);
+  if (e == cudaSuccess) e = encode(&tv, v, B, Sk, Hkv, hd, DqLayout<HDP>::T, 4);
+  if (e != cudaSuccess) return e;
+  // at HDP 256 the grid's z is the cluster pair that shares each row block
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * H, (Sq + 63) / 64, DqLayout<HDP>::kPair ? 2 : 1);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = DqLayout<HDP>::kPair ? 2 : 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, flash_bwd_dq_x3_kernel<HDP>, tq, tdo, tk, tv,
+                         static_cast<const float*>(o), static_cast<const float*>(dout), lse,
+                         static_cast<float*>(dq), delta, Sq, Sk, H, Hkv, hd, causal, window,
+                         scale);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <int HDP>
+cudaError_t launch_bwd_dkdv(const void* q, const void* k, const void* v, const float* lse,
+                            const float* delta, const void* dout, void* dk, void* dv, int B,
+                            int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                            float scale, cudaStream_t st) {
+  constexpr int bytes = DkdvLayout<HDP>::kBytes;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_x3_kernel<HDP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  CUtensorMap tk, tv, tq, tdo;
+  cudaError_t e = encode(&tk, k, B, Sk, Hkv, hd, 64, 4);
+  if (e == cudaSuccess) e = encode(&tv, v, B, Sk, Hkv, hd, 64, 4);
+  if (e == cudaSuccess) e = encode(&tq, q, B, Sq, H, hd, DkdvLayout<HDP>::T, 4);
+  if (e == cudaSuccess) e = encode(&tdo, dout, B, Sq, H, hd, DkdvLayout<HDP>::T, 4);
+  if (e != cudaSuccess) return e;
+  // at HDP 256 the grid's z is the cluster pair that shares each key block
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * Hkv, (Sk + 63) / 64, DkdvLayout<HDP>::kPair ? 2 : 1);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = DkdvLayout<HDP>::kPair ? 2 : 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_x3_kernel<HDP>, tk, tv, tq, tdo, lse, delta,
+                         static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H, Hkv, hd,
+                         causal, window, scale);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                            const float* lse, const void* dout, void* dq, float* delta, int B,
+                            int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                            float scale, cudaStream_t st) {
+  if (hd <= 64)
+    return launch_bwd_dq<64>(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H, Hkv, hd, causal,
+                             window, scale, st);
+  if (hd <= 128)
+    return launch_bwd_dq<128>(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H, Hkv, hd, causal,
+                              window, scale, st);
+  return launch_bwd_dq<256>(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H, Hkv, hd, causal,
+                            window, scale, st);
+}
+
+cudaError_t dispatch_bwd_dkdv(const void* q, const void* k, const void* v, const float* lse,
+                              const float* delta, const void* dout, void* dk, void* dv, int B,
+                              int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                              float scale, cudaStream_t st) {
+  if ((long long)Sk > 65535LL * 64) return cudaErrorInvalidValue;
+  if (hd <= 64)
+    return launch_bwd_dkdv<64>(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk, H, Hkv, hd,
+                               causal, window, scale, st);
+  if (hd <= 128)
+    return launch_bwd_dkdv<128>(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk, H, Hkv, hd,
+                                causal, window, scale, st);
+  return launch_bwd_dkdv<256>(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk, H, Hkv, hd,
+                              causal, window, scale, st);
+}
+
+}  // namespace x3
+
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
@@ -1468,7 +2406,7 @@ cudaError_t dispatch_bwd_dkdv(const void* q, const void* k, const void* v, const
 // against q, k, v, o, dO, lse read once and dq, dk, dv written once: at
 // internvl2-2b's training shape (B 2, S 2,304, H 16/8, hd 128, causal)
 // 0.11 TFLOP against 0.11 GB, so operations. Each kernel recomputes s and
-// dp, so the pair executes more: two routes (flash_attention_bwd_route).
+// dp, so the pair executes more: three routes (flash_attention_bwd_route).
 //
 // bf16 at any hd up to 256 (it runs at 64, 128 or 256, TMA zero-filling the
 // columns past hd), a layout TMA can take: tc::flash_bwd_dq_tc_kernel and
@@ -1541,9 +2479,79 @@ cudaError_t dispatch_bwd_dkdv(const void* q, const void* k, const void* v, const
 //   uniform branch around branch-free code, and 2^x is one MUFU.EX2
 //   (exp2_ftz).
 //
-// fp32 (which holds the reference's 1e-4 tier) and bf16 in layouts TMA
-// cannot take (hd not a multiple of 8, a base not 16-byte aligned; no
-// configuration of the repo has one): flash_bwd_dq_kernel and
+// fp32 at any hd up to 256 in a layout TMA can take (hd a multiple of 4;
+// q, k, v, o, dO 16-byte aligned): x3::flash_bwd_dq_x3_kernel and
+// x3::flash_bwd_dkdv_x3_kernel, every product on the tensor cores as three
+// TF32 products (wgmma m64nNk8 .tf32, fp32 accumulate; 494.7 TFLOP/s dense
+// on an H100 SXM, so 165 of fp32-accurate products against the FMA
+// pipes' 67):
+// * The split. Every operand that enters a product (Q, K, V, dO, p, dS) is
+//   big = tf32(x), rounded to nearest with ties away (cvt.rna.tf32.f32's
+//   rule, on the bits), and small = tf32(x - big); a product A B is big.big + big.small + small.big into
+//   one fp32 accumulator (small.small, 2^-22 below, is dropped). One TF32
+//   product a product puts tens of thousands of gradients beyond the
+//   reference's 1e-4 at internvl2-2b's shape cut to 1,024 tokens, the split
+//   none (tests/test_torch_flash_attention_bwd_tf32.py emulates the
+//   order).
+// * The layout constraint. wgmma takes .tf32 operands from shared memory
+//   K-major only (the transpose bits are for 16-bit types), so the
+//   products that contract over a tile's rows (dQ = dS K; dV = P^T dO and
+//   dK = dS^T Q) cannot read K, dO or Q as the B operand the way the bf16
+//   pair does. They are formed transposed instead: dQ^T = K^T dS^T, dV^T =
+//   dO^T P, dK^T = Q^T dS, the natural-layout tile entering as the A
+//   operand from registers (a thread loads its fragment from the split tile
+//   in any order: a0 row r, column c; a1 row r + 8; a2 column c + 4; a3
+//   both), and P or dS written by the consumers into shared memory as
+//   K-major B tiles (their rows queries in the dq kernel, keys in the dK/dV
+//   kernel). S = Q K^T and dP = dO V^T (S^T = K Q^T, dP^T = V dO^T) take the
+//   resident tile as the A operand from registers too, split as it is read
+//   (frag_split), and the streamed tile as the K-major B operand.
+// * Shared memory. A tile of fp32 is twice a bf16 one, and a B operand
+//   needs its big and its small term: 64 x 128 fp32 and its small term are
+//   64 KB. So the resident tiles (dq: Q and dO of 64 query rows; dK/dV: K
+//   and V of 64 keys) stay as loaded (64 KB at HDP 128) and are split in
+//   registers, and only the streamed tiles (K and V, or Q and dO) are split
+//   in shared memory, by the producer warpgroup (TMA lands a tile; its 128
+//   threads write big over it and small beside it, then release it to the
+//   consumers on a second barrier). Tiles of 32 rows, two stages up to HDP
+//   128 (dq 217 KB, dK/dV 226 KB).
+// * HDP 256: a thread-block cluster of two blocks (the grid's z) shares a
+//   row block (dq) or key block (dK/dV); block z holds hd columns 128 z to
+//   128 z + 127 of every tile and sums those columns of its output, as a
+//   block does at HDP 128. Each forms its half of S and dP's sums over hd,
+//   sends it into the other's shared memory (st.async, counted on the
+//   other's mbarrier) and adds the half it receives: a + b in both, so both
+//   hold the same S, dP and, from them, the same p and dS. One block with
+//   all 256 columns had only one stage of 16-row tiles (the raw Q and dO
+//   alone take 128 KB), and its dK/dV consumers' 128 fp32 of output
+//   spilled, so the grid took column halves and formed S^T and dP^T twice.
+//   One stage of 32-row tiles a block (dq 185 KB, dK/dV 193 KB) measured
+//   faster than two of 16.
+// * Warp roles (384 threads; setmaxnreg 40 for the producer, 232 for each
+//   consumer). dq: consumer 0 forms S and p, consumer 1 dP; p crosses in
+//   shared memory in the fragment's order; consumer 1 forms dS and writes
+//   it split; both then add dQ^T += K^T dS^T for their half of the columns
+//   (HDP 64: their half of the 64 queries), K^T from the split K tile.
+//   dK/dV: consumer 0 forms S^T, p and writes P split; consumer 1 forms
+//   dP^T and, from P's big + small, dS; consumer 0 adds dV^T += dO^T P,
+//   consumer 1 dK^T += Q^T dS, each over the block's columns of its 64
+//   keys. Named barriers order the exchange; every output element has one
+//   owner and one fixed order of sums (tiles ascending; GQA's query heads
+//   in turn), no atomics.
+// * A product's A fragments run two steps ahead of its wgmma in a ring of
+//   three register slots (mma3), so the loads and the split of a step
+//   overlap the products before it on the tensor cores.
+// * Dead tiles are never loaded (dq: the forward's live key tiles of its
+//   64 rows; dK/dV: the live query tiles of its 64 keys), the mask runs
+//   only in tiles that cross Sq, Sk, the diagonal or the window's edge, and
+//   the heaviest blocks go first, as in the bf16 pair. Twenty-one TF32
+//   products a live pair are executed (7 products: s and dp in each kernel,
+//   dq, dk, dv; three terms each): chip_smoke.py::flash_bwd_x3_floor counts
+//   them over the tiles computed.
+//
+// fp32 and bf16 in layouts TMA cannot take (a base not 16-byte aligned; hd
+// not a multiple of 8 for bf16 or of 4 for fp32; no configuration of the
+// repo has one): flash_bwd_dq_kernel and
 // flash_bwd_dkdv_kernel, on the FMA pipes, the inputs widened to fp32 in
 // shared memory:
 // * flash_bwd_dq_kernel: a block owns 64 query rows of one (b, h), 256
@@ -2015,12 +3023,15 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, fl
 }
 
 // The backward's route for these operands: 1 when flash_attention_bwd_dq
-// (given o) or flash_attention_bwd_dkdv (o null) launches the tensor-core
-// kernel (bf16, every base 16-byte aligned, hd a multiple of 8), 0 when it
-// launches the FMA kernel.
+// (given o) or flash_attention_bwd_dkdv (o null) launches the bf16
+// tensor-core kernel (bf16, every base 16-byte aligned, hd a multiple of
+// 8), 2 when it launches the fp32 3xTF32 tensor-core kernel (fp32, every
+// base 16-byte aligned, hd a multiple of 4), 0 when it launches the FMA
+// kernel.
 int flash_attention_bwd_route(const void* q, const void* k, const void* v, const void* o,
                               const void* dout, int hd, int dtype) {
-  return tc::bwd_tensor_cores(q, k, v, o, dout, hd, dtype) ? 1 : 0;
+  if (tc::bwd_tensor_cores(q, k, v, o, dout, hd, dtype)) return 1;
+  return tc::x3::takes(q, k, v, o, dout, hd, dtype) ? 2 : 0;
 }
 
 // Backward, first kernel: dq (B, Sq, H, hd) and delta (B, H, Sq) fp32 (a
@@ -2040,6 +3051,9 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
   if (tc::bwd_tensor_cores(q, k, v, o, dout, hd, dtype))
     return (int)tc::dispatch_bwd_dq(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H, Hkv, hd,
                                     causal, window, scale, st);
+  if (tc::x3::takes(q, k, v, o, dout, hd, dtype))
+    return (int)tc::x3::dispatch_bwd_dq(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H, Hkv,
+                                        hd, causal, window, scale, st);
   if (dtype == 0)
     return (int)dispatch_bwd_dq<float>(q, k, v, o, lse, dout, dq, delta, B, Sq, Sk, H, Hkv,
                                        hd, causal, window, scale, st);
@@ -2061,6 +3075,9 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const 
   if (tc::bwd_tensor_cores(q, k, v, nullptr, dout, hd, dtype))
     return (int)tc::dispatch_bwd_dkdv(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk, H, Hkv,
                                       hd, causal, window, scale, st);
+  if (tc::x3::takes(q, k, v, nullptr, dout, hd, dtype))
+    return (int)tc::x3::dispatch_bwd_dkdv(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk, H,
+                                          Hkv, hd, causal, window, scale, st);
   if (dtype == 0)
     return (int)dispatch_bwd_dkdv<float>(q, k, v, lse, delta, dout, dk, dv, B, Sq, Sk, H,
                                          Hkv, hd, causal, window, scale, st);

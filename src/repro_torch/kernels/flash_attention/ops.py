@@ -28,10 +28,14 @@ routing rule picks each pair: bf16 at any hd up to 256 in a layout TMA can
 take runs ``tc::flash_bwd_dq_tc_kernel`` and ``tc::flash_bwd_dkdv_tc_kernel``
 (every product on the tensor cores with ``wgmma``, operands fed by TMA, p
 and dS as three bf16 terms each, all 24 bits of the fp32 values, so the
-gradients stay within one bf16 ulp of fp32 ones; above hd 128 the dq
-kernel's two consumers split a block's key tiles, even and odd); fp32 and
-the layouts TMA cannot take run ``flash_bwd_dq_kernel`` and
-``flash_bwd_dkdv_kernel`` (fp32 FMA, which holds the reference's 1e-4).
+gradients stay within one bf16 ulp of fp32 ones; above hd 128 a dq block's
+two consumers share its rows and split dq's columns); fp32 at any hd up to
+256 in such a layout (hd a multiple of 4, 16-byte aligned bases) runs
+``x3::flash_bwd_dq_x3_kernel`` and ``x3::flash_bwd_dkdv_x3_kernel`` (every
+product on the tensor cores as three TF32 products, big.big + big.small +
+small.big with x = big + small, which holds the reference's 1e-4 where one
+TF32 product would not); the layouts TMA cannot take run
+``flash_bwd_dq_kernel`` and ``flash_bwd_dkdv_kernel`` (fp32 FMA).
 On CPU tensors it runs the plain versions (``ref.attention_ref`` with
 ``return_lse``, ``ref.attention_bwd_dq_ref`` and
 ``ref.attention_bwd_dkdv_ref``). The dk/dv launch is skipped when neither k
@@ -49,9 +53,10 @@ adds nothing to dk or dv.
 ``flash_attention.launches`` counts forward launches, ``flash_bwd_dq.launches``
 and ``flash_bwd_dkdv.launches`` the backward kernels', and
 ``flash_bwd_dq.routes`` / ``flash_bwd_dkdv.routes`` split those by route
-(``{"tensor_core": n, "fma": m}``, from the library's rule,
-``flash_attention_bwd_route``). They are plain integers; the CPU path never
-moves them, so a run can show that it went through the kernels and which.
+(``{"fma": l, "tensor_core": m, "tf32x3": n}``, from the library's rule,
+``flash_attention_bwd_route``; ``BWD_ROUTES`` names its codes). They are
+plain integers; the CPU path never moves them, so a run can show that it
+went through the kernels and which.
 """
 from __future__ import annotations
 
@@ -107,15 +112,19 @@ def _call(name: str, pointers: list, dims: tuple, causal: bool, window, hd: int,
                            f"(cudaError {rc})")
 
 
+# the library's backward routes, by the code flash_attention_bwd_route returns
+BWD_ROUTES = ("fma", "tensor_core", "tf32x3")
+
+
 def _bwd_route(q, k, v, o, do) -> str:
     """Which backward kernel the entry point launches for these CUDA
     operands (``o`` None for the dk/dv kernel), as the library's own
     routing rule (``flash_attention_bwd_route``) says: ``"tensor_core"``
-    or ``"fma"``."""
-    tc = _kernel()["bwd_route"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                None if o is None else o.data_ptr(), do.data_ptr(),
-                                q.shape[-1], _DTYPES[q.dtype])
-    return "tensor_core" if tc else "fma"
+    (bf16), ``"tf32x3"`` (fp32 on the tensor cores) or ``"fma"``."""
+    code = _kernel()["bwd_route"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  None if o is None else o.data_ptr(), do.data_ptr(),
+                                  q.shape[-1], _DTYPES[q.dtype])
+    return BWD_ROUTES[code]
 
 
 def _check_shapes(q, k, v) -> tuple:
@@ -300,5 +309,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkdv.launches = 0
-flash_bwd_dq.routes = {"tensor_core": 0, "fma": 0}
-flash_bwd_dkdv.routes = {"tensor_core": 0, "fma": 0}
+flash_bwd_dq.routes = dict.fromkeys(BWD_ROUTES, 0)
+flash_bwd_dkdv.routes = dict.fromkeys(BWD_ROUTES, 0)

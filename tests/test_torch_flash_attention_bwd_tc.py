@@ -263,7 +263,8 @@ def test_zero_padded_columns_change_nothing():
 def test_cpu_backward_moves_no_route_count():
     """On CPU tensors the backward runs the plain versions: neither the
     launch counts nor the per-route counts (``routes``, which split the
-    card's launches between the tensor-core and the FMA kernels) move."""
+    card's launches between the bf16 tensor-core, the fp32 3xTF32 and the
+    FMA kernels) move."""
     from repro_torch.kernels.flash_attention import ops
 
     q, k, v, do = _inputs(3, 1, 70, 70, 4, 2, 64)
@@ -274,5 +275,5 @@ def test_cpu_backward_moves_no_route_count():
     grads = torch.autograd.grad(o, (qt, kt, vt), do.float())
     assert all(torch.isfinite(g).all() for g in grads)
     assert [dict(f.routes) for f in (ops.flash_bwd_dq, ops.flash_bwd_dkdv)] == before
-    assert set(before[0]) == set(before[1]) == {"tensor_core", "fma"}
+    assert set(before[0]) == set(before[1]) == {"tensor_core", "fma", "tf32x3"}
     assert (ops.flash_bwd_dq.launches, ops.flash_bwd_dkdv.launches) == launches
