@@ -628,20 +628,26 @@ def flash_bound(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype, fp32_peak=F
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def flash_floor(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype):
+def flash_floor(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype, route):
     """The kernel's own floor (ms): the operations it executes, over the peak
     of the units that execute them, or the bound's bytes if more. It counts
     the (query, key) tile pairs the kernel computes, masked parts of the
     diagonal and edge tiles included, with hd at the kernel's padded width
-    (64, 128 or 256). bf16 (flash_fwd_tc_kernel): 64-row halves of
-    128-row query tiles against 64-key tiles, a tile skipped when no pair
-    of the half is live; 2·hd for Q·Kᵀ and 4·hd for P·V (P as hi + lo) per
-    pair, on the tensor cores. fp32 (flash_fwd_kernel): 64-row tiles
-    against 32-key tiles, 4·hd per pair, on the FMA pipes."""
+    (64, 128 or 256), for the kernel ``route`` names. ``"tensor_core"``
+    (bf16, flash_fwd_tc_kernel): 64-row halves of 128-row query tiles
+    against 64-key tiles, a tile skipped when no pair of the half is live;
+    2·hd for Q·Kᵀ and 4·hd for P·V (P as hi + lo) per pair, on the tensor
+    cores. ``"tf32x3"`` (fp32, x3::flash_fwd_x3_kernel): 64-row halves of
+    128-row query tiles against 32-key tiles (``X3_TILE_ROWS``), skipped as
+    above; 4·hd per pair as three TF32 products, at 3×TF32's 164.9 TFLOP/s.
+    ``"fma"`` (flash_fwd_kernel): 64-row tiles against 32-key tiles, 4·hd
+    per pair, on the FMA pipes."""
     hdp = 64 if hd <= 64 else 128 if hd <= 128 else 256
-    tc = dtype == torch.bfloat16
-    rows, bk = (64, 64) if tc else (64, 32)
-    block = 128 if tc else 64
+    bk, block, per_pair, peak = {
+        "tensor_core": (64, 128, 6.0, PEAK_BF16_FLOPS),
+        "tf32x3": (X3_TILE_ROWS, 128, 4.0, PEAK_TF32_FLOPS / 3),
+        "fma": (32, 64, 4.0, PEAK_FP32_FLOPS)}[route]
+    rows = 64
     win = window if (causal and window) else 0
     pairs = 0
     for q0 in range(0, Sq, block):
@@ -657,11 +663,10 @@ def flash_floor(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype):
                 continue
             for kt in range(kt_lo, kt_hi + 1):
                 k0 = kt * bk
-                if tc and causal and (k0 > last or (win and k0 + bk - 1 <= first - win)):
+                if causal and (k0 > last or (win and k0 + bk - 1 <= first - win)):
                     continue
                 pairs += rows * bk
-    flops = (6.0 if tc else 4.0) * hdp * B * H * pairs
-    t_ops = flops / (PEAK_BF16_FLOPS if tc else PEAK_FP32_FLOPS)
+    t_ops = per_pair * hdp * B * H * pairs / peak
     esz = torch.tensor([], dtype=dtype).element_size()
     t_bytes = esz * (2 * B * Sq * H * hd + 2 * B * Sk * Hkv * hd) / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3
@@ -839,19 +844,31 @@ def check_wkv6(torch, ops, ref, timer, gen, name, B, T, H, N, dtype, reps, plain
 
 
 def check_flash(torch, ops, ref, timer, gen, name, B, S, H, Hkv, hd, causal, window, dtype,
-                reps, Sk=None):
+                reps, route, Sk=None, unaligned=False):
     """One attention shape: q (B, S, H, hd) against k, v (B, Sk, Hkv, hd)
-    (``Sk`` defaults to S), kernel vs plain version on the card, then the
+    (``Sk`` defaults to S), kernel vs plain version on the card, the launch
+    on the kernel ``route`` names (the wrapper's forward route counts, from
+    the library's own rule) and made twice with the same bits, then the
     kernel's, the plain version's and SDPA's times, the bound and the
-    kernel's floor."""
+    kernel's floor. ``unaligned`` puts q, k and v one element past a
+    16-byte boundary (contiguous views), a layout TMA cannot take."""
     import torch.nn.functional as F
 
     dev = gen.device
     Sq, Sk = S, Sk or S
-    q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(dtype)
-    k, v = (torch.randn((B, Sk, Hkv, hd), generator=gen, device=dev).to(dtype)
-            for _ in range(2))
+
+    def draw(shape):
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        return off_boundary(torch, x) if unaligned else x
+
+    q = draw((B, Sq, H, hd))
+    k, v = (draw((B, Sk, Hkv, hd)) for _ in range(2))
+    before = dict(ops.flash_attention.routes)
     o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    moved = [r for r, c in ops.flash_attention.routes.items() if c != before[r]]
+    if moved != [route]:
+        raise AssertionError(f"flash {name}: forward route {moved}, want {route}")
+    again = ops.flash_attention(q, k, v, causal=causal, window=window)
     want = ref.attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     atol, rtol = _tol(torch, dtype, TOL_ATTN, ATOL_BF16_ATTN)
@@ -861,6 +878,9 @@ def check_flash(torch, ops, ref, timer, gen, name, B, S, H, Hkv, hd, causal, win
     if not torch.allclose(o.float(), want.float(), atol=atol, rtol=rtol):
         raise AssertionError(f"flash {name}: max abs err {err} beyond atol {atol} "
                              f"rtol {rtol}")
+    if not torch.equal(o, again):
+        raise AssertionError(f"flash {name}: a second launch gave other bits")
+    del again
     # the library yardstick: one SDPA call on the same inputs in its own
     # (B, H, S, hd) layout, with the same mask (``is_causal`` aligns the
     # diagonal top left: key j <= query i, as the kernel counts); never
@@ -876,11 +896,11 @@ def check_flash(torch, ops, ref, timer, gen, name, B, S, H, Hkv, hd, causal, win
     bound_ms, bound_by = flash_bound(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype)
     bound_fma_ms = flash_bound(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype,
                                PEAK_FP32_FLOPS)[0]
-    floor_ms = flash_floor(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype)
+    floor_ms = flash_floor(torch, B, Sq, Sk, H, Hkv, hd, causal, window, dtype, route)
     row = {"shape": name, "B": B, "S": Sq, "Sk": Sk, "H": H, "Hkv": Hkv, "hd": hd,
            "causal": causal,
-           "window": window, "dtype": str(dtype), "atol": atol, "rtol": rtol,
-           "max_abs_err": err,
+           "window": window, "dtype": str(dtype), "route": route, "unaligned": unaligned,
+           "atol": atol, "rtol": rtol, "max_abs_err": err,
            "ms": timer(lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
                        reps),
            "plain_ms": timer(lambda: ref.attention_ref(q, k, v, causal=causal,
@@ -890,8 +910,8 @@ def check_flash(torch, ops, ref, timer, gen, name, B, S, H, Hkv, hd, causal, win
            "bound_ms": bound_ms, "bound_by": bound_by, "bound_fma_ms": bound_fma_ms,
            "floor_ms": floor_ms}
     log(f"phase 7 lm-kernels: flash {name} B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} hd={hd} causal "
-        f"{causal} window {window} {dtype}: max abs err {err} (atol {atol} rtol {rtol}); "
-        f"kernel "
+        f"{causal} window {window} {dtype}{' unaligned' if unaligned else ''}, {route} route: "
+        f"max abs err {err} (atol {atol} rtol {rtol}), the same bits twice; kernel "
         f"{row['ms']} ms plain {row['plain_ms']} ms sdpa {row['library_ms']} ms bound "
         f"{bound_ms} ms ({bound_by}; at the FMA peak {bound_fma_ms}) floor {floor_ms} ms")
     return row
@@ -980,8 +1000,9 @@ def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal
     pinned to the FMA pair: the widened copies lie one element off a
     16-byte boundary, which the route rule sends there (asserted); the
     3×TF32 pair's error on the aligned widened copies is recorded beside.
-    Both kernels must run ``want_route`` (the wrappers' route counts, from
-    the library's own rule). Each backward launch is made twice and must
+    Both kernels, and the forward that gives o and lse, must run
+    ``want_route`` (the wrappers' route counts, from the library's own
+    rules). Each backward launch is made twice and must
     give the same bits. Then the times and bounds, each of the whole
     backward and of each kernel alone: the kernels', their plain versions'
     (the two halves of ``attention_bwd_ref``) and the library's (autograd's
@@ -1002,7 +1023,11 @@ def check_flash_bwd(torch, ops, ref, timer, gen, name, B, Sq, H, Hkv, hd, causal
     k, v = (draw((B, Sk, Hkv, hd)) for _ in range(2))
     do = draw((B, Sq, H, hd))
     kw = {"causal": causal, "window": window}
+    fwd_before = dict(ops.flash_attention.routes)
     o, lse = ops.flash_attention_lse(q, k, v, **kw)
+    fwd_route = [r for r, c in ops.flash_attention.routes.items() if c != fwd_before[r]]
+    if fwd_route != [want_route]:
+        raise AssertionError(f"flash bwd {name}: forward route {fwd_route}, want {want_route}")
     lse_want = ref.attention_ref(q, k, v, return_lse=True, **kw)[1]
     before = {n: dict(getattr(ops, n).routes) for n in BWD_KERNELS}
     dq, dk, dv = ops.flash_bwd(q, k, v, o, lse, do, **kw)
@@ -1735,12 +1760,16 @@ def lm_check_full(torch, lm, rmsnorm, cfg, dev, tag, batch, prompt, gen, profile
     return row
 
 
-def lm_check_smoke(torch, lm, cfg, dev, from_numpy, to_numpy) -> float:
+def lm_check_smoke(torch, lm, cfg, dev, from_numpy, to_numpy) -> dict:
     """Phase 9 at a smoke configuration (fp32): the same params on the card
     (kernel path) and on the CPU (plain path); the prefill's last logits and
     decode state (with random image embeddings or encoder frames where the
     configuration takes them), then 4 decode steps fed the same tokens, at
-    1e-4."""
+    1e-4. Returns the largest difference and the card's flash forward
+    launches by route (recorded)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    before = dict(fops.flash_attention.routes)
     cpu_params = lm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
     params = from_numpy(to_numpy(cpu_params), cfg, dev)
     toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
@@ -1768,10 +1797,12 @@ def lm_check_smoke(torch, lm, cfg, dev, from_numpy, to_numpy) -> float:
             o, st = lm.decode_step(params, cfg, st, steps[i].to(dev), n + i)
             o_c, st_c = lm.decode_step(cpu_params, cfg, st_c, steps[i], n + i)
             hold(o, o_c, f"decode step {i}")
+    routes = {r: c - before[r] for r, c in fops.flash_attention.routes.items()}
     log(f"phase 9 lm-check: {cfg.arch_id} smoke fp32, kernel path on the card vs plain "
         f"path on the CPU: prefill logits, {len(leaves)} state leaves and 4 decode steps "
-        f"max abs diff {max(errs)} (tol {TOL_LOGITS})")
-    return max(errs)
+        f"max abs diff {max(errs)} (tol {TOL_LOGITS}); flash forward launches by route "
+        f"{json.dumps(routes)}")
+    return {"max_abs_diff": max(errs), "flash_fwd_routes": routes}
 
 
 def spmm_training_shapes(torch, ops, ref, timer, fed, dev, gen, rng) -> tuple[list, dict, dict]:
@@ -3172,11 +3203,14 @@ def _counts(counters) -> dict:
 
 
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkdv")
+# the wrappers that count their launches by route: the forward and the
+# backward pair
+ROUTED = ("flash_attention", *BWD_KERNELS)
 
 
 def _routes(counters) -> dict:
-    """{backward kernel: {route: launches}}, the wrappers' route counts."""
-    return {n: dict(counters[n].routes) for n in BWD_KERNELS}
+    """{flash kernel wrapper: {route: launches}}, the wrappers' route counts."""
+    return {n: dict(counters[n].routes) for n in ROUTED}
 
 
 def _routes_since(counters, before) -> dict:
@@ -3409,7 +3443,8 @@ def mini_card_vs_cpu(torch, counters, dev, tag) -> dict:
     the card and on the CPU, from the same initial params (handed in
     through ``_init_params``): losses within ``TOL_MINI``; tau, steps and
     sync events equal; the backward kernels launched once per attention
-    block per train step on the card."""
+    block per train step on the card, the forward at least as often, every
+    launch on the 3×TF32 route."""
     import argparse as ap
 
     import numpy as np
@@ -3455,9 +3490,11 @@ def mini_card_vs_cpu(torch, counters, dev, tag) -> dict:
             err = float(np.abs(a - b).max())
             got = card["launches"]
             want_bwd = steps * n_layers
-            # mini is fp32: every backward launch on the 3xTF32 route
+            # mini is fp32: every forward and backward launch on the 3xTF32 route
             want_routes = {n: {"fma": 0, "tensor_core": 0, "tf32x3": want_bwd}
                            for n in BWD_KERNELS}
+            want_routes["flash_attention"] = {"fma": 0, "tensor_core": 0,
+                                              "tf32x3": got["flash_attention"]}
             if (a.shape != b.shape or not np.isfinite(a).all() or err > TOL_MINI
                     or not all(v for k, v in same.items() if k != "picks")
                     or got["flash_bwd_dq"] != want_bwd or got["flash_bwd_dkdv"] != want_bwd
@@ -3644,8 +3681,8 @@ def flash_train_whole(torch, lm, counters, cfg, batch_at, dev, tag, profile) -> 
     fp32) for ``TRAIN_STEPS`` steps of ``make_train_step`` under
     ``linear_warmup_cosine``, ``batch_at(i)`` the i-th batch, the counts from
     0: finite losses and grad norms > 0, exactly one forward, one dq and
-    one dk/dv flash launch a layer a step and nothing else, every backward
-    launch on the tensor-core route; first and steady step ms, tokens/s,
+    one dk/dv flash launch a layer a step and nothing else, every launch on
+    the bf16 tensor-core route; first and steady step ms, tokens/s,
     peak memory; with ``profile`` one more step traced. Returns (record,
     launches)."""
     from repro_torch.optim import linear_warmup_cosine
@@ -3660,7 +3697,7 @@ def flash_train_whole(torch, lm, counters, cfg, batch_at, dev, tag, profile) -> 
     layers = cfg.n_layers
     want = {n: 0 for n in counters}
     want.update(flash_attention=layers, flash_bwd_dq=layers, flash_bwd_dkdv=layers)
-    want_routes = {n: {"fma": 0, "tensor_core": layers, "tf32x3": 0} for n in BWD_KERNELS}
+    want_routes = {n: {"fma": 0, "tensor_core": layers, "tf32x3": 0} for n in ROUTED}
     torch.cuda.reset_peak_memory_stats()
     _zero(counters)
     routes0 = _routes(counters)
@@ -3703,7 +3740,7 @@ def flash_train_whole(torch, lm, counters, cfg, batch_at, dev, tag, profile) -> 
         f"{[r['lr'] for r in steps]}; first step {steps[0]['ms']:.1f} ms, steady "
         f"{steady:.1f} ms ({rec['text_tokens_per_s']:.0f} text tokens/s); peak "
         f"memory {peak_gb:.2f} GB; launches a step {json.dumps(want)}, in all "
-        f"{json.dumps(launches)}, every backward launch on the tensor-core route "
+        f"{json.dumps(launches)}, every launch on the tensor-core route "
         f"{json.dumps(rec['routes'])}; init {init_s:.1f} s")
     if profile:
         batch = batch_at(TRAIN_STEPS)
@@ -3840,16 +3877,20 @@ def lm_train_phase(torch, counters, get_config, get_smoke_config, dev, tag,
         for n, c in routes0.items()}
     rec["routes"]["example"] = _routes_since(counters, routes0)
     losses = [ex["centralized"]["final_loss"], ex["federated"]["final_loss"]]
+    # mini is fp32: every launch on the 3xTF32 route
+    want_routes = {n: {"fma": 0, "tensor_core": 0, "tf32x3": got[n]} for n in ROUTED}
     if (not all(math.isfinite(x) for x in losses) or got["flash_bwd_dq"] <= 0
             or got["flash_bwd_dq"] != got["flash_bwd_dkdv"] or got["wkv6"]
-            or got["wkv6_bwd"] or got["spmm"]):
-        raise AssertionError(f"lm-train example: final losses {losses}, launches {got}")
+            or got["wkv6_bwd"] or got["spmm"] or rec["routes"]["example"] != want_routes):
+        raise AssertionError(f"lm-train example: final losses {losses}, launches {got}, routes "
+                             f"{rec['routes']['example']} (want {want_routes})")
     rec["example"] = {"final_losses": losses, "sync_events": ex["federated"]["sync_events"],
                       "launches": got, "routes": rec["routes"]["example"],
                       "seconds": time.perf_counter() - t0}
     log(f"phase 16 lm-train: {tag}: examples.train_lm_federated --steps 8 --batch 2 "
         f"--seq-len 64 --clients 2: final losses {losses}, "
-        f"{ex['federated']['sync_events']} syncs, launches {json.dumps(got)}")
+        f"{ex['federated']['sync_events']} syncs, launches {json.dumps(got)}, routes "
+        f"{json.dumps(rec['routes']['example'])}")
 
     # launch.train on rwkv6-1.6b's smoke configuration, card against CPU
     rec["rwkv_launch_train"] = rwkv_train_card_vs_cpu(torch, counters, dev, tag)
@@ -4000,17 +4041,18 @@ def main(argv=None) -> int:
                    for r in bwd)):
         raise AssertionError(f"build: the bf16 flash kernels' instances spill or are "
                              f"missing: {tc_fns}")
-    # the fp32 tensor-core backward (3xTF32): dq and dk/dv at 64, 128 and 256,
-    # each with no stack frame and no local memory
+    # the fp32 tensor-core kernels (3xTF32): the forward, dq and dk/dv at 64,
+    # 128 and 256, each with no stack frame, no local memory and (where this
+    # run built the library) no spill
     x3_fns = {}
     for n, r in res_usage(build, "flash_attention").items():
-        m = re.search(r"(flash_bwd_(?:dq|dkdv)_x3_kernel)ILi(\d+)E", n)
+        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkdv)_x3_kernel)ILi(\d+)E", n)
         if m:
             x3_fns[f"{m.group(1)}<{m.group(2)}>"] = {
                 "registers": r.get("REG"), "stack_bytes": r.get("STACK"),
                 "local_bytes": r.get("LOCAL")}
     for n, r in ptxas_spills(build.build_log.get("flash_attention", "")).items():
-        m = re.search(r"(flash_bwd_(?:dq|dkdv)_x3_kernel)ILi(\d+)E", n)
+        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkdv)_x3_kernel)ILi(\d+)E", n)
         if m:
             x3_fns[f"{m.group(1)}<{m.group(2)}>"].update(r)
     for n, r in sorted(x3_fns.items()):
@@ -4019,10 +4061,13 @@ def main(argv=None) -> int:
             f"{r['local_bytes']} B"
             + (f", ptxas: {r['spill_stores']} B of spill stores, {r['spill_loads']} B of "
                f"spill loads" if "spill_stores" in r else ""))
-    want_x3 = {f"flash_bwd_{k}_x3_kernel<{w}>" for k in ("dq", "dkdv") for w in (64, 128, 256)}
+    want_x3 = {f"flash_{k}_x3_kernel<{w}>" for k in ("fwd", "bwd_dq", "bwd_dkdv")
+               for w in (64, 128, 256)}
     if (set(x3_fns) != want_x3
-            or any(r["stack_bytes"] != 0 or r["local_bytes"] != 0 for r in x3_fns.values())):
-        raise AssertionError(f"build: the fp32 tensor-core backward's instances spill or are "
+            or any(r["stack_bytes"] != 0 or r["local_bytes"] != 0
+                   or r.get("spill_stores", 0) or r.get("spill_loads", 0)
+                   for r in x3_fns.values())):
+        raise AssertionError(f"build: the fp32 tensor-core kernels' instances spill or are "
                              f"missing: {x3_fns}")
     record["flash_build"] = {"hgmma": hgmma, "tc_kernels": tc_fns, "x3_kernels": x3_fns}
     # every instance of the wkv6 kernel (3 head sizes x 3 column tiles x 2
@@ -4291,37 +4336,38 @@ def main(argv=None) -> int:
         check_wkv6(torch, wops, wref, timer, gen, "misaligned_bf16", 2, 77, 4, 64, bf16, 20,
                    3, misalign=True),
     ]
+    tc, x3, fma = "tensor_core", "tf32x3", "fma"
     flash_rows = [
         check_flash(torch, fops, fref, timer, gen, "local_bf16", 4, 2048, 16, 8, 240, True,
-                    1024, bf16, 10),
+                    1024, bf16, 10, tc),
         check_flash(torch, fops, fref, timer, gen, "attn_bf16", 4, 2048, 16, 8, 240, True,
-                    None, bf16, 10),
+                    None, bf16, 10, tc),
         check_flash(torch, fops, fref, timer, gen, "local_fp32", 4, 2048, 16, 8, 240, True,
-                    1024, f32, 5),
+                    1024, f32, 5, x3),
         check_flash(torch, fops, fref, timer, gen, "attn_fp32", 4, 2048, 16, 8, 240, True,
-                    None, f32, 5),
+                    None, f32, 5, x3),
         check_flash(torch, fops, fref, timer, gen, "ragged_fp32", 2, 1000, 6, 2, 64, True,
-                    None, f32, 10),
+                    None, f32, 10, x3),
         check_flash(torch, fops, fref, timer, gen, "ragged_local_bf16", 2, 1000, 6, 2, 64,
-                    True, 256, bf16, 10),
+                    True, 256, bf16, 10, tc),
         check_flash(torch, fops, fref, timer, gen, "ragged_bf16_hd128", 2, 1000, 8, 4, 128,
-                    True, None, bf16, 10),
+                    True, None, bf16, 10, tc),
         check_flash(torch, fops, fref, timer, gen, "noncausal_bf16", 1, 512, 4, 4, 240,
-                    False, None, bf16, 10),
+                    False, None, bf16, 10, tc),
         # hd not a multiple of 8: TMA cannot take it, bf16 runs the FMA kernel
         check_flash(torch, fops, fref, timer, gen, "odd_hd_bf16", 1, 300, 4, 2, 36, True,
-                    None, bf16, 10),
+                    None, bf16, 10, fma),
         # the new families' shapes: recurrentgemma-2b's local blocks (MQA, hd
         # 256, a prompt twice its window, so the window bites) and dbrx-132b's
         # causal GQA blocks
         check_flash(torch, fops, fref, timer, gen, "rgemma_local_bf16", 4, 4096, 10, 1, 256,
-                    True, 2048, bf16, 10),
+                    True, 2048, bf16, 10, tc),
         check_flash(torch, fops, fref, timer, gen, "rgemma_local_fp32", 4, 4096, 10, 1, 256,
-                    True, 2048, f32, 3),
+                    True, 2048, f32, 3, x3),
         check_flash(torch, fops, fref, timer, gen, "dbrx_attn_bf16", 4, 2048, 48, 8, 128,
-                    True, None, bf16, 10),
+                    True, None, bf16, 10, tc),
         check_flash(torch, fops, fref, timer, gen, "dbrx_attn_fp32", 4, 2048, 48, 8, 128,
-                    True, None, f32, 3),
+                    True, None, f32, 3, x3),
         # whisper-large-v3 and internvl2-2b: the encoder (1,500 frames = 23 key
         # tiles of 64 and 28 keys, unmasked: the zero-filled keys past Sk are
         # the first place a missing mask shows), the cross attention (the
@@ -4330,29 +4376,38 @@ def main(argv=None) -> int:
         # text tokens; then causal with Sq != Sk both ways, the second with a
         # window that leaves the last rows no live key (they come out 0)
         check_flash(torch, fops, fref, timer, gen, "whisper_enc_bf16", 4, 1500, 20, 20, 64,
-                    False, None, bf16, 10),
+                    False, None, bf16, 10, tc),
         check_flash(torch, fops, fref, timer, gen, "whisper_enc_fp32", 4, 1500, 20, 20, 64,
-                    False, None, f32, 3),
+                    False, None, f32, 3, x3),
         check_flash(torch, fops, fref, timer, gen, "whisper_cross_bf16", 4, 224, 20, 20, 64,
-                    False, None, bf16, 10, Sk=1500),
+                    False, None, bf16, 10, tc, Sk=1500),
         check_flash(torch, fops, fref, timer, gen, "whisper_cross_fp32", 4, 224, 20, 20, 64,
-                    False, None, f32, 5, Sk=1500),
+                    False, None, f32, 5, x3, Sk=1500),
         check_flash(torch, fops, fref, timer, gen, "whisper_dec_bf16", 4, 224, 20, 20, 64,
-                    True, None, bf16, 10),
+                    True, None, bf16, 10, tc),
         check_flash(torch, fops, fref, timer, gen, "whisper_dec_fp32", 4, 224, 20, 20, 64,
-                    True, None, f32, 5),
+                    True, None, f32, 5, x3),
         check_flash(torch, fops, fref, timer, gen, "internvl2_attn_bf16", 4, 2304, 16, 8, 128,
-                    True, None, bf16, 10),
+                    True, None, bf16, 10, tc),
         check_flash(torch, fops, fref, timer, gen, "internvl2_attn_fp32", 4, 2304, 16, 8, 128,
-                    True, None, f32, 3),
+                    True, None, f32, 3, x3),
         check_flash(torch, fops, fref, timer, gen, "causal_cross_bf16", 2, 200, 8, 4, 64,
-                    True, None, bf16, 10, Sk=333),
+                    True, None, bf16, 10, tc, Sk=333),
         check_flash(torch, fops, fref, timer, gen, "causal_cross_fp32", 2, 200, 8, 4, 64,
-                    True, None, f32, 10, Sk=333),
+                    True, None, f32, 10, x3, Sk=333),
         check_flash(torch, fops, fref, timer, gen, "causal_past_sk_window_bf16", 2, 333, 8, 4,
-                    128, True, 64, bf16, 10, Sk=200),
+                    128, True, 64, bf16, 10, tc, Sk=200),
         check_flash(torch, fops, fref, timer, gen, "causal_past_sk_window_fp32", 2, 333, 8, 4,
-                    128, True, 64, f32, 10, Sk=200),
+                    128, True, 64, f32, 10, x3, Sk=200),
+        # (the rows draw their inputs in turn from one generator: a row added
+        # at the end leaves every other row's inputs as they were)
+        # internvl2-2b's and whisper's encoder fp32 shapes one element off a
+        # 16-byte boundary: the FMA kernel (the route fp32 took there before
+        # the 3xTF32 forward), timed in the same run
+        check_flash(torch, fops, fref, timer, gen, "internvl2_attn_fp32_unaligned", 4, 2304, 16,
+                    8, 128, True, None, f32, 3, fma, unaligned=True),
+        check_flash(torch, fops, fref, timer, gen, "whisper_enc_fp32_unaligned", 4, 1500, 20, 20,
+                    64, False, None, f32, 3, fma, unaligned=True),
     ]
     record["wkv6_shapes"], record["flash_shapes"] = wkv_rows, flash_rows
     del timer
@@ -4478,6 +4533,26 @@ def main(argv=None) -> int:
             # floor_ms is a model of the kernel's work, not a measurement:
             # it stays in the phase-7 rows of the record, not in this line
             "shapes": [{k: v for k, v in r.items() if k != "floor_ms"} for r in rows]})
+    # the fp32 forward on the 3xTF32 route, timed at internvl2-2b's fp32 shape
+    # (the FMA kernel's time at that shape one element off a 16-byte boundary
+    # beside); launches by path from the forward route counts of phase 16's
+    # main paths (mini's runs and the example)
+    x3_rows = [r for r in flash_rows if r["route"] == "tf32x3"]
+    main_row = next(r for r in x3_rows if r["shape"] == "internvl2_attn_fp32")
+    fma_row = next(r for r in flash_rows if r["shape"] == "internvl2_attn_fp32_unaligned")
+    by_path = {p: c["flash_attention"]["tf32x3"]
+               for p, c in record["lm_train"]["routes"].items() if c["flash_attention"]["tf32x3"]}
+    kernels.append({
+        "name": "flash_attention_fwd_tf32x3", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:89",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in x3_rows),
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "bound_fma_ms": main_row["bound_fma_ms"], "library_ms": main_row["library_ms"],
+        "fma_kernel_ms": fma_row["ms"], "timed_shape": main_row["shape"],
+        "shapes": [{k: v for k, v in r.items() if k != "floor_ms"} for r in x3_rows]})
     # the backward pair on each route: each kernel's own time, bound, plain
     # version (its half of attention_bwd_ref) and library call (autograd of
     # SDPA asked for its outputs only) at internvl2-2b's training shape, in

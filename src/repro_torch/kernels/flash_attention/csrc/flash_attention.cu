@@ -34,18 +34,23 @@
 //   value up to 256 (gemma3's 240 included); it runs at the next of 64,
 //   128, 256.
 //
-// Two kernels, chosen by the input type (flash_attention_fwd):
+// Three kernels, chosen by the input type and the layout
+// (flash_attention_fwd_route):
 //
-// fp32: flash_fwd_kernel, fp32 FMA on the CUDA cores, which holds the
-//   reference's fp32 tolerance (one TF32 product a product would not; three,
-//   of each operand's big and small TF32 terms, would: the backward's
-//   x3 kernels below take that route, this kernel not yet). 256 threads
-//   as 16 x 16: thread (ty, tx) owns 4 query rows, keys tx and tx + 16 of
-//   each 32-key tile, and columns tx + 16 i of the accumulator. The 16
-//   threads of a row group share a half-warp, so the row max and row sum
-//   are 4 shuffles each. It executes 4 hd operations per live (query, key)
-//   pair at the fp32 FMA peak (67 TFLOP/s); the bound counts them at
-//   3xTF32's 165.
+// fp32 in a layout TMA can take (hd a multiple of 4, q, k, v and o 16-byte
+//   aligned; every configuration of the repo): tc::x3::flash_fwd_x3_kernel,
+//   both products on the tensor cores as three TF32 products each (route
+//   tf32x3; the forward's note at the kernel, below). One TF32 product a
+//   product would break the reference's fp32 tolerance of 2e-5; three, of
+//   each operand's big and small TF32 terms, hold it
+//   (tests/test_torch_flash_attention_fwd_tf32.py).
+//
+// fp32 in other layouts: flash_fwd_kernel, fp32 FMA on the CUDA cores (route
+//   fma). 256 threads as 16 x 16: thread (ty, tx) owns 4 query rows, keys tx
+//   and tx + 16 of each 32-key tile, and columns tx + 16 i of the
+//   accumulator. The 16 threads of a row group share a half-warp, so the row
+//   max and row sum are 4 shuffles each. It executes 4 hd operations per
+//   live (query, key) pair at the fp32 FMA peak (67 TFLOP/s).
 //
 // bf16: flash_fwd_tc_kernel, both products on the tensor cores (wgmma,
 //   bf16 in, fp32 accumulate; 989 TFLOP/s). What bounds it at the
@@ -81,7 +86,7 @@
 //     tiles that cross the diagonal, the window's edge or Sk, and the grid
 //     runs the heaviest query tiles (the last) first.
 //
-// Both forward kernels also write each query row's fp32 log-sum-exp of its
+// Each forward kernel also writes each query row's fp32 log-sum-exp of its
 // scaled scores, lse (B, H, Sq), when the caller gives a buffer for it (null
 // leaves the launch as it was); a row with no live key gets +inf. The
 // backward's kernels (below: on the tensor cores for bf16 and, as 3xTF32,
@@ -1613,11 +1618,30 @@ __device__ __forceinline__ void wgmma_tf32_n64(float* d, const uint32_t* a, uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 128, fp32) += A.B, one TF32 product: A (64 x 8) from registers in
+// the TF32 A fragment's order, B (8 x 128) K-major from shared memory
+__device__ __forceinline__ void wgmma_tf32_n128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 template <int N>
 __device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a, uint64_t db) {
   if constexpr (N == 32) wgmma_tf32_n32(d, a, db);
-  else wgmma_tf32_n64(d, a, db);
+  else if constexpr (N == 64) wgmma_tf32_n64(d, a, db);
+  else wgmma_tf32_n128(d, a, db);
 }
 
 // acc (the 64 x N fp32 fragment) += A B over K = 8 STEPS, as three TF32
@@ -2375,6 +2399,432 @@ cudaError_t dispatch_bwd_dkdv(const void* q, const void* k, const void* v, const
                               causal, window, scale, st);
 }
 
+// ---- the fp32 forward on the tensor cores ------------------------------------
+//
+// flash_fwd_x3_kernel computes what flash_fwd_kernel computes (the mask rule,
+// a row with no live key 0 with lse +inf, the optional lse) with both
+// products on the tensor cores as three TF32 products (big.big + big.small +
+// small.big, as the backward's pair above; 164.9 TFLOP/s of fp32-accurate
+// products against the FMA pipes' 67). What bounds it: 4 hd operations a live
+// pair against q, k, v read and o written once; at internvl2-2b's fp32 shape
+// (B 4, S 2,304, H 16/8, hd 128, causal) 0.087 TFLOP against 0.23 GB, so
+// operations. The design:
+// * Roles (384 threads; setmaxnreg 56 for the producer, 224 for each
+//   consumer): consumers 0 and 1 own 64 query rows each of a 128-row block;
+//   the producer warpgroup's thread 0 loads Q once and the live 32-key K and
+//   V tiles into a ring (four stages at HDP 64, two above) by TMA; its 128
+//   threads split K in place (big over it, small beside) and write V^T's
+//   big and small terms.
+// * Q stays as loaded (64 KB at HDP 128) and is split as it is read, as in
+//   the backward: split in shared memory it would take 128 KB.
+// * S = Q K^T: A = Q from registers (frag_split), B = K's split tile,
+//   K-major as it lands (m64n32k8 over HC / 8 steps).
+// * O += P V: wgmma takes TF32 B from shared memory K-major only, and V's
+//   tile is MN-major for this product, so the producer writes V^T (a row per
+//   column of V, the tile's 32 keys along it) with each 8-key step's keys
+//   permuted, physical key 2 i + par at position 4 par + i (split_vt): the S
+//   accumulator's fragment holds keys 2c and 2c + 1 of a step where the TF32
+//   A fragment wants columns c and c + 4, so p's fragment is the A fragment
+//   as it stands, split in registers; P never goes through shared memory
+//   and no barrier orders the consumers (m64nHCk8 over 4 steps). V lands in
+//   the slot of K's small term: the producer writes V^T first, then K's
+//   small term over V (a named barrier between), so a stage holds four
+//   terms, not five.
+// * The online softmax in base 2 with scale log2(e) folded into one FMA; a
+//   masked score is -inf, so its p is exactly 0; the mask runs only in tiles
+//   that cross Sk, the diagonal or the window's edge; dead tiles are skipped
+//   per consumer; the heaviest query blocks run first.
+// * HDP 256 (gemma3's hd 240, recurrentgemma's 256): a thread-block cluster
+//   pair (the grid's z), block z holding columns 128 z to 128 z + 127 of Q,
+//   K, V and O. The halves of S cross by st.async and are added, a + b in
+//   both blocks, so both form the same p bits and the two column halves of
+//   a row of O use the same probabilities; lse comes from block 0.
+// * Every output element has one owner and one order of sums, no atomics:
+//   two launches give the same bits. It executes 12 hd TF32 operations a
+//   computed pair (chip_smoke.py::flash_floor counts the tiles).
+
+// The forward's ring depth: four stages of T keys at HDP 64, two above (at
+// HDP 256 beside the partner's halves of S, 225 KB)
+template <int HDP>
+__host__ __device__ constexpr int fwd_stages() { return HDP == 64 ? 4 : 2; }
+// setmaxnreg: the producer warpgroup transposes and splits V in 56
+// registers, each consumer keeps 224 (128 x 56 + 256 x 224 = 384 x 168)
+constexpr int kFwdProducerRegs = 56;
+constexpr int kFwdConsumerRegs = 224;
+
+// Shared memory of the forward, in bytes from a 1024-aligned base: Q of the
+// block's 128 query rows as loaded (HC / 32 128-byte swizzled panels of 32
+// columns; HC = HDP up to 128, at 256 the pair of blocks of a cluster holds
+// 128 each); a ring of stages, each four T x HC terms: K as loaded, split in
+// place into its big term; K's small term (where V lands as loaded); V^T's
+// big and small terms (HC rows of T keys, K-major for O += P V); at HDP 256
+// the partner block's halves of S, by exchange parity and warpgroup; the
+// barriers (Q's, full, ready and empty of each stage, the receipts).
+template <int HDP>
+struct FwdLayout {
+  static constexpr bool kPair = HDP > 128;
+  static constexpr int HC = kPair ? 128 : HDP;
+  static constexpr int NP = HC / 32, T = kTileRows, NS = fwd_stages<HDP>();
+  static constexpr int kQ = 128 * HC * 4;
+  static constexpr int kStr = T * HC * 4;     // one term of a K or V tile
+  static constexpr int kX = kQ + NS * 4 * kStr;
+  static constexpr int kXPart = 64 * T * 4;   // one warpgroup's half of S
+  static constexpr int kBar = kX + (kPair ? 2 * 2 * kXPart : 0);
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * NS + 4) + 1024;
+};
+
+// V's tile as loaded (`vin`: T keys x HC columns, fp32 in 128-byte swizzled
+// panels of 32 columns) into V^T's big and small terms (HC rows, one a
+// column of V, of the T keys: K-major), each 8-key step's keys in the order
+// the S accumulator's fragment holds p, so that it is the TF32 A fragment
+// of O += P V as it stands: physical key 2 i + par of a step at logical
+// position 4 par + i (a thread holds keys 2c and 2c + 1 of a step, the A
+// fragment wants columns c and c + 4). A thread takes a 4-column chunk cc of
+// 4 keys (one step kk, one parity) and writes one 16-byte chunk of each of
+// the 4 rows; the 8 threads of a 16-byte access phase take distinct banks
+// both in the loads and in the stores (cc = 2 j + r0 + 8 r2 and kk = (r1 +
+// j) mod 4 for lane j = 0..3 of each parity).
+// component e of x (e a constant once unrolled)
+__device__ __forceinline__ float elem4(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+}
+
+template <int HC>
+__device__ __forceinline__ void split_vt(const uint8_t* vin, uint8_t* big, uint8_t* small,
+                                         int t) {
+  constexpr int T = kTileRows;
+#pragma unroll
+  for (int m = 0; m < HC / 64; ++m) {   // HC T / 16 chunks, 128 threads
+    const int u = t + 128 * m;
+    const int par = u & 1, j = (u >> 1) & 3, rest = u >> 3;
+    const int cc = 2 * j + (rest & 1) + 8 * (rest >> 3);
+    const int kk = (((rest >> 1) & 3) + j) & 3;
+    float4 x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = 8 * kk + 2 * i + par;
+      x[i] = *reinterpret_cast<const float4*>(vin + (cc >> 3) * (T * 128) + key * 128 +
+                                              (((cc & 7) ^ (key & 7)) << 4));
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = 4 * cc + e;
+      uint4 b, s;
+      split(elem4(x[0], e), b.x, s.x);
+      split(elem4(x[1], e), b.y, s.y);
+      split(elem4(x[2], e), b.z, s.z);
+      split(elem4(x[3], e), b.w, s.w);
+      const int off = n * 128 + (((2 * kk + par) ^ (n & 7)) << 4);
+      *reinterpret_cast<uint4*>(big + off) = b;
+      *reinterpret_cast<uint4*>(small + off) = s;
+    }
+  }
+}
+
+// o (and lse) of 128 query rows of one (b, h), 64 a consumer warpgroup; at
+// HDP 256 a cluster of two blocks (the grid's z) shares the rows, block z
+// holding Q, K, V and O's columns 128 z to 128 z + 127 (the halves of S
+// cross the pair). The producer warpgroup's thread 0 loads Q once and the
+// live K and V tiles into the ring; its 128 threads split K in place and
+// write V^T split. Each consumer, for each tile some row of its 64 leaves
+// live: S = Q K^T (Q split as it is read), the online softmax in base 2,
+// O rescaled, O += P V with p's fragment as the A operand.
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_x3_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, float* __restrict__ o, float* __restrict__ lse,
+    int Sq, int Sk, int H, int Hkv, int hd, int causal, int window, float scale_log2) {
+  using L = FwdLayout<HDP>;
+  constexpr int T = L::T, NS = L::NS, HC = L::HC;
+  constexpr bool kPair = L::kPair;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gb = smem_raw + (base - raw);
+  // stage s, term t (0 K big / as loaded, 1 K small / V as loaded, 2 V^T big,
+  // 3 V^T small): offset from base
+  auto ring = [](int s, int t) { return L::kQ + (s * 4 + t) * L::kStr; };
+  const uint32_t q_full = base + L::kBar;
+  auto full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto ready = [&](int s) { return q_full + 8 * (1 + NS + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + 2 * NS + s); };
+  // the partner's half of warpgroup w's S for exchanges of parity x
+  auto xbar = [&](int x, int w) { return q_full + 8 * (1 + 3 * NS + 2 * x + w); };
+
+  const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
+  // the block's (b, h), first query row, first of its HC columns and live
+  // key tiles, formed in each role after setmaxnreg (fresh)
+  int bh, b, h, q0, col0, kt_lo, n_tiles;
+  auto block = [&]() {
+    bh = fresh(blockIdx.x);
+    col0 = kPair ? cluster_rank() * HC : 0;
+    b = bh / H;
+    h = bh % H;
+    q0 = (gridDim.y - 1 - fresh(blockIdx.y)) * 128;  // heaviest (last) tiles first
+    const int q_last = min(q0 + 128, Sq) - 1;
+    int kt_hi = (Sk - 1) / T;
+    kt_lo = 0;
+    if (causal) {
+      kt_hi = min(q_last, Sk - 1) / T;
+      if (window > 0) kt_lo = max(0, q0 - window + 1) / T;
+    }
+    n_tiles = kt_hi - kt_lo + 1;   // <= 0 when a window lies wholly past Sk
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(ready(s), 128);
+      mbar_init(empty(s), 256);
+    }
+    if constexpr (kPair)
+      for (int x = 0; x < 4; ++x) mbar_init(xbar(x / 2, x % 2), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // at HDP 256 the partner's barriers are set before anything is sent to it
+  if constexpr (kPair)
+    cluster_sync();
+  else
+    __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: Q once; then each K/V tile loaded, K split, V^T written ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kFwdProducerRegs));
+    block();
+    const int hk = h / (H / Hkv);
+    if (tw == 0) {
+      mbar_expect_tx(q_full, L::kQ);
+      for (int p = 0; p < L::NP; ++p)
+        tma_load(base + p * 128 * 128, &tq, q_full, col0 + p * 32, h, q0, b);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % NS;
+      if (tw == 0) {
+        const int k0 = (kt_lo + it) * T;
+        mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * L::kStr);
+        for (int p = 0; p < L::NP; ++p) {
+          tma_load(base + ring(s, 0) + p * T * 128, &tk, full(s), col0 + p * 32, hk, k0, b);
+          tma_load(base + ring(s, 1) + p * T * 128, &tv, full(s), col0 + p * 32, hk, k0, b);
+        }
+      }
+      mbar_wait(full(s), (it / NS) & 1);
+      split_vt<HC>(gb + ring(s, 1), gb + ring(s, 2), gb + ring(s, 3), tw);
+      bar_sync(1, 128);   // V as loaded is read: K's small term goes over it
+      split_tile(gb + ring(s, 0), gb + ring(s, 1), T * HC, tw);
+      fence_async_smem();
+      mbar_arrive(ready(s));
+    }
+  } else {
+    // ---- consumers: 64 query rows each ------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kFwdConsumerRegs));
+    block();
+    const int lane = tw % 32, warp = tw / 32;
+    // this thread's rows of S and O: qp0 and qp0 + 8 (wgmma's fragment)
+    const int qp0 = q0 + wg * 64 + warp * 16 + lane / 4, qp1 = qp0 + 8;
+    const int w_first = q0 + wg * 64, w_last = min(w_first + 63, Sq - 1);
+    float acc[HC / 2];
+#pragma unroll
+    for (int j = 0; j < HC / 2; ++j) acc[j] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    int nx = 0;   // exchanges of S with the partner block (HDP 256)
+    mbar_wait(q_full, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % NS;
+      const int k0 = (kt_lo + it) * T;
+      mbar_wait(ready(s), (it / NS) & 1);
+      bool dead = w_last < w_first;   // every row of this warpgroup lies beyond Sq
+      if (causal) {
+        dead = dead || k0 > w_last;
+        if (window > 0) dead = dead || k0 + T - 1 <= w_first - window;
+      }
+      if (!dead) {
+        // S = Q K^T, 64 x T over HC / 8 steps, Q split as it is read
+        float sc[T / 2];
+#pragma unroll
+        for (int i = 0; i < T / 2; ++i) sc[i] = 0.f;
+        const uint32_t kb = base + ring(s, 0);
+        mma3<T, HC / 8>(
+            sc, [&](int kk, uint32_t* bg, uint32_t* sm) {
+              frag_split<128>(gb, wg * 64 + warp * 16, kk, lane, bg, sm);
+            },
+            [&](int kk, int term) { return kdesc(kb + term * L::kStr, kk, T * 128); });
+        if constexpr (kPair) {
+          // this block's half of the sum to the partner, the partner's half
+          // added here (a + b: both blocks hold the same bits, so the same p)
+          const int x = nx & 1;
+          const uint32_t part = L::kX + (x * 2 + wg) * L::kXPart;
+          if (tw == 0) mbar_expect_tx(xbar(x, wg), L::kXPart);
+          const int other = cluster_rank() ^ 1;
+          const uint32_t dst = at_rank(base + part, other), bar = at_rank(xbar(x, wg), other);
+#pragma unroll
+          for (int v = 0; v < T / 8; ++v)
+            st_async4(dst + (v * 128 + tw) * 16,
+                      make_float4(sc[4 * v], sc[4 * v + 1], sc[4 * v + 2], sc[4 * v + 3]), bar);
+          mbar_wait(xbar(x, wg), (nx >> 1) & 1);
+          const float4* got = reinterpret_cast<const float4*>(gb + part);
+#pragma unroll
+          for (int v = 0; v < T / 8; ++v) {
+            const float4 g = got[v * 128 + tw];
+            sc[4 * v] += g.x;
+            sc[4 * v + 1] += g.y;
+            sc[4 * v + 2] += g.z;
+            sc[4 * v + 3] += g.w;
+          }
+          ++nx;
+        }
+        // the mask, only in tiles that cross Sk, the diagonal or the window's edge
+        const bool edge =
+            k0 + T > Sk ||
+            (causal && (k0 + T - 1 > w_first || (window > 0 && k0 <= w_last - window)));
+        if (edge) {
+#pragma unroll
+          for (int i = 0; i < T / 2; ++i) {
+            const int key = k0 + (i / 4) * 8 + (lane % 4) * 2 + (i & 1);
+            const int qp = (i & 2) ? qp1 : qp0;
+            const bool live =
+                key < Sk && (!causal || (key <= qp && (window <= 0 || qp - key < window)));
+            if (!live) sc[i] = -INFINITY;
+          }
+        }
+        // online softmax in base 2: rows qp0 (elements with i & 2 == 0) and qp1
+        float mx0 = m0, mx1 = m1;
+#pragma unroll
+        for (int i = 0; i < T / 2; ++i) {
+          if (i & 2) mx1 = fmaxf(mx1, sc[i]);
+          else mx0 = fmaxf(mx0, sc[i]);
+        }
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        const float b0 = mx0 == -INFINITY ? 0.f : mx0 * scale_log2;
+        const float b1 = mx1 == -INFINITY ? 0.f : mx1 * scale_log2;
+        const float c0 = exp2_ftz(m0 * scale_log2 - b0), c1 = exp2_ftz(m1 * scale_log2 - b1);
+        m0 = mx0;
+        m1 = mx1;
+        l0 *= c0;
+        l1 *= c1;
+#pragma unroll
+        for (int j = 0; j < HC / 2; ++j) acc[j] *= (j & 2) ? c1 : c0;
+        // p = 2^(s scale log2(e) - m scale log2(e)) (a masked score is -inf:
+        // p = 0), split, as step kk's A fragment: a0 (row qp0, key 2c), a1
+        // (qp1, 2c), a2 (qp0, 2c + 1), a3 (qp1, 2c + 1)
+        uint32_t pb[T / 2], ps[T / 2];
+#pragma unroll
+        for (int kk = 0; kk < T / 8; ++kk) {
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const int i = 4 * kk + 2 * (a & 1) + (a >> 1);   // a = 0, 1, 2, 3: i 0, 2, 1, 3
+            const float p = exp2_ftz(fmaf(sc[i], scale_log2, (i & 2) ? -b1 : -b0));
+            if (i & 2) l1 += p;
+            else l0 += p;
+            split(p, pb[4 * kk + a], ps[4 * kk + a]);
+          }
+        }
+        // O += P V over T / 8 steps of 8 keys, three TF32 products a step
+        const uint32_t vb = base + ring(s, 2), vs = base + ring(s, 3);
+        pin<HC / 2>(acc);
+        pin<T / 2>(pb);
+        pin<T / 2>(ps);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < T / 8; ++kk) {
+          wgmma_tf32<HC>(acc, pb + 4 * kk, kdesc(vb, kk, 0));
+          wgmma_tf32<HC>(acc, pb + 4 * kk, kdesc(vs, kk, 0));
+          wgmma_tf32<HC>(acc, ps + 4 * kk, kdesc(vb, kk, 0));
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        pin<HC / 2>(acc);
+        pin<T / 2>(pb);
+        pin<T / 2>(ps);
+      }
+      mbar_arrive(empty(s));
+    }
+
+    // epilogue: the row sums over the quad, then o = acc / l
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+    // the natural log-sum-exp of the scaled scores (m is the raw score's
+    // max, l the sum of 2^((s - m) scale log2(e))), from block 0 of a pair
+    if (lse != nullptr && lane % 4 == 0 && col0 == 0) {
+      constexpr float kLn2 = 0.6931471805599453f;
+      float* lb = lse + (long long)bh * Sq;
+      if (qp0 < Sq) lb[qp0] = l0 > 0.f ? (m0 * scale_log2 + log2f(l0)) * kLn2 : INFINITY;
+      if (qp1 < Sq) lb[qp1] = l1 > 0.f ? (m1 * scale_log2 + log2f(l1)) * kLn2 : INFINITY;
+    }
+    // element j: row qp0 (qp1 when j & 2), column col0 + 8 (j / 4) + 2 (lane
+    // % 4) + j % 2; hd is a multiple of 4, so a pair is whole or past hd
+    const long long q_stride = (long long)H * hd;
+    float* const ob = o + (long long)b * Sq * q_stride + (long long)h * hd;
+#pragma unroll
+    for (int j = 0; j < HC / 2; j += 2) {
+      const int d = col0 + (j / 4) * 8 + (lane % 4) * 2;
+      const int qp = (j & 2) ? qp1 : qp0;
+      const float den = (j & 2) ? den1 : den0;
+      if (qp < Sq && d < hd)
+        *reinterpret_cast<float2*>(ob + qp * q_stride + d) =
+            make_float2(acc[j] / den, acc[j + 1] / den);
+    }
+  }
+}
+
+template <int HDP>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int B, int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                       float scale, cudaStream_t st) {
+  using L = FwdLayout<HDP>;
+  constexpr int bytes = L::kBytes;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_x3_kernel<HDP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  if ((long long)Sq > 65535LL * 128) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  cudaError_t e = encode(&tq, q, B, Sq, H, hd, 128, 4);
+  if (e == cudaSuccess) e = encode(&tk, k, B, Sk, Hkv, hd, L::T, 4);
+  if (e == cudaSuccess) e = encode(&tv, v, B, Sk, Hkv, hd, L::T, 4);
+  if (e != cudaSuccess) return e;
+  // at HDP 256 the grid's z is the cluster pair that shares each row block
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * H, (Sq + 127) / 128, L::kPair ? 2 : 1);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = L::kPair ? 2 : 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, flash_fwd_x3_kernel<HDP>, tq, tk, tv, static_cast<float*>(o),
+                         lse, Sq, Sk, H, Hkv, hd, causal, window, scale * kLog2e);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                         int B, int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
+                         float scale, cudaStream_t st) {
+  if (hd <= 64)
+    return launch_fwd<64>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
+  if (hd <= 128)
+    return launch_fwd<128>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
+  return launch_fwd<256>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, causal, window, scale, st);
+}
+
 }  // namespace x3
 
 }  // namespace tc
@@ -2994,10 +3444,12 @@ bool bad_shape(int B, int Sq, int Sk, int H, int Hkv, int hd) {
 extern "C" {
 
 // o (B, Sq, H, hd) = attention of q (B, Sq, H, hd) over k, v (B, Sk, Hkv, hd),
-// all contiguous, fp32 when dtype == 0 (flash_fwd_kernel, FMA) and bf16 when
-// dtype == 1 (tc::flash_fwd_tc_kernel, tensor cores; a layout TMA cannot
-// take, hd not a multiple of 8 or a base not 16-byte aligned, runs
-// flash_fwd_kernel's bf16 instance). causal != 0 masks keys after the query,
+// all contiguous, fp32 when dtype == 0 and bf16 when dtype == 1; the kernel
+// as flash_attention_fwd_route says: fp32 in a layout TMA can take (hd a
+// multiple of 4, q, k, v, o 16-byte aligned) runs tc::x3::flash_fwd_x3_kernel
+// (3xTF32 on the tensor cores), bf16 in one (hd a multiple of 8, q, k, v
+// 16-byte aligned) tc::flash_fwd_tc_kernel, and the rest flash_fwd_kernel
+// (FMA). causal != 0 masks keys after the query,
 // positions counted from 0 in both; window > 0 (only with causal) also masks
 // keys window or more positions before it. Sk >= 1, H a multiple of Hkv,
 // 1 <= hd <= 256. Launches on `stream`, does not synchronise, and returns
@@ -3010,6 +3462,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, fl
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc::x3::takes(q, k, v, o, nullptr, hd, dtype))
+    return (int)tc::x3::dispatch_fwd(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, causal, window,
+                                     scale, st);
   if (dtype == 0)
     return (int)dispatch<float>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, causal, window,
                                 scale, st);
@@ -3020,6 +3475,16 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, fl
     return (int)dispatch<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, causal,
                                         window, scale, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The forward's route for these operands: 2 when flash_attention_fwd launches
+// the fp32 3xTF32 tensor-core kernel (fp32, hd a multiple of 4, q, k, v, o
+// 16-byte aligned), 1 when it launches the bf16 tensor-core kernel (bf16, hd a
+// multiple of 8, q, k, v 16-byte aligned), 0 when it launches the FMA kernel.
+int flash_attention_fwd_route(const void* q, const void* k, const void* v, const void* o,
+                              int hd, int dtype) {
+  if (tc::x3::takes(q, k, v, o, nullptr, hd, dtype)) return 2;
+  return dtype == 1 && tc::tma_layout(q, k, v, hd) ? 1 : 0;
 }
 
 // The backward's route for these operands: 1 when flash_attention_bwd_dq

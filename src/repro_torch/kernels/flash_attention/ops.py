@@ -7,15 +7,20 @@ hd) against k, v (B, Sk, Hkv, hd), so one kernel serves self attention
 kernel from ``csrc/flash_attention.cu`` (built by ``kernels/build.py``),
 which replaces the TPU kernel
 ``src/repro/kernels/flash_attention/flash_attention.py::flash_attention_pallas``.
-The input type picks the kernel: bf16 runs ``flash_fwd_tc_kernel`` (both
-products on the tensor cores with ``wgmma``, K/V fed by TMA, P as two bf16
-terms so the output stays within one bf16 ulp of fp32 probabilities), or,
-for a layout TMA cannot take (hd not a multiple of 8, a base not 16-byte
-aligned), ``flash_fwd_kernel``'s bf16 instance; fp32 runs
-``flash_fwd_kernel`` (fp32 FMA, which holds the reference's 2e-5). On
-CPU tensors it runs the plain version (``ref.attention_ref``). There is no
-other fallback: a CUDA tensor of the wrong type, shape or layout, or a
-failed build or launch, raises.
+The library's routing rule (``flash_attention_fwd_route``) picks the kernel
+by type and layout: fp32 at any hd up to 256 in a layout TMA can take (hd
+a multiple of 4; q, k, v, o 16-byte aligned) runs
+``x3::flash_fwd_x3_kernel`` (both products on the tensor cores as three
+TF32 products, big.big + big.small + small.big with x = big + small, which
+holds the reference's 2e-5 where one TF32 product would not; route
+``"tf32x3"``); bf16 in a layout TMA can take (hd a multiple of 8, q, k, v
+16-byte aligned) runs ``flash_fwd_tc_kernel`` (both products on the tensor
+cores with ``wgmma``, K/V fed by TMA, P as two bf16 terms so the output
+stays within one bf16 ulp of fp32 probabilities; ``"tensor_core"``); the
+other layouts run ``flash_fwd_kernel`` (fp32 FMA, either type; ``"fma"``).
+This is a rule by layout, not a fallback: on CPU tensors it runs the plain
+version (``ref.attention_ref``), and a CUDA tensor of the wrong type, shape
+or layout, or a failed build or launch, raises.
 
 Gradients: when grad mode is on and any of q, k, v requires a gradient,
 ``flash_attention`` goes through ``FlashAttention`` (a
@@ -52,11 +57,13 @@ adds nothing to dk or dv.
 
 ``flash_attention.launches`` counts forward launches, ``flash_bwd_dq.launches``
 and ``flash_bwd_dkdv.launches`` the backward kernels', and
-``flash_bwd_dq.routes`` / ``flash_bwd_dkdv.routes`` split those by route
-(``{"fma": l, "tensor_core": m, "tf32x3": n}``, from the library's rule,
-``flash_attention_bwd_route``; ``BWD_ROUTES`` names its codes). They are
-plain integers; the CPU path never moves them, so a run can show that it
-went through the kernels and which.
+``flash_attention.routes``, ``flash_bwd_dq.routes`` and
+``flash_bwd_dkdv.routes`` split those by route (``{"fma": l,
+"tensor_core": m, "tf32x3": n}``, from the library's rules,
+``flash_attention_fwd_route`` and ``flash_attention_bwd_route``;
+``FWD_ROUTES`` and ``BWD_ROUTES`` name their codes). They are plain
+integers; the CPU path never moves them, so a run can show that it went
+through the kernels and which.
 """
 from __future__ import annotations
 
@@ -90,6 +97,9 @@ def _kernel():
             fn.argtypes = [ctypes.c_void_p] * n + shape
             fn.restype = ctypes.c_int
             fns[name] = fn
+        lib.flash_attention_fwd_route.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+        lib.flash_attention_fwd_route.restype = ctypes.c_int
+        fns["fwd_route"] = lib.flash_attention_fwd_route
         lib.flash_attention_bwd_route.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
         lib.flash_attention_bwd_route.restype = ctypes.c_int
         fns["bwd_route"] = lib.flash_attention_bwd_route
@@ -112,8 +122,19 @@ def _call(name: str, pointers: list, dims: tuple, causal: bool, window, hd: int,
                            f"(cudaError {rc})")
 
 
-# the library's backward routes, by the code flash_attention_bwd_route returns
-BWD_ROUTES = ("fma", "tensor_core", "tf32x3")
+# the library's forward and backward routes, by the code
+# flash_attention_fwd_route and flash_attention_bwd_route return
+FWD_ROUTES = BWD_ROUTES = ("fma", "tensor_core", "tf32x3")
+
+
+def _fwd_route(q, k, v, o) -> str:
+    """Which forward kernel the entry point launches for these CUDA
+    operands, as the library's own routing rule (``flash_attention_fwd_route``)
+    says: ``"tf32x3"`` (fp32 on the tensor cores), ``"tensor_core"`` (bf16)
+    or ``"fma"``."""
+    code = _kernel()["fwd_route"](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                  q.shape[-1], _DTYPES[q.dtype])
+    return FWD_ROUTES[code]
 
 
 def _bwd_route(q, k, v, o, do) -> str:
@@ -176,10 +197,12 @@ def _forward(q, k, v, causal, window, with_lse: bool):
            if with_lse else None)
     if B == 0:
         return o, lse
+    route = _fwd_route(q, k, v, o)
     _call("flash_attention_fwd",
           [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
            lse.data_ptr() if with_lse else None], dims, causal, window, hd, q.dtype, q.device)
     flash_attention.launches += 1
+    flash_attention.routes[route] += 1
     return o, lse
 
 
@@ -307,6 +330,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.routes = dict.fromkeys(FWD_ROUTES, 0)
 flash_bwd_dq.launches = 0
 flash_bwd_dkdv.launches = 0
 flash_bwd_dq.routes = dict.fromkeys(BWD_ROUTES, 0)
