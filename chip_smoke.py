@@ -312,7 +312,18 @@ Phases, one or more lines each:
                 against CPU from the same params (losses 1e-4; exactly one
                 launch of each WKV6 kernel per layer a step); an RWKV
                 forward in grad mode that wants no gradient (``rwkv_chunk``
-                16) launches the forward kernel alone.
+                16) launches the forward kernel alone;
+ 17 roofline    the dry run (``launch.dryrun --all --mesh both``, every
+                arch x shape on the fake 256- and 512-rank production
+                meshes, on meta tensors) in a child process, away from
+                phase 14's NCCL group: its counts (66 ok, 14 skipped, 0
+                errors, gated) and seconds; then each LM step the card
+                timed (phase 9's steady prefills of the seven models,
+                phase 16's steady train steps of internvl2-2b, gemma3-12b
+                at 6 of 48 layers and rwkv6-1.6b) beside the dry run's row
+                of that configuration and shape on a 1x1 mesh (another
+                child): mfu = model FLOPs / (time x 989 TFLOP/s), the
+                row's bound / time and its useful-FLOPs ratio (recorded).
 The SpMM's launch counter is set to 0 just before phase 4 and read just
 after phase 5; every counter is set to 0 just before each ``serve`` of
 phase 8, each ``run`` of phases 10, 11, 12 and 14 (the collective counts
@@ -333,8 +344,8 @@ Before the last line it prints a ``{"kernels": [...]}`` line (the three
 forward kernels, flash attention's two backward kernels on each of their
 three routes and the WKV6 backward). The last
 line is ``{"ok": true, "device": {...}}``. Any failure raises and the exit
-code is not 0; without CUDA, or outside a checkout, it prints no result
-and exits 2.
+code is not 0; without CUDA it prints no result and exits 2, outside a
+checkout 1.
 """
 from __future__ import annotations
 
@@ -343,6 +354,7 @@ import copy
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -351,20 +363,27 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+if not (SRC / "repro_torch" / "__init__.py").is_file():
+    sys.exit(f"chip_smoke: no src/repro_torch beside {__file__}; run it from a checkout of "
+             "the repository")
+sys.path.insert(0, str(SRC))
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): fp32 outside the
-# tensor cores, bf16 and TF32 on them, and HBM3 bandwidth. The bound of a
-# kernel is the larger of its bytes over the bandwidth and its operations
-# over the peak for their operands' type. fp32-accurate products also run
-# on the tensor cores as three TF32 products each (big.big + big.small +
-# small.big, x = big + small): PEAK_TF32_FLOPS / 3, faster than the FMA
-# pipes, so flash attention's fp32 bounds take the faster of the two
-# (FP32_MM_FLOPS) and keep the FMA one beside.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_TF32_FLOPS = 494.7e12
+from repro_torch.utils import roofline  # noqa: E402
+
+# H100 SXM published peaks (``utils/roofline.py``, from NVIDIA's data
+# sheet, dense): fp32 outside the tensor cores, bf16 and TF32 on them, and
+# HBM3 bandwidth. The bound of a kernel is the larger of its bytes over the
+# bandwidth and its operations over the peak for their operands' type.
+# fp32-accurate products also run on the tensor cores as three TF32
+# products each (big.big + big.small + small.big, x = big + small):
+# PEAK_TF32_FLOPS / 3, faster than the FMA pipes, so flash attention's fp32
+# bounds take the faster of the two (FP32_MM_FLOPS) and keep the FMA one
+# beside.
+PEAK_FP32_FLOPS = roofline.PEAK_FLOPS_FP32
+PEAK_BF16_FLOPS = roofline.PEAK_FLOPS_BF16
+PEAK_TF32_FLOPS = roofline.PEAK_FLOPS_TF32
 FP32_MM_FLOPS = max(PEAK_FP32_FLOPS, PEAK_TF32_FLOPS / 3)
-PEAK_BYTES_PER_S = 3.35e12
+PEAK_BYTES_PER_S = roofline.HBM_BW
 TOL_KERNEL = 1e-5
 TOL_LOGITS = 1e-4
 N_IDS = 256
@@ -3913,6 +3932,94 @@ def lm_train_phase(torch, counters, get_config, get_smoke_config, dev, tag,
                  f"{RWKV_ARCH} train": rwkv_launches}
 
 
+DRYRUN_COUNTS = {"ok": 66, "skipped": 14, "errors": 0}
+
+
+def dryrun_sweep() -> dict:
+    """``python -m repro_torch.launch.dryrun --all --mesh both`` in a child
+    process (its fake 512-rank world must not meet phase 14's NCCL group
+    in this one): the counts, the seconds and the rows. The child's exit
+    code and the counts are gated."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                              "--mesh", "both", "--out", out], cwd=ROOT, capture_output=True,
+                             text=True, timeout=900,
+                             env=dict(os.environ, PYTHONPATH=str(SRC)))
+        seconds = time.perf_counter() - t0
+        m = re.search(r"dry-run: (\d+) ok, (\d+) skipped, (\d+) errors", run.stdout)
+        counts = dict(zip(("ok", "skipped", "errors"), map(int, m.groups()))) if m else None
+        if run.returncode != 0 or counts != DRYRUN_COUNTS:
+            raise AssertionError(f"roofline: the dry run exited {run.returncode} with counts "
+                                 f"{counts} (want {DRYRUN_COUNTS}): {run.stdout[-3000:]} "
+                                 f"{run.stderr[-3000:]}")
+        rows = [json.loads(f.read_text()) for f in sorted(Path(out).glob("*.json"))]
+    return {"counts": counts, "seconds": seconds, "rows": rows}
+
+
+def roofline_phase(record, tag) -> dict:
+    """Phase 17: the dry run's sweep, then each LM step the card timed
+    (phase 9's steady prefills, phase 16's steady train steps) beside the
+    dry run's row of that configuration and shape on a 1x1 mesh, walked in
+    a spawned child: mfu = model FLOPs / (time x the bf16 peak), the row's
+    bound / time, its useful-FLOPs ratio. Recorded, not gated. The walk is
+    the plain path (attention over every query-key pair, the products in
+    bf16 at the bf16 peak, unfused bytes); the card ran the kernels. A
+    train row walks ``loss_and_grads`` (the timed step also runs the clip
+    and AdamW); a prefill row's decode state holds the prompt's positions
+    (the timed prefill's holds 32 more, for the decode)."""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    from repro_torch.launch import dryrun
+
+    sweep = dryrun_sweep()
+    log(f"phase 17 roofline: {tag}: dry run --all --mesh both (every arch x shape on the "
+        f"fake 256- and 512-rank meshes, on meta tensors): {sweep['counts']['ok']} ok, "
+        f"{sweep['counts']['skipped']} skipped, {sweep['counts']['errors']} errors in "
+        f"{sweep['seconds']:.1f} s")
+    timed = []
+    for arch, n_layers, prompt in [*((a, None, LM_PROMPT) for a in LM_ARCHS),
+                                   *((a, n, LM_PROMPT) for a, n in LM_FAMILIES_CHECK),
+                                   *((a, None, p) for a, p in LM_ENC_IMG)]:
+        timed.append(({"arch": arch, "label": "prefill", "kind": "prefill",
+                       "batch": LM_BATCH, "seq_len": prompt,
+                       "extra": {"n_layers": n_layers} if n_layers else {}},
+                      record["lm_check"][arch]["steady_prefill_ms"], "phase 9"))
+    lt = record["lm_train"]
+    for arch, n_layers, key in ((TRAIN_ARCH, None, "train_full"),
+                                (GEMMA_ARCH, GEMMA_TRAIN_LAYERS, "gemma_train"),
+                                (RWKV_ARCH, None, "rwkv_train_full")):
+        extra = {"remat": False, **({"n_layers": n_layers} if n_layers else {})}
+        timed.append(({"arch": arch, "label": "train", "kind": "train",
+                       "batch": TRAIN_BATCH, "seq_len": TRAIN_TEXT, "extra": extra},
+                      lt[key]["steady_step_ms"], "phase 16"))
+    with ProcessPoolExecutor(1, mp_context=get_context("spawn")) as pool:
+        rows = pool.submit(dryrun.unit_mesh_rows, [c for c, _, _ in timed]).result()
+    steps = []
+    for (case, ms, phase), row in zip(timed, rows):
+        if row["status"] != "ok":
+            raise AssertionError(f"roofline: the dry run's row of {case}: {row}")
+        rf, t = row["roofline"], ms / 1e3
+        rec = {**case, "phase": phase, "time_ms": ms, "model_flops": row["model_flops"],
+               "walk_flops": rf["hlo_flops"], "walk_bytes": rf["hlo_bytes"],
+               "bound_s": rf["bound_s"], "dominant": rf["dominant"],
+               "mfu": roofline.mfu(row["model_flops"], t), "bound_over_time": rf["bound_s"] / t,
+               "useful_flops_ratio": rf["useful_flops_ratio"], "memory": row["memory"]}
+        steps.append(rec)
+        cut = f", n_layers {case['extra']['n_layers']}" if case["extra"].get("n_layers") else ""
+        log(f"phase 17 roofline: {tag}: {case['arch']} {case['kind']} (B {case['batch']} x "
+            f"S {case['seq_len']}{cut}): {ms:.1f} ms ({phase}, steady); model FLOPs "
+            f"{rec['model_flops']:.4e} -> mfu {rec['mfu']:.4f}; dry-run bound "
+            f"{rec['bound_s'] * 1e3:.1f} ms ({rec['dominant']}; walk {rec['walk_flops']:.4e} "
+            f"FLOPs, {rec['walk_bytes']:.4e} B) -> bound / time "
+            f"{rec['bound_over_time']:.4f}; useful FLOPs ratio "
+            f"{rec['useful_flops_ratio']:.4f}")
+    return {"sweep": sweep, "steps": steps}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the record as JSON here")
@@ -3928,11 +4035,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch" / "__init__.py").is_file():
-        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it from "
-              "a checkout of the repository", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(SRC))
 
     import numpy as np
 
@@ -4493,6 +4595,11 @@ def main(argv=None) -> int:
     record["lm_train"]["seconds"] = time.perf_counter() - t16
     log(f"phase 16 lm-train: {tag}: {json.dumps(train_lm_launches)} launches on the main "
         f"path in {record['lm_train']['seconds']:.1f} s")
+
+    # -- phase 17: roofline (the dry run; each timed LM step beside its row) ----
+    t17 = time.perf_counter()
+    record["roofline"] = roofline_phase(record, tag)
+    record["roofline"]["seconds"] = time.perf_counter() - t17
 
     # -- the kernels line --------------------------------------------------------
     warm = shapes[0]

@@ -9,8 +9,8 @@ tokens are made on the host with numpy, draw for draw as the reference
 makes them, so every (seed, index) gives the reference's tokens to the bit;
 ``make_lm_batch`` carries them to the device.
 
-``shard_batch`` (placing a batch on a JAX mesh) is left out: the port's
-mesh rules wait (ROADMAP A11).
+``shard_batch`` places a batch on a ``DeviceMesh`` under a spec of
+``sharding.specs`` (``batch_spec``), as DTensors.
 """
 from __future__ import annotations
 
@@ -67,3 +67,15 @@ def make_lm_batch(pipeline: TokenPipeline, index: int, device=None) -> dict[str,
     raw = pipeline.batch(index)["tokens"]
     return {"tokens": torch.from_numpy(raw[:, :-1].astype(np.int64)).to(dev),
             "labels": torch.from_numpy(raw[:, 1:].astype(np.int64)).to(dev)}
+
+
+def shard_batch(batch: dict, mesh, spec: tuple) -> dict:
+    """Place a batch (host arrays or tensors) onto ``mesh`` under ``spec``:
+    a DTensor per leaf (``distribute_tensor``), each rank holding its shard
+    on the mesh's device."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.sharding.specs import placements
+
+    where = placements(spec, mesh)
+    return {k: distribute_tensor(torch.as_tensor(v), mesh, where) for k, v in batch.items()}

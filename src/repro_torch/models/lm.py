@@ -119,9 +119,10 @@ def init_lm(generator: torch.Generator, cfg, device=None) -> dict:
     """Fresh params drawn from ``generator`` on ``device`` (``None`` is
     ``cuda:0``). The generator must live on that device: a CUDA generator
     draws a full-width model on the card. Same shapes and scales as the
-    reference's ``init_lm``, not the same values."""
+    reference's ``init_lm``, not the same values. ``device="meta"`` with a
+    ``device.MetaGenerator`` gives the shapes alone (the dry run's)."""
     check_supported(cfg)
-    dev = resolve_device(device)
+    dev = resolve_device(device, allow_meta=True)
     if generator.device.type != dev.type:
         raise ValueError(f"init_lm: generator on {generator.device}, params on {dev}; "
                          "give a generator on the params' device")

@@ -34,8 +34,11 @@ from repro_torch.models.layers import activation_fn, dense_init, mlp_apply, mlp_
 
 def _expert_stack(generator: torch.Generator, E: int, d_in: int, d_out: int, dtype):
     """(E, d_in, d_out), each expert drawn as ``dense_init`` draws one
-    matrix; filled expert by expert (one expert's fp32 draw at a time)."""
+    matrix; filled expert by expert (one expert's fp32 draw at a time). On
+    meta (shapes only) there is nothing to fill."""
     out = torch.empty((E, d_in, d_out), dtype=dtype, device=generator.device)
+    if out.is_meta:
+        return out
     for e in range(E):
         out[e] = dense_init(generator, d_in, d_out, dtype)
     return out
@@ -77,7 +80,11 @@ def route(params: dict, cfg, x: torch.Tensor):
     top_w, top_i = top_k(probs, K)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     me = probs.reshape(-1, E).mean(0)
-    ce = torch.bincount(top_i.reshape(-1), minlength=E).float() / top_i.numel()
+    # each expert's count of (token, k) pairs: bincount's values, by an op
+    # that also runs on meta tensors (the dry run's)
+    flat = top_i.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.int64, device=flat.device)
+    ce = counts.scatter_add_(0, flat, torch.ones_like(flat)).float() / top_i.numel()
     return probs, top_w, top_i, E * torch.sum(me * ce)
 
 

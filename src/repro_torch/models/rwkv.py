@@ -90,7 +90,31 @@ def _time_mix_inputs(p, cfg, x, x_prev):
 def wkv_scan(r, k, v, w, u, state0=None):
     """Sequential WKV recurrence (the plain path). r,k,v,w: (B, T, H, N);
     u: (H, N). Returns (y (B,T,H,N), final state (B,H,N,N) fp32)."""
+    if r.device.type == "meta":
+        return _wkv_scan_meta(r, k, v, w, u, state0)
     return wkv6_ref(r, k, v, w, u, state0)
+
+
+def _wkv_scan_meta(r, k, v, w, u, state0=None):
+    """``wkv_scan`` on meta tensors (the dry run's walk: shapes, no values).
+    The sequential scan would dispatch some 16 ops a step; this runs its
+    products for all steps at once: step 0 against ``state0`` (or zeros),
+    steps 1..T-1 against a (B, T-1, H, N, N) fp32 state made elementwise from
+    k, v and w. So a FLOP counter sees the scan's own products, forward and
+    backward (step 0's state takes no gradient unless ``state0`` does), and
+    autograd saves one state a step, as the scan does."""
+    B, T, H, N = r.shape
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    S0 = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+          if state0 is None else state0.float())
+    coef = (rf * u.float() * kf).sum(-1, keepdim=True)
+    ys = [torch.einsum("bhn,bhnm->bhm", rf[:, 0], S0)[:, None]]
+    if T > 1:
+        prev = wf[:, 1:, ..., None] * kf[:, :-1, ..., None] * vf[:, :-1, ..., None, :]
+        ys.append(torch.einsum("bthn,bthnm->bthm", rf[:, 1:], prev))
+    y = coef * vf + torch.cat(ys, dim=1)
+    S = wf[:, -1, ..., None] * S0 + kf[:, -1, ..., None] * vf[:, -1, ..., None, :]
+    return y.to(r.dtype), S
 
 
 def wkv_chunked_scan(r, k, v, w, u, chunk: int = 128, state0=None):

@@ -11,9 +11,11 @@ ledger of ``repro/launch/fed_dryrun.py``:
 * ``comm``: the counted collectives both run on; ``ledger``: the bytes a
   round must move; ``ranks``: a launcher of N ranks on one machine.
 
+* ``specs``: the per-leaf rules of the production mesh (port of
+  ``repro/sharding/specs.py``): a spec per parameter, batch, decode-state
+  and activation axis, and its DTensor placements on a ``DeviceMesh``.
+
 NCCL on the card, gloo on the CPU (only when the caller asks for the CPU).
-The reference's per-leaf spec rules (``sharding/specs.py``) wait (ROADMAP
-A11).
 """
 from repro_torch.sharding.fed import (
     CLIENT_AXIS,
@@ -22,6 +24,12 @@ from repro_torch.sharding.fed import (
     cohort_padding,
     make_client_mesh,
     pairwise_sum,
+)
+from repro_torch.sharding.specs import (
+    activation_rules,
+    batch_spec,
+    decode_state_spec,
+    param_spec_tree,
 )
 from repro_torch.sharding.tables import (
     POD_AXIS,
@@ -35,14 +43,18 @@ from repro_torch.sharding.tables import (
 __all__ = [
     "CLIENT_AXIS",
     "POD_AXIS",
+    "activation_rules",
+    "batch_spec",
     "build_pod_sharded_chunk",
     "build_sharded_chunk",
     "client_axis_of",
     "cohort_padding",
+    "decode_state_spec",
     "make_client_mesh",
     "make_pod_mesh",
     "pad_tables_to_pods",
     "pairwise_sum",
+    "param_spec_tree",
     "pod_axes_of",
     "shard_tables_to_mesh",
 ]

@@ -40,6 +40,18 @@ def tree_map(fn: Callable, *trees: PyTree) -> PyTree:
     return fn(*trees)
 
 
+def tree_map_with_path(fn: Callable, tree: PyTree, path: tuple = ()) -> PyTree:
+    """``fn(path, leaf)`` over a nest of dicts, lists and tuples, the
+    structure kept; ``path`` holds the dict keys and list indices down to
+    the leaf (``jax.tree_util.tree_map_with_path``'s keys, unwrapped)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
+    return fn(path, tree)
+
+
 def tree_zeros_like(tree: PyTree, dtype=None) -> PyTree:
     return tree_map(lambda x: torch.zeros_like(x, dtype=dtype or x.dtype), tree)
 

@@ -20,10 +20,6 @@ ROADMAP = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
 
 # (package, name) -> the ROADMAP item that brings it, or why it differs
 WAITING = {
-    ("sharding", "activation_rules"): "A11",
-    ("sharding", "batch_spec"): "A11",
-    ("sharding", "decode_state_spec"): "A11",
-    ("sharding", "param_spec_tree"): "A11",
     # takes the reference's jitted vmapped update, which the port leaves
     # out; the port's fault-aware fused merge is faults.build_faulty_merge
     ("faults", "build_faulty_chunk"): "deliberate difference",
