@@ -323,7 +323,23 @@ Phases, one or more lines each:
                 at 6 of 48 layers and rwkv6-1.6b) beside the dry run's row
                 of that configuration and shape on a 1x1 mesh (another
                 child): mfu = model FLOPs / (time x 989 TFLOP/s), the
-                row's bound / time and its useful-FLOPs ratio (recorded).
+                row's bound / time and its useful-FLOPs ratio (recorded);
+ 18 fed-dryrun  ``launch.fed_dryrun``, each run a child process, all at
+                once, away from phase 14's NCCL group: on fake worlds, on
+                meta tensors, pod1 and pod2 client-sharded and with 16 pods
+                (the production meshes at the reference's defaults), the
+                reference's two CI commands (``--assert-k-flat`` K 10^5
+                against 10^4, ``--assert-quant-bytes`` at K 1,024) and K
+                10^4, 10^6 and int8 at its CI widths: each exits 0, each
+                round's counted collectives equal to the ledger's and the
+                rank's residents to its ``per_device_resident_bytes``; then
+                ``--mesh host --pods 1`` at K 10^5 on the card, one rank
+                over NCCL with real tensors (~7.4 GB of hist1): its
+                gate-on and gate-off rounds count what a one-rank fake-world
+                meta walk at the same arguments counts (gated), each
+                round's ms after a synchronise and
+                ``torch.cuda.max_memory_allocated`` beside the ledger's
+                resident total (recorded).
 The SpMM's launch counter is set to 0 just before phase 4 and read just
 after phase 5; every counter is set to 0 just before each ``serve`` of
 phase 8, each ``run`` of phases 10, 11, 12 and 14 (the collective counts
@@ -4020,6 +4036,99 @@ def roofline_phase(record, tag) -> dict:
     return {"sweep": sweep, "steps": steps}
 
 
+# launch.fed_dryrun's runs: the reference's CI widths (its dryrun-smoke job)
+FED_CI = ["--n-max", "64", "--g-max", "8", "--features", "32", "--cohort", "64"]
+FED_FAKE = ["--mesh", "host", "--force-devices", "8", "--pods", "8"]
+FED_DRYRUNS = {
+    "pod1": ["--mesh", "pod1"],
+    "pod1_pods16": ["--mesh", "pod1", "--pods", "16"],
+    "pod2": ["--mesh", "pod2"],
+    "pod2_pods16": ["--mesh", "pod2", "--pods", "16"],
+    "ci_k_flat": [*FED_FAKE, "--clients", "100000", "--assert-k-flat", "10000", *FED_CI],
+    "ci_quant": [*FED_FAKE, "--clients", "1024", "--assert-quant-bytes", *FED_CI],
+    "ci_int8": [*FED_FAKE, "--clients", "1024", "--sync-dtype", "int8", *FED_CI],
+    "k1e4": [*FED_FAKE, "--clients", "10000", *FED_CI],
+    "k1e6": [*FED_FAKE, "--clients", "1000000", *FED_CI],
+    "host_meta": ["--mesh", "host", "--force-devices", "1", "--pods", "1",
+                  "--clients", "100000", *FED_CI],
+    "host_card": ["--mesh", "host", "--pods", "1", "--clients", "100000", *FED_CI],
+}
+
+
+def fed_dryrun_phase(torch, tag) -> dict:
+    """Phase 18: every ``FED_DRYRUNS`` run of ``launch.fed_dryrun`` in a
+    child process of its own, started together (the fake worlds must not
+    meet phase 14's NCCL group in this process; ``host_card`` makes its own
+    one-rank NCCL group on the card). Gated: each exits 0 with no check
+    failed (its rounds' counted collectives equal to the ledger's, its
+    residents to the ledger's), and the card's rounds count what the
+    one-rank meta walk counts. Recorded: the rows, each round's ms on the
+    card, its peak memory beside the ledger's resident total."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        runs = {}
+        for name, argv in FED_DRYRUNS.items():
+            out = Path(tmp) / name
+            runs[name] = (out, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.fed_dryrun", *argv, "--out",
+                 str(out)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, env=dict(os.environ, PYTHONPATH=str(SRC))))
+        rows, done_s = {}, {}
+        for name, (out, proc) in runs.items():
+            text, _ = proc.communicate(timeout=600)
+            done_s[name] = time.perf_counter() - t0
+            files = sorted(out.glob("*.json"))
+            if proc.returncode != 0 or len(files) != 1:
+                raise AssertionError(f"fed-dryrun: {name} ({' '.join(FED_DRYRUNS[name])}) "
+                                     f"exited {proc.returncode} with {len(files)} rows: "
+                                     f"{text[-3000:]}")
+            rows[name] = json.loads(files[0].read_text())
+            if rows[name]["checks"]:
+                raise AssertionError(f"fed-dryrun: {name}: {rows[name]['checks']}")
+    for name, r in rows.items():
+        ledger_note = ""
+        if "pods" in r:
+            p = r["pods"]
+            res = p["per_device_resident_bytes"]
+            ledger_note = (f"; K/P {p['table_shard_rows_per_pod']} rows, residents "
+                           f"{sum(res['k_sharded'].values()):,} B sharded / "
+                           f"{sum(res['replicated'].values()):,} B replicated (ledger), "
+                           f"{r['memory']['resident_bytes']:,} B held")
+        log(f"phase 18 fed-dryrun: {tag}: {name}: {r['mesh']} x {r['chips']} ranks, K "
+            f"{r['clients']}, cohort {r['cohort']}, {r['sync_dtype']}, on {r['device']}: "
+            f"gate-on {r['rounds']['gate_on']['counts']}, gate-off "
+            f"{r['rounds']['gate_off']['counts']} (= the ledger's){ledger_note}; walk "
+            f"{r['walk_s']:.1f} s, done {done_s[name]:.1f} s after the start")
+    card, meta = rows["host_card"], rows["host_meta"]
+    if card["device"] != "cuda" or meta["device"] != "meta":
+        raise AssertionError(f"fed-dryrun: host_card on {card['device']}, host_meta on "
+                             f"{meta['device']}")
+    for g in ("gate_on", "gate_off"):
+        for got in (card["rounds"][g]["counts"], card["timed"][g]["counts"]):
+            if got != meta["rounds"][g]["counts"]:
+                raise AssertionError(f"fed-dryrun: the card's {g} round counted {got}, the "
+                                     f"meta walk {meta['rounds'][g]['counts']}")
+    timed = card["timed"]
+    ledger_total = sum(sum(e.values())
+                       for e in card["pods"]["per_device_resident_bytes"].values())
+    log(f"phase 18 fed-dryrun: {tag}: host on {timed['device_name']}, one NCCL rank, K "
+        f"{card['clients']}, cohort {card['cohort']}: gate-on round "
+        f"{timed['gate_on']['ms']:.1f} ms, gate-off {timed['gate_off']['ms']:.1f} ms (after "
+        f"a synchronise; the walk's instrumented rounds came first); max memory allocated "
+        f"{timed['max_memory_allocated']:,} B beside the ledger's residents "
+        f"{ledger_total:,} B (held {card['memory']['resident_bytes']:,} B); counts = the "
+        f"one-rank meta walk's")
+    return {"rows": rows, "done_s": done_s, "ledger_resident_bytes": ledger_total,
+            "card": {"gate_on_ms": timed["gate_on"]["ms"],
+                     "gate_off_ms": timed["gate_off"]["ms"],
+                     "max_memory_allocated": timed["max_memory_allocated"],
+                     "held_resident_bytes": card["memory"]["resident_bytes"]}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the record as JSON here")
@@ -4600,6 +4709,11 @@ def main(argv=None) -> int:
     t17 = time.perf_counter()
     record["roofline"] = roofline_phase(record, tag)
     record["roofline"]["seconds"] = time.perf_counter() - t17
+
+    # -- phase 18: fed-dryrun (the FedAIS round on fake worlds and on the card)
+    t18 = time.perf_counter()
+    record["fed_dryrun"] = fed_dryrun_phase(torch, tag)
+    record["fed_dryrun"]["seconds"] = time.perf_counter() - t18
 
     # -- the kernels line --------------------------------------------------------
     warm = shapes[0]

@@ -262,8 +262,8 @@ class ShardedRounds(FusedRounds):
 
     The client-sharded tables are the state's K-row tables with one
     scratch row (the dummies' write-back); the pod-sharded ones are this
-    rank's pod shards (``rows_per_pod`` rows and a scratch row), and the
-    state then holds those shards (``EngineState.pod_shard``;
+    rank's pod shards (``rows_per_pod`` rows), and the state then holds
+    those shards (``EngineState.pod_shard``;
     ``sharding.tables.gather_tables`` gives the K-row tables back).
     ``round_log`` lists per round its sync gate, its write-back capacity
     (pods) and its collectives, ``{tag: (calls, bytes)}``, replays
@@ -307,8 +307,8 @@ class ShardedRounds(FusedRounds):
     def _bind(self, state) -> None:
         """Make ``state``'s params and tables the rounds' buffers: the
         client-sharded executor's K-row tables gain a scratch row, the
-        pod-sharded executor's become this rank's pod shards (with a scratch
-        row). A rebound table is copied back into its buffer."""
+        pod-sharded executor's become this rank's pod shards. A rebound
+        table is copied back into its buffer."""
         eng = self.engine
         if eng.device.type == "cuda" and not isinstance(state.draws, TorchDraws):
             raise ValueError(f"the sharded executors on CUDA replay a TorchDraws generator; "
@@ -323,10 +323,11 @@ class ShardedRounds(FusedRounds):
             if self.pods:
                 if state.pod_shard is not None:
                     raise ValueError("the state's tables are pod shards of another run")
-                now = self._shard(now)
-            self._tables = tuple(torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
-                                 for t in now)
-            self._views = tuple(t[:-1] for t in self._tables)
+                self._tables = self._views = tuple(self._shard(now))
+            else:
+                self._tables = tuple(torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
+                                     for t in now)
+                self._views = tuple(t[:-1] for t in self._tables)
         else:
             for view, cur in zip(self._views, now):
                 if cur is not view:
@@ -390,29 +391,17 @@ class ShardedRounds(FusedRounds):
     def _host_inputs(self, sel: np.ndarray, w: np.ndarray) -> tuple[dict, int | None]:
         """The (rounds, ...) static inputs of a chunk's padded cohorts on
         the host, and the write-back's bucket capacity (pods)."""
-        eng, lo = self.engine, self.shard * (sel.shape[1] // self.n_shards)
-        mL = sel.shape[1] // self.n_shards
-        out = {"w": w[:, lo:lo + mL], "w_all": w}
-        if not self.pods:
-            K = eng.fed.n_clients
-            out["rows"] = np.minimum(sel[:, lo:lo + mL], K - 1)     # JAX's gather clamp
-            out["dest"] = np.where(sel < K, sel, K)                  # dummies: scratch row
-            return out, None
-        from repro_torch.federated.partition import writeback_routing
-        from repro_torch.sharding.fed import axis_index, axis_size
+        from repro_torch.sharding.fed import axis_index, axis_size, client_round_inputs
+        from repro_torch.sharding.tables import pod_round_inputs
 
+        eng = self.engine
+        if not self.pods:
+            return client_round_inputs(sel, w, n_shards=self.n_shards, shard=self.shard,
+                                       n_clients=eng.fed.n_clients), None
         P, p, rpp, _ = self._pod_shard
-        C = axis_size(eng.mesh, "clients")
-        owner = sel // rpp
-        out["local"] = np.clip(sel - owner * rpp, 0, rpp - 1)
-        out["own"] = (owner == p) & (axis_index(eng.mesh, "clients") == 0)
-        plan = writeback_routing(sel, P, C, rpp)
-        msl = sel.shape[1] // P
-        dst = plan.dst[:, p * msl:(p + 1) * msl].astype(np.int64)
-        pos = plan.pos[:, p * msl:(p + 1) * msl].astype(np.int64)
-        out["slot"] = np.where(dst < P, dst * plan.cap + pos, P * plan.cap)
-        out["tgt"] = plan.recv[:, p].reshape(sel.shape[0], -1).astype(np.int64)
-        return out, plan.cap
+        return pod_round_inputs(sel, w, n_pods=P, n_client_shards=axis_size(eng.mesh, "clients"),
+                                pod=p, client=axis_index(eng.mesh, "clients"),
+                                rows_per_pod=rpp)
 
     def run_chunk(self, state, sels, fans, eoffs, drop_stack=None, cmask_stack=None) -> dict:
         """The client-sharded or pod-sharded rounds of a chunk (see

@@ -25,8 +25,11 @@ tensors (shapes and dtypes, no storage, nothing computed):
   extrapolated; the WKV recurrence runs as one batched step of its
   products on meta tensors (``models.rwkv._wkv_scan_meta``: the loop's
   FLOPs and saved states, fewer passes over the state);
-* the collective term is 0 bytes: the reference reads those bytes from the
-  partitioned HLO, which the port leaves out (``collective_source``).
+* the collective term is 0 bytes: the walk runs the plain path on whole
+  tensors, not DTensors, so it runs no collective (``collective_source``);
+  the reference reads its bytes from the partitioned HLO. The fed dry run
+  (``launch.fed_dryrun``) does count its collectives: its round bodies run
+  each one through ``sharding.comm``.
 
 Row keys that differ from the reference's: ``walk_s`` takes the place of
 ``lower_s``, ``compile_s`` and ``variant_compile_s`` (one walk, not three
@@ -88,8 +91,9 @@ from repro_torch.utils.tree import tree_leaves, tree_map_with_path
 
 # archs whose optimizer moments drop to bf16 to fit the mesh's memory
 BF16_MOMENT_ARCHS = {"llama3-405b", "arctic-480b", "dbrx-132b"}
-COLLECTIVE_SOURCE = ("not counted: the reference reads collective bytes from the partitioned "
-                     "HLO, which torch does not have; the step walks one device's program")
+COLLECTIVE_SOURCE = ("none run: the step walks one device's plain program on whole tensors, "
+                     "not DTensors, so no collective runs to be counted (the reference reads "
+                     "collective bytes from the partitioned HLO)")
 
 
 class StepLedger(TorchDispatchMode):

@@ -21,20 +21,26 @@ owner-keyed fetch) does too, whatever the tensors' own type.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
 import torch
 import torch.distributed as dist
 
-__all__ = ["CAPTURED", "COUNTS", "add", "all_gather", "all_reduce_sum", "all_to_all",
-           "diff", "pack", "reset", "snapshot", "unpack"]
+__all__ = ["CAPTURED", "COUNTS", "KIND", "CollectiveStats", "add", "all_gather",
+           "all_reduce_sum", "all_to_all", "collective_stats", "diff", "pack", "reset",
+           "snapshot", "unpack"]
 
 COUNTS: dict = {}       # tag -> [calls, bytes]
 CAPTURED: dict = {}     # the same, recorded while a CUDA graph was captured
+KIND: dict = {}         # tag -> the collective that moved it
 
 # torch >= 2.12 names it all_gather_single; older releases all_gather_into_tensor
 _all_gather_into = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
-def _count(tag: str, t: torch.Tensor) -> None:
+def _count(tag: str, kind: str, t: torch.Tensor) -> None:
+    if KIND.setdefault(tag, kind) != kind:
+        raise ValueError(f"tag {tag!r} moved by {KIND[tag]} and by {kind}")
     nbytes = t.numel() * t.element_size()
     book = CAPTURED if t.is_cuda and torch.cuda.is_current_stream_capturing() else COUNTS
     calls, total = book.get(tag, (0, 0))
@@ -65,9 +71,42 @@ def add(delta: dict) -> None:
         COUNTS[k] = [calls + c, total + b]
 
 
+@dataclass
+class CollectiveStats:
+    """Bytes and calls per collective kind (the reference's
+    ``utils/hlo.py::CollectiveStats``)."""
+
+    bytes_by_kind: dict = field(default_factory=dict)
+    count_by_kind: dict = field(default_factory=dict)
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(self.bytes_by_kind.values())
+
+    @property
+    def total_count(self) -> int:
+        return sum(self.count_by_kind.values())
+
+    def summary(self) -> str:
+        parts = [f"{k}: n={self.count_by_kind[k]} bytes={self.bytes_by_kind[k]:,}"
+                 for k in sorted(self.bytes_by_kind)]
+        return "; ".join(parts) if parts else "(no collectives)"
+
+
+def collective_stats(counts: dict | None = None) -> CollectiveStats:
+    """``counts`` (a ``snapshot`` or a ``diff``, ``COUNTS`` by default)
+    summed by the kind of collective that moved each tag."""
+    stats = CollectiveStats()
+    for tag, (calls, nbytes) in (snapshot() if counts is None else counts).items():
+        kind = KIND[tag]
+        stats.bytes_by_kind[kind] = stats.bytes_by_kind.get(kind, 0) + int(nbytes)
+        stats.count_by_kind[kind] = stats.count_by_kind.get(kind, 0) + int(calls)
+    return stats
+
+
 def all_reduce_sum(t: torch.Tensor, group, tag: str) -> torch.Tensor:
     """Sum ``t`` in place over ``group``."""
-    _count(tag, t)
+    _count(tag, "all-reduce", t)
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
@@ -77,7 +116,7 @@ def all_gather(t: torch.Tensor, group, tag: str) -> torch.Tensor:
     the group's rank order."""
     n = dist.get_world_size(group)
     out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
-    _count(tag, out)
+    _count(tag, "all-gather", out)
     _all_gather_into(out, t.contiguous(), group=group)
     return out.view((n,) + tuple(t.shape))
 
@@ -90,7 +129,7 @@ def all_to_all(t: torch.Tensor, group, tag: str) -> torch.Tensor:
                          f"{dist.get_world_size(group)}")
     t = t.contiguous()
     out = torch.empty_like(t)
-    _count(tag, t)
+    _count(tag, "all-to-all", t)
     dist.all_to_all_single(out, t, group=group)
     return out
 

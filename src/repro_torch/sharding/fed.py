@@ -35,6 +35,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.fedais import ReplayStream
@@ -44,8 +45,8 @@ from repro_torch.federated.quant import encode as quant_encode
 from repro_torch.sharding import comm
 
 __all__ = ["CLIENT_AXIS", "axis_index", "axis_size", "build_sharded_chunk", "client_axis_of",
-           "cohort_padding", "make_client_mesh", "pairwise_sum", "slice_streams",
-           "weighted_merge"]
+           "client_round_inputs", "cohort_padding", "dryrun_chunk_args", "make_client_mesh",
+           "pairwise_sum", "slice_streams", "weighted_merge"]
 
 CLIENT_AXIS = "clients"
 REDUCES = ("psum", "pairwise")
@@ -160,6 +161,21 @@ def cohort_weight_sum(w_all: torch.Tensor, n_shards: int) -> torch.Tensor:
     weights are client sizes or ones, integers, whose sum is exact in any
     order, so it also equals the reference's psum of the shards' sums."""
     return pairwise_sum(w_all.reshape(n_shards, -1).sum(dim=1))
+
+
+def client_round_inputs(sel: np.ndarray, w: np.ndarray, *, n_shards: int, shard: int,
+                        n_clients: int) -> dict:
+    """The round inputs of cohort shard ``shard`` for a chunk's (rounds, m)
+    padded cohorts ``sel`` (the dummy id is K) with weights ``w``, on the
+    host: ``w`` / ``w_all`` (this slice's and the cohort's weights),
+    ``rows`` (this slice's ids, clamped to K - 1 as JAX clamps a gather)
+    and ``dest`` (the whole cohort's write-back rows, dummies at the
+    scratch row K). Indices are int32."""
+    mL = sel.shape[1] // n_shards
+    lo, K = shard * mL, n_clients
+    return {"w": w[:, lo:lo + mL], "w_all": w,
+            "rows": np.minimum(sel[:, lo:lo + mL], K - 1).astype(np.int32),
+            "dest": np.where(sel < K, sel, K).astype(np.int32)}
 
 
 # -- draws -------------------------------------------------------------------
@@ -291,3 +307,135 @@ def build_sharded_chunk(cohort, mesh, axis: str, *, reduce: str = "psum",
         return stats
 
     return body
+
+
+# -- dry-run arguments -------------------------------------------------------
+
+class DryrunFill:
+    """Makes a dry run's tensors on ``device``: on ``meta`` shapes only,
+    elsewhere drawn from a ``torch.Generator`` seeded with ``seed``."""
+
+    def __init__(self, device, seed: int = 0):
+        self.device = torch.device(device)
+        self.meta = self.device.type == "meta"
+        self.gen = None if self.meta else torch.Generator(device=self.device).manual_seed(seed)
+
+    def normal(self, shape) -> torch.Tensor:
+        if self.meta:
+            return torch.empty(shape, device=self.device)
+        return torch.randn(shape, generator=self.gen, device=self.device)
+
+    def uniform(self, shape, low: float = 0.0) -> torch.Tensor:
+        if self.meta:
+            return torch.empty(shape, device=self.device)
+        return torch.rand(shape, generator=self.gen, device=self.device).clamp_(min=low)
+
+    def ints(self, high: int, shape) -> torch.Tensor:
+        if self.meta:
+            return torch.empty(shape, dtype=torch.int32, device=self.device)
+        return torch.randint(0, high, shape, generator=self.gen, dtype=torch.int32,
+                             device=self.device)
+
+    def mask(self, p: float, shape) -> torch.Tensor:
+        return self.uniform(shape) if self.meta else (self.uniform(shape) < p).float()
+
+    def full(self, shape, value, dtype=torch.float32) -> torch.Tensor:
+        return torch.full(shape, value, dtype=dtype, device=self.device)
+
+    def host(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+
+def dryrun_client_arrays(fill: DryrunFill, n_rows: int, *, n_max: int, g_max: int,
+                         n_feat: int, n_classes: int, max_deg: int, n_clients: int,
+                         keys=None) -> dict:
+    """(``n_rows``, ...) client arrays of the dry run, by the partition's
+    dtypes: every node real, 70% of them training nodes, neighbours among
+    the n_max + g_max rows, half the slots live; ghosts point at uniform
+    (owner, row) pairs. ``keys`` picks a subset (the pod mode's
+    ``POD_ARRAY_KEYS``)."""
+    n = n_rows
+    make = {
+        "features": lambda: fill.normal((n, n_max, n_feat)),
+        "labels": lambda: fill.ints(n_classes, (n, n_max)),
+        "node_mask": lambda: fill.full((n, n_max), 1.0),
+        "train_mask": lambda: fill.mask(0.7, (n, n_max)),
+        "nbr_idx": lambda: fill.ints(n_max + g_max, (n, n_max, max_deg)),
+        "nbr_mask": lambda: fill.mask(0.5, (n, n_max, max_deg)),
+        "ghost_owner": lambda: fill.ints(n_clients, (n, g_max)),
+        "ghost_row": lambda: fill.ints(n_max, (n, g_max)),
+        "ghost_mask": lambda: fill.mask(0.5, (n, g_max)),
+    }
+    return {k: make[k]() for k in (keys or make)}
+
+
+def dryrun_round_draws(fill: DryrunFill, mcfg, n_members: int, n_max: int,
+                       max_deg: int) -> list:
+    """Per cohort member, its J epochs' (batch uniforms or None, fanout
+    uniforms): what ``ReplayStream`` hands out (a stream is used up by one
+    round, so a caller wraps these anew for each)."""
+    from repro_torch.core.fedais import batch_size_for
+
+    bsz = batch_size_for(mcfg, n_max)
+    rows = n_max if mcfg.use_all_samples else bsz
+    return [[(None if mcfg.use_all_samples else fill.uniform((n_max,), 1e-20),
+              fill.uniform((rows, max_deg))) for _ in range(mcfg.local_epochs)]
+            for _ in range(n_members)]
+
+
+def dryrun_round_cohort(n_clients: int, cohort: int, n_shards: int, dummy: int,
+                        seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """A (1, m_pad) cohort of ``cohort`` distinct clients drawn with numpy
+    from ``seed``, padded with ``dummy`` ids to a multiple of ``n_shards``,
+    and its FedAvg weights (1, dummies 0), as the executor pads them."""
+    rng = np.random.default_rng(seed)
+    sel = rng.choice(n_clients, size=cohort, replace=False).astype(np.int64)
+    pad = cohort_padding(cohort, n_shards)
+    sel = np.concatenate([sel, np.full(pad, dummy, np.int64)])[None]
+    w = np.concatenate([np.ones(cohort, np.float32), np.zeros(pad, np.float32)])[None]
+    return sel, w
+
+
+def dryrun_params(fill: DryrunFill, n_feat: int, n_classes: int, seed: int) -> dict:
+    """``gcn_init``'s params from ``seed``, on the fill's device (on meta:
+    their shapes)."""
+    from repro_torch.models.gcn import gcn_init
+
+    params = gcn_init(torch.Generator().manual_seed(seed), n_feat, n_classes, device="cpu")
+    return {k: v.to(fill.device) for k, v in params.items()}
+
+
+def dryrun_chunk_args(mesh, *, n_clients: int, cohort: int, n_max: int, g_max: int,
+                      n_feat: int, n_classes: int, mcfg, max_deg: int | None = None,
+                      device="meta", seed: int = 0) -> dict:
+    """This rank's arguments to ``build_sharded_chunk``'s body for one
+    round of ``cohort`` clients of ``n_clients`` (the counterpart of the
+    reference's ``abstract_chunk_args``): ``params``, ``tables`` (the
+    replicated (K + 1)-row tables), ``arrays`` (the K-row client arrays),
+    ``inp`` (``client_round_inputs`` of a seeded cohort, padded to the
+    mesh's client axis), ``fanouts`` and ``draws`` (this slice's, one list
+    of epochs per member, for ``ReplayStream``). On ``meta`` they are
+    shapes; elsewhere they are drawn from ``seed``."""
+    from repro_torch.models.gcn import HIDDEN
+    from repro_torch.sharding.ledger import DRYRUN_MAX_DEG
+
+    D = DRYRUN_MAX_DEG if max_deg is None else max_deg
+    axis = client_axis_of(mesh)
+    n_shards, shard = axis_size(mesh, axis), axis_index(mesh, axis)
+    fill = DryrunFill(device, seed)
+    K, n_tot = n_clients, n_max + g_max
+    tables = (fill.normal((K + 1, n_tot, HIDDEN[0])), fill.full((K + 1, n_tot), 0, torch.int32),
+              fill.normal((K + 1, g_max, n_feat)), fill.full((K + 1, n_max), -1.0))
+    sel, w = dryrun_round_cohort(K, cohort, n_shards, K, seed)
+    inp = client_round_inputs(sel, w, n_shards=n_shards, shard=shard, n_clients=K)
+    mL = sel.shape[1] // n_shards
+    return {
+        "params": dryrun_params(fill, n_feat, n_classes, seed),
+        "tables": tables,
+        "arrays": dryrun_client_arrays(fill, K, n_max=n_max, g_max=g_max, n_feat=n_feat,
+                                       n_classes=n_classes, max_deg=D, n_clients=K),
+        "inp": {k: fill.host(v[0]) for k, v in inp.items()},
+        "fanouts": np.full(mL, mcfg.neighbor_fanout, np.int64),
+        "draws": dryrun_round_draws(fill, mcfg, mL, n_max, D),
+        "sel": sel,
+    }

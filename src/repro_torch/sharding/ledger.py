@@ -4,14 +4,19 @@
 ``repro/launch/fed_dryrun.py::pod_placement_ledger``: every per-rank
 resident array and per-round collective payload of the pod-sharded round,
 in bytes, grouped by what it scales with. (The reference's dry run also
-lowers the chunk and audits XLA's HLO; that part has no torch counterpart.)
+lowers the chunk and reads its collectives off XLA's HLO; the port's,
+``launch.fed_dryrun``, counts them as one rank's round runs.)
 
 ``round_collectives`` turns a ledger into what one round moves through
 ``sharding.comm``: ``{tag: (calls, bytes)}``, one call per entry, the
 ghost entries only on a round whose sync gate is on. ``sharded_round_
 collectives`` does the same for the client-sharded round. The executors'
-counted collectives are held to these, round by round (tests and
-``chip_smoke.py`` phase 14).
+counted collectives are held to these, round by round (tests,
+``chip_smoke.py`` phase 14 and ``launch.fed_dryrun``).
+
+The ledger's residents are the pod-sharded body's, entry by entry, but for
+one round's inputs: ``port_round_input_bytes`` says what the port holds of
+them (``launch.fed_dryrun`` holds the rank's tensors to both).
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ from repro_torch.federated.quant import wire_bytes
 from repro_torch.models.gcn import HIDDEN, gcn_param_count
 from repro_torch.sharding.tables import sync_round_gates
 
-__all__ = ["pod_placement_ledger", "round_collectives", "sharded_round_collectives"]
+__all__ = ["pod_placement_ledger", "port_round_input_bytes", "round_collectives",
+           "sharded_round_collectives"]
 
 DRYRUN_MAX_DEG = 16         # the reference dry run's padded degree
 SYNC_PROBE_ROUNDS = 64      # rounds the sync fraction is probed over
@@ -137,6 +143,25 @@ def pod_placement_ledger(buckets, *, n_pods: int, cohort_pad: int,
             "reduction": {k: round(fp32w[k] / wire[k], 2) for k in wire},
         },
     }
+
+
+def port_round_input_bytes(*, cohort_pad: int, n_pods: int, n_client_shards: int,
+                           wb_cap: int) -> dict:
+    """What one rank of the pod-sharded body holds of a round's inputs
+    (``sharding.tables.pod_round_inputs``), under the ledger's two entries
+    for them. The ledger prices the reference's: the cohort's ids, fanouts
+    and weights plus the epoch offset and the gate (``cohort_stacks``,
+    m·12 + 5) and every pod's write-back routing, (dst, pos) per entry and
+    the whole (P, P, cap) receive table (``wb_routing``, m·8 + P²·cap·4).
+    The port keeps the fanouts, the offset and the gate on the host, routes
+    on the host and hands each rank its pod's slice: ``cohort_stacks`` is
+    ``w`` (m/(P·C) float32), ``w_all`` (m float32), ``local`` (m int32) and
+    ``own`` (m bool); ``wb_routing`` is ``slot`` (m/P int32) and ``tgt``,
+    ``src`` (P·cap int32 each) and ``fresh`` (P·cap bool). Neither depends
+    on K."""
+    m, P = cohort_pad, n_pods
+    return {"cohort_stacks": 4 * (m // (P * n_client_shards)) + 4 * m + 4 * m + m,
+            "wb_routing": 4 * (m // P) + 9 * P * wb_cap}
 
 
 def _merge_entry(n_params: int, merge_reduce: str, n_ranks: int) -> dict:

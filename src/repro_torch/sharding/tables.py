@@ -42,9 +42,12 @@ pairwise tree.
 Torch neither clamps a gather nor drops a scatter, so each of the
 reference's out-of-range ids is explicit: a fetch row is clamped into the
 shard and masked by ``own``; a write-back slot of a dummy (``dst == P``)
-goes to a scratch slot of the send buffer, and a receive slot of the
-sentinel ``rows_per_pod`` to a scratch row past the shard's last row. The
-shapes stay static, so a CUDA graph can replay the round.
+goes to a scratch slot of the send buffer. A receive slot the reference
+drops (the sentinel ``rows_per_pod``) repeats a real slot of the same round,
+the same row with the same value, or, on a pod that receives no row this
+round, writes a row's own value back (``pod_round_inputs``): the shards
+hold exactly ``rows_per_pod`` rows, as the ledger counts them. The shapes
+stay static, so a CUDA graph can replay the round.
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.federated.partition import GhostBuckets, pod_table_padding
+from repro_torch.federated.partition import GhostBuckets, pod_table_padding, writeback_routing
 from repro_torch.federated.quant import check_sync_dtype
 from repro_torch.federated.quant import decode as quant_decode
 from repro_torch.federated.quant import encode as quant_encode
@@ -71,9 +74,9 @@ from repro_torch.sharding.fed import (
 )
 
 __all__ = [
-    "POD_ARRAY_KEYS", "POD_AXIS", "build_pod_sharded_chunk", "gather_tables",
-    "make_pod_mesh", "pad_tables_to_pods", "pairwise_sum", "pod_axes_of",
-    "shard_tables_to_mesh", "sync_round_gates",
+    "POD_ARRAY_KEYS", "POD_AXIS", "build_pod_sharded_chunk", "dryrun_pod_chunk_args",
+    "gather_tables", "make_pod_mesh", "pad_tables_to_pods", "pairwise_sum", "pod_axes_of",
+    "pod_round_inputs", "shard_tables_to_mesh", "sync_round_gates",
 ]
 
 POD_AXIS = "pods"
@@ -198,14 +201,56 @@ def sync_round_gates(eoffs, tau: int, local_epochs: int, *,
 def bucket_shard(buckets: GhostBuckets, mesh, device) -> dict:
     """This rank's part of the ghost-exchange plan, on the device: its pod's
     row of the send buckets (P, B) and its residents' receive maps (rpp,
-    g_max)."""
+    g_max), int32 indices and float32 masks (12 bytes an entry, the
+    ledger's ``send_buckets`` and ``recv_buckets``)."""
     p, rpp = axis_index(mesh, POD_AXIS), buckets.rows_per_pod
     sl = slice(p * rpp, (p + 1) * rpp)
     host = {"send_client": buckets.send_client[p], "send_row": buckets.send_row[p],
             "send_mask": buckets.send_mask[p], "recv_src": buckets.recv_src[sl],
             "recv_pos": buckets.recv_pos[sl], "recv_mask": buckets.recv_mask[sl]}
-    return {k: torch.from_numpy(np.asarray(v, np.int64 if v.dtype.kind == "i" else v.dtype))
-            .to(device) for k, v in host.items()}
+    return {k: torch.from_numpy(np.ascontiguousarray(
+                v, np.int32 if v.dtype.kind == "i" else np.float32)).to(device)
+            for k, v in host.items()}
+
+
+def pod_round_inputs(sel: np.ndarray, w: np.ndarray, *, n_pods: int, n_client_shards: int,
+                     pod: int, client: int, rows_per_pod: int,
+                     cap: int | None = None) -> tuple[dict, int]:
+    """The round inputs of the rank at (``pod``, ``client``) for a chunk's
+    (rounds, m) padded cohorts ``sel`` (the dummy id is Kp) with weights
+    ``w``, on the host, and the write-back's bucket capacity: ``w`` /
+    ``w_all`` (this slice's and the cohort's weights), ``local`` / ``own``
+    (each entry's row in its owner's shard, and whether this rank
+    contributes it to the fetch), ``slot`` (this pod row's entries' send
+    slots, P·cap for a dummy), and the receive side of the write-back:
+    received slot ``src[i]`` is written to shard row ``tgt[i]``, or where
+    ``fresh[i]`` is False that row's own value is written back. A slot the
+    reference drops repeats the first real slot of its round (the same row,
+    the same value), so no write needs a scratch row. Indices are int32."""
+    P, C, rpp = n_pods, n_client_shards, rows_per_pod
+    S, m = sel.shape
+    mL, msl = m // (P * C), m // P
+    lo = (pod * C + client) * mL
+    owner = sel // rpp
+    plan = writeback_routing(sel, P, C, rpp, cap=cap)
+    dst = plan.dst[:, pod * msl:(pod + 1) * msl]
+    pos = plan.pos[:, pod * msl:(pod + 1) * msl]
+    recv = plan.recv[:, pod].reshape(S, -1)
+    real = recv < rpp
+    has = real.any(axis=1)
+    first = real.argmax(axis=1)
+    out = {
+        "w": w[:, lo:lo + mL], "w_all": w,
+        "local": np.clip(sel - owner * rpp, 0, rpp - 1),
+        "own": (owner == pod) & (client == 0),
+        "slot": np.where(dst < P, dst * plan.cap + pos, P * plan.cap),
+        "src": np.where(real, np.arange(recv.shape[1]), first[:, None]),
+        "tgt": np.where(real, recv, np.where(has, recv[np.arange(S), first], 0)[:, None]),
+        "fresh": real | has[:, None],
+    }
+    for k in ("local", "slot", "src", "tgt"):
+        out[k] = out[k].astype(np.int32)
+    return out, plan.cap
 
 
 def _pod_step(cohort, mesh, buckets: GhostBuckets, reduce: str, sync_dtype: str = "fp32"):
@@ -263,19 +308,20 @@ def _pod_step(cohort, mesh, buckets: GhostBuckets, reduce: str, sync_dtype: str 
         # cohort entry p·C·mL + i as the host routed it. Stage 2: each row
         # into its (destination pod, position) send slot (a dummy's into the
         # scratch slot past them), one all-to-all on the pods axis, and each
-        # received row into this pod's shard at its host-routed target (the
-        # sentinel rpp is the scratch row)
+        # received row into this pod's shard at its host-routed target (an
+        # empty slot repeats a real one, or writes a row's own value back)
         tensors, layout = wire_rows([new_hist1, new_age, new_gfeat, stats["loss_all"]],
                                     sync_dtype)
         rows = comm.all_gather(comm.pack(tensors), clients, "wb_stage1_all_gather")
         rows = rows.reshape(-1, rows.shape[-1])
-        n_slots = inp["tgt"].shape[0]            # P * cap
+        n_slots, tgt = inp["tgt"].shape[0], inp["tgt"]       # P * cap
         sbuf = rows.new_zeros((n_slots + 1, rows.shape[-1]))
         sbuf[inp["slot"]] = rows
         rbuf = comm.all_to_all(sbuf[:n_slots].reshape(P_, -1), pods, "wb_stage2_all_to_all")
-        fresh = unwire_rows(rbuf.reshape(n_slots, -1), layout, sync_dtype)
+        fresh = unwire_rows(rbuf.reshape(n_slots, -1)[inp["src"]], layout, sync_dtype)
         for table, new in zip(tables, fresh):
-            table[inp["tgt"]] = new
+            keep = inp["fresh"].reshape((-1,) + (1,) * (new.ndim - 1))
+            table[tgt] = torch.where(keep, new, table[tgt])
         return agg, stats
 
     return step
@@ -287,20 +333,15 @@ def build_pod_sharded_chunk(cohort, mesh, buckets: GhostBuckets, *, device,
     over a chunk's rounds; the executor calls it per round).
 
     ``body(params, tables, statics, gsrc, inp, tau, fanouts, eoff, streams,
-    gate)``: ``tables`` are this pod's (rpp + 1)-row shards of hist1 / age
-    / ghost_feat / prev_loss (the last row the scratch row), ``statics``
-    its shards of the ``POD_ARRAY_KEYS`` arrays, ``gsrc`` of the ghost
-    source features; ``inp`` the round's static inputs: ``local`` / ``own``
-    (each padded-cohort entry's row in its owner's shard, and whether this
-    rank contributes it), ``w`` / ``w_all`` (this slice's and the cohort's
-    weights), ``slot`` (this pod row's entries' send slots, P·cap for a
-    dummy) and ``tgt`` (the (P·cap,) receive targets, rpp the sentinel);
-    ``gate`` the round's host sync gate. ``cohort`` must be the
-    ``ghost_source="prefetched"`` cohort LocalUpdate, built with the same
-    ``sync_dtype``. Cohort dummies have id Kp (no owner pod). It writes the
-    merged params into ``params`` and the fresh rows into the shards in
-    place, and returns the slice's stats. ``device`` holds the exchange's
-    routing."""
+    gate)``: ``tables`` are this pod's rpp-row shards of hist1 / age /
+    ghost_feat / prev_loss, ``statics`` its shards of the
+    ``POD_ARRAY_KEYS`` arrays, ``gsrc`` of the ghost source features;
+    ``inp`` one round of ``pod_round_inputs``; ``gate`` the round's host
+    sync gate. ``cohort`` must be the ``ghost_source="prefetched"`` cohort
+    LocalUpdate, built with the same ``sync_dtype``. Cohort dummies have id
+    Kp (no owner pod). It writes the merged params into ``params`` and the
+    fresh rows into the shards in place, and returns the slice's stats.
+    ``device`` holds the exchange's routing (``body.bucket_shard``)."""
     if reduce not in REDUCES:
         raise ValueError(f"unknown reduce {reduce!r}; known: psum | pairwise")
     step = _pod_step(cohort, mesh, buckets, reduce, sync_dtype)
@@ -313,4 +354,69 @@ def build_pod_sharded_chunk(cohort, mesh, buckets: GhostBuckets, *, device,
             buf.copy_(agg[k])
         return stats
 
+    body.bucket_shard = bkt         # the routing it holds (a dry run counts it)
     return body
+
+
+def dryrun_pod_chunk_args(mesh, buckets: GhostBuckets, *, n_clients: int, cohort: int,
+                          n_max: int, g_max: int, n_feat: int, n_classes: int, mcfg,
+                          max_deg: int | None = None, wb_cap: int | None = None,
+                          device="meta", seed: int = 0) -> dict:
+    """This rank's arguments to ``build_pod_sharded_chunk``'s body for one
+    round of ``cohort`` clients of ``n_clients`` (the counterpart of the
+    reference's ``abstract_pod_chunk_args``): ``params``, ``tables`` (this
+    pod's rpp-row shards, the K axis padded to Kp as ``pad_tables_to_pods``
+    pads it), ``statics`` (the ``POD_ARRAY_KEYS`` shards; ``ghost_mask`` is
+    the buckets' receive mask), ``gsrc`` (the ghost-source shard), ``inp``
+    (``pod_round_inputs`` of a seeded cohort padded to the mesh's P·C
+    ranks), ``cap`` (its write-back capacity: ``wb_cap``, by default the
+    reference's worst case pow2(m_pad / P), every slice row owned by one
+    pod), ``fanouts`` and ``draws`` (this slice's, one list of epochs per
+    member, for ``ReplayStream``). On ``meta`` they are shapes; elsewhere
+    they are drawn from ``seed``, with the padding rows zero."""
+    from repro_torch.models.gcn import HIDDEN
+    from repro_torch.sharding.fed import (
+        DryrunFill,
+        dryrun_client_arrays,
+        dryrun_params,
+        dryrun_round_cohort,
+        dryrun_round_draws,
+    )
+    from repro_torch.sharding.ledger import DRYRUN_MAX_DEG
+
+    D = DRYRUN_MAX_DEG if max_deg is None else max_deg
+    P, C = axis_size(mesh, POD_AXIS), axis_size(mesh, CLIENT_AXIS)
+    p, c = axis_index(mesh, POD_AXIS), axis_index(mesh, CLIENT_AXIS)
+    rpp, n_tot = buckets.rows_per_pod, n_max + g_max
+    fill = DryrunFill(device, seed + p)     # a pod's shard: the same on its client shards
+    tables = (fill.normal((rpp, n_tot, HIDDEN[0])), fill.full((rpp, n_tot), 0, torch.int32),
+              fill.normal((rpp, g_max, n_feat)), fill.full((rpp, n_max), -1.0))
+    statics = dryrun_client_arrays(fill, rpp, n_max=n_max, g_max=g_max, n_feat=n_feat,
+                                   n_classes=n_classes, max_deg=D, n_clients=n_clients,
+                                   keys=[k for k in POD_ARRAY_KEYS if k != "ghost_mask"])
+    recv_mask = buckets.recv_mask[p * rpp:(p + 1) * rpp]
+    statics["ghost_mask"] = fill.host(recv_mask.astype(np.float32))
+    gsrc = fill.normal((rpp, g_max, n_feat))
+    if not fill.meta:
+        gsrc *= statics["ghost_mask"][..., None]
+        real = max(0, min(rpp, n_clients - p * rpp))     # rows past K pad the shard
+        for t in (*tables, *statics.values(), gsrc):
+            t[real:] = 0
+    sel, w = dryrun_round_cohort(n_clients, cohort, P * C, P * rpp, seed)
+    if wb_cap is None:
+        wb_cap = 1 << (max(1, sel.shape[1] // P) - 1).bit_length()
+    inp, cap = pod_round_inputs(sel, w, n_pods=P, n_client_shards=C, pod=p, client=c,
+                                rows_per_pod=rpp, cap=wb_cap)
+    mL = sel.shape[1] // (P * C)
+    rounds = DryrunFill(device, seed + P + p * C + c)
+    return {
+        "params": dryrun_params(fill, n_feat, n_classes, seed),
+        "tables": tables,
+        "statics": statics,
+        "gsrc": gsrc,
+        "inp": {k: fill.host(v[0]) for k, v in inp.items()},
+        "cap": cap,
+        "fanouts": np.full(mL, mcfg.neighbor_fanout, np.int64),
+        "draws": dryrun_round_draws(rounds, mcfg, mL, n_max, D),
+        "sel": sel,
+    }
