@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py [--out FILE.json] [--profile]
+    python3 chip_smoke.py [--out FILE.json] [--profile] [--spans-only]
 
 Run from the root of a checkout, on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit (``nvcc``). It builds the port's three kernels from
@@ -340,6 +340,22 @@ Phases, one or more lines each:
                 round's ms after a synchronise and
                 ``torch.cuda.max_memory_allocated`` beside the ledger's
                 resident total (recorded).
+ 19 spans       the span system (``repro_torch.utils.spans``) on the
+                fused executor: fedais on phase 10's partition with the
+                spans on, against the same run with them off (history,
+                params and tables bit-equal); every keyed round (eager,
+                and each replay) behind a device-side wait; beside each
+                stamp a timing event (an event node in a graph) and a
+                second stamp after it, which bounds the gap between the
+                stamp and its event on the stamp's own clock; each
+                stamp-to-stamp phase held against its event pair within
+                the gaps at its two ends and ``SPANS_TOL_MS`` (the timer's
+                step and the event timer's resolution), not within a
+                share of the phase; every stamp of every read written, in
+                order; each key's phases in the round's order (m (1 + 4J
+                + open gates) + 5); the stamp kernel's launches the eager
+                rounds', the captures' and the evals', twice (gated).
+                ``--spans-only`` runs phases 1 and 19 alone.
 The SpMM's launch counter is set to 0 just before phase 4 and read just
 after phase 5; every counter is set to 0 just before each ``serve`` of
 phase 8, each ``run`` of phases 10, 11, 12 and 14 (the collective counts
@@ -480,6 +496,15 @@ ASYNC_PARITY_KEYS = ("test_acc", "test_loss", "tau", "comm_total", "comm_embed",
 FUSED_ROUNDS, FUSED_EVAL_EVERY, FAULT_ROUNDS = 6, 2, 4
 FAULT_PLAN = dict(seed=78, dropout=0.2, corrupt=0.05, corrupt_mode="nan", straggler_frac=0.3)
 FAULT_ASYNC = dict(quorum=3, concurrency=TRAIN_M, timeout_s=1.0, max_retries=1)
+# the span system's check (phase 19): rounds and eval cadence; the device
+# wait before each keyed round (~1 s at the H100's 1.98 GHz); and how far a
+# stamp phase and its event pair may differ beyond the measured gaps
+# between each end's stamp and event: the global timer's 32 ns step on
+# the stamp and on the stamp after the event, and the event timer's
+# ~0.5 us resolution, at each end
+SPANS_ROUNDS, SPANS_EVAL_EVERY = 5, 2
+SPANS_WAIT_CYCLES = 2_000_000_000
+SPANS_TOL_MS = 2 * (2 * 32e-6 + 0.5e-3)
 FUSABLE = ("fedall", "fedrandom", "fedpns", "fedlocal", "fedais1", "fedais2")
 # host API calls counted in a traced round
 API_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cudaGraphLaunch",
@@ -2417,6 +2442,140 @@ def _same_history(a, b) -> dict:
     return same
 
 
+def round_phases(m: int, gates) -> list:
+    """The device phases of one fused fedais round of ``m`` members, in the
+    order its body opens them (``FusedRounds._body``, ``local_update``)."""
+    member = ["loss_pass"]
+    for gate in gates:
+        member += ["sampling"] + ["ghost_pull"] * bool(gate) + ["train_step", "optimizer",
+                                                             "table_traffic"]
+    return ["table_traffic"] + member * m + ["table_traffic", "merge", "table_traffic",
+                                             "merge"]
+
+
+def spans_phase(torch, api, g, fed, dev, tag) -> dict:
+    """Phase 19: the span system's device phases on the card (module
+    docstring). Returns the record; any failed gate raises."""
+    from repro_torch.api.fused import FusedRounds
+    from repro_torch.kernels.spmm import ops as sops
+    from repro_torch.kernels.stamp import ops as stamp_ops
+    from repro_torch.utils import spans
+
+    counters = {"spmm": sops.block_spmm, "stamp": stamp_ops}
+    spans.enable(False)
+    off = method_run(torch, api, counters, g, fed, dev, "fedais", SPANS_ROUNDS,
+                     eval_every=SPANS_EVAL_EVERY)
+    off_tables = [t.clone() for t in train_tables(off["state"])]
+    off_res = off["result"]
+    del off
+    keyed, stamp, read = FusedRounds._keyed, spans.Marks.stamp, spans.read_phases
+    new_marks, kept_marks = spans.new_marks, spans.kept_marks
+    beside: dict = {}     # id(marks) -> (marks, its events, the stamps after them)
+    held: list = []
+
+    def made_with_events(make):
+        # the second stamps' buffer made with the marks, outside any capture
+        def made(*a, **k):
+            marks = make(*a, **k)
+            if marks is not None and id(marks) not in beside:
+                beside[id(marks)] = (marks, [], torch.zeros(marks.slots, dtype=torch.int64,
+                                                            device=dev))
+            return marks
+        return made
+
+    def keyed_behind_wait(self, key, body):
+        marks = self._marks.get(key)
+        if marks is not None:
+            marks.buf.zero_()            # the replay writes every slot again
+        torch.cuda._sleep(SPANS_WAIT_CYCLES)
+        return keyed(self, key, body)
+
+    def stamp_and_event(self, slot):
+        stamp(self, slot)
+        _, ev, after = beside[id(self)]
+        if slot == len(ev):
+            ev.append(torch.cuda.Event(enable_timing=True, external=True))
+        ev[slot].record()
+        stamp_ops.stamp(after, slot)
+
+    def read_and_hold(marks, times=1):
+        if marks is not None and marks.n:
+            _, ev, after = beside[id(marks)]
+            t, a = marks.times(), after[:marks.n].tolist()
+            gap = [(y - x) / 1e6 for x, y in zip(t, a)]
+            stamp_ms = [(y - x) / 1e6 for x, y in zip(t, t[1:])]
+            event_ms = [x.elapsed_time(y) for x, y in zip(ev[:marks.n], ev[1:marks.n])]
+            held.append({"marks": id(marks), "names": list(marks.names), "n": marks.n,
+                         "ordered": t[0] > 0 and all(x <= y for x, y in zip(t, t[1:]))
+                         and all(g >= 0 for g in gap),
+                         "gap_ms": gap, "stamp_ms": stamp_ms, "event_ms": event_ms,
+                         "over_ms": max(abs(x - y) - gap[i] - gap[i + 1] - SPANS_TOL_MS
+                                        for i, (x, y) in enumerate(zip(stamp_ms, event_ms)))})
+        return read(marks, times)
+
+    # the stamp kernel built before the run, so no build stalls an eager round
+    stamp(spans.Marks(dev, 1), 0)
+    torch.cuda.synchronize()
+    FusedRounds._keyed, spans.Marks.stamp = keyed_behind_wait, stamp_and_event
+    spans.new_marks, spans.kept_marks = made_with_events(new_marks), made_with_events(kept_marks)
+    spans.read_phases = read_and_hold
+    spans.reset()
+    spans.enable()
+    try:
+        on = method_run(torch, api, counters, g, fed, dev, "fedais", SPANS_ROUNDS,
+                        eval_every=SPANS_EVAL_EVERY)
+    finally:
+        spans.enable(False)
+        FusedRounds._keyed, spans.Marks.stamp, spans.read_phases = keyed, stamp, read
+        spans.new_marks, spans.kept_marks = new_marks, kept_marks
+    totals = spans.totals()
+    spans.reset()
+    eng = on["engine"]
+    same = _same_history(off_res, on["result"])
+    same["tables"] = all(torch.equal(a, b) for a, b in zip(off_tables,
+                                                           train_tables(on["state"])))
+    keys = eng._fused._marks
+    structure = {str(k): m.names == round_phases(k[0], k[2]) and m.n == len(m.names) + 1
+                 for k, m in keys.items()}
+    graphs = {id(m) for m in keys.values()}
+    n_evals = sum(1 for h in held if h["names"] == ["eval"])
+    gaps = sorted(g for h in held for g in h["gap_ms"])
+    over = max((h["over_ms"] for h in held), default=math.inf)
+    # a stamp and the stamp after its event at every boundary
+    want_stamps = 2 * (sum(2 * m.n for m in keys.values()) + 2 * n_evals)
+    c = totals["counters"]
+    rec = {"same": same, "keys": len(keys), "structure": structure,
+           "boundaries_a_key": {str(k): m.n for k, m in keys.items()},
+           "reads": len(held), "evals": n_evals, "replays": c.get("replays", 0),
+           "eager_rounds": c.get("eager_rounds", 0),
+           "ordered": all(h["ordered"] for h in held),
+           "over_ms": over, "over_ms_by_read": [h["over_ms"] for h in held],
+           "replayed_by_read": [h["marks"] in graphs for h in held],
+           "worst_ms_by_read": [max(abs(x - y) for x, y in zip(h["stamp_ms"], h["event_ms"]))
+                                for h in held],
+           "gap_ms_median_max": [gaps[len(gaps) // 2], gaps[-1]] if gaps else None,
+           "tol_ms": SPANS_TOL_MS,
+           "sum_stamp_ms": [sum(h["stamp_ms"]) for h in held],
+           "sum_event_ms": [sum(h["event_ms"]) for h in held],
+           "stamp_launches": on["launches"]["stamp"], "want_stamp_launches": want_stamps,
+           "phases_ms": {k: v["ms"] for k, v in totals["phases"].items()},
+           "phase_counts": {k: v["count"] for k, v in totals["phases"].items()}}
+    log(f"phase 19 spans: {tag}: fedais {SPANS_ROUNDS} rounds, eval every "
+        f"{SPANS_EVAL_EVERY}: {json.dumps(rec)}")
+    if not all(same.values()):
+        raise AssertionError(f"spans: the run with the spans on differs: {same}")
+    if not keys or not all(structure.values()) or not rec["replays"]:
+        raise AssertionError(f"spans: keys {structure}, replays {rec['replays']}")
+    if not rec["ordered"] or not over <= 0:
+        raise AssertionError(f"spans: stamps in order {rec['ordered']}; a phase {over} ms "
+                             f"further from its event pair than its ends' gaps and "
+                             f"{SPANS_TOL_MS} ms")
+    if rec["stamp_launches"] != want_stamps:
+        raise AssertionError(f"spans: {rec['stamp_launches']} stamp launches, want "
+                             f"{want_stamps}")
+    return rec
+
+
 def fused_phase(torch, api, counters, g, fed, dev, tag, method_runs,
                 profile) -> tuple[dict, int]:
     """Phase 12: the fused executor on the card, on phase 10's partition,
@@ -4137,6 +4296,8 @@ def main(argv=None) -> int:
                          "prefill + 4 decode steps per model in phase 9 and one "
                          "training round in phase 10 with torch.profiler, and "
                          "print where their time goes")
+    ap.add_argument("--spans-only", action="store_true",
+                    help="run phase 1 and phase 19 (the span system) alone")
     args = ap.parse_args(argv)
 
     import torch
@@ -4193,6 +4354,13 @@ def main(argv=None) -> int:
         f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}")
     record["device"] = {"name": kind, "nvidia_smi": smi, "torch": torch.__version__,
                         "cuda": torch.version.cuda}
+    if args.spans_only:
+        g = make_dataset("pubmed", scale=1, max_features=500, seed=0)
+        fed = partition_graph(g, TRAIN_CLIENTS, alpha=0.5, seed=0)
+        record["spans"] = spans_phase(torch, api, g, fed, dev, f"{kind}, {smi}")
+        log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                               "count": torch.cuda.device_count()}}))
+        return 0
 
     # -- phase 2: build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -4714,6 +4882,11 @@ def main(argv=None) -> int:
     t18 = time.perf_counter()
     record["fed_dryrun"] = fed_dryrun_phase(torch, tag)
     record["fed_dryrun"]["seconds"] = time.perf_counter() - t18
+
+    # -- phase 19: spans (the span system's device phases) ----------------------
+    t19 = time.perf_counter()
+    record["spans"] = spans_phase(torch, api, g, fed, dev, tag)
+    record["spans"]["seconds"] = time.perf_counter() - t19
 
     # -- the kernels line --------------------------------------------------------
     warm = shapes[0]

@@ -16,6 +16,8 @@ from typing import TYPE_CHECKING, Optional
 import numpy as np
 
 from repro_torch.federated.server import evaluate_global
+from repro_torch.utils import spans
+from repro_torch.utils.spans import span
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.api.engine import EngineState, FedEngine
@@ -59,10 +61,13 @@ class EvalCallback(BaseCallback):
     def on_round_end(self, ctx):
         if ctx.t % self.eval_every == 0 or ctx.t == ctx.rounds - 1:
             st, eng = ctx.state, ctx.engine
-            ev = evaluate_global(st.params, eng.eval_graph, "test")
-            if st.initial_loss is None:
-                st.initial_loss = max(ev["loss"], 1e-6)
-            st.tau = eng.sync.update(eng.mcfg, ev["loss"], st.initial_loss)
+            with span("fedais.eval", device_allocs=True):
+                ev = evaluate_global(st.params, eng.eval_graph, "test")
+                with span("fedais.eval.metrics"):
+                    if st.initial_loss is None:
+                        st.initial_loss = max(ev["loss"], 1e-6)
+                    st.tau = eng.sync.update(eng.mcfg, ev["loss"], st.initial_loss)
+            spans.count("evals")
             ctx.metrics = ev
             st.last_eval = (ctx.t, ev)   # lets FedEngine.run skip a re-eval
 

@@ -97,6 +97,8 @@ from repro_torch.federated.quant import check_sync_dtype, quant_roundtrip
 from repro_torch.federated.server import build_eval_graph, evaluate_global
 from repro_torch.sharding.fed import axis_size, client_axis_of
 from repro_torch.sharding.tables import pod_axes_of
+from repro_torch.utils import spans
+from repro_torch.utils.spans import span
 from repro_torch.graph.data import GraphData
 from repro_torch.models.gcn import (
     AGG_BACKENDS,
@@ -693,79 +695,85 @@ class FedEngine:
         stepwise merge does: dropped members nothing, stragglers stretch
         the wall clock, a round with no survivor is an empty merge.
         Returns True if a callback requested stop."""
-        sels, fans = [], []
-        for t in range(t0, t0 + n_rounds):
-            state.round = t
-            sel = np.asarray(self.selector.select(self, state))
-            sels.append(sel)
-            fans.append(self.strategy.choose_fanouts(self, sel))
-        if any(len(s) != len(sels[0]) for s in sels):
-            raise ValueError(
-                "fused executor needs constant cohort sizes across a chunk; "
-                "precomputable selectors must return fixed-size cohorts")
-        eoffs = np.arange(t0, t0 + n_rounds, dtype=np.int64) * self.mcfg.local_epochs
+        with span("fedais.chunk", device_allocs=True):
+            spans.count("chunks")
+            spans.count("rounds", n_rounds)
+            with span("fedais.chunk.select"):
+                sels, fans = [], []
+                for t in range(t0, t0 + n_rounds):
+                    state.round = t
+                    sel = np.asarray(self.selector.select(self, state))
+                    sels.append(sel)
+                    fans.append(self.strategy.choose_fanouts(self, sel))
+                if any(len(s) != len(sels[0]) for s in sels):
+                    raise ValueError(
+                        "fused executor needs constant cohort sizes across a chunk; "
+                        "precomputable selectors must return fixed-size cohorts")
+                eoffs = np.arange(t0, t0 + n_rounds, dtype=np.int64) * self.mcfg.local_epochs
 
-        drop_stack = cmask_stack = None
-        if self._faults_active:
-            ts = range(t0, t0 + n_rounds)
-            drop_stack = np.stack([self.faults.drops(t, s) for t, s in zip(ts, sels)])
-            cmask_stack = np.stack([self.faults.corruptions(t, s) for t, s in zip(ts, sels)])
-            state.fault_events.n_dropped += int(drop_stack.sum())
-        m = len(sels[0])
-        if self.mesh is not None and self.pod_sharded_eligibility(m)[0]:
-            self.last_executor = "pod_sharded"
-            light = self._sharded_rounds(pods=True).run_chunk(state, sels, fans, eoffs,
-                                                              drop_stack)
-        elif self.mesh is not None and self.sharded_eligibility(m)[0]:
-            _check_full_tables(state)
-            self.last_executor = "sharded_fused"
-            light = self._sharded_rounds(pods=False).run_chunk(state, sels, fans, eoffs,
-                                                               drop_stack)
-        else:
-            _check_full_tables(state)
-            self.last_executor = "fused_faulty" if self._faults_active else "fused"
-            if self._fused is None:
-                self._fused = FusedRounds(self)
-            light = self._fused.run_chunk(state, sels, fans, eoffs, drop_stack, cmask_stack)
+                drop_stack = cmask_stack = None
+                if self._faults_active:
+                    ts = range(t0, t0 + n_rounds)
+                    drop_stack = np.stack([self.faults.drops(t, s) for t, s in zip(ts, sels)])
+                    cmask_stack = np.stack([self.faults.corruptions(t, s)
+                                            for t, s in zip(ts, sels)])
+                    state.fault_events.n_dropped += int(drop_stack.sum())
+            m = len(sels[0])
+            if self.mesh is not None and self.pod_sharded_eligibility(m)[0]:
+                self.last_executor = "pod_sharded"
+                light = self._sharded_rounds(pods=True).run_chunk(state, sels, fans, eoffs,
+                                                                  drop_stack)
+            elif self.mesh is not None and self.sharded_eligibility(m)[0]:
+                _check_full_tables(state)
+                self.last_executor = "sharded_fused"
+                light = self._sharded_rounds(pods=False).run_chunk(state, sels, fans, eoffs,
+                                                                   drop_stack)
+            else:
+                _check_full_tables(state)
+                self.last_executor = "fused_faulty" if self._faults_active else "fused"
+                if self._fused is None:
+                    self._fused = FusedRounds(self)
+                light = self._fused.run_chunk(state, sels, fans, eoffs, drop_stack, cmask_stack)
 
-        n_quar_rounds = light.pop("n_quarantined", None)
-        if n_quar_rounds is not None:
-            state.fault_events.n_quarantined += int(np.sum(n_quar_rounds))
-        for i, t in enumerate(range(t0, t0 + n_rounds)):
-            state.round = t
-            stats_t = {k: v[i] for k, v in light.items()}
-            sel_t, stats_b, wall = sels[i], stats_t, None
-            if self._faults_active:
-                plan = self.faults
-                if drop_stack[i].any():
-                    # dropped uploads never reach the server: bill survivors
-                    keep = np.flatnonzero(~drop_stack[i])
-                    sel_t = sels[i][keep]
-                    stats_b = {k: v[keep] for k, v in stats_t.items()}
-                if plan.straggler_frac > 0.0:
-                    # as _inject_faults bills: the server waits for every
-                    # dispatched member, the overhead prices the arrivals
-                    times = np.asarray(self.cost_model.client_compute_times(
-                        self, state, sels[i], stats_t), np.float64)
-                    times = times * plan.delay_factors(sels[i])
-                    o = self.cost_model.sync_overhead(self, sel_t, stats_b)
-                    wall = float(np.max(times)) + o / max(state.tau, 1)
-                n_quar_t = 0 if n_quar_rounds is None else int(n_quar_rounds[i])
-                if len(sel_t) - n_quar_t <= 0:
-                    state.fault_events.n_empty_merges += 1
-            cost = (self.cost_model.round_cost(self, state, sel_t, stats_b) if len(sel_t)
-                    else CostMeter())
-            if wall is not None:
-                cost.wall_clock_s = wall
-            state.result.costs.add(cost)
-            if len(sel_t):
-                self.strategy.post_round(self, state, sel_t, stats_b)
-            ctx = RoundContext(engine=self, state=state, t=t, rounds=self.rounds)
-            for cb in self.callbacks:
-                cb.on_round_end(ctx)
-            if ctx.stop:
-                return True
-        return False
+            with span("fedais.chunk.host_tail"):
+                n_quar_rounds = light.pop("n_quarantined", None)
+                if n_quar_rounds is not None:
+                    state.fault_events.n_quarantined += int(np.sum(n_quar_rounds))
+                for i, t in enumerate(range(t0, t0 + n_rounds)):
+                    state.round = t
+                    stats_t = {k: v[i] for k, v in light.items()}
+                    sel_t, stats_b, wall = sels[i], stats_t, None
+                    if self._faults_active:
+                        plan = self.faults
+                        if drop_stack[i].any():
+                            # dropped uploads never reach the server: bill survivors
+                            keep = np.flatnonzero(~drop_stack[i])
+                            sel_t = sels[i][keep]
+                            stats_b = {k: v[keep] for k, v in stats_t.items()}
+                        if plan.straggler_frac > 0.0:
+                            # as _inject_faults bills: the server waits for every
+                            # dispatched member, the overhead prices the arrivals
+                            times = np.asarray(self.cost_model.client_compute_times(
+                                self, state, sels[i], stats_t), np.float64)
+                            times = times * plan.delay_factors(sels[i])
+                            o = self.cost_model.sync_overhead(self, sel_t, stats_b)
+                            wall = float(np.max(times)) + o / max(state.tau, 1)
+                        n_quar_t = 0 if n_quar_rounds is None else int(n_quar_rounds[i])
+                        if len(sel_t) - n_quar_t <= 0:
+                            state.fault_events.n_empty_merges += 1
+                    cost = (self.cost_model.round_cost(self, state, sel_t, stats_b) if len(sel_t)
+                            else CostMeter())
+                    if wall is not None:
+                        cost.wall_clock_s = wall
+                    state.result.costs.add(cost)
+                    if len(sel_t):
+                        self.strategy.post_round(self, state, sel_t, stats_b)
+                    ctx = RoundContext(engine=self, state=state, t=t, rounds=self.rounds)
+                    for cb in self.callbacks:
+                        cb.on_round_end(ctx)
+                    if ctx.stop:
+                        return True
+            return False
 
     def _sharded_rounds(self, *, pods: bool) -> ShardedRounds:
         if pods not in self._sharded:

@@ -26,6 +26,19 @@ replays: every output is copied into a buffer made outside the capture.
 The SpMM launches recorded while capturing are added to
 ``block_spmm.launches`` on each replay. A failed capture or replay raises.
 
+With ``repro_torch.utils.spans`` on, the executor opens the spans
+``fedais.chunk.stage``, ``.rounds`` (around the chunk's rounds, with
+``.replay``, ``.eager_round`` and ``.capture`` inside) and ``.readback``
+(with ``.read_phases`` inside), and opens a phase scope around each round,
+so that the device phases of the body (``table_traffic``, ``merge`` here
+and the LocalUpdate's in ``core.fedais``) are recorded: on CUDA a boundary
+is a stamp kernel's node in the graph, and a captured key keeps the marks
+its nodes rewrite on every replay. After the chunk's readback each key
+replayed in the chunk adds its last replay's phases times its replays in
+the chunk (an eager round, every round on the CPU, adds its own).
+Switching the spans on or off drops the graphs, so that a graph carries
+phase boundaries exactly while the spans are on.
+
 On the CPU the body runs eagerly every round: the same code the card
 captures. A chunk's cohorts, weights and fault multipliers reach the
 device in one copy each, and before each round the static inputs are
@@ -35,8 +48,6 @@ which the host reads once per chunk.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -45,6 +56,8 @@ from repro_torch.faults.fused import build_faulty_merge
 from repro_torch.federated.quant import quant_roundtrip
 from repro_torch.kernels.spmm.ops import block_spmm
 from repro_torch.sharding import comm
+from repro_torch.utils import spans
+from repro_torch.utils.spans import device_phase, span
 
 # Per-round stats streamed out of a fused round: everything but the
 # (m, n_max) loss_all table, which the write-back puts into prev_loss, and
@@ -61,6 +74,8 @@ class FusedRounds:
 
     # no other thread touches the card while a fused round is captured
     capture_error_mode = "global"
+    # the rounds open a phase scope (the sharded executors' do not)
+    phased = True
 
     def __init__(self, engine):
         self.engine = engine
@@ -72,11 +87,14 @@ class FusedRounds:
                 finite_guard=g is not None, max_norm=None if g is None else g.max_norm,
                 sync_dtype=engine.sync_dtype)
         self._state = self._draws = None
+        self._graphed = engine.device.type == "cuda"
         # graph key -> (CUDA graph, SpMM launches and collectives captured)
         self._graphs: dict = {}
         self._inputs: dict = {}      # cohort size -> static input buffers
         self._pool = None
         self.captures: list = []
+        self._marks: dict = {}       # graph key -> its phase boundaries
+        self._spanned = False        # whether the graphs carry phase boundaries
 
     # -- binding ------------------------------------------------------------
 
@@ -85,7 +103,9 @@ class FusedRounds:
         write. A new state (a new run) drops every graph, and so does a new
         draw provider (the graphs replay the old one's generator); a table
         or params dict that something rebound between chunks is copied back
-        into the buffer the graphs hold."""
+        into the buffer the graphs hold. Switching the spans on or off drops
+        the graphs too, so that a graph carries phase boundaries exactly
+        while the spans are on."""
         new_state = state is not self._state
         if new_state:
             self._state = state
@@ -93,9 +113,11 @@ class FusedRounds:
             self._params = {k: v.detach().clone() for k, v in state.params.items()}
             self._tables = (state.hist.hist1, state.hist.age, state.hist.ghost_feat,
                             state.prev_loss)
-        if new_state or state.draws is not self._draws:
-            self._draws = state.draws
+        spanned = self.phased and spans.enabled()
+        if new_state or state.draws is not self._draws or spanned != self._spanned:
+            self._draws, self._spanned = state.draws, spanned
             self._graphs = {}
+            self._marks = {}
             self._pool = None
         if self.engine.device.type == "cuda" and not isinstance(state.draws, TorchDraws):
             raise ValueError(f"the fused executor on CUDA replays a TorchDraws generator; "
@@ -134,31 +156,36 @@ class FusedRounds:
         inp = self._inputs[m]
         rows = inp["rows"]
         hist1, age, ghost_feat, prev_loss = self._tables
-        out = eng._cohort(
-            self._params, {k: v[rows] for k, v in state.arrays.items()},
-            state.arrays["features"], hist1, hist1[rows], age[rows], ghost_feat[rows],
-            prev_loss[rows], tau, fanouts, eoff, state.draws.clients(m))
+        with device_phase("table_traffic"):
+            clients = {k: v[rows] for k, v in state.arrays.items()}
+            cohort_rows = (hist1[rows], age[rows], ghost_feat[rows], prev_loss[rows])
+        out = eng._cohort(self._params, clients, state.arrays["features"], hist1,
+                          *cohort_rows, tau, fanouts, eoff, state.draws.clients(m))
         stats = out[4]
         if self.faulty:
-            merged, n_quar = self._merge(self._params, rows, out, self._tables,
-                                         inp["weights"], inp["keep"], inp["cmult"])
+            with device_phase("merge"):
+                merged, n_quar = self._merge(self._params, rows, out, self._tables,
+                                             inp["weights"], inp["keep"], inp["cmult"])
         else:
             new_params, new_hist1, new_age, new_ghost_feat, _ = out
-            merged = eng.aggregator.aggregate(new_params, inp["weights"])
-            loss_all = stats["loss_all"]
-            if eng.sync_dtype != "fp32":
-                new_hist1 = quant_roundtrip(new_hist1, eng.sync_dtype)
-                new_ghost_feat = quant_roundtrip(new_ghost_feat, eng.sync_dtype)
-                loss_all = quant_roundtrip(loss_all, eng.sync_dtype)
-            hist1[rows] = new_hist1
-            age[rows] = new_age
-            ghost_feat[rows] = new_ghost_feat
-            prev_loss[rows] = loss_all
-            n_quar = torch.zeros((), device=rows.device)
-        for k, buf in self._params.items():
-            buf.copy_(merged[k])
-        inp["light"].copy_(torch.cat([stats[k].reshape(-1) for k in LIGHT_STATS]
-                                     + [n_quar.reshape(1).to(torch.float32)]))
+            with device_phase("merge"):
+                merged = eng.aggregator.aggregate(new_params, inp["weights"])
+                n_quar = torch.zeros((), device=rows.device)
+            with device_phase("table_traffic"):
+                loss_all = stats["loss_all"]
+                if eng.sync_dtype != "fp32":
+                    new_hist1 = quant_roundtrip(new_hist1, eng.sync_dtype)
+                    new_ghost_feat = quant_roundtrip(new_ghost_feat, eng.sync_dtype)
+                    loss_all = quant_roundtrip(loss_all, eng.sync_dtype)
+                hist1[rows] = new_hist1
+                age[rows] = new_age
+                ghost_feat[rows] = new_ghost_feat
+                prev_loss[rows] = loss_all
+        with device_phase("merge"):
+            for k, buf in self._params.items():
+                buf.copy_(merged[k])
+            inp["light"].copy_(torch.cat([stats[k].reshape(-1) for k in LIGHT_STATS]
+                                         + [n_quar.reshape(1).to(torch.float32)]))
 
     def _round(self, m: int, tau: int, eoff: int, fanouts) -> None:
         """Run one round: eagerly on the CPU and for a graph key's first
@@ -167,31 +194,51 @@ class FusedRounds:
         self._keyed(key, lambda: self._body(m, tau, eoff, fanouts))
 
     def _keyed(self, key, body) -> None:
-        if self.engine.device.type != "cuda":
-            body()
-            return
-        if key in self._graphs:
+        if self._graphed and key in self._graphs:
             graph, launches, collectives = self._graphs[key]
-            graph.replay()
+            marks = self._marks.get(key)
+            with span("fedais.chunk.replay"), spans.phase_scope(marks):
+                graph.replay()
             block_spmm.launches += launches
             comm.add(collectives)
+            spans.count("replays", key=key)
+            if marks is not None:
+                self._replayed[key] = self._replayed.get(key, 0) + 1
             return
-        body()
-        self._capture(key, body)
+        marks = self._new_marks()
+        with span("fedais.chunk.eager_round"), spans.phase_scope(marks):
+            body()
+        spans.count("eager_rounds", key=key)
+        if marks is not None:
+            self._pending.append(marks)
+        if self._graphed:
+            self._capture(key, body, None if marks is None else marks.n)
 
-    def _capture(self, key, body) -> None:
+    def _new_marks(self, slots: int = spans.STAMP_SLOTS) -> spans.Marks | None:
+        """Marks for a round's phase boundaries (None where no phase is
+        recorded)."""
+        return spans.new_marks(self.engine.device, slots) if self.phased else None
+
+    def _capture(self, key, body, slots: int | None = None) -> None:
         """Record ``body`` into a new graph of the shared pool, with the
         draws' generator registered, and the SpMM launches and collectives
-        it recorded."""
+        it recorded (and, with the spans on, its phase boundaries: the
+        ``slots`` its eager round wrote)."""
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._state.draws.gen)
         before, comm_before = block_spmm.captured, comm.snapshot(comm.CAPTURED)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self._pool,
-                              capture_error_mode=self.capture_error_mode):
-            body()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        marks = None if slots is None else self._new_marks(slots)
+        with span("fedais.chunk.capture", timed=True) as clock:
+            # the scope's last stamp goes into the graph too
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode=self.capture_error_mode), \
+                    spans.phase_scope(marks):
+                body()
+            torch.cuda.synchronize()
+        seconds = clock.seconds
+        spans.count("captures")
+        if marks is not None:
+            self._marks[key] = marks
         if self._pool is None:
             self._pool = graph.pool()
         launches = block_spmm.captured - before
@@ -209,39 +256,50 @@ class FusedRounds:
         ``cmask_stack`` are the (rounds, m) drop and corruption masks.
         Returns the rounds' light stats as host arrays with a leading
         rounds axis (``n_quarantined`` too under a plan), read in one copy."""
-        self._bind(state)
         eng = self.engine
         m, n = len(sels[0]), len(sels)
         J = eng.mcfg.local_epochs
-        inp = self._static_inputs(m)
-        # the chunk's inputs reach the device in one copy each; each round
-        # then fills its static inputs from them on the device
-        sel_stack = np.stack([np.asarray(s, np.int64) for s in sels])
-        per_round = {"rows": sel_stack,
-                     "weights": eng.fed.client_sizes[sel_stack].astype(np.float32)}
-        if self.faulty:
-            cmult = np.ones((n, m), np.float32)
-            cmult[cmask_stack] = eng.faults.corrupt_value()
-            per_round["keep"] = (~drop_stack).astype(np.float32)
-            per_round["cmult"] = cmult
-        per_round = {k: torch.from_numpy(v).to(eng.device) for k, v in per_round.items()}
-        light = torch.empty((n, inp["light"].numel()), dtype=torch.float32,
-                            device=eng.device)
-        n_sync = np.zeros((n, m), np.int32)
-        for i in range(n):
-            for k, v in per_round.items():
-                inp[k].copy_(v[i])
-            self._round(m, state.tau, int(eoffs[i]), fans[i])
-            light[i].copy_(inp["light"])
-            n_sync[i] = sum(sync_gates(eng.mcfg, state.tau, int(eoffs[i])))
-        host = light.cpu().numpy()
-        out, at = {"n_sync": n_sync}, 0
-        for k, tail in zip(LIGHT_STATS, ((J,), (), ())):
-            width = m * int(np.prod(tail))
-            out[k] = host[:, at:at + width].reshape((n, m) + tail)
-            at += width
-        if self.faulty:
-            out["n_quarantined"] = host[:, -1].astype(np.int64)
+        with span("fedais.chunk.stage"):
+            self._bind(state)
+            # the marks of the chunk's eager rounds; replays per graph key
+            self._pending, self._replayed = [], {}
+            inp = self._static_inputs(m)
+            # the chunk's inputs reach the device in one copy each; each
+            # round then fills its static inputs from them on the device
+            sel_stack = np.stack([np.asarray(s, np.int64) for s in sels])
+            per_round = {"rows": sel_stack,
+                         "weights": eng.fed.client_sizes[sel_stack].astype(np.float32)}
+            if self.faulty:
+                cmult = np.ones((n, m), np.float32)
+                cmult[cmask_stack] = eng.faults.corrupt_value()
+                per_round["keep"] = (~drop_stack).astype(np.float32)
+                per_round["cmult"] = cmult
+            per_round = {k: torch.from_numpy(v).to(eng.device) for k, v in per_round.items()}
+            light = torch.empty((n, inp["light"].numel()), dtype=torch.float32,
+                                device=eng.device)
+            n_sync = np.zeros((n, m), np.int32)
+        with span("fedais.chunk.rounds"):
+            for i in range(n):
+                for k, v in per_round.items():
+                    inp[k].copy_(v[i])
+                self._round(m, state.tau, int(eoffs[i]), fans[i])
+                light[i].copy_(inp["light"])
+                n_sync[i] = sum(sync_gates(eng.mcfg, state.tau, int(eoffs[i])))
+        with span("fedais.chunk.readback"):
+            host = light.cpu().numpy()
+            out, at = {"n_sync": n_sync}, 0
+            for k, tail in zip(LIGHT_STATS, ((J,), (), ())):
+                width = m * int(np.prod(tail))
+                out[k] = host[:, at:at + width].reshape((n, m) + tail)
+                at += width
+            if self.faulty:
+                out["n_quarantined"] = host[:, -1].astype(np.int64)
+            if self._pending or self._replayed:
+                with span("fedais.chunk.read_phases"):
+                    for marks in self._pending:
+                        spans.read_phases(marks)
+                    for key, replays in self._replayed.items():
+                        spans.read_phases(self._marks[key], replays)
         return out
 
 
@@ -270,6 +328,7 @@ class ShardedRounds(FusedRounds):
     counted."""
 
     capture_error_mode = "thread_local"
+    phased = False
 
     def __init__(self, engine, *, pods: bool):
         import torch.distributed as dist
@@ -279,7 +338,8 @@ class ShardedRounds(FusedRounds):
 
         self.engine, self.pods, self.faulty = engine, pods, False
         self._state = self._draws = None
-        self._graphs, self._inputs, self._pool = {}, {}, None
+        self._graphed = engine.device.type == "cuda"
+        self._graphs, self._inputs, self._pool, self._marks = {}, {}, None, {}
         self.captures: list = []
         self.round_log: list = []
         mesh = engine.mesh

@@ -23,6 +23,13 @@ in production; the tests pass one that replays the reference's key chain),
 so the discrete decisions are exact against the reference given the same
 uniforms.
 
+The LocalUpdate marks its device phases by the paper's lines
+(``repro_torch.utils.spans``): ``loss_pass`` (lines 11-12, Eq. 7-8),
+``sampling`` (line 14 and the fanout), ``ghost_pull`` (lines 15-17, where
+the gate is open), ``train_step`` (line 18's forward and backward),
+``optimizer`` (AdamW) and ``table_traffic`` (the push, and the cohort's
+stacking); they are recorded only inside the fused executor's scope.
+
 ``ghost_source`` picks where the sync reads its ghost rows: ``"tables"``
 (the default) gathers them from the round-start snapshots of every client's
 features and layer-1 table; ``"prefetched"`` (the pod-sharded executor,
@@ -50,6 +57,7 @@ from repro_torch.core.importance import (
 from repro_torch.federated.quant import check_sync_dtype, quant_roundtrip
 from repro_torch.models.gcn import AGG_BACKENDS, gcn_batch_forward, per_node_loss
 from repro_torch.optim import adamw_init, adamw_update
+from repro_torch.utils.spans import device_phase
 
 
 @dataclass(frozen=True)
@@ -229,11 +237,11 @@ def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "g
         draws,                      # this client's draw stream
     ):
         dev = hist1.device
-        train_mask = client["train_mask"] * client["node_mask"]
-        all_idx = torch.arange(n_max, device=dev)
 
         # ---- lines 11-12: loss pass + selection probabilities ----
-        with torch.no_grad():
+        with torch.no_grad(), device_phase("loss_pass"):
+            train_mask = client["train_mask"] * client["node_mask"]
+            all_idx = torch.arange(n_max, device=dev)
             logits_all, _, _ = gcn_batch_forward(
                 params, client["features"], ghost_feat, hist1,
                 client["nbr_idx"], client["nbr_mask"], all_idx, backend=train_backend)
@@ -243,8 +251,9 @@ def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "g
                 probs = importance_probs(scores, train_mask)
             else:
                 probs = uniform_probs(train_mask)
+            entropy = -torch.sum(torch.where(
+                probs > 0, probs * torch.log(torch.clamp(probs, min=1e-30)), 0.0))
 
-        opt_state = adamw_init(params)
         gates = sync_gates(mcfg, tau, epoch_offset)
         n_sync = 0
         n_pulled = torch.zeros((), dtype=torch.float32, device=dev)
@@ -252,61 +261,67 @@ def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "g
         for j in range(mcfg.local_epochs):
             ed = draws.epoch()
 
-            # ---- line 14: batch selection ----
-            if mcfg.use_all_samples:
-                batch_idx, valid = all_idx, train_mask > 0
-            else:
-                batch_idx, valid = sample_batch(ed.batch_uniform((n_max,)), probs, bsz,
-                                                train_mask)
+            with device_phase("sampling"):
+                # ---- line 14: batch selection ----
+                if mcfg.use_all_samples:
+                    batch_idx, valid = all_idx, train_mask > 0
+                else:
+                    batch_idx, valid = sample_batch(ed.batch_uniform((n_max,)), probs, bsz,
+                                                    train_mask)
 
-            # ---- neighbor fanout subsampling ----
-            b_nbr_idx = client["nbr_idx"][batch_idx]
-            b_nbr_mask = client["nbr_mask"][batch_idx]
-            ranks = torch.where(b_nbr_mask > 0, ed.fanout_uniform(b_nbr_mask.shape), 2.0)
-            keep = (stable_rank(ranks) < fanout).to(torch.float32)
-            if not mcfg.use_ghosts:
-                keep = keep * (b_nbr_idx < n_max)
+                # ---- neighbor fanout subsampling ----
+                b_nbr_idx = client["nbr_idx"][batch_idx]
+                b_nbr_mask = client["nbr_mask"][batch_idx]
+                ranks = torch.where(b_nbr_mask > 0, ed.fanout_uniform(b_nbr_mask.shape), 2.0)
+                keep = (stable_rank(ranks) < fanout).to(torch.float32)
+                if not mcfg.use_ghosts:
+                    keep = keep * (b_nbr_idx < n_max)
 
             # ---- lines 15-17: sync every tau epochs (pull the ghosts the
             # batch references) — j runs over the global batch epochs, so
             # round 0 epoch 0 always syncs as the warm-up ----
             if gates[j]:
-                need = ghost_need(b_nbr_idx, b_nbr_mask, keep, valid,
-                                  client["ghost_mask"], n_max)
-                if ghost_source == "tables":
-                    gf, gh = pull_ghosts(hist1_all, feats_all, client["ghost_owner"],
-                                         client["ghost_row"], client["ghost_mask"])
-                else:
-                    gf, gh = pull_ghosts_prefetched(feats_all, hist1_all, client["ghost_mask"])
-                if sync_dtype != "fp32" and ghost_source == "tables":
-                    gf = quant_roundtrip(gf, sync_dtype)
-                    gh = quant_roundtrip(gh, sync_dtype)
-                pulled = need[:, None] > 0
-                ghost_feat = torch.where(pulled, gf, ghost_feat)
-                hist1 = torch.cat([hist1[:n_max], torch.where(pulled, gh, hist1[n_max:])])
-                n_sync += 1
-                n_pulled = n_pulled + need.sum()
+                with device_phase("ghost_pull"):
+                    need = ghost_need(b_nbr_idx, b_nbr_mask, keep, valid,
+                                      client["ghost_mask"], n_max)
+                    if ghost_source == "tables":
+                        gf, gh = pull_ghosts(hist1_all, feats_all, client["ghost_owner"],
+                                             client["ghost_row"], client["ghost_mask"])
+                    else:
+                        gf, gh = pull_ghosts_prefetched(feats_all, hist1_all,
+                                                        client["ghost_mask"])
+                    if sync_dtype != "fp32" and ghost_source == "tables":
+                        gf = quant_roundtrip(gf, sync_dtype)
+                        gh = quant_roundtrip(gh, sync_dtype)
+                    pulled = need[:, None] > 0
+                    ghost_feat = torch.where(pulled, gf, ghost_feat)
+                    hist1 = torch.cat([hist1[:n_max],
+                                       torch.where(pulled, gh, hist1[n_max:])])
+                    n_sync += 1
+                    n_pulled = n_pulled + need.sum()
 
             # ---- line 18: batch forward/backward + local step ----
-            p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-            logits, h1, _ = gcn_batch_forward(
-                p, client["features"], ghost_feat, hist1, client["nbr_idx"],
-                client["nbr_mask"], batch_idx, nbr_keep=keep, backend=train_backend)
-            w = valid.to(torch.float32) * train_mask[batch_idx]
-            nll = per_node_loss(logits, client["labels"][batch_idx])
-            loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
-            grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
-            params, opt_state = adamw_update(grads, opt_state, params, mcfg.lr)
+            with device_phase("train_step"):
+                p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+                logits, h1, _ = gcn_batch_forward(
+                    p, client["features"], ghost_feat, hist1, client["nbr_idx"],
+                    client["nbr_mask"], batch_idx, nbr_keep=keep, backend=train_backend)
+                w = valid.to(torch.float32) * train_mask[batch_idx]
+                nll = per_node_loss(logits, client["labels"][batch_idx])
+                loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+                grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+            with device_phase("optimizer"):
+                if j == 0:
+                    opt_state = adamw_init(params)
+                params, opt_state = adamw_update(grads, opt_state, params, mcfg.lr)
 
             # ---- historical push of fresh in-batch embeddings ----
-            hist1, age = push_embeddings(
-                hist1, age, batch_idx, h1.detach(),
-                valid & (client["node_mask"][batch_idx] > 0))
+            with device_phase("table_traffic"):
+                hist1, age = push_embeddings(
+                    hist1, age, batch_idx, h1.detach(),
+                    valid & (client["node_mask"][batch_idx] > 0))
             epoch_losses.append(loss.detach())
 
-        with torch.no_grad():
-            entropy = -torch.sum(torch.where(
-                probs > 0, probs * torch.log(torch.clamp(probs, min=1e-30)), 0.0))
         stats = {
             "loss_all": loss_all,                  # becomes prev_loss next round
             "epoch_losses": torch.stack(epoch_losses),
@@ -340,13 +355,13 @@ def make_cohort_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "
                     hist1[i], age[i], ghost_feat[i], prev_loss[i], tau, int(fanouts[i]),
                     epoch_offset, streams[i])
                 for i in range(len(streams))]
-        new_params = {k: torch.stack([o[0][k] for o in outs]) for k in params}
-        stats = {k: torch.stack([o[4][k] for o in outs])
-                 for k in ("loss_all", "epoch_losses", "n_ghost_pulled",
-                           "mean_importance_entropy")}
+        with device_phase("table_traffic"):
+            new_params = {k: torch.stack([o[0][k] for o in outs]) for k in params}
+            stats = {k: torch.stack([o[4][k] for o in outs])
+                     for k in ("loss_all", "epoch_losses", "n_ghost_pulled",
+                               "mean_importance_entropy")}
+            tables = tuple(torch.stack([o[i] for o in outs]) for i in (1, 2, 3))
         stats["n_sync"] = np.asarray([o[4]["n_sync"] for o in outs], np.int32)
-        return (new_params, torch.stack([o[1] for o in outs]),
-                torch.stack([o[2] for o in outs]), torch.stack([o[3] for o in outs]),
-                stats)
+        return (new_params, *tables, stats)
 
     return cohort_update

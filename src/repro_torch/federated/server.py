@@ -12,6 +12,8 @@ import torch
 from repro_torch.core.sync import adaptive_tau
 from repro_torch.device import resolve_device
 from repro_torch.models.gcn import AGG_BACKENDS, gcn_full_forward, per_node_loss
+from repro_torch.utils import spans
+from repro_torch.utils.spans import device_phase, span
 
 
 def select_clients(rng: np.random.Generator, n_clients: int, m: int) -> np.ndarray:
@@ -85,19 +87,33 @@ def eval_logits(params: dict, eval_graph: dict) -> torch.Tensor:
 
 
 def evaluate_global(params: dict, eval_graph: dict, split: str = "test") -> dict:
-    logits = eval_logits(params, eval_graph)
-    mask = np.asarray(eval_graph[f"{split}_mask"])
-    labels = np.asarray(eval_graph["labels"])[mask]
-    lg = logits.detach().cpu().numpy().astype(np.float32)[mask]
-    nll = per_node_loss(torch.from_numpy(lg), torch.from_numpy(labels)).numpy()
-    pred = lg.argmax(-1)
-    acc = float((pred == labels).mean()) if len(labels) else 0.0
-    return {
-        "acc": acc,
-        "loss": float(nll.mean()) if len(labels) else float("inf"),
-        "f1": macro_f1(labels, pred, eval_graph["n_classes"]),
-        "auc": macro_ovr_auc(labels, lg),
-    }
+    """Accuracy, loss, macro F1 and macro AUC of the full-graph forward on
+    ``split``. With ``repro_torch.utils.spans`` on: the spans
+    ``fedais.eval.forward`` (the forward's enqueue), ``.readback`` (the
+    logits to the host, and ``.read_phases`` inside it) and ``.metrics``
+    (the scores on the host), and the device phase ``eval`` around the
+    forward."""
+    marks = spans.kept_marks("eval", eval_graph["features"].device, 2)
+    with span("fedais.eval.forward"), spans.phase_scope(marks), device_phase("eval"):
+        logits = eval_logits(params, eval_graph)
+    with span("fedais.eval.readback"):
+        lg = logits.detach().cpu().numpy()
+        if marks is not None:
+            with span("fedais.eval.read_phases"):
+                spans.read_phases(marks)
+    with span("fedais.eval.metrics"):
+        mask = np.asarray(eval_graph[f"{split}_mask"])
+        labels = np.asarray(eval_graph["labels"])[mask]
+        lg = lg.astype(np.float32)[mask]
+        nll = per_node_loss(torch.from_numpy(lg), torch.from_numpy(labels)).numpy()
+        pred = lg.argmax(-1)
+        acc = float((pred == labels).mean()) if len(labels) else 0.0
+        return {
+            "acc": acc,
+            "loss": float(nll.mean()) if len(labels) else float("inf"),
+            "f1": macro_f1(labels, pred, eval_graph["n_classes"]),
+            "auc": macro_ovr_auc(labels, lg),
+        }
 
 
 def macro_f1(labels: np.ndarray, pred: np.ndarray, n_classes: int) -> float:

@@ -21,4 +21,7 @@ Kernels (every TPU kernel of ``repro`` has its counterpart here):
                      fp32, dead KV tiles skipped (replaces
                      src/repro/kernels/flash_attention/flash_attention.py::
                      flash_attention_pallas)
+    stamp            one thread writes the device's global timer into a slot:
+                     a device phase's boundary for ``utils.spans`` (no TPU
+                     counterpart; no plain version, the CPU reads its clock)
 """

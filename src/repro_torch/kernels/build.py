@@ -29,6 +29,7 @@ KERNEL_SOURCES = {
     "spmm": _KERNELS_DIR / "spmm" / "csrc" / "spmm.cu",
     "wkv6": _KERNELS_DIR / "wkv6" / "csrc" / "wkv6.cu",
     "flash_attention": _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
+    "stamp": _KERNELS_DIR / "stamp" / "csrc" / "stamp.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
