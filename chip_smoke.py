@@ -2,6 +2,7 @@
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--out FILE.json] [--profile] [--spans-only]
+                          [--ghost-pull-only]
 
 Run from the root of a checkout, on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit (``nvcc``). It builds the port's three kernels from
@@ -157,8 +158,9 @@ Phases, one or more lines each:
                 executor (rounds after a graph key's first replayed): the
                 SpMM launched exactly rounds x (m·(2 + 3J) + 2) times (a
                 loss pass, then J steps of 2 forward and 1 transposed
-                launch per client, plus the eval's 2 layers a round),
-                counted through the replays, and nothing else; the same
+                launch per client, plus the eval's 2 layers a round) and
+                the ghost pull once a gated sync epoch, counted through
+                the replays, and nothing else; the same
                 cohorts, tables (params, hist1, age, ghost_feat,
                 prev_loss: the batches' witness), tau and test_acc bits in
                 both runs; the first LocalUpdate of one client under spmm
@@ -174,7 +176,8 @@ Phases, one or more lines each:
                 and with the bf16 and int8 sync wire (2 rounds each: the
                 fp32 run's cohorts and tau); every run launches the SpMM
                 exactly (clients dispatched) x (2 + 3J) + 2 x (merges)
-                times and nothing else; per method what defines it
+                times, the ghost pull once a gated sync epoch on the fp32
+                wire, and nothing else; per method what defines it
                 (FedSage+ syncs nothing and its generator rides the model
                 link, FedLocal pulls no ghost, FedPNS keeps tau 2,
                 FedGraph's fanouts come from its bandit's actions); ms per
@@ -185,8 +188,9 @@ Phases, one or more lines each:
                 default against ``SyncScheduler(fused=False)``: every
                 history column, the final row, the params and the tables
                 bit-identical; the SpMM launched exactly rounds x m x
-                (2 + 3J) + evals x 2 times through the replays, nothing
-                else; the graph keys and their capture time; the device
+                (2 + 3J) + evals x 2 times and the ghost pull once a gated
+                sync epoch (its captured launches folded into the
+                replays) through the replays, nothing else; the graph keys and their capture time; the device
                 memory allocated after each chunk, no growth; each other
                 fusable method's phase-11 fused run against its stepwise
                 run (bit-identical); ``fedais`` under a ``FaultPlan``
@@ -219,7 +223,8 @@ Phases, one or more lines each:
                 cohorts, tau, comm, flops and wall clock exact; test_acc
                 and test_loss within 1e-4 (params and tables bit-equal
                 recorded); the SpMM exactly rounds x m x (2 + 3J) + evals
-                x 2 through the replays; each round's collectives, calls
+                x 2 through the replays, the ghost pull once a gated sync
+                epoch (none on the pod mesh); each round's collectives, calls
                 and bytes, those of ``sharding.ledger``; memory after each
                 chunk equal from the second on; a pod run at tau0 8 whose
                 gated-off rounds move no ghost byte; under
@@ -234,7 +239,8 @@ Phases, one or more lines each:
                 Pubmed with 4 noise draws: the error is ~0 without
                 staleness and grows with it, and importance sampling's
                 Eq. 7 objective is below uniform's; each launches the
-                SpMM kernel and nothing else;
+                SpMM kernel, the ghost pull once a gated sync epoch, and
+                nothing else;
   16 lm-train   the flash attention backward kernels (dq, then dk/dv) and
                 the forward's row log-sum-exp against their plain versions
                 (``attention_bwd_ref``, ``attention_ref(return_lse=True)``)
@@ -356,6 +362,20 @@ Phases, one or more lines each:
                 + open gates) + 5); the stamp kernel's launches the eager
                 rounds', the captures' and the evals', twice (gated).
                 ``--spans-only`` runs phases 1 and 19 alone.
+ 20 ghost-pull  the one-pass ghost pull kernel (``kernels/ghost_pull``) at
+                Coauthor's shape (K 16, n_max 1,994, g_max 12,390, F 6,805,
+                H1 256) and Pubmed's (n_max 3,423, g_max 11,560, F 500),
+                ``need`` drawn at a half, all 1 and all 0, a third of the
+                slots masked with owner -1: both tables bit-equal to the
+                plain version on the card; at widths 1 to 6,805 with every
+                base 0 to 3 elements off a 16-byte boundary, bit-equal
+                (gated); the median with L2 flushed, against the bytes
+                bound (each output row written once and each row that feeds
+                it read once) and the plain version (recorded); a launch
+                under a graph capture counts in ``captured`` and not in
+                ``launches``, and its replays write the plain version's
+                bits (gated); its launches on the main paths are phases
+                10-15's. ``--ghost-pull-only`` runs phases 1 and 20 alone.
 The SpMM's launch counter is set to 0 just before phase 4 and read just
 after phase 5; every counter is set to 0 just before each ``serve`` of
 phase 8, each ``run`` of phases 10, 11, 12 and 14 (the collective counts
@@ -374,7 +394,7 @@ replayed pod-sharded round in phase 14 (graph launches, the NCCL kernels'
 device time, the busy share).
 Before the last line it prints a ``{"kernels": [...]}`` line (the three
 forward kernels, flash attention's two backward kernels on each of their
-three routes and the WKV6 backward). The last
+three routes, the WKV6 backward and the ghost pull). The last
 line is ``{"ok": true, "device": {...}}``. Any failure raises and the exit
 code is not 0; without CUDA it prints no result and exits 2, outside a
 checkout 1.
@@ -382,6 +402,8 @@ checkout 1.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import copy
 import gc
 import json
@@ -505,6 +527,12 @@ FAULT_ASYNC = dict(quorum=3, concurrency=TRAIN_M, timeout_s=1.0, max_retries=1)
 SPANS_ROUNDS, SPANS_EVAL_EVERY = 5, 2
 SPANS_WAIT_CYCLES = 2_000_000_000
 SPANS_TOL_MS = 2 * (2 * 32e-6 + 0.5e-3)
+# the ghost pull's check (phase 20): each shape's K, n_max, g_max, F, H1;
+# the widths and base offsets (elements off a 16-byte boundary) of the
+# alignment sweep
+GHOST_PULL_SHAPES = {"coauthor": (16, 1994, 12390, 6805, 256),
+                     "pubmed": (16, 3423, 11560, 500, 256)}
+GHOST_PULL_WIDTHS = (1, 2, 3, 4, 5, 7, 31, 64, 129, 500, 6805)
 FUSABLE = ("fedall", "fedrandom", "fedpns", "fedlocal", "fedais1", "fedais2")
 # host API calls counted in a traced round
 API_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cudaGraphLaunch",
@@ -2103,10 +2131,11 @@ def train_phase(torch, api, fedais, ops, ref, counters, g, fed, dev, tag,
                 profile) -> tuple[dict, int]:
     """Phase 10: ``FedEngine(g, fed, "fedais", ...).run()`` on the card with
     ``train_backend = eval_backend = "spmm"``, twice from the same seed.
-    Gates: the SpMM launched exactly rounds x (m·(2 + 3J) + 2) times and
-    nothing else launched (a loss pass and J steps of 2 forward + 1
-    transposed launch per client, the eval's 2 layers per round), counted
-    through the CUDA graph replays of the fused executor both runs take;
+    Gates: the SpMM launched exactly rounds x (m·(2 + 3J) + 2) times (a
+    loss pass and J steps of 2 forward + 1 transposed launch per client,
+    the eval's 2 layers per round), the ghost pull once a gated sync epoch
+    (``sync_epochs``, more than 0), nothing else, counted through the CUDA
+    graph replays of the fused executor both runs take;
     finite history; the two runs draw the same cohorts, write the same
     tables and give the same tau and test_acc bits; the first LocalUpdate
     under spmm against gather (``train_first_update``). Recorded: ms per
@@ -2119,6 +2148,7 @@ def train_phase(torch, api, fedais, ops, ref, counters, g, fed, dev, tag,
     J = eng.mcfg.local_epochs
     want = {n: 0 for n in counters}
     want["spmm"] = TRAIN_ROUNDS * (TRAIN_M * (2 + 3 * J) + 2)
+    want["ghost_pull"] = r1["sync_epochs"]
     hist = res.history
     steady = sorted(r1["round_ms"][1:] + r2["round_ms"][1:])
     log(f"phase 10 train: {tag}: fedais on pubmed ({fed.n_clients} clients, {TRAIN_M} a "
@@ -2128,8 +2158,10 @@ def train_phase(torch, api, fedais, ops, ref, counters, g, fed, dev, tag,
         f"{steady[len(steady) // 2]}; peak memory {r1['peak_gb']} GB; launches "
         f"{json.dumps(r1['launches'])} (want {json.dumps(want)}); cohorts {r1['cohorts']}; "
         f"tau {hist['tau']}; test_acc {hist['test_acc']}; test_loss {hist['test_loss']}")
-    if r1["launches"] != want or r2["launches"] != want:
-        raise AssertionError(f"train: launches {r1['launches']} / {r2['launches']}, want {want}")
+    if (r1["launches"] != want or r2["launches"] != want or not want["ghost_pull"] > 0
+            or r2["sync_epochs"] != want["ghost_pull"]):
+        raise AssertionError(f"train: launches {r1['launches']} / {r2['launches']}, want {want} "
+                             f"/ ghost pulls {r2['sync_epochs']}")
     if (len(hist["test_acc"]) != TRAIN_ROUNDS or not all(0.0 <= a <= 1.0 for a in hist["test_acc"])
             or not all(math.isfinite(x) for x in hist["test_loss"])):
         raise AssertionError(f"train: history {hist}")
@@ -2193,13 +2225,70 @@ def profile_round(torch, api, g, fed, dev, tag, *, fused: bool) -> dict:
     return prof
 
 
+@contextlib.contextmanager
+def sync_epochs():
+    """While entered, counts (in the yielded list's one item) the gated sync
+    epochs (Algorithm 1, lines 15-17) of every client an engine trains on
+    the path that pulls with the ghost pull kernel, the fp32 pull from the
+    tables: the ghost pull's launches a run should count. Read from the
+    ``n_sync`` each executor returns for its cohort: ``FedEngine.dispatch``
+    (stepwise, async), ``FusedRounds`` (fused, fused_faulty) and the
+    client-sharded ``ShardedRounds``. The quantised wire and the
+    pod-sharded executor's prefetched rows gather, mask and select as
+    separate ops, so their epochs count none. A dropped client trains
+    (and pulls) but bills no sync, so the cost meter's ``sync_events``
+    leaves it out; ``n_sync`` does not."""
+    import numpy as np
+
+    from repro_torch.api import FedEngine
+    from repro_torch.api.fused import FusedRounds, ShardedRounds
+
+    got = [0]
+    real = (FedEngine.dispatch, FusedRounds.run_chunk, ShardedRounds.run_chunk)
+
+    def dispatch(eng, *a, **k):
+        out = real[0](eng, *a, **k)
+        if eng.sync_dtype == "fp32":
+            got[0] += int(np.sum(out[-1]["n_sync"]))
+        return out
+
+    def fused_chunk(rounds, *a, **k):
+        out = real[1](rounds, *a, **k)
+        if rounds.engine.sync_dtype == "fp32":
+            got[0] += int(out["n_sync"].sum())
+        return out
+
+    def sharded_chunk(rounds, *a, **k):
+        out = real[2](rounds, *a, **k)
+        if rounds.engine.sync_dtype == "fp32" and not rounds.pods:
+            got[0] += int(out["n_sync"].sum())
+        return out
+
+    FedEngine.dispatch, FusedRounds.run_chunk = dispatch, fused_chunk
+    ShardedRounds.run_chunk = sharded_chunk
+    try:
+        yield got
+    finally:
+        FedEngine.dispatch, FusedRounds.run_chunk, ShardedRounds.run_chunk = real
+
+
 def method_run(torch, api, counters, g, fed, dev, method, rounds, eval_every=1,
                **kw) -> dict:
     """One seeded ``FedEngine(g, fed, method, ...).run()`` on the card with
     the ``spmm`` backends, every launch counter set to 0 just before and
     read just after; keeps the cohorts, the size of every dispatch, the
-    fanouts the strategy chose, ms per round (or merge) and peak memory
-    (the runs before it collected first, so it is this run's alone)."""
+    fanouts the strategy chose, the gated sync epochs on the ghost pull
+    kernel's path (``sync_epochs``), ms per round (or merge) and peak
+    memory (the runs before it collected first, so it is this run's
+    alone)."""
+    with sync_epochs() as epochs:
+        run = _method_run(torch, api, counters, g, fed, dev, method, rounds, eval_every, **kw)
+    run["sync_epochs"] = epochs[0]
+    return run
+
+
+def _method_run(torch, api, counters, g, fed, dev, method, rounds, eval_every,
+                **kw) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     timer = RoundTimer(torch)
@@ -2264,11 +2353,13 @@ def _method_gate(counters, run, name, merges) -> dict:
     """The launch gate of one phase-11 run: the SpMM exactly (clients
     dispatched) x (2 + 3J) + 2 x (merges) times (a loss pass and J steps of
     2 forward + 1 transposed launch per client, the eval's 2 layers per
-    merge), nothing else; a finite history of ``merges`` rows with test_acc
-    in [0, 1]."""
+    merge), the ghost pull once a gated sync epoch on its path
+    (``sync_epochs``), nothing else; a finite history of ``merges`` rows
+    with test_acc in [0, 1]."""
     J = run["engine"].mcfg.local_epochs
     want = {n: 0 for n in counters}
     want["spmm"] = sum(run["dispatched"]) * (2 + 3 * J) + 2 * merges
+    want["ghost_pull"] = run["sync_epochs"]
     hist = run["result"].history
     if run["launches"] != want:
         raise AssertionError(f"methods: {name}: launches {run['launches']}, want {want}")
@@ -2318,7 +2409,7 @@ def methods_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict
 
     rec: dict = {"methods": {}}
     runs: dict = {}
-    total = 0
+    total = collections.Counter()
     for method in api.available_methods():
         run = method_run(torch, api, counters, g, fed, dev, method, METHOD_ROUNDS)
         want = _method_gate(counters, run, method, METHOD_ROUNDS)
@@ -2357,7 +2448,7 @@ def methods_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict
             raise AssertionError(f"methods: {method}: {checks}")
         rec["methods"][method] = dict(_method_record(run), checks=checks,
                                       executor=run["executor"])
-        total += run["launches"]["spmm"]
+        total.update(run["launches"])
         if profile and method in ("fedall", "fedsage+"):
             _, prof = _trace(torch, lambda: eng.run_round(run["state"], METHOD_ROUNDS), 10)
             rec["methods"][method]["profile"] = prof
@@ -2387,7 +2478,8 @@ def methods_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict
     if not all(same.values()):
         raise AssertionError(f"methods: async full quorum differs from sync: {same}")
     rec["async_full_quorum"] = dict(_method_record(asy), same=same, sync_round_ms=sync_ms)
-    total += sync_launches["spmm"] + asy["launches"]["spmm"]
+    total.update(sync_launches)
+    total.update(asy["launches"])
     del asy
 
     # heterogeneous async: one client HET_SLOW x slower
@@ -2411,7 +2503,7 @@ def methods_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict
     rec["async_heterogeneous"] = dict(_method_record(het), dispatched=het["dispatched"],
                                       staleness_max=hh["staleness_max"], merged=hh["merged"],
                                       slow_client=slow, fault_events=events.snapshot())
-    total += het["launches"]["spmm"]
+    total.update(het["launches"])
     del het
     # the quantized sync wire against the fp32 run of the same seed
     base = rec["methods"]["fedais"]
@@ -2428,10 +2520,11 @@ def methods_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict
         if not all(same.values()):
             raise AssertionError(f"methods: sync_dtype {dtype}: {same}")
         rec[f"sync_{dtype}"] = dict(_method_record(q), same_as_fp32=same)
-        total += q["launches"]["spmm"]
+        total.update(q["launches"])
         del q
-    rec["spmm_launches"] = total
-    return rec, total, runs
+    rec["spmm_launches"] = total["spmm"]
+    rec["ghost_pull_launches"] = total["ghost_pull"]
+    return rec, total["spmm"], runs
 
 
 def _same_history(a, b) -> dict:
@@ -2576,6 +2669,112 @@ def spans_phase(torch, api, g, fed, dev, tag) -> dict:
     return rec
 
 
+def ghost_pull_inputs(torch, K, n_max, g_max, F, H, dev, gen, need_kind="drawn",
+                      offsets=(0, 0, 0, 0)):
+    """One client's ghost pull arguments on the card: sources, slots (a third
+    masked, owner -1 and row 0) and tables. ``offsets`` puts feats_all,
+    hist1_all, ghost_feat and hist1 that many elements into a buffer of
+    their own, off its 16-byte aligned start."""
+    def at(shape, off):
+        n = math.prod(shape)
+        return torch.randn(n + off, generator=gen, device=dev)[off:].view(shape)
+
+    feats_all = at((K, n_max, F), offsets[0])
+    hist1_all = at((K, n_max + g_max, H), offsets[1])
+    owner = torch.randint(0, K, (g_max,), generator=gen, device=dev, dtype=torch.int32)
+    row = torch.randint(0, n_max, (g_max,), generator=gen, device=dev, dtype=torch.int32)
+    masked = torch.rand(g_max, generator=gen, device=dev) < 1 / 3
+    owner[masked], row[masked] = -1, 0
+    mask = (~masked).float()
+    need = {"none": torch.zeros(g_max, device=dev), "all": torch.ones(g_max, device=dev),
+            "drawn": (torch.rand(g_max, generator=gen, device=dev) < 0.5).float()}[need_kind]
+    return (feats_all, hist1_all, owner, row, mask, need * mask,
+            at((g_max, F), offsets[2]), at((n_max + g_max, H), offsets[3]), n_max)
+
+
+def _bit_equal(torch, got, want) -> bool:
+    return all(a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, want))
+
+
+def ghost_pull_phase(torch, dev, tag) -> dict:
+    """Phase 20: the one-pass ghost pull kernel on the card (module
+    docstring). Returns the record; any failed gate raises."""
+    from repro_torch.kernels.ghost_pull import ops as gops
+    from repro_torch.kernels.ghost_pull.ref import ghost_pull_ref
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    timer = Timer(torch)
+    rec: dict = {"shapes": [], "alignment": {}}
+    for name, (K, n_max, g_max, F, H) in GHOST_PULL_SHAPES.items():
+        n_tot = n_max + g_max
+        # each output row written once, each row that feeds it read once,
+        # the slots' owner, row, mask and need read once
+        nbytes = 4 * 2 * (g_max * F + n_tot * H) + 16 * g_max
+        row = {"shape": name, "K": K, "n_max": n_max, "g_max": g_max, "F": F, "H1": H,
+               "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+        for need_kind in ("drawn", "all", "none"):
+            args = ghost_pull_inputs(torch, K, n_max, g_max, F, H, dev, gen, need_kind)
+            before = [a.clone() for a in args[:-1]]
+            got = gops.ghost_pull(*args)
+            want = ghost_pull_ref(*args)
+            row[f"bit_equal_{need_kind}"] = _bit_equal(torch, got, want)
+            row[f"inputs_kept_{need_kind}"] = all(torch.equal(a, b)
+                                                  for a, b in zip(args[:-1], before))
+            if need_kind == "drawn":
+                row["pulled"] = int((args[5] > 0).sum())
+                row["ms"] = timer(lambda: gops.ghost_pull(*args), 21)
+                row["plain_ms"] = timer(lambda: ghost_pull_ref(*args), 11)
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                row["tb_per_s"] = nbytes / row["ms"] / 1e9
+            del args, before, got, want
+        torch.cuda.empty_cache()
+        rec["shapes"].append(row)
+        log(f"phase 20 ghost-pull: {tag}: {name}: {json.dumps(row)}")
+    # every base phase of the four row arrays, at every width
+    for F in GHOST_PULL_WIDTHS:
+        ok = True
+        for off in range(4):
+            for offsets in ((off, 0, 0, 0), (0, 0, off, 0), (0, off, 0, off),
+                            (off, 3 - off, (off + 1) % 4, (off + 2) % 4)):
+                args = ghost_pull_inputs(torch, 3, 37, 45, F, F, dev, gen, "drawn", offsets)
+                ok &= _bit_equal(torch, gops.ghost_pull(*args), ghost_pull_ref(*args))
+        rec["alignment"][F] = ok
+    log(f"phase 20 ghost-pull: {tag}: alignment sweep (widths x base offsets): "
+        f"{json.dumps(rec['alignment'])}")
+    # a launch under capture counts in captured; its replays are the plain bits
+    K, n_max, g_max, F, H = GHOST_PULL_SHAPES["pubmed"]
+    args = ghost_pull_inputs(torch, K, n_max, g_max, F, H, dev, gen)
+    gops.ghost_pull(*args)
+    torch.cuda.synchronize()
+    l0, c0 = gops.ghost_pull.launches, gops.ghost_pull.captured
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gops.ghost_pull(*args)
+    captured = (gops.ghost_pull.captured - c0, gops.ghost_pull.launches - l0)
+    for t in out:
+        t.fill_(float("nan"))
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    rec["capture"] = {"captured": captured[0], "launches_while_capturing": captured[1],
+                      "replay_bit_equal": _bit_equal(torch, out, ghost_pull_ref(*args))}
+    del graph, out, args
+    log(f"phase 20 ghost-pull: {tag}: capture {json.dumps(rec['capture'])}")
+    bad = [r["shape"] for r in rec["shapes"]
+           if not all(v for k, v in r.items() if k.startswith(("bit_equal", "inputs_kept")))]
+    if bad or not all(rec["alignment"].values()):
+        raise AssertionError(f"ghost-pull: not the plain version's bits at {bad}, "
+                             f"alignment {rec['alignment']}")
+    if rec["capture"] != {"captured": 1, "launches_while_capturing": 0,
+                          "replay_bit_equal": True}:
+        raise AssertionError(f"ghost-pull: capture {rec['capture']}")
+    return rec
+
+
 def fused_phase(torch, api, counters, g, fed, dev, tag, method_runs,
                 profile) -> tuple[dict, int]:
     """Phase 12: the fused executor on the card, on phase 10's partition,
@@ -2587,10 +2786,12 @@ def fused_phase(torch, api, counters, g, fed, dev, tag, method_runs,
       executor (chunks [0], [1, 2], [3, 4], [5]); every history column and
       the final row bit-identical to ``SyncScheduler(fused=False)``, and
       the params and tables too; the SpMM launched exactly rounds x m x
-      (2 + 3J) + evals x 2 times, counted through the replays, nothing
-      else; the graph keys and their capture time; the device memory
-      allocated the same after the second chunk as after the last (no
-      growth per chunk; a chunk that captured a new key is named);
+      (2 + 3J) + evals x 2 times and the ghost pull once a gated sync
+      epoch (more than 0, and in the captured keys), counted through the
+      replays, nothing else; the graph keys and their capture time; the
+      device memory allocated the same after the second chunk as after
+      the last (no growth per chunk; a chunk that captured a new key is
+      named);
     * each other fusable method (phase 11 ran it fused, 2 rounds): its
       stepwise run of the same seed, every history column and the final
       row bit-identical;
@@ -2605,13 +2806,14 @@ def fused_phase(torch, api, counters, g, fed, dev, tag, method_runs,
     Under ``profile`` one stepwise round traced beside phase 10's replayed
     round."""
     rec: dict = {}
-    total = 0
+    total = collections.Counter()
 
     def gate(run, name, merges, evals=None):
         J = run["engine"].mcfg.local_epochs
         want = {n: 0 for n in counters}
         want["spmm"] = (sum(run["dispatched"]) * (2 + 3 * J)
                         + 2 * (merges if evals is None else evals))
+        want["ghost_pull"] = run["sync_epochs"]
         if run["launches"] != want:
             raise AssertionError(f"fused: {name}: launches {run['launches']}, want {want}")
         hist = run["result"].history
@@ -2654,11 +2856,16 @@ def fused_phase(torch, api, counters, g, fed, dev, tag, method_runs,
         raise AssertionError(f"fused: fedais fused differs from stepwise: {same}")
     if growth or not captures:
         raise AssertionError(f"fused: memory grew per chunk {growth}, captures {captures}")
+    if not (fz_launches["ghost_pull"] > 0
+            and any(c["ghost_pull_launches"] for c in captures)):
+        raise AssertionError(f"fused: the ghost pull not in the replayed rounds: launches "
+                             f"{fz_launches}, captures {captures}")
     rec["fedais"] = {"same": same, "chunks": chunks, "captures": captures,
                      "launches": fz_launches, "peak_gb": fz_peak,
                      "stepwise_peak_gb": st["peak_gb"], "stepwise_round_ms": st["round_ms"],
                      "history": fz_res.history, "final": fz_res.final}
-    total += fz_launches["spmm"] + st["launches"]["spmm"]
+    total.update(fz_launches)
+    total.update(st["launches"])
     del st
 
     # every other fusable method: phase 11's fused run against stepwise
@@ -2676,7 +2883,7 @@ def fused_phase(torch, api, counters, g, fed, dev, tag, method_runs,
         if not all(same.values()):
             raise AssertionError(f"fused: {method} fused differs from stepwise: {same}")
         rec["methods"][method] = {"same": same, "stepwise_round_ms": st["round_ms"]}
-        total += st["launches"]["spmm"]
+        total.update(st["launches"])
         del st
 
     # the fault plan: fused_faulty against faulty stepwise, then async
@@ -2710,7 +2917,8 @@ def fused_phase(torch, api, counters, g, fed, dev, tag, method_runs,
                              f"{fr_events}")
     rec["faulty"] = {"plan": FAULT_PLAN, "same": same, "fault_events": fr_events,
                      "launches": fr_launches, "history": fr_res.history}
-    total += fr_launches["spmm"] + sf["launches"]["spmm"]
+    total.update(fr_launches)
+    total.update(sf["launches"])
     del sf
     ar = method_run(torch, api, counters, g, fed, dev, "fedais", FAULT_ROUNDS, faults=plan,
                     scheduler=api.AsyncScheduler(**FAULT_ASYNC))
@@ -2725,12 +2933,13 @@ def fused_phase(torch, api, counters, g, fed, dev, tag, method_runs,
     rec["async_faults"] = {"scheduler": FAULT_ASYNC, "fault_events": a_events,
                            "dispatched": ar["dispatched"], "merged": ah["merged"],
                            "launches": ar["launches"]}
-    total += ar["launches"]["spmm"]
+    total.update(ar["launches"])
     del ar
     if profile:
         rec["profile_stepwise"] = profile_round(torch, api, g, fed, dev, tag, fused=False)
-    rec["spmm_launches"] = total
-    return rec, total
+    rec["spmm_launches"] = total["spmm"]
+    rec["ghost_pull_launches"] = total["ghost_pull"]
+    return rec, total["spmm"]
 
 
 # the deployment path (phase 13): serve_fed's arguments on phase 10's graph
@@ -2747,7 +2956,9 @@ BODY_SPMM = {"hist": 1, "fresh": 2, "refresh": 1}
 
 def _pipeline(torch, serve_fed, counters, argv) -> tuple:
     """One ``serve_fed.serve_pipeline`` on the card, every launch counter
-    set to 0 just before and read just after."""
+    set to 0 just before and read just after: the SpMM launched, the
+    ghost pull once a gated sync epoch of its training (none where it
+    restores a checkpoint instead), nothing else."""
     args = serve_fed.build_args(DEPLOY_ARGS + argv)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2756,14 +2967,18 @@ def _pipeline(torch, serve_fed, counters, argv) -> tuple:
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
-    payload, ctx = serve_fed.serve_pipeline(args)
+    with sync_epochs() as epochs:
+        payload, ctx = serve_fed.serve_pipeline(args)
     torch.cuda.synchronize()
     ctx["seconds"] = time.perf_counter() - t0
     ctx["launches"] = {n: c.launches for n, c in counters.items()}
     ctx["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     ctx["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
-    if any(v for n, v in ctx["launches"].items() if n != "spmm") or not ctx["launches"]["spmm"]:
-        raise AssertionError(f"deploy: launches {ctx['launches']}")
+    want = {n: 0 for n in counters if n != "spmm"}
+    want["ghost_pull"] = epochs[0]
+    if (any(ctx["launches"][n] != v for n, v in want.items()) or not ctx["launches"]["spmm"]
+            or (ctx["state"] is not None and not epochs[0] > 0)):
+        raise AssertionError(f"deploy: launches {ctx['launches']}, ghost pulls {epochs[0]}")
     return args, payload, ctx
 
 
@@ -2882,7 +3097,7 @@ def deploy_phase(torch, counters, dev, tag, profile) -> tuple[dict, int]:
             "--backend", "spmm", "--ckpt-dir", ckpt, "--out", f"{work}/serve_spmm.json"])
         g, fed, state, model, eng = (ctx[k] for k in ("graph", "fed", "state", "model",
                                                       "engine"))
-        total = ctx["launches"]["spmm"]
+        total = collections.Counter(ctx["launches"])
 
         def leaves(t):
             return {**{f"params/{k}": v for k, v in t["params"].items()},
@@ -2958,7 +3173,7 @@ def deploy_phase(torch, counters, dev, tag, profile) -> tuple[dict, int]:
         _, gpay, gctx = _pipeline(torch, serve_fed, counters, [
             "--backend", "gather", "--parity-check", "--ckpt-dir", f"{work}/ckpt_gather",
             "--out", f"{work}/serve_gather.json"])
-        total += gctx["launches"]["spmm"]
+        total.update(gctx["launches"])
         seg_err, seg_bits = _served_vs_eval(torch, ServedModel, QueryEngine, build_eval_graph,
                                             eval_logits, f"{work}/ckpt_gather", gctx["graph"],
                                             gctx["fed"], gctx["state"].params, "segment", dev)
@@ -2973,7 +3188,7 @@ def deploy_phase(torch, counters, dev, tag, profile) -> tuple[dict, int]:
         _, ipay, ictx = _pipeline(torch, serve_fed, counters, [
             "--backend", "spmm", "--cache-dtype", "int8", "--ckpt-dir", ckpt,
             "--out", f"{work}/serve_int8.json"])
-        total += ictx["launches"]["spmm"]
+        total.update(ictx["launches"])
         log(f"phase 13 deploy: {tag}: serve_fed spmm int8 cache: {json.dumps(ipay['cache'])} "
             f"(fp32: {json.dumps(pay['cache'])}); p50 {ipay['p50_ms']} ms p99 "
             f"{ipay['p99_ms']} ms")
@@ -3003,8 +3218,9 @@ def deploy_phase(torch, counters, dev, tag, profile) -> tuple[dict, int]:
                 f"{json.dumps({k: v for k, v in r['faults'].items() if v})}")
         if rc != 0:
             raise AssertionError(f"deploy: fed_chaos --quick exited {rc}")
-    rec["spmm_launches"] = total
-    return rec, total
+    rec["spmm_launches"] = total["spmm"]
+    rec["ghost_pull_launches"] = total["ghost_pull"]
+    return rec, total["spmm"]
 
 
 # the multi-device executors (phase 14): fedais rounds and eval cadence as
@@ -3075,8 +3291,9 @@ def sharded_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict
       and at ``sync_dtype="int8"`` (the fp32 run's cohorts and tau): the
       executor named; cohorts, tau, the comm, flops and wall-clock columns
       exact; test_acc / test_loss within 1e-4 (bit-equal recorded); the SpMM
-      exactly rounds x m x (2 + 3J) + evals x 2 through the replays,
-      nothing else; each round's collectives (calls and bytes) those of
+      exactly rounds x m x (2 + 3J) + evals x 2 through the replays, the
+      ghost pull once a gated sync epoch (none on the pod mesh, whose rows
+      come prefetched), nothing else; each round's collectives (calls and bytes) those of
       ``sharding.ledger``; the memory allocated after each chunk equal from
       the second chunk on (a chunk that captured a new key aside);
     * ``pod_sharded`` at tau0 ``SHARD_GATED_TAU0`` for 4 rounds: some
@@ -3102,7 +3319,7 @@ def sharded_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict
     from repro_torch.sharding.tables import gather_tables, make_pod_mesh
 
     rec: dict = {}
-    total = 0
+    total = collections.Counter()
     store = tempfile.mkdtemp(prefix="phase14-")
     torch.cuda.set_device(dev)
     dist.init_process_group("nccl", init_method=f"file://{store}/store", world_size=1, rank=0)
@@ -3119,6 +3336,7 @@ def sharded_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict
             J = r["engine"].mcfg.local_epochs
             want = {n: 0 for n in counters}
             want["spmm"] = rounds * TRAIN_M * (2 + 3 * J) + 2 * n_evals
+            want["ghost_pull"] = r["sync_epochs"]
             hist = r["result"].history
             if r["executor"] != executor or r["launches"] != want:
                 raise AssertionError(f"sharded: {name}: executor {r['executor']} (want "
@@ -3137,7 +3355,7 @@ def sharded_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict
         base_params = {k: v.clone() for k, v in base["state"].params.items()}
         base_tables = [t.clone() for t in train_tables(base["state"])[len(base_params):]]
         base_res, base_cohorts = base["result"], base["cohorts"]
-        total += base["launches"]["spmm"]
+        total.update(base["launches"])
         del base
         rec["runs"] = {}
         fp32_pod = None
@@ -3187,7 +3405,7 @@ def sharded_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict
                 "launches": r["launches"], "collectives": r["collectives"],
                 "round_collectives": got, "chunks": r["chunks"], "captures": r["captures"],
                 "peak_gb": r["peak_gb"], "history": res.history}
-            total += r["launches"]["spmm"]
+            total.update(r["launches"])
             del r, eng, res
 
         # the gate: tau0 8 leaves every other round's ghost exchange out
@@ -3210,7 +3428,7 @@ def sharded_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict
                                  f"ledger got {got} want {want}")
         rec["gated"] = {"gates": gates, "round_collectives": got,
                         "captures": r["captures"], "history": r["result"].history}
-        total += r["launches"]["spmm"]
+        total.update(r["launches"])
         del r
 
         # the fault plan (dropout, stragglers): fused_faulty vs sharded_fused
@@ -3220,7 +3438,7 @@ def sharded_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict
         fr = run("fedais fused_faulty", SHARD_FAULT_ROUNDS, f_evals, "fused_faulty",
                  faults=plan)
         fr_res, fr_events = fr["result"], fr["state"].fault_events.snapshot()
-        total += fr["launches"]["spmm"]
+        total.update(fr["launches"])
         del fr
         checked = []
         real = api.FedEngine._run_chunk
@@ -3261,13 +3479,14 @@ def sharded_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict
         J = sf["engine"].mcfg.local_epochs
         want = {n: 0 for n in counters}
         want["spmm"] = SHARD_FAULT_ROUNDS * TRAIN_M * (2 + 3 * J) + 2 * f_evals
+        want["ghost_pull"] = sf["sync_epochs"]
         failed = {k: v for k, v in same.items() if not v and k != "floats_bit_equal"}
         if failed or sf["launches"] != want or fr_events["n_dropped"] < 1:
             raise AssertionError(f"sharded: faults: {failed}, launches {sf['launches']} "
                                  f"(want {want}), events {fr_events}")
         rec["faults"] = {"plan": SHARD_FAULTS, "same": same, "fault_events": fr_events,
                          "dropped_checked": len(checked), "launches": sf["launches"]}
-        total += sf["launches"]["spmm"]
+        total.update(sf["launches"])
         del sf
 
         if profile:
@@ -3292,8 +3511,9 @@ def sharded_phase(torch, api, counters, g, fed, dev, tag, profile) -> tuple[dict
         shutil.rmtree(store, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
-    rec["spmm_launches"] = total
-    return rec, total
+    rec["spmm_launches"] = total["spmm"]
+    rec["ghost_pull_launches"] = total["ghost_pull"]
+    return rec, total["spmm"]
 
 
 def examples_phase(torch, counters, dev, tag) -> tuple[dict, int]:
@@ -3307,7 +3527,10 @@ def examples_phase(torch, counters, dev, tag) -> tuple[dict, int]:
     and nothing else. variance_analysis on the whole Pubmed with
     ``VARIANCE_DRAWS`` noise draws: the error is ~0 without staleness and
     grows with it, and importance sampling's Eq. 7 objective is below
-    uniform's, as the paper claims and the reference prints."""
+    uniform's, as the paper claims and the reference prints. Each run
+    launches the SpMM and the ghost pull once a gated sync epoch of the
+    federated training it runs (``sync_epochs``; quickstart's FedAIS syncs),
+    nothing else."""
     import numpy as np
 
     from repro_torch.examples import quickstart, variance_analysis
@@ -3316,19 +3539,24 @@ def examples_phase(torch, counters, dev, tag) -> tuple[dict, int]:
         for c in counters.values():
             c.launches = 0
 
-    def read(what):
+    def read(what, pulls):
         torch.cuda.synchronize()
         got = {n: c.launches for n, c in counters.items()}
-        if got["spmm"] <= 0 or any(v for n, v in got.items() if n != "spmm"):
-            raise AssertionError(f"examples {what}: launches {got}; want SpMM only, > 0")
+        if (got["spmm"] <= 0 or got["ghost_pull"] != pulls
+                or any(v for n, v in got.items() if n not in ("spmm", "ghost_pull"))):
+            raise AssertionError(f"examples {what}: launches {got}; want SpMM (> 0) and "
+                                 f"{pulls} ghost pulls only")
         return got
 
     argv = ["--device", str(dev), "--backend", "spmm"]
     zero()
     t0 = time.perf_counter()
-    runs = quickstart.run(quickstart.build_args(argv + ["--rounds", str(EXAMPLE_ROUNDS)]))
+    with sync_epochs() as epochs:
+        runs = quickstart.run(quickstart.build_args(argv + ["--rounds", str(EXAMPLE_ROUNDS)]))
     quick_s = time.perf_counter() - t0
-    quick_launches = read("quickstart")
+    if not epochs[0] > 0:
+        raise AssertionError("examples quickstart: FedAIS synced no ghost")
+    quick_launches = read("quickstart", epochs[0])
     quick = {}
     for method, res in runs.items():
         h = res.history
@@ -3348,10 +3576,11 @@ def examples_phase(torch, counters, dev, tag) -> tuple[dict, int]:
 
     zero()
     t0 = time.perf_counter()
-    var = variance_analysis.run(variance_analysis.build_args(
-        argv + ["--scale", str(VARIANCE_SCALE), "--rounds", str(VARIANCE_DRAWS)]))
+    with sync_epochs() as epochs:
+        var = variance_analysis.run(variance_analysis.build_args(
+            argv + ["--scale", str(VARIANCE_SCALE), "--rounds", str(VARIANCE_DRAWS)]))
     var_s = time.perf_counter() - t0
-    var_launches = read("variance_analysis")
+    var_launches = read("variance_analysis", epochs[0])
     errs = [r["err"] for r in var["staleness"]]
     log(f"phase 15 examples: variance_analysis --backend spmm --scale {VARIANCE_SCALE} "
         f"--rounds {VARIANCE_DRAWS} in {var_s:.2f} s: errors by staleness "
@@ -3367,7 +3596,9 @@ def examples_phase(torch, counters, dev, tag) -> tuple[dict, int]:
                              f"{var['v_imp']} not below uniform's {var['v_uni']}")
     launches = quick_launches["spmm"] + var_launches["spmm"]
     return {"quickstart": quick, "quickstart_s": quick_s, "quickstart_launches": quick_launches,
-            "variance": var, "variance_s": var_s, "variance_launches": var_launches}, launches
+            "variance": var, "variance_s": var_s, "variance_launches": var_launches,
+            "ghost_pull_launches": quick_launches["ghost_pull"]
+            + var_launches["ghost_pull"]}, launches
 
 
 # LM training (phase 16): internvl2-2b whole at its training shape (2 x (256
@@ -4298,6 +4529,8 @@ def main(argv=None) -> int:
                          "print where their time goes")
     ap.add_argument("--spans-only", action="store_true",
                     help="run phase 1 and phase 19 (the span system) alone")
+    ap.add_argument("--ghost-pull-only", action="store_true",
+                    help="run phase 1 and phase 20 (the ghost pull kernel) alone")
     args = ap.parse_args(argv)
 
     import torch
@@ -4324,6 +4557,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.ghost_pull import ops as gops
     from repro_torch.kernels.spmm import ops, ref
     from repro_torch.kernels.wkv6 import ops as wops
     from repro_torch.kernels.wkv6 import ref as wref
@@ -4354,10 +4588,16 @@ def main(argv=None) -> int:
         f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}")
     record["device"] = {"name": kind, "nvidia_smi": smi, "torch": torch.__version__,
                         "cuda": torch.version.cuda}
-    if args.spans_only:
-        g = make_dataset("pubmed", scale=1, max_features=500, seed=0)
-        fed = partition_graph(g, TRAIN_CLIENTS, alpha=0.5, seed=0)
-        record["spans"] = spans_phase(torch, api, g, fed, dev, f"{kind}, {smi}")
+    if args.spans_only or args.ghost_pull_only:
+        if args.spans_only:
+            g = make_dataset("pubmed", scale=1, max_features=500, seed=0)
+            fed = partition_graph(g, TRAIN_CLIENTS, alpha=0.5, seed=0)
+            record["spans"] = spans_phase(torch, api, g, fed, dev, f"{kind}, {smi}")
+        if args.ghost_pull_only:
+            record["ghost_pull"] = ghost_pull_phase(torch, dev, f"{kind}, {smi}")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(record, indent=1))
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                "count": torch.cuda.device_count()}}))
         return 0
@@ -4796,7 +5036,7 @@ def main(argv=None) -> int:
     counters = {"spmm": ops.block_spmm, "wkv6": wops.wkv6,
                 "wkv6_bwd": wops.wkv6_bwd,
                 "flash_attention": fops.flash_attention, "flash_bwd_dq": fops.flash_bwd_dq,
-                "flash_bwd_dkdv": fops.flash_bwd_dkdv}
+                "flash_bwd_dkdv": fops.flash_bwd_dkdv, "ghost_pull": gops.ghost_pull}
     tag = f"{kind}, {smi}"
     lm_counts = {}
     for arch, n_layers, prompt in [*((a, None, LM_PROMPT) for a in LM_ARCHS),
@@ -4887,6 +5127,11 @@ def main(argv=None) -> int:
     t19 = time.perf_counter()
     record["spans"] = spans_phase(torch, api, g, fed, dev, tag)
     record["spans"]["seconds"] = time.perf_counter() - t19
+
+    # -- phase 20: ghost-pull (the one-pass ghost pull kernel) -------------------
+    t20 = time.perf_counter()
+    record["ghost_pull"] = ghost_pull_phase(torch, dev, tag)
+    record["ghost_pull"]["seconds"] = time.perf_counter() - t20
 
     # -- the kernels line --------------------------------------------------------
     warm = shapes[0]
@@ -4998,6 +5243,24 @@ def main(argv=None) -> int:
         "timed_shape": main_row["shape"],
         "shapes": [{k: v for k, v in r.items() if k != "max_abs_err_by_grad"}
                    for r in wrows]})
+    # the ghost pull at Coauthor's shape; launches from the FedAIS main
+    # paths' runs (phases 10-15)
+    gp = record["ghost_pull"]
+    main_row = next(r for r in gp["shapes"] if r["shape"] == "coauthor")
+    by_path = {"fedais_training": record["train"]["launches"]["ghost_pull"],
+               **{path: record[phase]["ghost_pull_launches"] for path, phase in (
+                   ("fedais_methods", "methods"), ("fedais_fused", "fused"),
+                   ("deploy", "deploy"), ("fedais_sharded", "sharded"),
+                   ("examples", "examples"))}}
+    kernels.append({
+        "name": "ghost_pull", "route": "cuda",
+        "source": "src/repro_torch/kernels/ghost_pull/csrc/ghost_pull.cu",
+        "replaces": ("src/repro/core/fedais.py:211 (the sync's pull: pull_ghosts, "
+                     "jnp.where and .at[].set; no Pallas kernel)"),
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": 0.0, "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "timed_shape": "coauthor", "shapes": gp["shapes"]})
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     if args.out:

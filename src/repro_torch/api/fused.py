@@ -23,8 +23,9 @@ as they were; the generator of the run's ``TorchDraws`` is registered with
 every graph, so a replay draws what an eager round would. All graphs share
 one memory pool (they never run at once) and keep nothing of it between
 replays: every output is copied into a buffer made outside the capture.
-The SpMM launches recorded while capturing are added to
-``block_spmm.launches`` on each replay. A failed capture or replay raises.
+The SpMM and ghost pull launches recorded while capturing are added to
+``block_spmm.launches`` and ``ghost_pull.launches`` on each replay. A failed
+capture or replay raises.
 
 With ``repro_torch.utils.spans`` on, the executor opens the spans
 ``fedais.chunk.stage``, ``.rounds`` (around the chunk's rounds, with
@@ -54,6 +55,7 @@ import torch
 from repro_torch.core.fedais import TorchDraws, sync_gates
 from repro_torch.faults.fused import build_faulty_merge
 from repro_torch.federated.quant import quant_roundtrip
+from repro_torch.kernels.ghost_pull.ops import ghost_pull
 from repro_torch.kernels.spmm.ops import block_spmm
 from repro_torch.sharding import comm
 from repro_torch.utils import spans
@@ -69,8 +71,8 @@ LIGHT_STATS = ("epoch_losses", "n_ghost_pulled", "mean_importance_entropy")
 class FusedRounds:
     """The fused rounds of one engine (``FedEngine._fused``), bound to the
     ``EngineState`` of its current run. ``captures`` lists, per graph key
-    captured, its key, the seconds the capture took and the SpMM launches
-    (and collectives) it recorded."""
+    captured, its key, the seconds the capture took and the SpMM and ghost
+    pull launches (and collectives) it recorded."""
 
     # no other thread touches the card while a fused round is captured
     capture_error_mode = "global"
@@ -88,7 +90,8 @@ class FusedRounds:
                 sync_dtype=engine.sync_dtype)
         self._state = self._draws = None
         self._graphed = engine.device.type == "cuda"
-        # graph key -> (CUDA graph, SpMM launches and collectives captured)
+        # graph key -> (CUDA graph, SpMM and ghost pull launches and
+        # collectives captured)
         self._graphs: dict = {}
         self._inputs: dict = {}      # cohort size -> static input buffers
         self._pool = None
@@ -195,11 +198,12 @@ class FusedRounds:
 
     def _keyed(self, key, body) -> None:
         if self._graphed and key in self._graphs:
-            graph, launches, collectives = self._graphs[key]
+            graph, launches, pulls, collectives = self._graphs[key]
             marks = self._marks.get(key)
             with span("fedais.chunk.replay"), spans.phase_scope(marks):
                 graph.replay()
             block_spmm.launches += launches
+            ghost_pull.launches += pulls
             comm.add(collectives)
             spans.count("replays", key=key)
             if marks is not None:
@@ -221,12 +225,13 @@ class FusedRounds:
 
     def _capture(self, key, body, slots: int | None = None) -> None:
         """Record ``body`` into a new graph of the shared pool, with the
-        draws' generator registered, and the SpMM launches and collectives
-        it recorded (and, with the spans on, its phase boundaries: the
+        draws' generator registered, and the SpMM and ghost pull launches
+        and collectives it recorded (and, with the spans on, its phase boundaries: the
         ``slots`` its eager round wrote)."""
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._state.draws.gen)
-        before, comm_before = block_spmm.captured, comm.snapshot(comm.CAPTURED)
+        before, pulls_before = block_spmm.captured, ghost_pull.captured
+        comm_before = comm.snapshot(comm.CAPTURED)
         marks = None if slots is None else self._new_marks(slots)
         with span("fedais.chunk.capture", timed=True) as clock:
             # the scope's last stamp goes into the graph too
@@ -242,10 +247,12 @@ class FusedRounds:
         if self._pool is None:
             self._pool = graph.pool()
         launches = block_spmm.captured - before
+        pulls = ghost_pull.captured - pulls_before
         collectives = comm.diff(comm.snapshot(comm.CAPTURED), comm_before)
-        self._graphs[key] = (graph, launches, collectives)
+        self._graphs[key] = (graph, launches, pulls, collectives)
         record = [list(k) if isinstance(k, tuple) else k for k in key]
         self.captures.append({"key": record, "seconds": seconds, "spmm_launches": launches,
+                              "ghost_pull_launches": pulls,
                               "collectives": {k: list(v) for k, v in collectives.items()}})
 
     # -- a chunk ------------------------------------------------------------

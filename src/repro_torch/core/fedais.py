@@ -36,8 +36,10 @@ features and layer-1 table; ``"prefetched"`` (the pod-sharded executor,
 ``sharding.tables``) takes each client's rows as the exchange delivered
 them. ``sync_dtype`` is the ghost pull's wire format
 (``repro_torch.federated.quant``): in ``"tables"`` mode the pulled rows
-round-trip through the codec here, ``"fp32"`` takes no codec at all; in
-``"prefetched"`` mode the rows arrive decoded from the wire already.
+round-trip through the codec here, ``"fp32"`` takes no codec at all and
+pulls in one pass (``kernels.ghost_pull``: on CUDA one kernel writes the new
+ghost and layer-1 rows); in ``"prefetched"`` mode the rows arrive decoded
+from the wire already.
 """
 from __future__ import annotations
 
@@ -46,7 +48,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core.historical import pull_ghosts, pull_ghosts_prefetched, push_embeddings
+from repro_torch.core.historical import (
+    merge_pulled,
+    pull_ghosts,
+    pull_ghosts_prefetched,
+    push_embeddings,
+)
 from repro_torch.core.importance import (
     importance_probs,
     loss_delta_scores,
@@ -55,6 +62,7 @@ from repro_torch.core.importance import (
     uniform_probs,
 )
 from repro_torch.federated.quant import check_sync_dtype, quant_roundtrip
+from repro_torch.kernels.ghost_pull.ops import ghost_pull
 from repro_torch.models.gcn import AGG_BACKENDS, gcn_batch_forward, per_node_loss
 from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.utils.spans import device_phase
@@ -219,6 +227,10 @@ def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "g
                          f"known: {AGG_BACKENDS}")
     check_sync_dtype(sync_dtype)
     bsz = batch_size_for(mcfg, n_max)
+    # the fp32 pull from the tables is one kernel on CUDA (kernels.ghost_pull);
+    # the wire codec's round trip acts on the gathered rows, and prefetched
+    # rows arrive gathered, so those keep the gather, mask and select
+    one_pass = ghost_source == "tables" and sync_dtype == "fp32"
 
     def local_update(
         params: dict,               # global model from the server
@@ -284,19 +296,21 @@ def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "g
                 with device_phase("ghost_pull"):
                     need = ghost_need(b_nbr_idx, b_nbr_mask, keep, valid,
                                       client["ghost_mask"], n_max)
-                    if ghost_source == "tables":
-                        gf, gh = pull_ghosts(hist1_all, feats_all, client["ghost_owner"],
-                                             client["ghost_row"], client["ghost_mask"])
+                    if one_pass:
+                        ghost_feat, hist1 = ghost_pull(
+                            feats_all, hist1_all, client["ghost_owner"], client["ghost_row"],
+                            client["ghost_mask"], need, ghost_feat, hist1, n_max)
                     else:
-                        gf, gh = pull_ghosts_prefetched(feats_all, hist1_all,
-                                                        client["ghost_mask"])
-                    if sync_dtype != "fp32" and ghost_source == "tables":
-                        gf = quant_roundtrip(gf, sync_dtype)
-                        gh = quant_roundtrip(gh, sync_dtype)
-                    pulled = need[:, None] > 0
-                    ghost_feat = torch.where(pulled, gf, ghost_feat)
-                    hist1 = torch.cat([hist1[:n_max],
-                                       torch.where(pulled, gh, hist1[n_max:])])
+                        if ghost_source == "tables":
+                            gf, gh = pull_ghosts(hist1_all, feats_all, client["ghost_owner"],
+                                                 client["ghost_row"], client["ghost_mask"])
+                            gf = quant_roundtrip(gf, sync_dtype)
+                            gh = quant_roundtrip(gh, sync_dtype)
+                        else:
+                            gf, gh = pull_ghosts_prefetched(feats_all, hist1_all,
+                                                            client["ghost_mask"])
+                        ghost_feat, hist1 = merge_pulled(need, gf, gh, ghost_feat, hist1,
+                                                         n_max)
                     n_sync += 1
                     n_pulled = n_pulled + need.sum()
 

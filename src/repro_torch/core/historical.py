@@ -65,6 +65,17 @@ def pull_ghosts_prefetched(ghost_src_feat: torch.Tensor, ghost_src_h1: torch.Ten
     return ghost_src_feat * ghost_mask[:, None], ghost_src_h1 * ghost_mask[:, None]
 
 
+def merge_pulled(need: torch.Tensor, gf: torch.Tensor, gh: torch.Tensor,
+                 ghost_feat: torch.Tensor, hist1: torch.Tensor, n_max: int):
+    """A sync's result for one client: the ghost slots with ``need > 0``
+    take the pulled rows ``gf`` (g, F) and ``gh`` (g, H1), as ghost_feat
+    rows and as hist1 rows ``n_max + s``; every other row keeps its own.
+    Returns (ghost_feat, hist1)."""
+    pulled = need[:, None] > 0
+    return (torch.where(pulled, gf, ghost_feat),
+            torch.cat([hist1[:n_max], torch.where(pulled, gh, hist1[n_max:])]))
+
+
 def staleness_metrics(age: torch.Tensor, node_mask: torch.Tensor) -> dict:
     m = node_mask > 0
     a = torch.where(m, age, 0)

@@ -24,4 +24,7 @@ Kernels (every TPU kernel of ``repro`` has its counterpart here):
     stamp            one thread writes the device's global timer into a slot:
                      a device phase's boundary for ``utils.spans`` (no TPU
                      counterpart; no plain version, the CPU reads its clock)
+    ghost_pull       a client's tau-gated ghost sync in one pass: each output
+                     row of the ghost and layer-1 tables written once (no TPU
+                     counterpart: the reference's jnp gather, mask and select)
 """

@@ -30,6 +30,7 @@ KERNEL_SOURCES = {
     "wkv6": _KERNELS_DIR / "wkv6" / "csrc" / "wkv6.cu",
     "flash_attention": _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
     "stamp": _KERNELS_DIR / "stamp" / "csrc" / "stamp.cu",
+    "ghost_pull": _KERNELS_DIR / "ghost_pull" / "csrc" / "ghost_pull.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
