@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--out FILE.json] [--profile] [--spans-only]
-                          [--ghost-pull-only]
+                          [--ghost-pull-only] [--spmm-sparse-only]
 
 Run from the root of a checkout, on a machine with one NVIDIA H100 (sm_90a)
 and the CUDA toolkit (``nvcc``). It builds the port's three kernels from
@@ -376,6 +376,24 @@ Phases, one or more lines each:
                 ``launches``, and its replays write the plain version's
                 bits (gated); its launches on the main paths are phases
                 10-15's. ``--ghost-pull-only`` runs phases 1 and 20 alone.
+ 21 spmm-sparse the SpMM's sparse route (``kernels/spmm/csrc/
+                spmm_sparse.cu``) at Reddit's shapes (FedAIS Table 1,
+                232,965 nodes, 602 features): the eval's layer-0
+                aggregation (232,965 rows over 232,965 x 602), a loss pass
+                (24,592 rows over 229,783 x 602) and the batch's transposed
+                launch (256 rows, fanout 10, into 229,783 x 256); each
+                bit-equal to its plain version on the card and to itself
+                across two launches, at widths 1 to 70 and 602 with bases
+                off 16 and 8 bytes too (gated); the median of 21 with L2
+                flushed against the bound of
+                ``bench/fedbench/work.py::launch_work`` and the plain
+                version, and the same at Pubmed's and Coauthor's shapes
+                (recorded; those cells take the dense route); a launch
+                under capture counts 1 in ``captured`` and 0 in
+                ``launches`` and its replay writes the plain bits (gated).
+                Phases 10-15 launch it 0 times (gated: their graphs take
+                the dense route). ``--spmm-sparse-only`` runs phases 1 and
+                21 alone.
 The SpMM's launch counter is set to 0 just before phase 4 and read just
 after phase 5; every counter is set to 0 just before each ``serve`` of
 phase 8, each ``run`` of phases 10, 11, 12 and 14 (the collective counts
@@ -533,6 +551,21 @@ SPANS_TOL_MS = 2 * (2 * 32e-6 + 0.5e-3)
 GHOST_PULL_SHAPES = {"coauthor": (16, 1994, 12390, 6805, 256),
                      "pubmed": (16, 3423, 11560, 500, 256)}
 GHOST_PULL_WIDTHS = (1, 2, 3, 4, 5, 7, 31, 64, 129, 500, 6805)
+# the sparse SpMM route's check (phase 21): per shape, the rows, the table
+# rows, the width, the share of live slots (max_deg 32) and whether it is
+# the transposed launch; the widths of its bit sweep
+SPMM_SPARSE_SHAPES = {
+    "reddit_eval_l0": (232_965, 232_965, 602, 0.98, False),
+    "reddit_loss_pass_l0": (24_592, 229_783, 602, 0.9, False),
+    "reddit_batch_t_l1": (256, 229_783, 256, 10 / 32, True),
+    "pubmed_eval_l0": (19_717, 19_717, 500, 0.9, False),
+    "pubmed_loss_pass_l0": (3_423, 14_983, 500, 0.9, False),
+    "pubmed_batch_t_l1": (256, 14_983, 256, 10 / 32, True),
+    "coauthor_eval_l0": (18_333, 18_333, 6_805, 0.9, False),
+    "coauthor_loss_pass_l0": (1_994, 14_384, 6_805, 0.9, False),
+    "coauthor_batch_t_l1": (256, 14_384, 256, 10 / 32, True),
+}
+SPMM_SPARSE_WIDTHS = (1, 2, 3, 4, 5, 7, 8, 31, 33, 64, 70, 256, 602)
 FUSABLE = ("fedall", "fedrandom", "fedpns", "fedlocal", "fedais1", "fedais2")
 # host API calls counted in a traced round
 API_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cudaGraphLaunch",
@@ -2775,6 +2808,120 @@ def ghost_pull_phase(torch, dev, tag) -> dict:
     return rec
 
 
+def spmm_sparse_inputs(torch, n, m, d, live, dev, gen, off: int = 0):
+    """A neighbour list (n, 32) into a table of m rows, each slot live with
+    probability ``live``, and the table (m, d), ``off`` elements into a
+    buffer of its own."""
+    idx = torch.randint(0, m, (n, 32), generator=gen, device=dev, dtype=torch.int32)
+    mask = (torch.rand((n, 32), generator=gen, device=dev) < live).float()
+    mask[: max(1, n // 97)] = 0.0          # rows with no live slot
+    x = torch.randn(m * d + off, generator=gen, device=dev)[off:].view(m, d)
+    return idx, mask, x
+
+
+def _work_module():
+    """``bench/fedbench/work.py`` (the benchmark's bound of an SpMM launch),
+    loaded by path."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "bench" / "fedbench" / "work.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_bench_work", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def spmm_sparse_phase(torch, dev, tag) -> dict:
+    """Phase 21: the SpMM's sparse route on the card (module docstring).
+    Returns the record; any failed gate raises."""
+    from repro_torch.kernels.spmm import ops as sops
+    from repro_torch.kernels.spmm import ref as sref
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = _work_module()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    timer = Timer(torch)
+    rec: dict = {"shapes": [], "widths": {}}
+    for name, (n, m, d, live, transposed) in SPMM_SPARSE_SHAPES.items():
+        idx, mask, x = spmm_sparse_inputs(torch, n, m, d, live, dev, gen)
+        nnz = int((mask > 0).sum())
+        if transposed:
+            # dX (m, d) = Aᵀ dY: Y's rows are the n batch rows, X's the m
+            # table rows; the operand is built once, as the backward does
+            dy = torch.randn((n, d), generator=gen, device=dev)
+            op = sops.column_sorted(idx, mask, m)
+            run = lambda: sops.sparse_transposed(dy, op)
+            plain = lambda: sref.ell_spmm_t_ref(dy, op["rows"], op["w"], op["ptr"], m)
+            bound = work.launch_work("backward", m, n, d, nnz,
+                                     int((mask > 0).any(1).sum()))
+        else:
+            run = lambda: sops.sparse_forward(x, idx, mask)
+            plain = lambda: sref.ell_spmm_ref(x, idx, mask)
+            bound = work.launch_work("forward", n, m, d, nnz,
+                                     int(torch.unique(idx[mask > 0]).numel()))
+        got, again, want = run(), run(), plain()
+        row = {"shape": name, "rows": n, "table_rows": m, "width": d, "nnz": nnz,
+               "transposed": transposed, "bit_equal_plain": _bit_equal(torch, [got], [want]),
+               "bit_equal_twice": _bit_equal(torch, [got], [again]),
+               "bound_ms": bound["bound_s"] * 1e3, "bytes": bound["bytes"],
+               "bound_by": "bytes" if bound["bytes"] / work.PEAK_BYTES_PER_S
+               >= bound["flops"] / work.PEAK_FP32_FLOPS else "operations"}
+        del got, again, want
+        row["ms"] = timer(run, 21)
+        row["plain_ms"] = timer(plain, 5)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rec["shapes"].append(row)
+        log(f"phase 21 spmm-sparse: {tag}: {name}: {json.dumps(row)}")
+        del idx, mask, x
+        torch.cuda.empty_cache()
+    # every width, with the table and the output off 16 and 8 bytes
+    for d in SPMM_SPARSE_WIDTHS:
+        ok = True
+        for off in (0, 1, 2, 3):
+            idx, mask, x = spmm_sparse_inputs(torch, 53, 41, d, 0.5, dev, gen, off)
+            ok &= _bit_equal(torch, [sops.sparse_forward(x, idx, mask)],
+                             [sref.ell_spmm_ref(x, idx, mask)])
+            dy = torch.randn(53 * d + off, generator=gen, device=dev)[off:].view(53, d)
+            op = sops.column_sorted(idx, mask, 41)
+            ok &= _bit_equal(torch, [sops.sparse_transposed(dy, op)],
+                             [sref.ell_spmm_t_ref(dy, op["rows"], op["w"], op["ptr"], 41)])
+        rec["widths"][d] = ok
+    log(f"phase 21 spmm-sparse: {tag}: widths x base offsets bit-equal: "
+        f"{json.dumps(rec['widths'])}")
+    # a launch under capture counts in captured; its replay is the plain bits
+    idx, mask, x = spmm_sparse_inputs(torch, 3_423, 14_983, 500, 0.9, dev, gen)
+    sops.sparse_forward(x, idx, mask)
+    torch.cuda.synchronize()
+    c = sops.block_spmm
+    before = (c.captured, c.launches, c.sparse_captured, c.sparse_launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sops.sparse_forward(x, idx, mask)
+    after = (c.captured, c.launches, c.sparse_captured, c.sparse_launches)
+    out.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    rec["capture"] = {"captured": after[0] - before[0],
+                      "launches_while_capturing": after[1] - before[1],
+                      "sparse_captured": after[2] - before[2],
+                      "sparse_launches_while_capturing": after[3] - before[3],
+                      "replay_bit_equal": _bit_equal(torch, [out],
+                                                     [sref.ell_spmm_ref(x, idx, mask)])}
+    del graph, out, idx, mask, x
+    log(f"phase 21 spmm-sparse: {tag}: capture {json.dumps(rec['capture'])}")
+    bad = [r["shape"] for r in rec["shapes"]
+           if not (r["bit_equal_plain"] and r["bit_equal_twice"])]
+    if bad or not all(rec["widths"].values()):
+        raise AssertionError(f"spmm-sparse: not the plain version's bits at {bad}, "
+                             f"widths {rec['widths']}")
+    if rec["capture"] != {"captured": 1, "launches_while_capturing": 0, "sparse_captured": 1,
+                          "sparse_launches_while_capturing": 0, "replay_bit_equal": True}:
+        raise AssertionError(f"spmm-sparse: capture {rec['capture']}")
+    return rec
+
+
 def fused_phase(torch, api, counters, g, fed, dev, tag, method_runs,
                 profile) -> tuple[dict, int]:
     """Phase 12: the fused executor on the card, on phase 10's partition,
@@ -4531,6 +4678,8 @@ def main(argv=None) -> int:
                     help="run phase 1 and phase 19 (the span system) alone")
     ap.add_argument("--ghost-pull-only", action="store_true",
                     help="run phase 1 and phase 20 (the ghost pull kernel) alone")
+    ap.add_argument("--spmm-sparse-only", action="store_true",
+                    help="run phase 1 and phase 21 (the SpMM's sparse route) alone")
     args = ap.parse_args(argv)
 
     import torch
@@ -4588,13 +4737,15 @@ def main(argv=None) -> int:
         f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}")
     record["device"] = {"name": kind, "nvidia_smi": smi, "torch": torch.__version__,
                         "cuda": torch.version.cuda}
-    if args.spans_only or args.ghost_pull_only:
+    if args.spans_only or args.ghost_pull_only or args.spmm_sparse_only:
         if args.spans_only:
             g = make_dataset("pubmed", scale=1, max_features=500, seed=0)
             fed = partition_graph(g, TRAIN_CLIENTS, alpha=0.5, seed=0)
             record["spans"] = spans_phase(torch, api, g, fed, dev, f"{kind}, {smi}")
         if args.ghost_pull_only:
             record["ghost_pull"] = ghost_pull_phase(torch, dev, f"{kind}, {smi}")
+        if args.spmm_sparse_only:
+            record["spmm_sparse"] = spmm_sparse_phase(torch, dev, f"{kind}, {smi}")
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(record, indent=1))
@@ -5063,6 +5214,10 @@ def main(argv=None) -> int:
         record.setdefault("lm_check_smoke", {})[arch] = lm_check_smoke(
             torch, lm, cfg, dev, lm_params_from_numpy, lm_params_to_numpy)
 
+    # the sparse route stays off through phases 10-15 (their graphs' dense
+    # operands fit, kernels.spmm.ops.spmm_route)
+    sparse_before = ops.block_spmm.sparse_launches
+
     # -- phase 10: train (the FedAIS main path; counts from 0) -------------------
     record["train"], train_launches = train_phase(torch, api, fedais, ops, ref, counters, g,
                                                   fed, dev, tag, args.profile)
@@ -5104,6 +5259,10 @@ def main(argv=None) -> int:
     record["examples"]["seconds"] = time.perf_counter() - t15
     log(f"phase 15 examples: {tag}: {examples_launches} SpMM launches in "
         f"{record['examples']['seconds']:.1f} s")
+    record["sparse_launches_10_15"] = ops.block_spmm.sparse_launches - sparse_before
+    if record["sparse_launches_10_15"]:
+        raise AssertionError(f"phases 10-15 launched the sparse SpMM route "
+                             f"{record['sparse_launches_10_15']} times, want 0")
 
     # -- phase 16: lm-train (LM training on the card; counts from 0) ------------
     t16 = time.perf_counter()
@@ -5132,6 +5291,11 @@ def main(argv=None) -> int:
     t20 = time.perf_counter()
     record["ghost_pull"] = ghost_pull_phase(torch, dev, tag)
     record["ghost_pull"]["seconds"] = time.perf_counter() - t20
+
+    # -- phase 21: spmm-sparse (the SpMM's sparse route) ------------------------
+    t21 = time.perf_counter()
+    record["spmm_sparse"] = spmm_sparse_phase(torch, dev, tag)
+    record["spmm_sparse"]["seconds"] = time.perf_counter() - t21
 
     # -- the kernels line --------------------------------------------------------
     warm = shapes[0]
@@ -5261,6 +5425,18 @@ def main(argv=None) -> int:
         "max_abs_err": 0.0, "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "timed_shape": "coauthor", "shapes": gp["shapes"]})
+    # the sparse route at Reddit's eval shape; no phase's graph takes it
+    sp = record["spmm_sparse"]
+    main_row = next(r for r in sp["shapes"] if r["shape"] == "reddit_eval_l0")
+    kernels.append({
+        "name": "spmm_ell_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/spmm/csrc/spmm_sparse.cu",
+        "replaces": ("src/repro/kernels/spmm/spmm.py:45 (spmm_pallas, for graphs whose "
+                     "dense operand does not fit)"),
+        "launches": record["sparse_launches_10_15"], "launches_by_path": {},
+        "max_abs_err": 0.0, "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": None, "timed_shape": "reddit_eval_l0", "shapes": sp["shapes"]})
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     if args.out:

@@ -95,6 +95,7 @@ from repro_torch.federated.costs import CostMeter, DelayModel
 from repro_torch.federated.partition import FederatedGraph
 from repro_torch.federated.quant import check_sync_dtype, quant_roundtrip
 from repro_torch.federated.server import build_eval_graph, evaluate_global
+from repro_torch.kernels.spmm.ops import spmm_route
 from repro_torch.sharding.fed import axis_size, client_axis_of
 from repro_torch.sharding.tables import pod_axes_of
 from repro_torch.utils import spans
@@ -350,8 +351,12 @@ class FedEngine:
         avg_deg = float(fed.nbr_mask.sum() / np.maximum(fed.node_mask.sum(), 1))
         self.fwd_flops_node = gcn_flops_per_node(self.F, fed.n_classes, avg_deg)
         self.bsz = batch_size_for(self.mcfg, fed.n_max)
+        # one SpMM route for every aggregation of the run, from the graph
+        # (the dense operand where the eval's (n, n) one fits)
+        self.spmm_route = spmm_route(graph.n_nodes)
         self._cohort = make_cohort_update(self.mcfg, fed.n_max, train_backend=train_backend,
-                                          sync_dtype=self.sync_dtype)
+                                          sync_dtype=self.sync_dtype,
+                                          spmm_route=self.spmm_route)
         self.eval_graph = build_eval_graph(graph, max_deg=fed.max_deg, seed=seed,
                                            backend=eval_backend, device=self.device)
         self._fused: Optional[FusedRounds] = None     # built by the first chunk
@@ -682,7 +687,8 @@ class FedEngine:
         """The cohort LocalUpdate of the pod-sharded round: ghost sources
         as the exchange delivered them."""
         return make_cohort_update(self.mcfg, self.fed.n_max, train_backend=self.train_backend,
-                                  sync_dtype=self.sync_dtype, ghost_source="prefetched")
+                                  sync_dtype=self.sync_dtype, ghost_source="prefetched",
+                                  spmm_route=self.spmm_route)
 
     def _run_chunk(self, state: EngineState, t0: int, n_rounds: int) -> bool:
         """Select the cohorts of rounds [t0, t0 + n_rounds) on the host, run

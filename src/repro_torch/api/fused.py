@@ -24,7 +24,8 @@ every graph, so a replay draws what an eager round would. All graphs share
 one memory pool (they never run at once) and keep nothing of it between
 replays: every output is copied into a buffer made outside the capture.
 The SpMM and ghost pull launches recorded while capturing are added to
-``block_spmm.launches`` and ``ghost_pull.launches`` on each replay. A failed
+``block_spmm.launches`` and ``ghost_pull.launches`` on each replay (the
+SpMM's sparse-route launches also to ``block_spmm.sparse_launches``). A failed
 capture or replay raises.
 
 With ``repro_torch.utils.spans`` on, the executor opens the spans
@@ -90,8 +91,8 @@ class FusedRounds:
                 sync_dtype=engine.sync_dtype)
         self._state = self._draws = None
         self._graphed = engine.device.type == "cuda"
-        # graph key -> (CUDA graph, SpMM and ghost pull launches and
-        # collectives captured)
+        # graph key -> (CUDA graph, SpMM launches (all, sparse route), ghost
+        # pull launches and collectives captured)
         self._graphs: dict = {}
         self._inputs: dict = {}      # cohort size -> static input buffers
         self._pool = None
@@ -198,11 +199,12 @@ class FusedRounds:
 
     def _keyed(self, key, body) -> None:
         if self._graphed and key in self._graphs:
-            graph, launches, pulls, collectives = self._graphs[key]
+            graph, (launches, sparse), pulls, collectives = self._graphs[key]
             marks = self._marks.get(key)
             with span("fedais.chunk.replay"), spans.phase_scope(marks):
                 graph.replay()
             block_spmm.launches += launches
+            block_spmm.sparse_launches += sparse
             ghost_pull.launches += pulls
             comm.add(collectives)
             spans.count("replays", key=key)
@@ -231,6 +233,7 @@ class FusedRounds:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._state.draws.gen)
         before, pulls_before = block_spmm.captured, ghost_pull.captured
+        sparse_before = block_spmm.sparse_captured
         comm_before = comm.snapshot(comm.CAPTURED)
         marks = None if slots is None else self._new_marks(slots)
         with span("fedais.chunk.capture", timed=True) as clock:
@@ -247,11 +250,13 @@ class FusedRounds:
         if self._pool is None:
             self._pool = graph.pool()
         launches = block_spmm.captured - before
+        sparse = block_spmm.sparse_captured - sparse_before
         pulls = ghost_pull.captured - pulls_before
         collectives = comm.diff(comm.snapshot(comm.CAPTURED), comm_before)
-        self._graphs[key] = (graph, launches, pulls, collectives)
+        self._graphs[key] = (graph, (launches, sparse), pulls, collectives)
         record = [list(k) if isinstance(k, tuple) else k for k in key]
         self.captures.append({"key": record, "seconds": seconds, "spmm_launches": launches,
+                              "spmm_sparse_launches": sparse,
                               "ghost_pull_launches": pulls,
                               "collectives": {k: list(v) for k, v in collectives.items()}})
 

@@ -206,14 +206,17 @@ GHOST_SOURCES = ("tables", "prefetched")
 
 
 def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "gather",
-                      sync_dtype: str = "fp32", ghost_source: str = "tables"):
+                      sync_dtype: str = "fp32", ghost_source: str = "tables",
+                      spmm_route: str = "dense"):
     """The LocalUpdate for one client (Algorithm 1 lines 10-19). The
     reference's ``g_max`` and ``h1_dim`` come from the tensors here.
 
     ``train_backend`` is the batch neighbor aggregation of both
     ``gcn_batch_forward`` calls (the loss pass and the training step):
     ``gather``, ``segment`` or ``spmm`` (the SpMM kernel, whose backward is
-    its transposed launch). ``sync_dtype`` is the ghost pull's wire format.
+    its transposed launch; ``spmm_route`` its dense or sparse operand, one
+    for the run, ``kernels.spmm.ops.spmm_route``). ``sync_dtype`` is the
+    ghost pull's wire format.
     With ``ghost_source="prefetched"`` the arguments ``feats_all`` and
     ``hist1_all`` carry this client's own (g_max, F) and (g_max, H1) ghost
     source rows, pre-gathered (the same round-start values), and the pull
@@ -256,7 +259,8 @@ def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "g
             all_idx = torch.arange(n_max, device=dev)
             logits_all, _, _ = gcn_batch_forward(
                 params, client["features"], ghost_feat, hist1,
-                client["nbr_idx"], client["nbr_mask"], all_idx, backend=train_backend)
+                client["nbr_idx"], client["nbr_mask"], all_idx, backend=train_backend,
+                spmm_route=spmm_route)
             loss_all = per_node_loss(logits_all, client["labels"]) * client["node_mask"]
             if mcfg.importance_sampling:
                 scores = loss_delta_scores(loss_all, prev_loss, train_mask)
@@ -319,7 +323,8 @@ def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "g
                 p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
                 logits, h1, _ = gcn_batch_forward(
                     p, client["features"], ghost_feat, hist1, client["nbr_idx"],
-                    client["nbr_mask"], batch_idx, nbr_keep=keep, backend=train_backend)
+                    client["nbr_mask"], batch_idx, nbr_keep=keep, backend=train_backend,
+                    spmm_route=spmm_route)
                 w = valid.to(torch.float32) * train_mask[batch_idx]
                 nll = per_node_loss(logits, client["labels"][batch_idx])
                 loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
@@ -349,7 +354,8 @@ def make_local_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "g
 
 
 def make_cohort_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "gather",
-                       sync_dtype: str = "fp32", ghost_source: str = "tables"):
+                       sync_dtype: str = "fp32", ghost_source: str = "tables",
+                       spmm_route: str = "dense"):
     """The cohort-stacked LocalUpdate (the reference's ``make_vmapped_update``):
     per-client arguments carry a leading cohort axis, ``params``, ``tau``
     and ``epoch_offset`` are shared, ``fanouts`` and ``streams`` have one
@@ -358,7 +364,7 @@ def make_cohort_update(mcfg: MethodConfig, n_max: int, *, train_backend: str = "
     ``"prefetched"``. Returns ``(params, hist1, age, ghost_feat, stats)``,
     each stacked over the cohort (``stats["n_sync"]`` a host int32 array)."""
     one = make_local_update(mcfg, n_max, train_backend=train_backend, sync_dtype=sync_dtype,
-                            ghost_source=ghost_source)
+                            ghost_source=ghost_source, spmm_route=spmm_route)
     per_client = ghost_source == "prefetched"
 
     def cohort_update(params, clients, feats_all, hist1_all, hist1, age, ghost_feat,

@@ -43,27 +43,34 @@ def fedavg_weighted(stacked_params: dict, weights: torch.Tensor) -> dict:
 
 def build_eval_graph(graph, max_deg: int = 32, seed: int = 0,
                      backend: str = "gather", device=None) -> dict:
-    """Device tensors of the full graph for ``evaluate_global``.
+    """Device tensors of the full graph for ``evaluate_global``, built once.
     ``segment``/``spmm`` precompute their aggregation operands here (the
     bucketed CSR / the row-normalised (n, n) adjacency) so every layer
-    reuses them. ``device=None`` is ``cuda:0``."""
+    reuses them; on the SpMM's sparse route (``spmm_route``, graphs whose
+    (n, n) operand does not fit) the operand is the padded neighbor list
+    itself and no (n, n) matrix is made. With ``repro_torch.utils.spans``
+    on, the build is the span ``fedais.eval.operand``. ``device=None`` is
+    ``cuda:0``."""
     from repro_torch.graph.csr import build_padded_neighbors
+    from repro_torch.kernels.spmm.ops import spmm_route
 
     if backend not in AGG_BACKENDS:
         raise ValueError(f"unknown eval backend {backend!r}; known: {AGG_BACKENDS}")
     dev = resolve_device(device)
-    idx, mask = build_padded_neighbors(graph.adjacency_lists(), max_deg, seed=seed)
-    idx_t = torch.from_numpy(idx).to(dev)
-    mask_t = torch.from_numpy(mask).to(dev)
-    csr = adj = None
-    if backend == "segment":
-        from repro_torch.graph.csr import bucketed_csr_from_padded
+    route = spmm_route(graph.n_nodes)
+    with span("fedais.eval.operand"):
+        idx, mask = build_padded_neighbors(graph.adjacency_lists(), max_deg, seed=seed)
+        idx_t = torch.from_numpy(idx).to(dev)
+        mask_t = torch.from_numpy(mask).to(dev)
+        csr = adj = None
+        if backend == "segment":
+            from repro_torch.graph.csr import bucketed_csr_from_padded
 
-        csr = bucketed_csr_from_padded(idx_t, mask_t)
-    elif backend == "spmm":
-        from repro_torch.kernels.spmm.ops import adjacency_from_neighbors
+            csr = bucketed_csr_from_padded(idx_t, mask_t)
+        elif backend == "spmm" and route == "dense":
+            from repro_torch.kernels.spmm.ops import adjacency_from_neighbors
 
-        adj = adjacency_from_neighbors(idx_t, mask_t, graph.n_nodes)
+            adj = adjacency_from_neighbors(idx_t, mask_t, graph.n_nodes)
     return {
         "features": torch.from_numpy(graph.features).to(dev),
         "labels": graph.labels,
@@ -75,6 +82,7 @@ def build_eval_graph(graph, max_deg: int = 32, seed: int = 0,
         "backend": backend,
         "csr": csr,
         "adj": adj,
+        "spmm_route": route,
     }
 
 
@@ -83,7 +91,8 @@ def eval_logits(params: dict, eval_graph: dict) -> torch.Tensor:
     return gcn_full_forward(params, eval_graph["features"],
                             eval_graph["nbr_idx"], eval_graph["nbr_mask"],
                             backend=eval_graph["backend"],
-                            csr=eval_graph["csr"], adj=eval_graph["adj"])
+                            csr=eval_graph["csr"], adj=eval_graph["adj"],
+                            spmm_route=eval_graph["spmm_route"])
 
 
 def evaluate_global(params: dict, eval_graph: dict, split: str = "test") -> dict:

@@ -27,6 +27,7 @@ BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 # kernel name -> CUDA source
 KERNEL_SOURCES = {
     "spmm": _KERNELS_DIR / "spmm" / "csrc" / "spmm.cu",
+    "spmm_sparse": _KERNELS_DIR / "spmm" / "csrc" / "spmm_sparse.cu",
     "wkv6": _KERNELS_DIR / "wkv6" / "csrc" / "wkv6.cu",
     "flash_attention": _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
     "stamp": _KERNELS_DIR / "stamp" / "csrc" / "stamp.cu",

@@ -29,12 +29,23 @@ an SpMM against the row-normalised adjacency of ``adjacency_from_neighbors``,
 with the mask scattered straight from the neighbor list
 (``adjacency_block_mask``).
 
-``block_spmm.launches`` counts kernel launches (a plain integer; the CPU
-path never moves it), so a run can show that it went through the kernel.
-A launch recorded into a CUDA graph under capture runs nothing then: it
-adds to ``block_spmm.captured`` instead, and the graph's owner
-(``api.fused``) adds the launches it captured to ``launches`` each time it
-replays the graph.
+The sparse route (``sparse_spmm``, ``csrc/spmm_sparse.cu``) is the same
+mean aggregation with no (N, M) operand: its forward reads the padded
+neighbour list itself (an ELL operand, 8 bytes a slot), its transposed
+launch a column-sorted copy of the live slots (``column_sorted``), built on
+the device at fixed shape when a gradient is asked for. A run takes one
+route for every aggregation, from the graph (``spmm_route``): the dense
+operand where the eval's (n, n) fp32 matrix fits in
+``DENSE_OPERAND_BYTES``, else the sparse one.
+
+``block_spmm.launches`` counts kernel launches of both routes (a plain
+integer; the CPU path never moves it), so a run can show that it went
+through the kernels; ``block_spmm.sparse_launches`` counts the sparse
+route's alone. A launch recorded into a CUDA graph under capture runs
+nothing then: it adds to ``block_spmm.captured`` (and
+``sparse_captured``) instead, and the graph's owner (``api.fused``) adds
+the launches it captured to ``launches`` (and ``sparse_launches``) each
+time it replays the graph.
 """
 from __future__ import annotations
 
@@ -42,7 +53,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.spmm.ref import spmm_nonzeros_ref
+from repro_torch.kernels.spmm.ref import ell_spmm_ref, ell_spmm_t_ref, spmm_nonzeros_ref
 
 TILE_M = 32     # rows of A per mask tile
 TILE_K = 32     # columns of A per mask tile (equal to TILE_M: Aᵀ's mask is A's transposed)
@@ -54,8 +65,13 @@ SPLITS = (1, 2, 4, 8)
 # Against one wave, the query buckets ran faster with more splits, the warm
 # fill (six waves unsplit) did not (measured on an H100, PERF.md).
 WARPS_PER_SM = 64
+# The largest dense (n, n) fp32 eval operand a run builds: above it every
+# aggregation of the run takes the sparse route (``spmm_route``). Pubmed's
+# is 1.55 GB, Coauthor's 1.34 GB, Reddit's 217 GB.
+DENSE_OPERAND_BYTES = 4 << 30
 
 _fn = None
+_sparse_fn = None
 _sm_count: dict[int, int] = {}
 
 
@@ -170,6 +186,18 @@ def _product(a: torch.Tensor, x: torch.Tensor,
 
 block_spmm.launches = 0
 block_spmm.captured = 0
+block_spmm.sparse_launches = 0
+block_spmm.sparse_captured = 0
+
+
+def _count(sparse: bool) -> None:
+    """One launch on the current stream: captured or run."""
+    if torch.cuda.is_current_stream_capturing():
+        block_spmm.captured += 1
+        block_spmm.sparse_captured += int(sparse)
+    else:
+        block_spmm.launches += 1
+        block_spmm.sparse_launches += int(sparse)
 
 
 def launch(a: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
@@ -191,10 +219,7 @@ def launch(a: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"spmm_block_f32 launch failed: "
                            f"{err_str(rc).decode()} (cudaError {rc})")
-    if torch.cuda.is_current_stream_capturing():
-        block_spmm.captured += 1
-    else:
-        block_spmm.launches += 1
+    _count(False)
     return y
 
 
@@ -262,3 +287,144 @@ def neighbor_mean(features: torch.Tensor, nbr_idx: torch.Tensor,
                   nbr_mask: torch.Tensor) -> torch.Tensor:
     """Mean-aggregate neighbor features via the SpMM kernel."""
     return neighbor_spmm(features, nbr_idx, nbr_mask)
+
+
+# -- the sparse route ---------------------------------------------------------
+
+def spmm_route(n_nodes: int) -> str:
+    """The route of every aggregation of a run on a graph of ``n_nodes``:
+    ``"dense"`` (the block kernel on a row-normalised adjacency) where the
+    eval's (n, n) fp32 operand fits in ``DENSE_OPERAND_BYTES``, else
+    ``"sparse"``."""
+    return "sparse" if 4 * n_nodes * n_nodes > DENSE_OPERAND_BYTES else "dense"
+
+
+def _sparse_kernels():
+    global _sparse_fn
+    if _sparse_fn is None:
+        from repro_torch.kernels import build
+
+        lib = build.load("spmm_sparse")
+        fwd = lib.spmm_ell_f32
+        # x, idx, mask, y; N, M, K, D; stream
+        fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fwd.restype = ctypes.c_int
+        trn = lib.spmm_ell_t_f32
+        # dy, rows, w, ptr, dx; M, N, D; stream
+        trn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        trn.restype = ctypes.c_int
+        lib.spmm_ell_error_string.argtypes = [ctypes.c_int]
+        lib.spmm_ell_error_string.restype = ctypes.c_char_p
+        _sparse_fn = (fwd, trn, lib.spmm_ell_error_string)
+    return _sparse_fn
+
+
+def column_sorted(nbr_idx: torch.Tensor, nbr_mask: torch.Tensor, m: int) -> dict:
+    """The transposed launch's operand: the N·K slots of a neighbour list
+    sorted stably by the column they name, dead slots (mask 0) last, so the
+    live slots of column j are ``ptr[j] <= p < ptr[j + 1]`` in (row, slot)
+    order. ``rows`` (N·K,) int32 is each entry's row, ``w`` (N·K,) fp32 its
+    weight mask / max(deg, 1), ``ptr`` (m + 1,) int32 from a search of the
+    sorted columns. Fixed shapes, built on the device with no read back
+    (CUDA-graph capture takes it)."""
+    n, k = nbr_idx.shape
+    dev = nbr_idx.device
+    live = nbr_mask != 0
+    cols = torch.where(live, nbr_idx.long(), m).reshape(-1)
+    sorted_cols, perm = torch.sort(cols, stable=True)
+    deg = torch.clamp(nbr_mask.to(torch.float32).sum(-1, keepdim=True), min=1.0)
+    w = (nbr_mask.to(torch.float32) / deg).reshape(-1)[perm]
+    ptr = torch.searchsorted(sorted_cols, torch.arange(m + 1, device=dev))
+    return {"rows": torch.div(perm, max(k, 1), rounding_mode="floor").to(torch.int32),
+            "w": w, "ptr": ptr.to(torch.int32), "m": m}
+
+
+def sparse_spmm(x: torch.Tensor, nbr_idx: torch.Tensor,
+                nbr_mask: torch.Tensor) -> torch.Tensor:
+    """The sparse route: Y (N, D) = the mean of the rows of ``x`` (M, D) that
+    the live slots of ``nbr_idx`` / ``nbr_mask`` (N, K) name,
+    (sum_s mask·x[idx]) / max(sum_s mask, 1), as ``neighbor_spmm`` gives it
+    through a dense adjacency. On CUDA one launch of ``spmm_ell_kernel``;
+    differentiable in ``x``, whose gradient is one launch of the transposed
+    kernel over ``column_sorted``. On the CPU the plain versions
+    (``ref.ell_spmm_ref``, ``ref.ell_spmm_t_ref``)."""
+    return _SparseSpmm.apply(x, nbr_idx.to(torch.int32).contiguous(),
+                             nbr_mask.to(torch.float32).contiguous())
+
+
+class _SparseSpmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, nbr_idx, nbr_mask):
+        ctx.save_for_backward(nbr_idx, nbr_mask)
+        ctx.m = x.shape[0]
+        if x.device.type == "cpu":
+            return ell_spmm_ref(x, nbr_idx, nbr_mask)
+        return sparse_forward(x, nbr_idx, nbr_mask)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        nbr_idx, nbr_mask = ctx.saved_tensors
+        op = column_sorted(nbr_idx, nbr_mask, ctx.m)
+        dy = dy.contiguous()
+        if dy.device.type == "cpu":
+            return ell_spmm_t_ref(dy, op["rows"], op["w"], op["ptr"], op["m"]), None, None
+        return sparse_transposed(dy, op), None, None
+
+
+def _check_cuda(named: dict, dev) -> None:
+    for name, (t, dtype) in named.items():
+        if t.device != dev:
+            raise ValueError(f"sparse_spmm: {name} on {t.device}, x on {dev}; all must "
+                             "be on one CUDA device (or all on the CPU)")
+        if t.dtype != dtype:
+            raise TypeError(f"sparse_spmm kernel takes {name} as {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"sparse_spmm: {name} must be contiguous")
+
+
+def sparse_forward(x: torch.Tensor, nbr_idx: torch.Tensor,
+                   nbr_mask: torch.Tensor) -> torch.Tensor:
+    """One checked launch of the sparse route's forward on CUDA tensors
+    (``x`` fp32 (M, D), ``nbr_idx`` int32 and ``nbr_mask`` fp32 (N, K))."""
+    _check_cuda({"x": (x, torch.float32), "nbr_idx": (nbr_idx, torch.int32),
+                 "nbr_mask": (nbr_mask, torch.float32)}, x.device)
+    if x.ndim != 2 or nbr_idx.ndim != 2 or tuple(nbr_mask.shape) != tuple(nbr_idx.shape):
+        raise ValueError(f"sparse_spmm: bad shapes x {tuple(x.shape)}, nbr_idx "
+                         f"{tuple(nbr_idx.shape)}, nbr_mask {tuple(nbr_mask.shape)}")
+    (n, k), (m, d) = nbr_idx.shape, x.shape
+    y = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    if n == 0 or d == 0:
+        return y
+    fwd, _, err_str = _sparse_kernels()
+    rc = fwd(x.data_ptr(), nbr_idx.data_ptr(), nbr_mask.data_ptr(), y.data_ptr(), n, m, k, d,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"spmm_ell_f32 launch failed: {err_str(rc).decode()} "
+                           f"(cudaError {rc})")
+    _count(True)
+    return y
+
+
+def sparse_transposed(dy: torch.Tensor, op: dict) -> torch.Tensor:
+    """One checked launch of the sparse route's transposed kernel on CUDA
+    tensors: dX (m, D) = Aᵀ @ ``dy`` over ``op = column_sorted(...)``."""
+    _check_cuda({"dy": (dy, torch.float32), "rows": (op["rows"], torch.int32),
+                 "w": (op["w"], torch.float32), "ptr": (op["ptr"], torch.int32)}, dy.device)
+    m = op["m"]
+    if dy.ndim != 2 or tuple(op["ptr"].shape) != (m + 1,):
+        raise ValueError(f"sparse_spmm: bad shapes dy {tuple(dy.shape)}, ptr "
+                         f"{tuple(op['ptr'].shape)} for {m} rows")
+    n, d = dy.shape
+    dx = torch.empty((m, d), dtype=torch.float32, device=dy.device)
+    if m == 0 or d == 0:
+        return dx
+    _, trn, err_str = _sparse_kernels()
+    rc = trn(dy.data_ptr(), op["rows"].data_ptr(), op["w"].data_ptr(), op["ptr"].data_ptr(),
+             dx.data_ptr(), m, n, d, torch.cuda.current_stream(dy.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"spmm_ell_t_f32 launch failed: {err_str(rc).decode()} "
+                           f"(cudaError {rc})")
+    _count(True)
+    return dx

@@ -63,6 +63,7 @@ def neighbor_aggregate(
     backend: str = "gather",
     csr: dict | None = None,
     adj: torch.Tensor | None = None,
+    spmm_route: str = "dense",
 ) -> torch.Tensor:
     """Mean-aggregate neighbor rows through a pluggable backend.
 
@@ -77,6 +78,9 @@ def neighbor_aggregate(
                  ``where``, so a non-finite row 0 does not leak through them.
     ``spmm``     the block-sparse SpMM kernel (``kernels.spmm``) against a
                  row-normalised adjacency; ``adj`` reuses a precomputed one.
+                 With ``spmm_route="sparse"`` (``kernels.spmm.ops.spmm_route``:
+                 graphs whose dense operand does not fit) the SpMM's sparse
+                 route instead, which reads the neighbor list itself.
 
     All three agree within fp32 summation-order tolerance.
     """
@@ -92,10 +96,21 @@ def neighbor_aggregate(
             _check_bucketed(csr, b, k)
         return _segment_mean(table, csr, b, k)
     if backend == "spmm":
-        from repro_torch.kernels.spmm.ops import neighbor_spmm
+        from repro_torch.kernels.spmm.ops import neighbor_spmm, sparse_spmm
 
+        if _sparse(spmm_route):
+            return sparse_spmm(table, nbr_idx, nbr_mask)
         return neighbor_spmm(table, nbr_idx, nbr_mask, adj=adj)
     raise ValueError(f"unknown aggregation backend {backend!r}; known: {AGG_BACKENDS}")
+
+
+SPMM_ROUTES = ("dense", "sparse")
+
+
+def _sparse(route: str) -> bool:
+    if route not in SPMM_ROUTES:
+        raise ValueError(f"unknown spmm route {route!r}; known: {SPMM_ROUTES}")
+    return route == "sparse"
 
 
 def _check_bucketed(csr: dict, b: int, k: int) -> None:
@@ -162,6 +177,7 @@ def gcn_batch_forward(
     nbr_keep: torch.Tensor | None = None,   # optional (b, K) extra neighbor mask
     *,
     backend: str = "gather",
+    spmm_route: str = "dense",
 ):
     """Returns (logits (b, C), fresh_h1 (b, H1), h2 (b, H2)).
 
@@ -170,7 +186,9 @@ def gcn_batch_forward(
     out of place, so grads flow only through in-batch rows (the history is
     detached). Both layers share one aggregation operand, built once per
     call: the bucketed CSR (``segment``) or the row-normalised (b, n + g)
-    adjacency and its block mask (``spmm``).
+    adjacency and its block mask (``spmm``; on ``spmm_route="sparse"`` the
+    batch's neighbor list itself, and the transposed launch's column-sorted
+    operand is built in the backward).
     """
     if backend not in AGG_BACKENDS:
         raise ValueError(f"unknown aggregation backend {backend!r}; known: {AGG_BACKENDS}")
@@ -191,6 +209,11 @@ def gcn_batch_forward(
 
         def agg(table):
             return _segment_mean(table, csr, *b_idx.shape)
+    elif _sparse(spmm_route):
+        from repro_torch.kernels.spmm.ops import sparse_spmm
+
+        def agg(table):
+            return sparse_spmm(table, b_idx, b_mask)
     else:
         from repro_torch.kernels.spmm.ops import (
             TILE_K,
@@ -216,14 +239,15 @@ def gcn_batch_forward(
 
 def gcn_full_forward(params, features, nbr_idx, nbr_mask, *,
                      backend: str = "gather", csr: dict | None = None,
-                     adj: torch.Tensor | None = None) -> torch.Tensor:
+                     adj: torch.Tensor | None = None,
+                     spmm_route: str = "dense") -> torch.Tensor:
     """Exact full-graph forward (server-side evaluation; no history). Its
     dense products run in row blocks (``row_matmul``), as the serving
     path's do."""
     h = features
     for l in range(len(HIDDEN)):
         agg = neighbor_aggregate(h, nbr_idx, nbr_mask, backend=backend,
-                                 csr=csr, adj=adj)
+                                 csr=csr, adj=adj, spmm_route=spmm_route)
         h = sage_layer_rows(params, l, h, agg)
     return classify_rows(params, h)
 
